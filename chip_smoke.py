@@ -6,17 +6,35 @@ Run from the root of the repository:  python3 chip_smoke.py
 
 Phases, each printed, the first failure exits non-zero:
   1. device  -- a CUDA device is required (there is no CPU path);
-  2. build   -- nvcc builds csrc/ into build/torch_kernels/;
-  3. kernels -- each CUDA kernel against its plain PyTorch version on the
-                card: maxwell over 10 steps, EVP over 1 step, the resident
-                runner against the tiled runner over 25 steps (16 x 128
-                cells), then one flagship-size step, with the CPU tests'
-                tolerances; kernel and plain device times at flagship
-                shapes (CUDA graph replay);
-  4. slice   -- the flagship config (100 km x 50 km, 512 x 256 cells, EVP,
+  2. build   -- nvcc builds csrc/ into build/torch_kernels/, one compile per
+                source, all started together; registers, stack frame and
+                spills per kernel from the -Xptxas -v report;
+  3. 2D kernels -- each 2D CUDA kernel against its plain PyTorch version on
+                the card: maxwell over 10 steps, EVP over 1 step, the
+                resident runner against the tiled runner over 25 steps
+                (16 x 128 cells), then one flagship-size step, with the CPU
+                tests' tolerances; kernel and plain device times at
+                flagship shapes (CUDA graph replay);
+  4. 3D kernels -- the fused 3D step against its plain version: maxwell
+                over 10 steps and EVP over 1 step with and without NMD
+                (128 x 16 x 8 cells) and one flagship3d EVP step, the plain
+                version on the CPU (see run3); a dt = 0 step that keeps the
+                volume bit for bit, the every-step mode of dt_refresh, one
+                flagship3d maxwell step plane by plane against the plain
+                version on the card; kernel and plain device times at
+                flagship3d shapes;
+  5. 2D slice -- the flagship config (100 km x 50 km, 512 x 256 cells, EVP,
                 f32): Simulation(param, device="cuda"), 250 warm-up steps,
-                then 500 timed steps through the main path, with launch
-                counts, and the plain version's rate over 50 steps.
+                then 500 timed steps, with launch counts, and the plain
+                version's rate over 50 steps;
+  6. 3D slice -- the flagship3d config (256 x 48 x 16 cells x 5 tets,
+                983,040 tetrahedra, EVP, f32): Simulation(param) with the
+                default device, 100 warm-up steps, then 500 timed steps,
+                with launch counts, and the plain version's rate over 5
+                steps;
+  7. profile -- torch.profiler over 100 steps of the flagship runner and
+                20 of the flagship3d runner: device time per launch by
+                kernel, device busy and idle share.
 The last lines are a JSON record of the kernels, the card's name and power
 limit, and {"ok": true, "device": {...}}.
 """
@@ -29,6 +47,11 @@ from pathlib import Path
 
 SMI_QUERY = ["nvidia-smi", "--query-gpu=name,power.limit",
              "--format=csv,noheader"]
+# NVIDIA H100 SXM data sheet: HBM rate and float32 rate outside the tensor
+# cores (the bound of each kernel below is the larger of bytes / PEAK_BYTES
+# and operations / PEAK_F32)
+PEAK_BYTES = 3.35e12
+PEAK_F32 = 67e12
 
 
 def fail(msg: str):
@@ -82,6 +105,57 @@ def flagship_cfg(rheology="elasto-visco-plastic"):
     }
 
 
+def sim3d_cfg(rheology="elasto-visco-plastic", weakzone=1):
+    """tests/test_pallas3d.py make_sim: 128 x 16 x 8 cells, 81,920 tets."""
+    return {
+        "sim": {"ndims": 3, "float_dtype": "float32",
+                "is_outputting_averaged_fields": False},
+        "mesh": {"meshing_option": 1, "meshing_elem_shape": 1,
+                 "xlength": 128e3, "ylength": 16e3, "zlength": 8e3,
+                 "resolution": 1e3, "quality_check_step_interval": 10**8},
+        "control": {"gravity": 10.0, "inertial_scaling": 1e5,
+                    "has_thermal_diffusion": True, "damping_option": 1},
+        "bc": {"vbc_x0": 1, "vbc_val_x0": -1e-9, "vbc_x1": 1,
+               "vbc_val_x1": 1e-9, "vbc_y0": 1, "vbc_val_y0": 0.0,
+               "vbc_y1": 1, "vbc_val_y1": 0.0, "vbc_z0": 0, "vbc_z1": 0,
+               "has_winkler_foundation": False, "has_water_loading": False},
+        "ic": {"weakzone_option": weakzone},
+        "mat": {"rheology_type": rheology, "is_plane_strain": False,
+                "rho0": [2800.0], "bulk_modulus": [50e9],
+                "shear_modulus": [30e9], "visc_max": 1e24,
+                "visc_min": 1e19},
+    }
+
+
+def flagship3d_cfg(rheology="elasto-visco-plastic"):
+    """bench.py flagship3d_param: 256 x 48 x 16 cells x 5 tets = 983,040
+    tetrahedra, 214,081 nodes; EVP, one material, f32."""
+    return {
+        "sim": {"max_steps": 10**9, "ndims": 3, "float_dtype": "float32",
+                "is_outputting_averaged_fields": False},
+        "mesh": {"meshing_option": 1, "meshing_elem_shape": 1,
+                 "xlength": 256e3, "ylength": 48e3, "zlength": 16e3,
+                 "resolution": 1e3, "quality_check_step_interval": 10**8},
+        "control": {"gravity": 10.0, "inertial_scaling": 1e5,
+                    "has_thermal_diffusion": True, "damping_option": 1},
+        "bc": {"vbc_x0": 1, "vbc_val_x0": -1e-9, "vbc_x1": 1,
+               "vbc_val_x1": 1e-9, "vbc_y0": 1, "vbc_val_y0": 0.0,
+               "vbc_y1": 1, "vbc_val_y1": 0.0, "vbc_z0": 0, "vbc_z1": 0,
+               "has_winkler_foundation": False, "has_water_loading": False,
+               "surface_temperature": 273.0, "mantle_temperature": 1600.0},
+        "mat": {"rheology_type": rheology, "is_plane_strain": False,
+                "nmat": 1, "rho0": [2800.0], "bulk_modulus": [50e9],
+                "shear_modulus": [30e9], "visc_max": 1e24,
+                "visc_min": 1e19},
+    }
+
+
+# 3D gates of tests/test_pallas3d.py:79-82, :112-131
+FIELDS3 = ("coord", "vel", "temperature", "stress", "strain", "plstrain",
+           "volume", "volume_n", "mass", "tmass", "hmass", "force",
+           "strain_rate", "edvoldt", "delta_plstrain", "volume_old")
+
+
 def main():
     try:
         import torch
@@ -93,11 +167,13 @@ def main():
     sys.path.insert(0, str(Path(__file__).resolve().parent))
     try:
         import dynearthsol_tpu_torch as des
-        from dynearthsol_tpu_torch.ops import _build, fused2d
+        from dynearthsol_tpu_torch.ops import _build, fused2d, fused3d
         from dynearthsol_tpu_torch.state import FIELD_NAMES
     except ImportError as e:
         fail(f"the dynearthsol_tpu_torch package is not beside this "
              f"script: {e}")
+
+    t_start = time.perf_counter()
 
     def sync():
         torch.cuda.synchronize()
@@ -112,6 +188,113 @@ def main():
               f"{'ok' if ok else 'FAILED'}")
         if not ok:
             fail(f"{label}: kernel and plain version disagree")
+
+    def device_ms(fn, reps):
+        """Device time per call: reps calls captured in one CUDA graph and
+        replayed between two events, so no host time lies between the
+        launches."""
+        fn()
+        sync()
+        g = torch.cuda.CUDAGraph()
+        with torch.cuda.graph(g):
+            for _ in range(reps):
+                fn()
+        g.replay()
+        sync()
+        t0 = torch.cuda.Event(enable_timing=True)
+        t1 = torch.cuda.Event(enable_timing=True)
+        t0.record()
+        g.replay()
+        t1.record()
+        sync()
+        del g
+        return t0.elapsed_time(t1) / reps
+
+    def issue_ms(fn, reps):
+        """Time per call as the main path issues it, one call after the
+        other from Python, events around the run."""
+        fn()
+        sync()
+        t0 = torch.cuda.Event(enable_timing=True)
+        t1 = torch.cuda.Event(enable_timing=True)
+        t0.record()
+        for _ in range(reps):
+            fn()
+        t1.record()
+        sync()
+        return t0.elapsed_time(t1) / reps
+
+    def nbytes(*ts):
+        return sum(t.numel() * t.element_size() for t in ts)
+
+    def step_bytes(mod, P, b, ncomp, *extra):
+        """Bytes one fused step must move (csrc/fused2d.cu, fused3d.cu):
+        each plane its kernel loads under the plan's switches, read once,
+        and every output written once.  Never loaded: strain_rate,
+        edvoldt, hmass and force, which the step recomputes; viscosity
+        where a creep law recomputes it, delta_plstrain under EP,
+        dpressure under NMD; volume_old outside the Maxwell trial; tmass
+        and the top mask without thermal diffusion; ymass without damping
+        4.  A vbc target is loaded only where its mask is set."""
+        sw = P.sw
+        skip = {"strain_rate", "edvoldt", "hmass", "force_x", "force_y",
+                "force_z"}
+        if sw["rheol"] not in (fused3d.RH_MAXWELL, fused3d.RH_EVP):
+            skip.add("volume_old")
+        if sw["rheol"] in (fused3d.RH_VISCOUS, fused3d.RH_MAXWELL,
+                           fused3d.RH_EVP):
+            skip.add("viscosity")
+        if sw["rheol"] == fused3d.RH_EP:
+            skip.add("delta_plstrain")
+        if sw["nmd"]:
+            skip.add("dpressure")
+        if not sw["thermal"]:
+            skip |= {"tmass", "top_mask"}
+        if sw["damping"] != 4:
+            skip.add("ymass")
+        enames = list(mod.E_SLOTS) + [t for t in mod.T_SLOTS
+                                      for _ in range(ncomp)]
+        n_e = sum(n not in skip for n in enames)
+        n_n = sum(n not in skip for n in mod.N_SLOTS + mod.CN_SLOTS)
+        masks = [i for i, n in enumerate(mod.CN_SLOTS)
+                 if n.startswith("vbc_mask")]
+        read = (n_e * nbytes(b.ein[0]) + n_n * nbytes(b.nin[0])
+                + int((b.cnp[masks] > 0).sum()) * b.tgt.element_size()
+                + nbytes(b.scal, *extra))
+        return read, nbytes(b.eout, b.nout, b.part)
+
+    # Arithmetic of one fused step, counted by hand from csrc/fused2d.cu,
+    # fused3d.cu and their headers: each +, -, *, /, sqrt, exp, log, sin,
+    # cos and tan is one operation, compares and selects none.  The
+    # constitutive update per element by rheology (elastic, viscous,
+    # maxwell, EP, EVP; 3D EP with the eigensolver, 237 of its 368):
+    RHEOL_OPS = {2: {1: 14, 2: 40, 3: 60, 5: 100, 7: 169},
+                 3: {1: 27, 2: 64, 3: 95, 5: 404, 7: 535}}
+
+    def step_ops(P, nd, nelem, nnode):
+        sw = P.sw
+        th, nmd, rh = sw["thermal"], sw["nmd"], RHEOL_OPS[nd][sw["rheol"]]
+        jau, surf = sw["jaumann"], sw["surf_corr"]
+        if nd == 3:  # per tet: phases A, C, D, E, G, H; per node B, D, F, H
+            per_e = (96 + 50 * th + 164 + rh + 5 * nmd + 8 * nmd + 163
+                     + 9 * nmd + 150 + 197 * jau + 21 * surf + 16)
+            per_n = 9 + 11 * th + 9 * nmd + 57 + 32
+        else:        # per triangle: A, B, C, D, E, F, G, H; per node B, D, F
+            per_e = (38 + 35 * th + 3 + 3 * th + 54 + rh + 3 * nmd
+                     + 6 * nmd + 47 + 6 * nmd + 6 + 22 + 45 * jau
+                     + 12 * surf + 12)
+            per_n = 1 + 3 * th + nmd + 22
+        return per_e * nelem + per_n * nnode
+
+    def bound(read, written, ops):
+        """Least time the card could take, in ms: bytes (each input read
+        once, each output written once) over the HBM rate, against
+        operations over the float32 rate; returns (ms, "bytes" or
+        "operations", bytes, operations)."""
+        t_b = (read + written) / PEAK_BYTES * 1e3
+        t_o = ops / PEAK_F32 * 1e3
+        by = "bytes" if t_b >= t_o else "operations"
+        return max(t_b, t_o), by, read + written, ops
 
     # ---- 1. device
     try:
@@ -129,9 +312,12 @@ def main():
     lib = _build.build()
     _build.load()
     print(f"phase 2 build: {time.perf_counter() - t:.1f} s -> {lib}")
+    for name, (regs, stack, spill) in sorted(_build.ptxas_report().items()):
+        print(f"  {name}: {regs} registers, {stack} B stack frame, "
+              f"{spill} B spilled")
 
-    # ---- 3. kernels against their plain versions, on the card
-    print("phase 3 kernels vs plain (16 x 128 cells, then flagship)")
+    # ---- 3. 2D kernels against their plain versions, on the card
+    print("phase 3 2D kernels vs plain (16 x 128 cells, then flagship)")
 
     def sim_of(cfg):
         sim = des.Simulation(des.param_from_dict(cfg), device="cuda")
@@ -220,40 +406,6 @@ def main():
     kb = fused2d.make_buffers(FP, fsim.ctx, fsim.state, 1, tiled=False)
     pb = fused2d.make_buffers(FP, fsim.ctx, fsim.state, 1, tiled=False)
 
-    def device_ms(fn, reps):
-        """Device time per call: reps calls captured in one CUDA graph and
-        replayed between two events, so no host time lies between the
-        launches."""
-        fn()
-        sync()
-        g = torch.cuda.CUDAGraph()
-        with torch.cuda.graph(g):
-            for _ in range(reps):
-                fn()
-        g.replay()
-        sync()
-        t0 = torch.cuda.Event(enable_timing=True)
-        t1 = torch.cuda.Event(enable_timing=True)
-        t0.record()
-        g.replay()
-        t1.record()
-        sync()
-        return t0.elapsed_time(t1) / reps
-
-    def issue_ms(fn, reps):
-        """Time per call as the main path issues it, one call after the
-        other from Python, events around the run."""
-        fn()
-        sync()
-        t0 = torch.cuda.Event(enable_timing=True)
-        t1 = torch.cuda.Event(enable_timing=True)
-        t0.record()
-        for _ in range(reps):
-            fn()
-        t1.record()
-        sync()
-        return t0.elapsed_time(t1) / reps
-
     def step_kernel():
         fused2d.fused_step(FP, kb, 0)
 
@@ -264,6 +416,9 @@ def main():
     step_ms = device_ms(step_kernel, 50)
     step_plain_ms = device_ms(step_plain, 5)
     step_issue_ms = issue_ms(step_kernel, 50)
+    extra = (kb.flags[0],) if kb.cep is None else (kb.flags[0], kb.cep)
+    step_bound = bound(*step_bytes(fused2d, FP, kb, 3, *extra),
+                       step_ops(FP, 2, fsim.ctx.nelem, fsim.ctx.nnode))
 
     # dt_refresh on a refresh step: kernel vs plain from equal inputs.
     # Repeated calls redo the same work: they read the same partials and
@@ -290,14 +445,161 @@ def main():
     refresh_ms = device_ms(refresh_kernel, 200)
     refresh_plain_ms = device_ms(refresh_plain, 50)
     refresh_issue_ms = issue_ms(refresh_kernel, 200)
+    # one min, min, max and add per partial column, then the block's tree
+    refresh_bound = bound(nbytes(kb.part, kb.scal, kb.flags[0, :1]),
+                          nbytes(kb.scal, kb.dthist[:1]),
+                          4 * (kb.part.shape[1] + 256))
     print(f"  device time: flagship fused step {step_ms:.4f} ms (plain "
-          f"{step_plain_ms:.4f} ms); dt_refresh {refresh_ms:.4f} ms (plain "
-          f"{refresh_plain_ms:.4f} ms)")
+          f"{step_plain_ms:.4f} ms, bound {step_bound[0]:.4f} ms by "
+          f"{step_bound[1]}); dt_refresh {refresh_ms:.4f} ms (plain "
+          f"{refresh_plain_ms:.4f} ms, bound {refresh_bound[0]:.6f} ms by "
+          f"{refresh_bound[1]})")
     print(f"  issued from Python: fused step {step_issue_ms:.4f} ms, "
           f"dt_refresh {refresh_issue_ms:.4f} ms per call")
     del kb, pb
 
-    # ---- 4. the slice through the main path
+    # ---- 4. the 3D kernel against its plain version, on the card
+    print("phase 4 3D kernels vs plain (128 x 16 x 8 cells, then "
+          "flagship3d)")
+
+    def run3(cfg, n, plain):
+        """n fused 3D steps from the config's initial state: the kernel on
+        the card, or the plain version on the CPU.  PyTorch on the card
+        divides by a Python number as a product with its reciprocal, an
+        ulp off true division for a third of the values, which flips exact
+        ties of the EVP min-select; on the CPU it divides truly, as the
+        kernel does.  The plain run also counts those ties
+        (fused3d.evp_ties)."""
+        s3 = des.Simulation(des.param_from_dict(cfg),
+                            device="cpu" if plain else "cuda")
+        P3 = fused3d.make_plan(s3.param, s3.ctx, s3.device)
+        out = fused3d.run_chunk(P3, s3.ctx, s3.state, n, plain)
+        sync()
+        ties = fused3d.evp_ties(P3, s3.ctx, s3.state) if plain else None
+        return out, ties
+
+    def evp3_check(label, ker, ref, ties):
+        """One EVP step, kernel against the plain version on the CPU, at
+        the gate of test_pallas3d.py:126-132 (1e-4 of each field's max,
+        force 1e-3, log-viscosity median 0.02) over every value, the exact
+        ties of the min-select included; returns the largest error."""
+        print(f"  {label}: {int(ties.sum())} of {ties.numel()} elements "
+              "tie exactly in the min-select; none is set aside")
+        worst = 0.0
+        for f in FIELDS3:
+            err = rel(getattr(ref, f), getattr(ker, f).cpu())
+            worst = max(worst, err)
+            check(f"{label} {f}", err, 1e-3 if f == "force" else 1e-4)
+        dlog = (ref.viscosity.double().log()
+                - ker.viscosity.cpu().double().log())
+        check(f"{label} log-viscosity median", float(dlog.abs().median()),
+              0.02)
+        return worst
+
+    cfg = sim3d_cfg("maxwell", weakzone=0)
+    (ker, _), (ref, _) = run3(cfg, 10, False), run3(cfg, 10, True)
+    for f in FIELDS3 + ("dt", "time", "max_global_vel_mag", "l2_residual"):
+        check(f"3D maxwell 10 steps {f}",
+              rel(getattr(ref, f), getattr(ker, f).cpu()),
+              5e-3 if f == "force" else 1e-3)
+    no_nmd = sim3d_cfg()
+    no_nmd["control"]["is_using_mixed_stress"] = False
+    for label, cfg in (("3D EVP 1 step", sim3d_cfg()),
+                       ("3D EVP 1 step without NMD", no_nmd)):
+        evp3_check(label, run3(cfg, 1, False)[0], *run3(cfg, 1, True))
+
+    s3 = des.Simulation(des.param_from_dict(sim3d_cfg()), device="cuda")
+    P3 = fused3d.make_plan(s3.param, s3.ctx, s3.device)
+    b = fused3d.make_buffers(P3, s3.ctx, s3.state, 1)
+    b.scal[0] = 0.0
+    fused3d.fused3d_step(P3, b)
+    sync()
+    vol = fused3d._eslot("volume")
+    if not torch.equal(b.eout[vol], b.ein[vol]):
+        fail("3D initial volume differs from the kernel's volume")
+    print("  3D dt = 0 step keeps the initial volume bit for bit: ok")
+
+    # dt_refresh in its every-step mode (the 3D runner's), on an
+    # off-cadence and a refresh step
+    for flag in (0.0, 1.0):
+        b = fused3d.make_buffers(P3, s3.ctx, s3.state, 1)
+        fused3d.fused3d_step(P3, b)
+        b.flags[0, 0] = flag
+        scal, dthist = b.scal.clone(), b.dthist.clone()
+        part, flags = b.part.clone(), b.flags.clone()
+        fused2d.dt_refresh(P3, b, 0, tiled=True, every=True)
+        fused2d.dt_refresh_plain(P3, part, scal, dthist, flags, 0,
+                                 tiled=True, every=True)
+        sync()
+        err = max(rel(scal[i:i + 1], b.scal[i:i + 1]) for i in range(5))
+        refresh_err = max(refresh_err, err)
+        check(f"3D dt_refresh every-step mode, refresh flag {flag:.0f}",
+              err, 1e-6)
+    del s3, b
+
+    # the flagship3d main-path Simulation, default device
+    t = time.perf_counter()
+    g3 = des.Simulation(des.param_from_dict(flagship3d_cfg()))
+    sync()
+    init3_s = time.perf_counter() - t
+    if g3.device.type != "cuda":
+        fail(f"Simulation(param) built on {g3.device}, not the card")
+    print(f"  flagship3d host setup: {init3_s:.1f} s ({g3.ctx.nelem} tets, "
+          f"{g3.ctx.nnode} nodes, sgrid {g3.ctx.sgrid})")
+
+    # one flagship3d-size maxwell step, every output plane against the
+    # plain version on the card (maxwell, where no select can tie)
+    MP3 = fused3d.make_plan(des.param_from_dict(flagship3d_cfg("maxwell")),
+                            g3.ctx, g3.device)
+    kb = fused3d.make_buffers(MP3, g3.ctx, g3.state, 1)
+    pb = fused3d.make_buffers(MP3, g3.ctx, g3.state, 1)
+    kb.tgt = pb.tgt = fused3d.vbc_targets(g3.ctx, kb.nin,
+                                          kb.scal[3] + kb.scal[0])
+    fused3d.fused3d_step(MP3, kb)
+    fused3d.fused3d_step_plain(MP3, pb)
+    sync()
+    names = [f"e.{n}" for n in fused3d.E_SLOTS] \
+        + [f"e.{t}[{i}]" for t in fused3d.T_SLOTS for i in range(6)] \
+        + [f"n.{n}" for n in fused3d.N_SLOTS]
+    for k, nm in enumerate(names):
+        if nm == "e.viscosity":
+            v = (pb.eout[k].double().log() - kb.eout[k].double().log())
+            check(f"flagship3d 1 step {nm} (log)", float(v.abs().max()),
+                  1e-5)
+            continue
+        a, b = (pb.eout[k], kb.eout[k]) if nm[0] == "e" else \
+            (pb.nout[k - fused3d.NE], kb.nout[k - fused3d.NE])
+        check(f"flagship3d 1 step {nm}", rel(a, b),
+              1e-3 if nm.startswith("n.force") else 1e-4)
+    del kb, pb
+
+    # the main path's config (EVP): one step against the plain version on
+    # the CPU, then kernel and plain times on the card
+    FP3 = fused3d.make_plan(g3.param, g3.ctx, g3.device)
+    ker = fused3d.run_chunk(FP3, g3.ctx, g3.state, 1)
+    step3_err = evp3_check("flagship3d EVP 1 step", ker,
+                           *run3(flagship3d_cfg(), 1, True))
+    del ker
+    kb = fused3d.make_buffers(FP3, g3.ctx, g3.state, 1)
+    pb = fused3d.make_buffers(FP3, g3.ctx, g3.state, 1)
+
+    def step3_kernel():
+        fused3d.fused3d_step(FP3, kb)
+
+    def step3_plain():
+        fused3d.fused3d_step_plain(FP3, pb)
+
+    step3_ms = device_ms(step3_kernel, 20)
+    step3_plain_ms = device_ms(step3_plain, 3)
+    step3_issue_ms = issue_ms(step3_kernel, 20)
+    step3_bound = bound(*step_bytes(fused3d, FP3, kb, 6),
+                        step_ops(FP3, 3, g3.ctx.nelem, g3.ctx.nnode))
+    print(f"  device time: flagship3d fused step {step3_ms:.4f} ms (plain "
+          f"{step3_plain_ms:.4f} ms, bound {step3_bound[0]:.4f} ms by "
+          f"{step3_bound[1]}); issued from Python {step3_issue_ms:.4f} ms")
+    del kb, pb
+
+    # ---- 5. the 2D slice through the main path
     nelem = fsim.ctx.nelem
     t = time.perf_counter()
     fsim.run_steps(250, chunk=250)
@@ -308,14 +610,15 @@ def main():
     time0 = float(fsim.state.time)
     fused2d.fused_step.launches = 0
     fused2d.dt_refresh.launches = 0
+    fused3d.fused3d_step.launches = 0
     t = time.perf_counter()
     fsim.run_steps(500, chunk=250)
     sync()
     run_s = time.perf_counter() - t
-    launches = {"fused2d_step": fused2d.fused_step.launches,
-                "dt_refresh": fused2d.dt_refresh.launches}
-    if min(launches.values()) <= 0:
-        fail(f"a kernel of the main path was not launched: {launches}")
+    launches2 = {"fused2d_step": fused2d.fused_step.launches,
+                 "dt_refresh": fused2d.dt_refresh.launches}
+    if min(launches2.values()) <= 0:
+        fail(f"a kernel of the 2D path was not launched: {launches2}")
     s = fsim.state
     if not float(s.time) > time0 or int(s.steps) != 750:
         fail("model time or the step count did not advance")
@@ -329,34 +632,137 @@ def main():
     fused2d.run_chunk(FP, fsim.ctx, s, 50, True, plain=True)
     sync()
     plain_rate = nelem * 50 / (time.perf_counter() - t)
-    print(f"phase 4 slice: flagship {nelem} triangles, step_path "
-          f"{fsim.step_path}, launches {launches}, warm-up 250 steps "
+    print(f"phase 5 2D slice: flagship {nelem} triangles, step_path "
+          f"{fsim.step_path}, launches {launches2}, warm-up 250 steps "
           f"{warm_s:.2f} s, 500 steps {run_s:.3f} s, model time "
           f"{time0:.6e} -> {float(s.time):.6e} s, fields finite")
     print(f"  elem*steps/s: kernels {rate:.6e}, plain PyTorch "
           f"{plain_rate:.6e} (over 50 steps) on {card}")
 
-    src = "dynearthsol_tpu_torch/csrc/fused2d.cu"
+    # ---- 6. the 3D slice through the main path
+    nelem3 = g3.ctx.nelem
+    t = time.perf_counter()
+    g3.run_steps(100, chunk=100)
+    sync()
+    warm3_s = time.perf_counter() - t
+    if g3.step_path != "pallas3d":
+        fail(f"flagship3d dispatched to {g3.step_path!r}, not pallas3d")
+    time0 = float(g3.state.time)
+    fused2d.fused_step.launches = 0
+    fused2d.dt_refresh.launches = 0
+    fused3d.fused3d_step.launches = 0
+    t = time.perf_counter()
+    g3.run_steps(500, chunk=250)
+    sync()
+    run3_s = time.perf_counter() - t
+    launches3 = {"fused3d_step": fused3d.fused3d_step.launches,
+                 "dt_refresh": fused2d.dt_refresh.launches}
+    if min(launches3.values()) <= 0:
+        fail(f"a kernel of the 3D path was not launched: {launches3}")
+    s = g3.state
+    if not float(s.time) > time0 or int(s.steps) != 600:
+        fail("3D model time or the step count did not advance")
+    for f in FIELD_NAMES:
+        v = getattr(s, f)
+        if v.is_floating_point() and not bool(torch.isfinite(v).all()):
+            fail(f"non-finite values in 3D {f}")
+    if s.stress.shape != (nelem3, 6):
+        fail(f"3D stress has shape {tuple(s.stress.shape)}")
+    rate3 = nelem3 * 500 / run3_s
+    t = time.perf_counter()
+    fused3d.run_chunk(FP3, g3.ctx, s, 5, plain=True)
+    sync()
+    plain_rate3 = nelem3 * 5 / (time.perf_counter() - t)
+    print(f"phase 6 3D slice: flagship3d {nelem3} tets, step_path "
+          f"{g3.step_path}, launches {launches3}, warm-up 100 steps "
+          f"{warm3_s:.2f} s, 500 steps {run3_s:.3f} s, model time "
+          f"{time0:.6e} -> {float(s.time):.6e} s, fields finite")
+    print(f"  elem*steps/s: kernels {rate3:.6e}, plain PyTorch "
+          f"{plain_rate3:.6e} (over 5 steps) on {card}")
+
+    # ---- 7. device time per launch, by kernel
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    def per_kernel(label, run, steps):
+        run(2)
+        sync()
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            t0 = time.perf_counter()
+            run(steps)
+            sync()
+            wall_us = (time.perf_counter() - t0) * 1e6 / steps
+        busy, rows = 0.0, {}
+        for e in prof.events():
+            if e.device_type != DeviceType.CUDA:
+                continue
+            us = e.time_range.elapsed_us() / steps
+            busy += us
+            if "phase_" in e.name:
+                key = e.name[e.name.index("phase_"):][:7]
+            elif "dt_refresh" in e.name:
+                key = "dt_refresh"
+            else:
+                key = "other (PyTorch ops, copies)"
+            n, t = rows.get(key, (0, 0.0))
+            rows[key] = (n + 1, t + us)
+        print(f"phase 7 profile {label}: {steps} steps, wall "
+              f"{wall_us:.1f} us/step, device busy {busy:.1f} us/step "
+              f"(idle {max(0.0, 1 - busy / wall_us):.1%} of wall)")
+        for key, (n, us) in sorted(rows.items(), key=lambda kv: -kv[1][1]):
+            print(f"  {key}: {us:.1f} us/step ({n / steps:g} launches/step)")
+
+    per_kernel("flagship 2D (resident runner)",
+               lambda n: fused2d.run_chunk(FP, fsim.ctx, fsim.state, n,
+                                           True), 100)
+    per_kernel("flagship3d", lambda n: fused3d.run_chunk(
+        FP3, g3.ctx, g3.state, n), 20)
+
+    src2 = "dynearthsol_tpu_torch/csrc/fused2d.cu"
+    src3 = "dynearthsol_tpu_torch/csrc/fused3d.cu"
+    err_metric = ("max |kernel - plain| / max |plain| over the output "
+                  "planes of one flagship-size maxwell step, viscosity "
+                  "aside")
     kernels = [
-        {"name": "fused2d_step", "route": "cuda", "source": src,
+        {"name": "fused2d_step", "route": "cuda", "source": src2,
          "replaces": "dynearthsol_tpu/ops/pallas2d.py:1431",
-         "launches": launches["fused2d_step"], "max_abs_err": step_err,
-         "err_metric": "max |kernel - plain| / max |plain| over the "
-                       "output planes of one flagship-size maxwell step, "
-                       "viscosity aside",
+         "launches": launches2["fused2d_step"], "max_abs_err": step_err,
+         "err_metric": err_metric,
          "ms": step_ms, "plain_ms": step_plain_ms,
-         "ms_issued_from_python": step_issue_ms},
-        {"name": "dt_refresh", "route": "cuda", "source": src,
+         "bound_ms": step_bound[0], "bound_by": step_bound[1],
+         "bound_bytes": step_bound[2], "bound_ops": step_bound[3],
+         "library_ms": None, "ms_issued_from_python": step_issue_ms},
+        {"name": "dt_refresh", "route": "cuda", "source": src2,
          "replaces": "dynearthsol_tpu/ops/pallas2d.py:1330",
-         "launches": launches["dt_refresh"], "max_abs_err": refresh_err,
+         "launches": launches2["dt_refresh"] + launches3["dt_refresh"],
+         "launches_by_path": {"pallas2d_res": launches2["dt_refresh"],
+                              "pallas3d": launches3["dt_refresh"]},
+         "max_abs_err": refresh_err,
          "err_metric": "max |kernel - plain| / max |plain| over dt, vmax, "
-                       "gdtmin, time, L2 partial",
+                       "gdtmin, time, L2 partial (2D and 3D modes)",
          "ms": refresh_ms, "plain_ms": refresh_plain_ms,
-         "ms_issued_from_python": refresh_issue_ms},
+         "bound_ms": refresh_bound[0], "bound_by": refresh_bound[1],
+         "bound_bytes": refresh_bound[2], "bound_ops": refresh_bound[3],
+         "library_ms": None, "ms_issued_from_python": refresh_issue_ms},
+        {"name": "fused3d_step", "route": "cuda", "source": src3,
+         "replaces": "dynearthsol_tpu/ops/pallas3d.py:1583",
+         "launches": launches3["fused3d_step"], "max_abs_err": step3_err,
+         "err_metric": "max |kernel - plain| / max |plain| over the State "
+                       "fields of one flagship3d EVP step, the plain version "
+                       "on the CPU",
+         "ms": step3_ms, "plain_ms": step3_plain_ms,
+         "bound_ms": step3_bound[0], "bound_by": step3_bound[1],
+         "bound_bytes": step3_bound[2], "bound_ops": step3_bound[3],
+         "library_ms": None, "ms_issued_from_python": step3_issue_ms},
     ]
     print(json.dumps({"kernels": kernels,
                       "elem_steps_per_s": rate,
-                      "plain_elem_steps_per_s": plain_rate}))
+                      "plain_elem_steps_per_s": plain_rate,
+                      "elem_steps_per_s_3d": rate3,
+                      "plain_elem_steps_per_s_3d": plain_rate3,
+                      "init_s_3d": init3_s,
+                      "script_s": time.perf_counter() - t_start}))
     print(card)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind,

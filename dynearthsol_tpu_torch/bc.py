@@ -4,9 +4,10 @@
 Reference: bc.cxx.  ``apply_vbcs`` (bc.cxx:201-630) is a per-node switch
 over the vbc type of each boundary; the types are static config, so the
 switch unrolls into a few masked ``torch.where`` updates.  Order matters
-and is preserved: X faces first, then Z last (bc.cxx:563 "Z, must be dealt
-last") so corner nodes get the reference's precedence.  Only the 2D box
-boundaries are ported; inclined (BOUNDN) boundaries are not.
+and is preserved: X faces first, Y faces in 3D, then Z last (bc.cxx:563
+"Z, must be dealt last") so corner nodes get the reference's precedence.
+The box boundaries of 2D and 3D are ported; inclined (BOUNDN) boundaries
+are not.
 
 vbc type meanings (bc.cxx:206-214):
   0: all components free
@@ -26,8 +27,9 @@ from typing import Tuple
 import numpy as np
 import torch
 
-from .constants import (BOUNDX0, BOUNDX1, BOUNDZ0, BOUNDZ1, IBOUNDN0,
-                        IBOUNDN3, IBOUNDZ0, IBOUNDZ1, YEAR2SEC, dim)
+from .constants import (BOUNDX0, BOUNDX1, BOUNDY0, BOUNDY1, BOUNDZ0,
+                        BOUNDZ1, IBOUNDN0, IBOUNDN3, IBOUNDZ0, IBOUNDZ1,
+                        YEAR2SEC, dim)
 
 
 @dataclass(frozen=True)
@@ -39,6 +41,8 @@ class VBCSpec:
     ndims: int
     x0: torch.Tensor
     x1: torch.Tensor
+    y0: torch.Tensor
+    y1: torch.Tensor
     z0: torch.Tensor
     z1: torch.Tensor
     types: Tuple[int, ...]  # order: x0 x1 y0 y1 z0 z1
@@ -60,10 +64,10 @@ class VBCSpec:
         bc = param.bc
         flags = np.asarray(bcflag)
         n_bits = sum(1 << ib for ib in range(IBOUNDN0, IBOUNDN3 + 1))
-        if param.sim.ndims != 2 or (flags & np.uint32(n_bits)).any():
+        if (flags & np.uint32(n_bits)).any():
             raise NotImplementedError(
-                "only 2D box velocity BCs are ported (no inclined "
-                "boundaries, no 3D)")
+                "only box velocity BCs are ported (no inclined "
+                "boundaries)")
 
         def mask(bit):
             return torch.as_tensor((flags & bit) != 0, device=device)
@@ -75,6 +79,7 @@ class VBCSpec:
         return VBCSpec(
             ndims=param.sim.ndims,
             x0=mask(BOUNDX0), x1=mask(BOUNDX1),
+            y0=mask(BOUNDY0), y1=mask(BOUNDY1),
             z0=mask(BOUNDZ0), z1=mask(BOUNDZ1),
             types=(bc.vbc_x0, bc.vbc_x1, bc.vbc_y0, bc.vbc_y1,
                    bc.vbc_z0, bc.vbc_z1),
@@ -145,10 +150,12 @@ def _set(vel, mask, comp, value):
 
 
 def apply_vbcs(spec: VBCSpec, vel, coord, time):
-    """Apply 2D velocity BCs in the reference's order (bc.cxx:201-630).
+    """Apply velocity BCs in the reference's order (bc.cxx:201-630).
     ``time`` is a 0-d tensor on the device; nothing is read back to the
-    host.  The profile arithmetic runs in float64 and the result is
+    host.  The 2D profile arithmetic runs in float64 and the result is
     rounded to ``vel.dtype``, as in the JAX package."""
+    if spec.ndims == 3:
+        return _apply_vbcs_3d(spec, vel, coord, time)
     t_now = torch.div(time, torch.full_like(time, YEAR2SEC)).double()
     applied_x0 = spec.values[0] * _interp1(spec.period_time_x0,
                                            spec.period_ratio_x0, t_now)
@@ -248,6 +255,76 @@ def apply_vbcs(spec: VBCSpec, vel, coord, time):
     return vel
 
 
+def _apply_vbcs_3d(spec: VBCSpec, vel, coord, time):
+    """3D lateral faces through the unified handler (bc.cxx:383-403), then
+    Z (bc.cxx:563-629)."""
+    tx0, tx1, ty0, ty1, tz0, tz1 = spec.types
+    vx0, vx1, vy0, vy1, vz0, vz1 = spec.values
+    lx0, lx1, ly0, ly1 = spec.values_lateral
+
+    faces = [(spec.x0, 0, 1, tx0, vx0, lx0), (spec.x1, 0, 1, tx1, vx1, lx1),
+             (spec.y0, 1, 0, ty0, vy0, ly0), (spec.y1, 1, 0, ty1, vy1, ly1)]
+    for m, ni, li, typ, val, val_l in faces:
+        if typ == 1:
+            vel = _set(vel, m, ni, val)
+        elif typ == 2:
+            vel = _set(vel, m, li, 0.0)
+            vel = _set(vel, m, 2, 0.0)
+        elif typ == 3:
+            vel = _set(vel, m, ni, val)
+            vel = _set(vel, m, li, 0.0)
+            vel = _set(vel, m, 2, 0.0)
+        elif typ == 4:
+            vel = _set(vel, m, li, val)
+            vel = _set(vel, m, 2, 0.0)
+        elif typ == 5:
+            vel = _set(vel, m, ni, 0.0)
+            vel = _set(vel, m, li, val)
+            vel = _set(vel, m, 2, 0.0)
+        elif typ == 6:
+            vel = _set(vel, m, ni, val)
+            vel = _set(vel, m, li, val_l)
+        elif typ == 7:
+            vel = _set(vel, m, ni, val)
+            vel = _set(vel, m, li, 0.0)
+        elif typ == 100:
+            vel = _set(vel, m, ni, val * coord[:, ni])
+
+    z = coord[:, 2]
+    m = spec.z0
+    if tz0 == 1:
+        vel = _set(vel, m, 2, vz0)
+    elif tz0 == 2:
+        vel = _set(vel, m, 0, 0.0)
+        vel = _set(vel, m, 1, 0.0)
+    elif tz0 == 3:
+        vel = _set(vel, m, 0, 0.0)
+        vel = _set(vel, m, 1, 0.0)
+        vel = _set(vel, m, 2, vz0)
+    elif tz0 == 100:
+        vel = _set(vel, m, 2, vz0 * z)
+
+    # z1 deactivates after the loading period (bc.cxx:316)
+    m = spec.z1 & (time <= spec.vbc_val_z1_loading_period)
+    if tz1 == 1:
+        vel = _set(vel, m, 2, vz1)
+    elif tz1 == 2:
+        vel = _set(vel, m, 0, 0.0)
+        vel = _set(vel, m, 1, 0.0)
+    elif tz1 == 3:
+        vel = _set(vel, m, 0, 0.0)
+        vel = _set(vel, m, 1, 0.0)
+        vel = _set(vel, m, 2, vz1)
+    elif tz1 == 4:
+        vel = _set(vel, m, 0, vz1)
+        vel = _set(vel, m, 1, 0.0)
+        vel = _set(vel, m, 2, 0.0)
+    elif tz1 == 100:
+        vel = _set(vel, m, 2, vz1 * z)
+
+    return vel
+
+
 def pp_bc_mask(bc, bcflag: np.ndarray) -> np.ndarray:
     """Pore-pressure Dirichlet mask: node on boundary i with hbc type 1
     (is_boundary_node_for_pp, fields.cxx:286-294)."""
@@ -267,8 +344,8 @@ def pp_bc_mask(bc, bcflag: np.ndarray) -> np.ndarray:
 class StressBCSpec:
     """Static facet tables for traction boundary conditions
     (apply_stress_bcs / apply_stress_bcs_neumann, bc.cxx:632-875), host
-    numpy.  The tractions themselves are not ported yet: the fused step's
-    gate refuses ``n_grav > 0`` and ``n_neu > 0``.
+    numpy, in 2D and 3D.  The tractions themselves are not ported yet: the
+    fused steps refuse ``n_grav > 0`` and ``n_neu > 0``.
 
     kind: 0 = Winkler foundation (bottom), 1 = hydrostatic water loading
     (top), 2 = lithostatic sidewall.

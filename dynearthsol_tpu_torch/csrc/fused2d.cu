@@ -385,13 +385,16 @@ __global__ void __launch_bounds__(BLOCK) phase_c(StepParams<T> p, Bufs<T> b) {
       so[a] = C.ein(E_STRESS + a, e);
     }
     T old_tr = so[0] + so[1];
+    // the viscosity of the creep laws and EP's delta_plstrain are
+    // recomputed, so their old values are not loaded
+    const int rh = p.rheol;
     T syy = C.ein(E_SYY, e), pls = C.ein(E_PLS, e);
-    T dpls = C.ein(E_DPLS, e), visc = C.ein(E_VISC, e);
+    T dpls = rh == RH_EP ? T(0) : C.ein(E_DPLS, e);
     Moduli<T> k = C.moduli(e);
     T w[MAXMAT];
     C.weights(e, w);
     const int nmat = p.uniform ? 1 : p.nmat;
-    const int rh = p.rheol;
+    T visc;
     if (rh == RH_VISCOUS || rh == RH_MAXWELL || rh == RH_EVP) {
       T s0m = (so[0] + so[1]) / T(2);
       T d = sr[0] - sr[1];
@@ -399,6 +402,8 @@ __global__ void __launch_bounds__(BLOCK) phase_c(StepParams<T> p, Bufs<T> b) {
       T ed = dmax(dsqrt(rII2), T(1e-30));
       visc = visc_core(p.mat, nmat, w, temp_e, s0m, ed, p.log_q, p.log_1e6,
                        p.visc_min, p.visc_max);
+    } else {
+      visc = C.ein(E_VISC, e);
     }
     T sc[3];
     if (rh == RH_ELASTIC) {
@@ -693,13 +698,33 @@ __global__ void __launch_bounds__(BLOCK) phase_h(StepParams<T> p, Bufs<T> b) {
 }
 
 // ---- dt_refresh: after each step of a chunk (pallas2d.py:1276-1304 for
-// the resident chunk, :1490-1526 for the tiled step): record dt, finish
-// the partials in a fixed order, advance time (tiled) and on refresh steps
-// set dt, vmax and gdtmin.  One block.
+// the resident chunk, :1490-1526 for the tiled step, pallas3d.py:1649-1690
+// for the 3D step): record dt, finish the partials in a fixed order,
+// advance time (tiled) and on refresh steps set dt, vmax and gdtmin.  With
+// `every` (the 3D step) vmax and gdtmin are set on every step and only dt
+// waits for the refresh cadence.  One block.
+
+// ops/fused_common.py RIP_FIELDS / RFP_FIELDS, shared by the 2D and 3D plans
+template <typename T> struct RefreshParams {
+  int thermal, use_gvs, quasi_static, fixed_on;
+  T big, max_vbc, fixed_dt, tdmax, inertial, swave_ref, ps, frac;
+};
+
+template <typename T>
+RefreshParams<T> refresh_from_host(const int* ip, const double* fp) {
+  RefreshParams<T> p;
+  p.thermal = ip[0]; p.use_gvs = ip[1]; p.quasi_static = ip[2];
+  p.fixed_on = ip[3];
+  T* f[8] = {&p.big, &p.max_vbc, &p.fixed_dt, &p.tdmax, &p.inertial,
+             &p.swave_ref, &p.ps, &p.frac};
+  for (int i = 0; i < 8; ++i) *f[i] = static_cast<T>(fp[i]);
+  return p;
+}
+
 template <typename T>
 __global__ void __launch_bounds__(BLOCK)
-    dt_refresh(StepParams<T> p, const T* part, int nb, T* scal, T* dthist,
-               const T* flag, int k, int tiled) {
+    dt_refresh(RefreshParams<T> p, const T* part, int nb, T* scal, T* dthist,
+               const T* flag, int k, int tiled, int every) {
   __shared__ T sh[BLOCK];
   T hmin = p.big, hsmin = p.big, vm = T(0), r2 = T(0);
   for (int q = threadIdx.x; q < nb; q += BLOCK) {
@@ -717,9 +742,13 @@ __global__ void __launch_bounds__(BLOCK)
   dthist[k] = dt_old;
   scal[4] = r2;
   if (tiled) scal[3] = scal[3] + dt_old;
-  if (!(flag[0] > T(0))) return;
+  const bool refresh = flag[0] > T(0);
+  if (!refresh && !every) return;
   T vmax = dmax(vm, p.max_vbc);
   T gdtmin = hsmin / T(5);
+  scal[1] = vmax;
+  scal[2] = gdtmin;
+  if (!refresh) return;
   T half = T(0.5) * hmin;
   T dt;
   if (p.fixed_on) {
@@ -739,8 +768,6 @@ __global__ void __launch_bounds__(BLOCK)
     dt = dmin(dmin(dt_el, scal[5]), dmin(dt_adv, dt_diff)) * p.frac;
   }
   scal[0] = dt;
-  scal[1] = vmax;
-  scal[2] = gdtmin;
 }
 
 template <typename T>
@@ -783,12 +810,13 @@ int des_fused2d_step_f32(const int* ip, const double* fp, const float* ein,
   return step<float>(ip, fp, b, static_cast<cudaStream_t>(stream));
 }
 
-int des_dt_refresh_f32(const int* ip, const double* fp, const float* part,
+// rip/rfp: ops/fused_common.refresh_params of a 2D or 3D step plan
+int des_dt_refresh_f32(const int* rip, const double* rfp, const float* part,
                        int nb, float* scal, float* dthist, const float* flag,
-                       int k, int tiled, void* stream) {
-  StepParams<float> p = from_host<float>(ip, fp);
+                       int k, int tiled, int every, void* stream) {
+  RefreshParams<float> p = refresh_from_host<float>(rip, rfp);
   dt_refresh<float><<<1, BLOCK, 0, static_cast<cudaStream_t>(stream)>>>(
-      p, part, nb, scal, dthist, flag, k, tiled);
+      p, part, nb, scal, dthist, flag, k, tiled, every);
   return int(cudaGetLastError());
 }
 

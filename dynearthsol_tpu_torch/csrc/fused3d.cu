@@ -1,0 +1,767 @@
+// Fused 3D structured 5-tet time step, for Hopper (sm_90a).
+//
+// Replaces: dynearthsol_tpu/ops/pallas3d.py make_pallas_step -> kernel /
+// _tile (pallas_call at pallas3d.py:1583), one whole 3D step.  Plain
+// PyTorch version: ops/fused3d.py step_planes_plain.  The per-step scalar
+// update after it is the dt_refresh kernel of fused2d.cu, run with
+// every = 1 (vmax and gdtmin each step, dt on the 10-step cadence).
+//
+// Layout (ops/fused3d.py): element planes (slot, tet, i, j, k) and nodal
+// planes (slot, i, j, k), k contiguous: cell c = (i*nyc + j)*nzc + k, the
+// value of tet t in a slot at slot*5NC + t*NC + c, node (i*ny + j)*nz + k.
+// Cell (i, j, k) holds five tets; tet t's corner slot s is the cell corner
+// tet_corner(parity, t, s) (structured.tet_tables, corner code a*4 + b*2 +
+// d for offsets a, b, d in x, y, z), parity 0 where i + j + k is even.
+//
+// What bounds it: memory traffic.  A step reads and writes 25 element
+// planes (983,040 tets each at the 256 x 48 x 16-cell flagship) and 14
+// nodal planes (214,081 nodes) in f32, with a few hundred to a few
+// thousand flops per tet (the EVP return map with its eigensolver in phase
+// C), below the card's flop/byte balance.  The element->node->element->
+// node chain of the step needs a grid-wide barrier at each hop, so this
+// first form runs one launch per phase, as the 2D kernel does:
+//   A cell   T-diffusion and dvoldt corner partials
+//   B node   temperature, dvoldt
+//   C tet    edvoldt, strain, rheology with eig3
+//   D node   NMD nodal pressure (NMD runs only)
+//   E cell   NMD correction, force corner partials
+//   F node   force, L2 partial, damping, velocity, coordinates
+//   G tet    post-move volume, CFL partials, mass terms, Jaumann, surface
+//            correction
+//   H node   volume_n and masses
+// Phases whose outputs are per-corner sums (A, E) run one thread per cell:
+// it loads the cell's 8 corners once and folds its 5 tets into 8 corner
+// partials, 8 planes of one value per cell instead of 20 per-tet slot
+// planes.  The rheology (C) and the post-move phase (G) run one thread per
+// tet, which keeps the EVP return map's registers to one tet.  The cell
+// phases are templated on the parity so that corner indices are constants.
+//
+// Node sums follow ops/fused3d.py (grid3d.asm): for each corner code in
+// order, the cell's partial over (tet, slot) in order, each partial and
+// each node sum started from zero.  No float atomics: the min/max partials
+// are exact in any order and the force-residual sum is a fixed two-pass
+// tree (block partials here, the final pass in dt_refresh).
+//
+// Built without FMA contraction (-fmad=false, ops/_build.py): the initial
+// volume (ops/shapefn.compute_volume, the same operations) then equals the
+// step's volume bit for bit, and every +, -, * and / rounds as in the plain
+// version.  Only the transcendental functions (exp, log, sin, tan, cos)
+// differ, by the ulps of CUDA's libdevice.
+
+#include <cuda_runtime.h>
+
+#include <cfloat>
+
+#include "rheology3d.cuh"
+
+using namespace des;
+
+namespace {
+
+constexpr int BLOCK = 256;
+
+// packed slots: ops/fused3d.py E_SLOTS/T_SLOTS, N_SLOTS, CN_SLOTS
+enum { E_VOL = 0, E_VOLD, E_PLS, E_DPLS, E_VISC, E_DP, E_EDV, E_STRESS,
+       E_STRAIN = E_STRESS + 6, E_SR = E_STRAIN + 6 };
+enum { N_CX = 0, N_CY, N_CZ, N_VX, N_VY, N_VZ, N_T, N_MASS, N_TMASS, N_HMASS,
+       N_VOLN, N_FX, N_FY, N_FZ };
+enum { CN_TOP = 0, CN_MX, CN_MY, CN_MZ };
+enum { RH_ELASTIC = 1, RH_VISCOUS = 2, RH_MAXWELL = 3, RH_EP = 5,
+       RH_EVP = 7 };
+constexpr int NFP0 = 22;  // ops/fused3d.py FP_FIELDS
+
+// structured.tet_tables(), 3 bits per (tet, slot) entry, entry t*4 + s:
+// even ((0,1,4,2), (1,2,3,7), (1,4,7,5), (2,4,6,7), (1,2,7,4)),
+// odd  ((0,1,5,3), (0,2,3,6), (0,4,6,5), (3,5,6,7), (0,3,5,6))
+constexpr unsigned long long TET_EVEN = 0x9d1fa2be1ed1508ULL;
+constexpr unsigned long long TET_ODD = 0xd58fabba0cd0748ULL;
+
+__host__ __device__ constexpr int tet_corner(int par, int t, int s) {
+  return int(((par ? TET_ODD : TET_EVEN) >> (3 * (t * 4 + s))) & 7ULL);
+}
+
+template <typename T> struct Params3 {
+  int nx, ny, nz, nxc, nyc, nzc, NC, NS, rheol, nmd, thermal, gravity_on,
+      damping, surf_corr, quasi_static, use_gvs, jaumann;
+  T surface_T, visc_min, visc_max, tension_max, fac, one_m_fac, two_m_fac,
+      inertial, log_q, log_1e6, deg2rad, ps2, bulkm, shearm, kappa, rhoA,
+      rhoB, buoyA, buoyB, cpA, cpB, hmA;
+  MatConst<T> mat[1];
+};
+
+// ip/fp are ops/fused3d.py StepPlan3.ip (IP_FIELDS) and .fp (FP_FIELDS,
+// then MAT_FIELDS of the one material); each float64 is rounded to T once.
+template <typename T>
+Params3<T> from_host(const int* ip, const double* fp) {
+  Params3<T> p;
+  p.nx = ip[0]; p.ny = ip[1]; p.nz = ip[2]; p.rheol = ip[3];
+  p.nmd = ip[4]; p.thermal = ip[5]; p.gravity_on = ip[6];
+  p.damping = ip[7]; p.surf_corr = ip[8]; p.quasi_static = ip[9];
+  p.use_gvs = ip[10]; p.jaumann = ip[11];
+  p.nxc = p.nx - 1; p.nyc = p.ny - 1; p.nzc = p.nz - 1;
+  p.NC = p.nxc * p.nyc * p.nzc;
+  p.NS = p.nx * p.ny * p.nz;
+  T* f[NFP0] = {&p.surface_T, &p.visc_min, &p.visc_max, &p.tension_max,
+                &p.fac, &p.one_m_fac, &p.two_m_fac, &p.inertial, &p.log_q,
+                &p.log_1e6, &p.deg2rad, &p.ps2, &p.bulkm, &p.shearm,
+                &p.kappa, &p.rhoA, &p.rhoB, &p.buoyA, &p.buoyB, &p.cpA,
+                &p.cpB, &p.hmA};
+  for (int i = 0; i < NFP0; ++i) *f[i] = static_cast<T>(fp[i]);
+  T* v = &p.mat[0].pw;  // MatConst is NMATFIELD consecutive T
+  for (int q = 0; q < NMATFIELD; ++q) v[q] = static_cast<T>(fp[NFP0 + q]);
+  return p;
+}
+
+template <typename T> struct Bufs3 {
+  const T* ein;   // (25, 5, nxc, nyc, nzc) state before the step
+  const T* nin;   // (14, nx, ny, nz)
+  T* eout;        // state after the step
+  T* nout;
+  const T* cnp;   // (4, nx, ny, nz)
+  const T* tgt;   // (3, nx, ny, nz) vbc targets
+  const T* scal;  // dt, vmax, gdtmin, time, r2, dt_maxwell
+  T* ework;       // (24, nxc, nyc, nzc) scratch
+  T* nwork;       // (2, nx, ny, nz) scratch
+  T* part;        // (4, nb) block partials
+  int nb;
+};
+
+// element value of (slot, tet t, cell c)
+template <typename T>
+__device__ __forceinline__ int eidx(const Params3<T>& p, int slot, int t,
+                                    int c) {
+  return (slot * 5 + t) * p.NC + c;
+}
+
+// node offset of cell corner code q from the cell's corner 0
+template <typename T>
+__device__ __forceinline__ int corner_off(const Params3<T>& p, int q) {
+  return ((q >> 2) & 1) * p.ny * p.nz + ((q >> 1) & 1) * p.nz + (q & 1);
+}
+
+template <typename T> struct CellPos {
+  int i, j, k, par, n0;  // cell indices, parity, node of corner 0
+};
+
+template <typename T>
+__device__ __forceinline__ CellPos<T> cell_pos(const Params3<T>& p, int c) {
+  CellPos<T> r;
+  r.k = c % p.nzc;
+  r.j = (c / p.nzc) % p.nyc;
+  r.i = c / (p.nzc * p.nyc);
+  r.par = (r.i + r.j + r.k) & 1;
+  r.n0 = (r.i * p.ny + r.j) * p.nz + r.k;
+  return r;
+}
+
+template <typename T> struct Shape3 {
+  T dx[4], dy[4], dz[4];
+};
+
+// P1 tet gradients (ops/fused3d.py shape_fn)
+template <typename T>
+__device__ __forceinline__ Shape3<T> shape3(const T* xs, const T* ys,
+                                            const T* zs, T vol) {
+  Shape3<T> s;
+  T iv = T(1) / (T(6) * vol);
+  T x01 = xs[0] - xs[1], x02 = xs[0] - xs[2], x03 = xs[0] - xs[3];
+  T x12 = xs[1] - xs[2], x13 = xs[1] - xs[3], x23 = xs[2] - xs[3];
+  T y01 = ys[0] - ys[1], y02 = ys[0] - ys[2], y03 = ys[0] - ys[3];
+  T y12 = ys[1] - ys[2], y13 = ys[1] - ys[3], y23 = ys[2] - ys[3];
+  T z01 = zs[0] - zs[1], z02 = zs[0] - zs[2], z03 = zs[0] - zs[3];
+  T z12 = zs[1] - zs[2], z13 = zs[1] - zs[3], z23 = zs[2] - zs[3];
+  s.dx[0] = iv * (y13 * z12 - y12 * z13);
+  s.dx[1] = iv * (y02 * z23 - y23 * z02);
+  s.dx[2] = iv * (y13 * z03 - y03 * z13);
+  s.dx[3] = iv * (y01 * z02 - y02 * z01);
+  s.dy[0] = iv * (z13 * x12 - z12 * x13);
+  s.dy[1] = iv * (z02 * x23 - z23 * x02);
+  s.dy[2] = iv * (z13 * x03 - z03 * x13);
+  s.dy[3] = iv * (z01 * x02 - z02 * x01);
+  s.dz[0] = iv * (x13 * y12 - x12 * y13);
+  s.dz[1] = iv * (x02 * y23 - x23 * y02);
+  s.dz[2] = iv * (x13 * y03 - x03 * y13);
+  s.dz[3] = iv * (x01 * y02 - x02 * y01);
+  return s;
+}
+
+template <typename T>
+__device__ __forceinline__ T dot4(const T* a, const T* b) {
+  return a[0] * b[0] + a[1] * b[1] + a[2] * b[2] + a[3] * b[3];
+}
+
+template <typename T> __device__ __forceinline__ T mean4(const T* a) {
+  return (a[0] + a[1] + a[2] + a[3]) / T(4);
+}
+
+// scalar triple product over 6 (ops/shapefn.tet_volume)
+template <typename T>
+__device__ __forceinline__ T tet_volume(const T* xs, const T* ys,
+                                        const T* zs) {
+  T d1x = xs[1] - xs[0], d1y = ys[1] - ys[0], d1z = zs[1] - zs[0];
+  T d2x = xs[2] - xs[0], d2y = ys[2] - ys[0], d2z = zs[2] - zs[0];
+  T d3x = xs[3] - xs[0], d3y = ys[3] - ys[0], d3z = zs[3] - zs[0];
+  return (d1x * (d2y * d3z - d2z * d3y) + d1y * (d2z * d3x - d2x * d3z) +
+          d1z * (d2x * d3y - d2y * d3x)) /
+         T(6);
+}
+
+// 3 V / largest facet area (ops/geometry.tet_min_height)
+template <typename T>
+__device__ __forceinline__ T tri_area(const T* xs, const T* ys, const T* zs,
+                                      int i, int j, int k) {
+  T ux = xs[j] - xs[i], uy = ys[j] - ys[i], uz = zs[j] - zs[i];
+  T vx = xs[k] - xs[i], vy = ys[k] - ys[i], vz = zs[k] - zs[i];
+  T cx = uy * vz - uz * vy;
+  T cy = uz * vx - ux * vz;
+  T cz = ux * vy - uy * vx;
+  return T(0.5) * dsqrt(cx * cx + cy * cy + cz * cz);
+}
+
+template <typename T>
+__device__ __forceinline__ T tet_min_height(const T* xs, const T* ys,
+                                            const T* zs, T vol) {
+  T maxa = dmax(dmax(tri_area(xs, ys, zs, 0, 1, 2), tri_area(xs, ys, zs, 0, 1, 3)),
+                dmax(tri_area(xs, ys, zs, 2, 3, 0), tri_area(xs, ys, zs, 2, 3, 1)));
+  return T(3) * vol / maxa;
+}
+
+// the four corner values of tet t of a cell from a nodal plane
+template <typename T>
+__device__ __forceinline__ void tet_gather(const Params3<T>& p, const T* g,
+                                           const CellPos<T>& cp, int t,
+                                           T out[4]) {
+#pragma unroll
+  for (int s = 0; s < 4; ++s)
+    out[s] = g[cp.n0 + corner_off(p, tet_corner(cp.par, t, s))];
+}
+
+// the eight corner values of a cell from a nodal plane, by corner code
+template <typename T>
+__device__ __forceinline__ void cell_gather(const Params3<T>& p, const T* g,
+                                            int n0, T out[8]) {
+#pragma unroll
+  for (int q = 0; q < 8; ++q) out[q] = g[n0 + corner_off(p, q)];
+}
+
+// Node (i, j, k): sum over corner codes q (cell (i-a, j-b, k-d)) of the
+// cell's per-code partial part(q, cell), each code in order, from zero.
+template <typename T, class F>
+__device__ __forceinline__ T node_sum(const Params3<T>& p, int i, int j,
+                                      int k, F part) {
+  T acc = T(0);
+#pragma unroll
+  for (int q = 0; q < 8; ++q) {
+    const int ci = i - ((q >> 2) & 1), cj = j - ((q >> 1) & 1),
+              ck = k - (q & 1);
+    if (ci >= 0 && ci < p.nxc && cj >= 0 && cj < p.nyc && ck >= 0 &&
+        ck < p.nzc) {
+      const int cell = (ci * p.nyc + cj) * p.nzc + ck;
+      acc = acc + part(q, cell, (ci + cj + ck) & 1);
+    }
+  }
+  return acc;
+}
+
+// The per-code partial of a per-tet value v(t, cell) that lands equally on
+// its four corners (ops/fused3d.asm_equal): tets in order, from zero.
+template <typename T, class F>
+__device__ __forceinline__ T equal_partial(F v, int q, int cell, int par) {
+  T acc = T(0);
+#pragma unroll
+  for (int t = 0; t < 5; ++t) {
+    bool hit = false;
+#pragma unroll
+    for (int s = 0; s < 4; ++s) hit = hit || tet_corner(par, t, s) == q;
+    if (hit) acc = acc + v(t, cell);
+  }
+  return acc;
+}
+
+// fixed-order tree reduction over one block
+template <typename T, class Op>
+__device__ __forceinline__ T block_reduce(T v, T* sh, Op op) {
+  sh[threadIdx.x] = v;
+  __syncthreads();
+  for (int s = BLOCK / 2; s > 0; s >>= 1) {
+    if (threadIdx.x < s) sh[threadIdx.x] = op(sh[threadIdx.x], sh[threadIdx.x + s]);
+    __syncthreads();
+  }
+  T r = sh[0];
+  __syncthreads();
+  return r;
+}
+
+// ---- A, cell: T-diffusion and dvoldt corner partials (pallas3d.py:958-997)
+template <int PAR, typename T>
+__device__ __forceinline__ void cell_a(const Params3<T>& p, const Bufs3<T>& b,
+                                       int c, int n0) {
+  T X[8], Y[8], Z[8], VX[8], VY[8], VZ[8], TT[8];
+  cell_gather(p, b.nin + N_CX * p.NS, n0, X);
+  cell_gather(p, b.nin + N_CY * p.NS, n0, Y);
+  cell_gather(p, b.nin + N_CZ * p.NS, n0, Z);
+  cell_gather(p, b.nin + N_VX * p.NS, n0, VX);
+  cell_gather(p, b.nin + N_VY * p.NS, n0, VY);
+  cell_gather(p, b.nin + N_VZ * p.NS, n0, VZ);
+  cell_gather(p, b.nin + N_T * p.NS, n0, TT);
+  T tp[8], dp[8];
+#pragma unroll
+  for (int q = 0; q < 8; ++q) { tp[q] = T(0); dp[q] = T(0); }
+#pragma unroll
+  for (int t = 0; t < 5; ++t) {
+    T x[4], y[4], z[4], vx[4], vy[4], vz[4], ts[4];
+#pragma unroll
+    for (int s = 0; s < 4; ++s) {
+      const int q = tet_corner(PAR, t, s);
+      x[s] = X[q]; y[s] = Y[q]; z[s] = Z[q];
+      vx[s] = VX[q]; vy[s] = VY[q]; vz[s] = VZ[q]; ts[s] = TT[q];
+    }
+    const T vol = b.ein[eidx(p, E_VOL, t, c)];
+    Shape3<T> sh = shape3(x, y, z, vol);
+    T ev = (dot4(vx, sh.dx) + dot4(vy, sh.dy) + dot4(vz, sh.dz)) * vol;
+#pragma unroll
+    for (int s = 0; s < 4; ++s) {
+      const int q = tet_corner(PAR, t, s);
+      dp[q] = dp[q] + ev;
+    }
+    if (p.thermal) {
+      T gx = dot4(sh.dx, ts), gy = dot4(sh.dy, ts), gz = dot4(sh.dz, ts);
+      T kv = p.kappa * vol;
+#pragma unroll
+      for (int s = 0; s < 4; ++s) {
+        const int q = tet_corner(PAR, t, s);
+        tp[q] = tp[q] + kv * (sh.dx[s] * gx + sh.dy[s] * gy + sh.dz[s] * gz);
+      }
+    }
+  }
+#pragma unroll
+  for (int q = 0; q < 8; ++q) {
+    if (p.thermal) b.ework[q * p.NC + c] = tp[q];
+    b.ework[(8 + q) * p.NC + c] = dp[q];
+  }
+}
+
+template <typename T>
+__global__ void __launch_bounds__(BLOCK) phase_a(Params3<T> p, Bufs3<T> b) {
+  int c = blockIdx.x * BLOCK + threadIdx.x;
+  if (c >= p.NC) return;
+  CellPos<T> cp = cell_pos(p, c);
+  if (cp.par) cell_a<1>(p, b, c, cp.n0); else cell_a<0>(p, b, c, cp.n0);
+}
+
+// ---- B, node: temperature and dvoldt (pallas3d.py:999-1005)
+template <typename T>
+__global__ void __launch_bounds__(BLOCK) phase_b(Params3<T> p, Bufs3<T> b) {
+  int n = blockIdx.x * BLOCK + threadIdx.x;
+  if (n >= p.NS) return;
+  int k = n % p.nz, j = (n / p.nz) % p.ny, i = n / (p.nz * p.ny);
+  const T* w = b.ework;
+  const int NC = p.NC;
+  T dv = node_sum(p, i, j, k, [&](int q, int cell, int) {
+    return w[(8 + q) * NC + cell];
+  });
+  b.nwork[n] = dv / b.nin[N_VOLN * p.NS + n];
+  T Told = b.nin[N_T * p.NS + n];
+  T Tnew = Told;
+  if (p.thermal) {
+    T tdot = node_sum(p, i, j, k, [&](int q, int cell, int) {
+      return w[q * NC + cell];
+    });
+    Tnew = b.cnp[CN_TOP * p.NS + n] > T(0)
+               ? p.surface_T
+               : Told - b.scal[0] * tdot / b.nin[N_TMASS * p.NS + n];
+  }
+  b.nout[N_T * p.NS + n] = Tnew;
+}
+
+// ---- C, tet: edvoldt, strain, constitutive update, dpressure
+// (pallas3d.py:1046-1169)
+template <typename T>
+__global__ void __launch_bounds__(BLOCK) phase_c(Params3<T> p, Bufs3<T> b) {
+  int e = blockIdx.x * BLOCK + threadIdx.x;
+  if (e >= 5 * p.NC) return;
+  const int t = e / p.NC, c = e % p.NC;
+  CellPos<T> cp = cell_pos(p, c);
+  const T dt = b.scal[0];
+  T x[4], y[4], z[4], vx[4], vy[4], vz[4], ts[4], dvs[4];
+  tet_gather(p, b.nin + N_CX * p.NS, cp, t, x);
+  tet_gather(p, b.nin + N_CY * p.NS, cp, t, y);
+  tet_gather(p, b.nin + N_CZ * p.NS, cp, t, z);
+  tet_gather(p, b.nin + N_VX * p.NS, cp, t, vx);
+  tet_gather(p, b.nin + N_VY * p.NS, cp, t, vy);
+  tet_gather(p, b.nin + N_VZ * p.NS, cp, t, vz);
+  tet_gather(p, b.nin + N_T * p.NS, cp, t, ts);
+  tet_gather(p, b.nwork, cp, t, dvs);
+  const T vol = b.ein[eidx(p, E_VOL, t, c)];
+  Shape3<T> sh = shape3(x, y, z, vol);
+  const T lxx = dot4(vx, sh.dx), lyy = dot4(vy, sh.dy), lzz = dot4(vz, sh.dz);
+  const T sr[6] = {lxx, lyy, lzz,
+                   T(0.5) * (dot4(vx, sh.dy) + dot4(vy, sh.dx)),
+                   T(0.5) * (dot4(vx, sh.dz) + dot4(vz, sh.dx)),
+                   T(0.5) * (dot4(vy, sh.dz) + dot4(vz, sh.dy))};
+  const T temp_e = mean4(ts);
+  const T edv = mean4(dvs);
+  const T adj = (edv - (lxx + lyy + lzz)) / T(3);
+  T edot[6], de[6], strain[6], so[6];
+#pragma unroll
+  for (int a = 0; a < 6; ++a) {
+    edot[a] = a < 3 ? sr[a] + adj : sr[a];
+    de[a] = edot[a] * dt;
+    strain[a] = b.ein[eidx(p, E_STRAIN + a, t, c)] + de[a];
+    so[a] = b.ein[eidx(p, E_STRESS + a, t, c)];
+  }
+  // the viscosity of the creep laws and EP's delta_plstrain are
+  // recomputed, so their old values are not loaded
+  const int rh = p.rheol;
+  T pls = b.ein[eidx(p, E_PLS, t, c)];
+  T dpls = rh == RH_EP ? T(0) : b.ein[eidx(p, E_DPLS, t, c)];
+  const T K = p.bulkm, G = p.shearm;
+  const T w[1] = {T(1)};
+  T visc;
+  if (rh == RH_VISCOUS || rh == RH_MAXWELL || rh == RH_EVP) {
+    T s0m = (so[0] + so[1] + so[2]) / T(3);
+    T ed = dmax(dsqrt(inv2_6(sr)), T(1e-30));
+    visc = visc_core(p.mat, 1, w, temp_e, s0m, ed, p.log_q, p.log_1e6,
+                     p.visc_min, p.visc_max);
+  } else {
+    visc = b.ein[eidx(p, E_VISC, t, c)];
+  }
+  T sc[6];
+  if (rh == RH_ELASTIC) {
+    elastic3(K, G, de, so, sc);
+  } else if (rh == RH_VISCOUS) {
+    viscous3(K, visc, strain[0] + strain[1] + strain[2], edot, sc);
+  } else if (rh == RH_MAXWELL) {
+    T dv = vol / b.ein[eidx(p, E_VOLD, t, c)] - T(1);
+    maxwell3(K, G, visc, dt, dv, de, so, sc);
+  } else {  // RH_EP or RH_EVP
+    T amc, anphi, anpsi, hardn, ten_max, sp[6], depls;
+    plastic_props(p.mat, 1, w, pls, p.tension_max, p.deg2rad, amc, anphi,
+                  anpsi, hardn, ten_max);
+    elasto_plastic3(K, G, amc, anphi, anpsi, hardn, ten_max, de, so, sp,
+                    depls);
+    bool use_v = false;
+    if (rh == RH_EVP) {
+      T dv = vol / b.ein[eidx(p, E_VOLD, t, c)] - T(1);
+      T sv[6];
+      maxwell3(K, G, visc, dt, dv, de, so, sv);
+      // min-magnitude selection (rheology.cxx:869-879)
+      use_v = inv2_6(sv) < inv2_6(sp);
+#pragma unroll
+      for (int a = 0; a < 6; ++a) sc[a] = use_v ? sv[a] : sp[a];
+    } else {
+#pragma unroll
+      for (int a = 0; a < 6; ++a) sc[a] = sp[a];
+    }
+    if (!use_v) {
+      pls = pls + depls;
+      dpls = depls;
+    }
+  }
+  const T dp = p.nmd ? sc[0] + sc[1] + sc[2] - (so[0] + so[1] + so[2])
+                     : b.ein[eidx(p, E_DP, t, c)];
+#pragma unroll
+  for (int a = 0; a < 6; ++a) {
+    b.eout[eidx(p, E_STRESS + a, t, c)] = sc[a];
+    b.eout[eidx(p, E_STRAIN + a, t, c)] = strain[a];
+    b.eout[eidx(p, E_SR + a, t, c)] = edot[a];
+  }
+  b.eout[eidx(p, E_PLS, t, c)] = pls;
+  b.eout[eidx(p, E_DPLS, t, c)] = dpls;
+  b.eout[eidx(p, E_VISC, t, c)] = visc;
+  b.eout[eidx(p, E_DP, t, c)] = dp;
+  b.eout[eidx(p, E_EDV, t, c)] = edv;
+}
+
+// ---- D, node: NMD nodal pressure change (pallas3d.py:1171-1175)
+template <typename T>
+__global__ void __launch_bounds__(BLOCK) phase_d(Params3<T> p, Bufs3<T> b) {
+  int n = blockIdx.x * BLOCK + threadIdx.x;
+  if (n >= p.NS) return;
+  int k = n % p.nz, j = (n / p.nz) % p.ny, i = n / (p.nz * p.ny);
+  const Params3<T>& P = p;
+  const Bufs3<T>& B = b;
+  T s = node_sum(p, i, j, k, [&](int q, int cell, int par) {
+    return equal_partial<T>(
+        [&](int t, int cl) {
+          return B.eout[eidx(P, E_DP, t, cl)] * B.ein[eidx(P, E_VOL, t, cl)];
+        },
+        q, cell, par);
+  });
+  b.nwork[p.NS + n] = s / b.nin[N_VOLN * p.NS + n];
+}
+
+// ---- E, cell: NMD correction and force corner partials
+// (pallas3d.py:1025-1044, :1176-1205)
+template <int PAR, typename T>
+__device__ __forceinline__ void cell_e(const Params3<T>& p, const Bufs3<T>& b,
+                                       int c, int n0) {
+  T X[8], Y[8], Z[8], TT[8], DP[8];
+  cell_gather(p, b.nin + N_CX * p.NS, n0, X);
+  cell_gather(p, b.nin + N_CY * p.NS, n0, Y);
+  cell_gather(p, b.nin + N_CZ * p.NS, n0, Z);
+  cell_gather(p, b.nin + N_T * p.NS, n0, TT);
+  if (p.nmd) cell_gather(p, b.nwork + p.NS, n0, DP);
+  T fp[3][8];
+#pragma unroll
+  for (int q = 0; q < 8; ++q) fp[0][q] = fp[1][q] = fp[2][q] = T(0);
+#pragma unroll
+  for (int t = 0; t < 5; ++t) {
+    T x[4], y[4], z[4], ts[4];
+#pragma unroll
+    for (int s = 0; s < 4; ++s) {
+      const int q = tet_corner(PAR, t, s);
+      x[s] = X[q]; y[s] = Y[q]; z[s] = Z[q]; ts[s] = TT[q];
+    }
+    const T vol = b.ein[eidx(p, E_VOL, t, c)];
+    Shape3<T> sh = shape3(x, y, z, vol);
+    T st[6];
+#pragma unroll
+    for (int a = 0; a < 6; ++a) st[a] = b.eout[eidx(p, E_STRESS + a, t, c)];
+    if (p.nmd) {
+      T dps[4];
+#pragma unroll
+      for (int s = 0; s < 4; ++s) dps[s] = DP[tet_corner(PAR, t, s)];
+      T ddp = (mean4(dps) - b.eout[eidx(p, E_DP, t, c)]) / T(3);
+#pragma unroll
+      for (int a = 0; a < 3; ++a) {
+        st[a] = st[a] + ddp;
+        b.eout[eidx(p, E_STRESS + a, t, c)] = st[a];
+      }
+    }
+    T TinC = mean4(ts) - T(273.0);
+    T buoy = p.gravity_on ? p.buoyA - p.buoyB * TinC : T(0);
+#pragma unroll
+    for (int s = 0; s < 4; ++s) {
+      const int q = tet_corner(PAR, t, s);
+      fp[0][q] = fp[0][q] +
+                 (st[0] * sh.dx[s] + st[3] * sh.dy[s] + st[4] * sh.dz[s]) * vol;
+      fp[1][q] = fp[1][q] +
+                 (st[3] * sh.dx[s] + st[1] * sh.dy[s] + st[5] * sh.dz[s]) * vol;
+      fp[2][q] = fp[2][q] + (st[4] * sh.dx[s] + st[5] * sh.dy[s] +
+                             st[2] * sh.dz[s] + buoy) * vol;
+    }
+  }
+#pragma unroll
+  for (int a = 0; a < 3; ++a)
+#pragma unroll
+    for (int q = 0; q < 8; ++q) b.ework[(a * 8 + q) * p.NC + c] = fp[a][q];
+}
+
+template <typename T>
+__global__ void __launch_bounds__(BLOCK) phase_e(Params3<T> p, Bufs3<T> b) {
+  int c = blockIdx.x * BLOCK + threadIdx.x;
+  if (c >= p.NC) return;
+  CellPos<T> cp = cell_pos(p, c);
+  if (cp.par) cell_e<1>(p, b, c, cp.n0); else cell_e<0>(p, b, c, cp.n0);
+}
+
+// ---- F, node: force, L2 partial, damping, velocity + vbc, coordinates
+// (pallas3d.py:1207-1322 without the facet tractions :1221-1289)
+template <typename T>
+__global__ void __launch_bounds__(BLOCK) phase_f(Params3<T> p, Bufs3<T> b) {
+  __shared__ T shm[BLOCK];
+  int n = blockIdx.x * BLOCK + threadIdx.x;
+  T r2 = T(0);
+  if (n < p.NS) {
+    int k = n % p.nz, j = (n / p.nz) % p.ny, i = n / (p.nz * p.ny);
+    const T dt = b.scal[0];
+    const T* w = b.ework;
+    const int NC = p.NC;
+    T f[3];
+#pragma unroll
+    for (int a = 0; a < 3; ++a)
+      f[a] = -node_sum(p, i, j, k, [&](int q, int cell, int) {
+        return w[(a * 8 + q) * NC + cell];
+      });
+    r2 = f[0] * f[0] + f[1] * f[1] + f[2] * f[2];
+    const T m = b.nin[N_MASS * p.NS + n];
+    const T tiny = T(1e-13);
+#pragma unroll
+    for (int a = 0; a < 3; ++a) {
+      const T v = b.nin[(N_VX + a) * p.NS + n];
+      T fd = f[a];
+      if (p.damping == 1) {
+        fd = f[a] - (dabs(v) > tiny ? p.fac * dabs(f[a]) * dsign(v) : T(0));
+      } else if (p.damping == 2) {
+        fd = f[a] * p.one_m_fac;
+      } else if (p.damping == 3) {
+        fd = ((f[a] < T(0)) == (v < T(0))) ? f[a] * p.one_m_fac
+                                           : f[a] * p.two_m_fac;
+      }
+      T vn = b.cnp[(CN_MX + a) * p.NS + n] > T(0) ? b.tgt[a * p.NS + n]
+                                                 : v + dt * fd / m;
+      b.nout[(N_CX + a) * p.NS + n] = b.nin[(N_CX + a) * p.NS + n] + vn * dt;
+      b.nout[(N_VX + a) * p.NS + n] = vn;
+      b.nout[(N_FX + a) * p.NS + n] = fd;
+    }
+  }
+  T s = block_reduce(r2, shm, [](T a, T c) { return a + c; });
+  if (threadIdx.x == 0) b.part[3 * b.nb + blockIdx.x] = s;
+}
+
+// ---- G, tet: post-move volume, CFL partials, mass terms, Jaumann
+// rotation and surface-element correction (pallas3d.py:1395-1534)
+template <typename T>
+__global__ void __launch_bounds__(BLOCK) phase_g(Params3<T> p, Bufs3<T> b) {
+  __shared__ T shm[BLOCK];
+  int e = blockIdx.x * BLOCK + threadIdx.x;
+  T hmin = T(FLT_MAX), hsmin = T(FLT_MAX), vmax = T(0);
+  if (e < 5 * p.NC) {
+    const int t = e / p.NC, c = e % p.NC;
+    CellPos<T> cp = cell_pos(p, c);
+    const T dt = b.scal[0];
+    T x[4], y[4], z[4], vx[4], vy[4], vz[4], ts[4];
+    tet_gather(p, b.nout + N_CX * p.NS, cp, t, x);
+    tet_gather(p, b.nout + N_CY * p.NS, cp, t, y);
+    tet_gather(p, b.nout + N_CZ * p.NS, cp, t, z);
+    tet_gather(p, b.nout + N_VX * p.NS, cp, t, vx);
+    tet_gather(p, b.nout + N_VY * p.NS, cp, t, vy);
+    tet_gather(p, b.nout + N_VZ * p.NS, cp, t, vz);
+    tet_gather(p, b.nin + N_T * p.NS, cp, t, ts);
+    const T TinC = mean4(ts) - T(273.0);
+    const T rho_e = p.rhoA - p.rhoB * TinC;
+    const T vol = b.ein[eidx(p, E_VOL, t, c)];
+    const T vn = tet_volume(x, y, z);
+
+    // CFL partials, every step (pallas3d.py:1435-1450)
+    const T vxm = mean4(vx), vym = mean4(vy), vzm = mean4(vz);
+    vmax = dsqrt(vxm * vxm + vym * vym + vzm * vzm);
+    hmin = tet_min_height(x, y, z, vn);
+    hsmin = hmin / dsqrt(p.shearm / rho_e);
+
+    // (pseudo-)mass matrices (geometry.cxx:1020-1154)
+    T rho_q;
+    if (p.use_gvs) {
+      T app = dmin(b.scal[1] * p.inertial, dsqrt(p.shearm / rho_e));
+      rho_q = p.bulkm / (app * app);
+    } else {
+      rho_q = p.bulkm / p.ps2;
+    }
+    const T rho_m = p.quasi_static ? rho_q : rho_e;
+    b.ework[0 * 5 * p.NC + e] = rho_m * vn / T(4);
+    b.ework[1 * 5 * p.NC + e] = (p.cpA - p.cpB * TinC) * vn / T(4);
+    b.ework[2 * 5 * p.NC + e] = p.hmA * vn;
+
+    T st[6], sn[6], ed[6];
+#pragma unroll
+    for (int a = 0; a < 6; ++a) {
+      st[a] = b.eout[eidx(p, E_STRESS + a, t, c)];
+      sn[a] = b.eout[eidx(p, E_STRAIN + a, t, c)];
+      ed[a] = b.eout[eidx(p, E_SR + a, t, c)];
+    }
+    T pls = b.eout[eidx(p, E_PLS, t, c)];
+    if (p.jaumann) {  // Jaumann rotation (fields.cxx:832-907)
+      Shape3<T> s2 = shape3(x, y, z, vn);
+      const T w3t = T(0.5) * (dot4(vx, s2.dy) - dot4(vy, s2.dx)) * dt;
+      const T w4t = T(0.5) * (dot4(vx, s2.dz) - dot4(vz, s2.dx)) * dt;
+      const T w5t = T(0.5) * (dot4(vy, s2.dz) - dot4(vz, s2.dy)) * dt;
+      T* tens[2] = {st, sn};
+#pragma unroll
+      for (int r = 0; r < 2; ++r) {
+        T* q = tens[r];
+        T r0 = q[0] - T(2) * q[3] * w3t - T(2) * q[4] * w4t;
+        T r1 = q[1] + T(2) * q[3] * w3t - T(2) * q[5] * w5t;
+        T r2 = q[2] + T(2) * q[4] * w4t + T(2) * q[5] * w5t;
+        T r3 = q[3] + (q[0] - q[1]) * w3t - q[4] * w5t - q[5] * w4t;
+        T r4 = q[4] + (q[0] - q[2]) * w4t + q[3] * w5t - q[5] * w3t;
+        T r5 = q[5] + (q[1] - q[2]) * w5t + q[3] * w4t + q[4] * w3t;
+        q[0] = r0; q[1] = r1; q[2] = r2; q[3] = r3; q[4] = r4; q[5] = r5;
+      }
+    }
+    T vold = vol;
+    if (p.surf_corr) {  // correct_surface_element (bc.cxx:1613-1665)
+      const bool ztop = cp.k == p.nzc - 1;
+      const T rdv = vn / vol;
+      const T sc = (ztop && rdv >= T(1)) ? T(1) / rdv : T(1);
+#pragma unroll
+      for (int a = 0; a < 6; ++a) {
+        st[a] = st[a] * sc;
+        sn[a] = sn[a] * sc;
+        ed[a] = ed[a] * sc;
+      }
+      pls = pls * sc;
+      vold = ztop ? vn : vol;
+    }
+    b.eout[eidx(p, E_VOL, t, c)] = vn;
+    b.eout[eidx(p, E_VOLD, t, c)] = vold;
+#pragma unroll
+    for (int a = 0; a < 6; ++a) {
+      b.eout[eidx(p, E_STRESS + a, t, c)] = st[a];
+      b.eout[eidx(p, E_STRAIN + a, t, c)] = sn[a];
+      b.eout[eidx(p, E_SR + a, t, c)] = ed[a];
+    }
+    b.eout[eidx(p, E_PLS, t, c)] = pls;
+  }
+  T r = block_reduce(hmin, shm, [](T a, T q) { return dmin(a, q); });
+  if (threadIdx.x == 0) b.part[blockIdx.x] = r;
+  r = block_reduce(hsmin, shm, [](T a, T q) { return dmin(a, q); });
+  if (threadIdx.x == 0) b.part[b.nb + blockIdx.x] = r;
+  r = block_reduce(vmax, shm, [](T a, T q) { return dmax(a, q); });
+  if (threadIdx.x == 0) b.part[2 * b.nb + blockIdx.x] = r;
+}
+
+// ---- H, node: volume_n, mass, tmass, hmass (pallas3d.py:1471-1474)
+template <typename T>
+__global__ void __launch_bounds__(BLOCK) phase_h(Params3<T> p, Bufs3<T> b) {
+  int n = blockIdx.x * BLOCK + threadIdx.x;
+  if (n >= p.NS) return;
+  int k = n % p.nz, j = (n / p.nz) % p.ny, i = n / (p.nz * p.ny);
+  const int NC = p.NC;
+  const T* vol = b.eout + E_VOL * 5 * NC;
+  b.nout[N_VOLN * p.NS + n] = node_sum(p, i, j, k, [&](int q, int cell, int par) {
+    return equal_partial<T>([&](int t, int cl) { return vol[t * NC + cl]; },
+                            q, cell, par);
+  });
+  const int slot[3] = {N_MASS, N_TMASS, N_HMASS};
+#pragma unroll
+  for (int a = 0; a < 3; ++a) {
+    const T* w = b.ework + a * 5 * NC;
+    b.nout[slot[a] * p.NS + n] = node_sum(p, i, j, k, [&](int q, int cell, int par) {
+      return equal_partial<T>([&](int t, int cl) { return w[t * NC + cl]; },
+                              q, cell, par);
+    });
+  }
+}
+
+template <typename T>
+int step(const int* ip, const double* fp, Bufs3<T> b, cudaStream_t s) {
+  Params3<T> p = from_host<T>(ip, fp);
+  const int gc = (p.NC + BLOCK - 1) / BLOCK;
+  const int gt = (5 * p.NC + BLOCK - 1) / BLOCK;
+  const int gn = (p.NS + BLOCK - 1) / BLOCK;
+  if (gt > b.nb || gn > b.nb) return int(cudaErrorInvalidValue);
+  cudaError_t e;
+#define DES_LAUNCH(K, G)                      \
+  K<T><<<G, BLOCK, 0, s>>>(p, b);             \
+  if ((e = cudaGetLastError()) != cudaSuccess) return int(e);
+  DES_LAUNCH(phase_a, gc)
+  DES_LAUNCH(phase_b, gn)
+  DES_LAUNCH(phase_c, gt)
+  if (p.nmd) { DES_LAUNCH(phase_d, gn) }
+  DES_LAUNCH(phase_e, gc)
+  DES_LAUNCH(phase_f, gn)
+  DES_LAUNCH(phase_g, gt)
+  DES_LAUNCH(phase_h, gn)
+#undef DES_LAUNCH
+  return 0;
+}
+
+}  // namespace
+
+extern "C" {
+
+// One fused 3D step.  Returns 0 or the cudaError_t of the first launch that
+// failed (faults during the run surface at the caller's next
+// synchronisation).
+int des_fused3d_step_f32(const int* ip, const double* fp, const float* ein,
+                         const float* nin, float* eout, float* nout,
+                         const float* cnp, const float* tgt, const float* scal,
+                         float* ework, float* nwork, float* part, int nb,
+                         void* stream) {
+  Bufs3<float> b{ein, nin, eout, nout, cnp, tgt, scal, ework, nwork, part,
+                 nb};
+  return step<float>(ip, fp, b, static_cast<cudaStream_t>(stream));
+}
+
+}  // extern "C"

@@ -15,8 +15,8 @@ from typing import List
 
 import numpy as np
 
-from ..constants import (BOUNDX0, BOUNDX1, BOUNDZ0, BOUNDZ1, NBDRYTYPES,
-                         dim)
+from ..constants import (BOUNDX0, BOUNDX1, BOUNDY0, BOUNDY1, BOUNDZ0,
+                         BOUNDZ1, NBDRYTYPES, dim)
 from .generate import MeshData
 
 
@@ -52,12 +52,23 @@ class Topology:
 
 def _boundary_facets(conn: np.ndarray, npe: int) -> np.ndarray:
     """Return (nelem, facets_per_elem) bool: facet f of elem e is on the
-    domain boundary (its sorted node set occurs once in the mesh)."""
+    domain boundary (its sorted node set occurs once in the mesh).  The
+    sorted node ids of a facet are packed into one int64 key, so that the
+    count is one 1D ``np.unique`` (a few seconds at 983k tets instead of a
+    row-wise unique)."""
     nof = dim(npe - 1).node_of_facet
     fac = np.stack([np.sort(conn[:, list(locs)], axis=1) for locs in nof],
-                   axis=1)                          # (nelem, nfacet, npf)
-    _, inv, counts = np.unique(fac.reshape(-1, fac.shape[2]), axis=0,
-                               return_inverse=True, return_counts=True)
+                   axis=1).astype(np.int64)         # (nelem, nfacet, npf)
+    base = int(conn.max()) + 1
+    if base ** fac.shape[2] < 2 ** 62:
+        key = fac[..., 0]
+        for c in range(1, fac.shape[2]):
+            key = key * base + fac[..., c]
+        _, inv, counts = np.unique(key.ravel(), return_inverse=True,
+                                   return_counts=True)
+    else:
+        _, inv, counts = np.unique(fac.reshape(-1, fac.shape[2]), axis=0,
+                                   return_inverse=True, return_counts=True)
     return (counts[inv.ravel()] == 1).reshape(fac.shape[:2])
 
 
@@ -66,16 +77,20 @@ def build_topology(mesh: MeshData, xlength: float, ylength: float,
     """Derive node boundary flags from box coordinates, then everything
     else (finish_topology).  Flags persist through the Lagrangian motion
     (they are material labels, mesh.cxx:2811-2854)."""
-    if mesh.ndims != 2:
-        raise NotImplementedError("only 2D topology is ported")
+    ndims = mesh.ndims
     coord, conn = mesh.coord, mesh.connectivity
     tolx = tol_rel * max(xlength, 1.0)
     tolz = tol_rel * max(zlength, 1.0)
     bcflag = np.zeros(mesh.nnode, dtype=np.uint32)
     x = coord[:, 0]
-    z = coord[:, 1]
+    z = coord[:, ndims - 1]
     bcflag[np.abs(x - 0.0) < tolx] |= BOUNDX0
     bcflag[np.abs(x - xlength) < tolx] |= BOUNDX1
+    if ndims == 3:
+        toly = tol_rel * max(ylength, 1.0)
+        y = coord[:, 1]
+        bcflag[np.abs(y - 0.0) < toly] |= BOUNDY0
+        bcflag[np.abs(y - ylength) < toly] |= BOUNDY1
     bcflag[np.abs(z + zlength) < tolz] |= BOUNDZ0
     bcflag[np.abs(z - 0.0) < tolz] |= BOUNDZ1
     return finish_topology(mesh.ndims, conn, bcflag)

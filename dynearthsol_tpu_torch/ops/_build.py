@@ -1,11 +1,13 @@
 """Build and load the CUDA kernels of this package at first use.
 
-``nvcc`` compiles every source under ``csrc/`` into one shared library with
-a plain C interface (no PyTorch headers, so a build takes seconds), in
-``build/torch_kernels/<hash>/`` at the root of the checkout, keyed by a
-hash of the sources and flags.  The library is loaded with ``ctypes``.
-Nothing here runs at import time; a missing ``nvcc`` or a failed build
-raises.
+``nvcc`` compiles every ``.cu`` source under ``csrc/`` into one shared
+library with a plain C interface (no PyTorch headers, so a build takes
+seconds), in ``build/torch_kernels/<hash>/`` at the root of the checkout,
+keyed by a hash of the sources and flags: one ``nvcc -c`` per source, all
+started together, then one link.  Each compile's ``-Xptxas -v`` report
+(registers, stack frame and spills per kernel) is kept beside the library
+as ``ptxas.txt``.  The library is loaded with ``ctypes``.  Nothing here runs
+at import time; a missing ``nvcc`` or a failed build raises.
 """
 
 from __future__ import annotations
@@ -13,6 +15,7 @@ from __future__ import annotations
 import ctypes
 import hashlib
 import os
+import re
 import shutil
 import subprocess
 import tempfile
@@ -26,7 +29,7 @@ BUILD_ROOT = Path(__file__).resolve().parents[2] / "build" / "torch_kernels"
 # +, -, * and / rounds as in the plain PyTorch version (and the initial
 # volume from ops/shapefn.compute_volume equals the kernel's bit for bit).
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
-              "-O3", "-fmad=false", "-shared", "-Xcompiler", "-fPIC"]
+              "-O3", "-fmad=false", "-Xcompiler", "-fPIC"]
 
 _LIB = None
 _P = ctypes.c_void_p
@@ -58,16 +61,55 @@ def build() -> Path:
     if out.exists():
         return out
     out.parent.mkdir(parents=True, exist_ok=True)
-    cu = [str(p) for p in _sources() if p.suffix == ".cu"]
-    fd, tmp = tempfile.mkstemp(suffix=".so", dir=out.parent)
-    os.close(fd)
-    cmd = [_nvcc(), *NVCC_FLAGS, "-o", tmp, *cu]
-    r = subprocess.run(cmd, capture_output=True, text=True)
-    if r.returncode != 0:
-        os.unlink(tmp)
-        raise RuntimeError(f"nvcc failed ({r.returncode}):\n{r.stderr}")
-    os.replace(tmp, out)
+    tmpdir = Path(tempfile.mkdtemp(dir=out.parent))
+    try:
+        cu = [p for p in _sources() if p.suffix == ".cu"]
+        objs = [tmpdir / (p.stem + ".o") for p in cu]
+        procs = [subprocess.Popen([_nvcc(), *NVCC_FLAGS, "-Xptxas", "-v",
+                                   "-c", "-o", str(o), str(p)],
+                                  stdout=subprocess.PIPE,
+                                  stderr=subprocess.STDOUT, text=True)
+                 for p, o in zip(cu, objs)]
+        logs = [pr.communicate()[0] for pr in procs]
+        for p, pr, log in zip(cu, procs, logs):
+            if pr.returncode != 0:
+                raise RuntimeError(f"nvcc failed on {p.name} "
+                                   f"({pr.returncode}):\n{log}")
+        lib = tmpdir / out.name
+        r = subprocess.run([_nvcc(), *NVCC_FLAGS, "-shared", "-o", str(lib),
+                            *map(str, objs)], capture_output=True, text=True)
+        if r.returncode != 0:
+            raise RuntimeError(f"nvcc link failed ({r.returncode}):\n"
+                               f"{r.stderr}")
+        (out.parent / "ptxas.txt").write_text("".join(logs))
+        os.replace(lib, out)
+    finally:
+        shutil.rmtree(tmpdir, ignore_errors=True)
     return out
+
+
+def ptxas_report() -> dict:
+    """{kernel: (registers, stack frame bytes, spill bytes)} from the
+    ``-Xptxas -v`` report of the last build."""
+    text = (library_path().parent / "ptxas.txt").read_text()
+    out, name = {}, None
+    for line in text.splitlines():
+        m = re.search(r"Compiling entry function '(\S+)'", line)
+        if m:
+            raw = m.group(1)
+            k = re.search(r"(phase_[a-h]|dt_refresh)", raw)
+            src = re.search(r"_(fused\w+?)_cu_", raw)
+            name = (f"{src.group(1) if src else '?'}:"
+                    f"{k.group(1) if k else raw}")
+            continue
+        m = re.search(r"(\d+) bytes stack frame, (\d+) bytes spill stores",
+                      line)
+        if m and name:
+            out[name] = [None, int(m.group(1)), int(m.group(2))]
+        m = re.search(r"Used (\d+) registers", line)
+        if m and name in out:
+            out[name][0] = int(m.group(1))
+    return {k: tuple(v) for k, v in out.items()}
 
 
 def load():
@@ -78,8 +120,10 @@ def load():
         lib.des_fused2d_step_f32.argtypes = [_P] * 14 + [_I, _P]
         lib.des_fused2d_step_f32.restype = _I
         lib.des_dt_refresh_f32.argtypes = [_P] * 3 + [_I, _P, _P, _P, _I,
-                                                      _I, _P]
+                                                      _I, _I, _P]
         lib.des_dt_refresh_f32.restype = _I
+        lib.des_fused3d_step_f32.argtypes = [_P] * 12 + [_I, _P]
+        lib.des_fused3d_step_f32.restype = _I
         lib.des_error_string.argtypes = [_I]
         lib.des_error_string.restype = ctypes.c_char_p
         _LIB = lib

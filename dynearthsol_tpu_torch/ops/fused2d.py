@@ -245,7 +245,8 @@ class StepPlan:
     switches and constants as Python values (float64, rounded to the run
     dtype where they enter the arithmetic, exactly as pallas2d.py rounds
     them), the cell parity, and the same values packed for the CUDA
-    kernels (``ip`` int32, ``fp`` float64 host arrays)."""
+    kernels (``ip`` int32, ``fp`` float64 host arrays; ``rip``/``rfp`` for
+    dt_refresh)."""
 
     nx: int
     nz: int
@@ -260,6 +261,8 @@ class StepPlan:
     par: torch.Tensor  # (nxc, nzc) bool cell parity
     ip: np.ndarray
     fp: np.ndarray
+    rip: np.ndarray
+    rfp: np.ndarray
 
     @property
     def nxc(self) -> int:
@@ -370,11 +373,12 @@ def make_plan(param: Param, ctx, device) -> StepPlan:
                   + [ce_const.get(f, 0.0) for f in CE_SLOTS]
                   + [c[f] for c in mc for f in FC.MAT_FIELDS],
                   dtype=np.float64)
+    rip, rfp = FC.refresh_params(sw, k)
     par = torch.as_tensor(parity_2d(nx, nz), device=device)
     return StepPlan(nx=nx, nz=nz, dtype=dtype,
                     rheol=mat.rheol_type, nmat=nmat, uniform=uniform,
                     ce_const=ce_const, mc=mc, sw=sw, k=k, par=par,
-                    ip=ip, fp=fp)
+                    ip=ip, fp=fp, rip=rip, rfp=rfp)
 
 
 # ------------------------------------------- packing (chunk boundaries)
@@ -999,12 +1003,14 @@ def fused_step_plain(P: StepPlan, b: ChunkBuffers, k: int):
 fused_step.launches = 0
 
 
-def dt_refresh_plain(P: StepPlan, part, scal, dthist, flags, k: int,
-                     tiled: bool):
+def dt_refresh_plain(P, part, scal, dthist, flags, k: int, tiled: bool,
+                     every: bool = False):
     """Plain version of the dt_refresh kernel, in place on ``scal`` and
     ``dthist``: record dt, finish the partials of step k, advance time
     (tiled runner) and, on refresh steps, set dt, vmax and gdtmin
-    (pallas2d.py:1279-1304 and :1490-1526)."""
+    (pallas2d.py:1279-1304 and :1490-1526).  With ``every`` (the 3D step,
+    pallas3d.py:1649-1690) vmax and gdtmin are set on every step and only
+    dt waits for the refresh cadence.  ``P`` is a 2D or 3D step plan."""
     sw, kk = P.sw, P.k
 
     def c(v):
@@ -1038,31 +1044,40 @@ def dt_refresh_plain(P: StepPlan, part, scal, dthist, flags, k: int,
             * kk["frac"]
     refresh = flags[k, 0] > 0
     scal[0] = torch.where(refresh, dt_new, scal[0])
-    scal[1] = torch.where(refresh, vmax, scal[1])
-    scal[2] = torch.where(refresh, gdtmin, scal[2])
+    if every:
+        scal[1] = vmax
+        scal[2] = gdtmin
+    else:
+        scal[1] = torch.where(refresh, vmax, scal[1])
+        scal[2] = torch.where(refresh, gdtmin, scal[2])
 
 
-def dt_refresh(P: StepPlan, b: ChunkBuffers, k: int, tiled: bool):
-    """The per-step scalar update after step k (see dt_refresh_plain).  On
-    CUDA tensors it launches the dt_refresh kernel of csrc/fused2d.cu (one
-    block; counted in ``dt_refresh.launches``)."""
+def dt_refresh(P, b, k: int, tiled: bool, every: bool = False):
+    """The per-step scalar update after step k (see dt_refresh_plain), for
+    the chunk buffers of the 2D or the 3D step.  On CUDA tensors it
+    launches the dt_refresh kernel of csrc/fused2d.cu (one block; counted
+    in ``dt_refresh.launches``)."""
     if b.scal.is_cuda:
         from . import _build
 
-        _cuda_args_ok(P, b)
+        for name in ("part", "scal", "dthist", "flags"):
+            t = getattr(b, name)
+            if not (t.is_cuda and t.dtype == torch.float32
+                    and t.is_contiguous()):
+                raise TypeError(f"{name}: need a contiguous float32 CUDA "
+                                "tensor")
         lib = _build.load()
         rc = lib.des_dt_refresh_f32(
-            P.ip.ctypes.data, P.fp.ctypes.data, _ptr(b.part),
-            b.part.shape[1], _ptr(b.scal), _ptr(b.dthist),
-            ctypes.c_void_p(b.flags.data_ptr() + 8 * k), k, int(tiled),
-            _stream())
+            P.rip.ctypes.data, P.rfp.ctypes.data, _ptr(b.part),
+            b.part.shape[1], _ptr(b.scal), _ptr(b.dthist), _ptr(b.flags[k]),
+            k, int(tiled), int(every), _stream())
         if rc != 0:
             raise RuntimeError(f"dt_refresh launch failed: {_build.err(rc)}")
         dt_refresh.launches += 1
         return
     if b.scal.device.type != "cpu":
         raise TypeError(f"no dt_refresh for device {b.scal.device}")
-    dt_refresh_plain(P, b.part, b.scal, b.dthist, b.flags, k, tiled)
+    dt_refresh_plain(P, b.part, b.scal, b.dthist, b.flags, k, tiled, every)
 
 
 dt_refresh.launches = 0

@@ -1,0 +1,972 @@
+"""The fused 3D structured time step (counterpart of
+dynearthsol_tpu/ops/pallas3d.py).
+
+The JAX package fuses the whole dynearthsol.cxx:746-956 step sequence on
+the 5-tet structured grid into one Pallas kernel that tiles y with a
+recomputed halo.  Here the same step is the CUDA file csrc/fused3d.cu: one
+launch per phase (every element->node->element hop needs a grid-wide
+barrier), no halo tiles, edges masked by index.  ``step_planes_plain`` is
+the same step in plain PyTorch on the same plane layout; the CPU tests hold
+it against the JAX package and chip_smoke.py holds the CUDA kernel against
+it on the card.
+
+Layout.  Element state is packed into ``(NE, 5, nxc, nyc, nzc)`` planes
+(slot, tet, cell x, cell y, cell z), nodal state into ``(NN, nx, ny, nz)``,
+z contiguous in both: the order of the node id (i*ny + j)*nz + k and of the
+element id ((i*nyc + j)*nzc + k)*5 + t.  Cell (i, j, k) holds five tets
+whose corners come from ``structured.tet_tables`` by the parity of
+i + j + k.  A const nodal pack holds the top mask and the vbc component
+masks.  Velocity BCs are ``where(mask, target, v)`` with targets probed from
+``bc.apply_vbcs`` at zero velocity, every step, from the pre-move
+coordinates at time + dt (pallas3d.py:1619-1637).
+
+Node sums follow grid3d.asm: for each corner code, a per-cell partial over
+(tet, slot) in order, then the eight codes in order.  The CUDA kernel adds
+in the same order with no atomics.
+
+Scalars stay on the device as in 2D (ops/fused2d.py ``scal``, ``flags``).
+Unlike the 2D step, the 3D step sets vmax and gdtmin from the CFL partials
+of EVERY step and only dt waits for the 10-step cadence
+(pallas3d.py:1649-1690); ``dt_refresh`` runs with ``every=True``.
+
+Gating is pallas3d.py's together with grid3d.grid_step_applicable, ported
+as it is so that both packages dispatch alike.  This package additionally
+lacks the multi-material const pack, the Winkler/water facet tractions and
+surface process option 1: ``unported_features`` names them and the
+simulation refuses such configs.
+"""
+
+from __future__ import annotations
+
+from dataclasses import dataclass
+
+import numpy as np
+import torch
+
+from .. import bc as bc_mod
+from ..config import RH_ELASTIC, RH_EP, RH_EVP, RH_MAXWELL, RH_VISCOUS, Param
+from . import fused2d
+from . import fused_common as FC
+from . import rheology as R
+from .geometry import tet_min_height
+from .matprops import CELSIUS0, MIN_STRAIN_RATE
+from .shapefn import tet_volume
+from .structured import parity_3d, tet_tables
+from .tensor import inv2_6
+
+# ---- packed-state slot maps ----
+# element pack: scalars then 6-component tensors, each (5, nxc, nyc, nzc)
+E_SLOTS = ("volume", "volume_old", "plstrain", "delta_plstrain",
+           "viscosity", "dpressure", "edvoldt")
+T_SLOTS = ("stress", "strain", "strain_rate")  # 6 planes each
+NE = len(E_SLOTS) + 6 * len(T_SLOTS)            # 25
+
+# nodal pack (NN, nx, ny, nz).  pallas3d.py carries three more planes for
+# surface process option 1 (dhacc, edv_a, edv_b), not run here yet.
+N_SLOTS = ("coord_x", "coord_y", "coord_z", "vel_x", "vel_y", "vel_z",
+           "temperature", "mass", "tmass", "hmass", "volume_n",
+           "force_x", "force_y", "force_z")
+NN = len(N_SLOTS)                               # 14
+
+# const nodal pack (per chunk)
+CN_SLOTS = ("top_mask", "vbc_mask_x", "vbc_mask_y", "vbc_mask_z")
+NCN = len(CN_SLOTS)
+
+NPART = 4          # min height, min height / swave, max |v|, sum |f|^2
+BLOCK = 256        # threads per block of csrc/fused3d.cu
+NEWORK = 24        # element scratch planes of one cell each (csrc)
+NNWORK = 2         # node scratch planes
+
+EVEN_T, ODD_T = tet_tables()
+
+# the pallas3d.py y halo (exact chained-stencil depth incl. the NMD hop)
+_H = 4
+
+
+def _eslot(name: str) -> int:
+    return E_SLOTS.index(name)
+
+
+def _tslot(name: str) -> int:
+    return len(E_SLOTS) + 6 * T_SLOTS.index(name)
+
+
+def _nslot(name: str) -> int:
+    return N_SLOTS.index(name)
+
+
+# ---------------------------------------------------------------- gates
+
+def _uniform_mat(param: Param) -> bool:
+    """Single material + uniform ICs (pallas3d._uniform_mat)."""
+    return (len(param.mat.rho0) == 1
+            and param.ic.temperature_option in (0, 1, 90))
+
+
+def _nce(param: Param) -> int:
+    return 0 if _uniform_mat(param) else 1 + len(param.mat.rho0)
+
+
+def _pick_ty(nyc: int, nzc: int, nxc: int, nce: int = 0, halo: int = _H):
+    """pallas3d._pick_ty: the largest y tile whose VMEM slabs fit the TPU
+    kernel's budget.  This package has no tiles; the rule stays in the gate
+    so that a config dispatches to the same path in both packages (a config
+    the TPU kernel cannot tile runs on grid3d there, and is refused here
+    with that name)."""
+    ne_in = NE - 7   # pallas3d.py NE_IN: the element pack minus outputs
+    for ty in (64, 32, 16, 12, 8, 6, 4):
+        if nyc % ty:
+            continue
+        slab = (ne_in + NE + nce) * (ty + 2 * halo) * 5 * nzc * nxc * 4
+        if slab <= 63 * 1024 * 1024:
+            return ty
+    return None
+
+
+def _surf_on(param: Param, ctx) -> bool:
+    return (param.control.surface_process_option == 1
+            and int(ctx.surf.etop) > 0)
+
+
+def _surf_maps_ok(ctx) -> bool:
+    """Whether every top facet is a parity-diagonal triangle of the 5-tet
+    decomposition (the check of pallas3d._surf_maps)."""
+    nx, ny, nz = ctx.sgrid
+    nzc = nz - 1
+    fn = np.asarray(ctx.surf.facet_nodes)
+    k_n = fn % nz
+    j_n = (fn // nz) % ny
+    i_n = fn // (nz * ny)
+    if not (k_n == nz - 1).all():
+        return False
+    i0 = i_n.min(axis=1)
+    j0 = j_n.min(axis=1)
+    a = i_n - i0[:, None]
+    b = j_n - j0[:, None]
+    par = (i0 + j0 + nzc - 1) % 2
+    want = {0: (frozenset({(0, 0), (0, 1), (1, 1)}),
+                frozenset({(0, 0), (1, 0), (1, 1)})),
+            1: (frozenset({(0, 0), (0, 1), (1, 0)}),
+                frozenset({(0, 1), (1, 0), (1, 1)}))}
+    for r in range(fn.shape[0]):
+        if frozenset(zip(a[r], b[r])) not in want[int(par[r])]:
+            return False
+    return True
+
+
+def _grav_facets_ok(ctx) -> bool:
+    """Whether the gravity-traction facet tables are the canonical full
+    bottom/top coverage that pallas3d._grav_facets_structured_3d
+    decodes."""
+    nx, ny, nz = ctx.sgrid
+    nxc, nyc, nzc = nx - 1, ny - 1, nz - 1
+    fn, fe, kind = ctx.sbc.facet_nodes, ctx.sbc.facet_elem, ctx.sbc.kind
+    if not set(np.unique(kind)).issubset({0, 1}):
+        return False
+    for kval in (0, 1):
+        rows = np.where(kind == kval)[0]
+        if rows.size == 0:
+            continue
+        if rows.size != 2 * nxc * nyc:
+            return False
+        f = fn[rows]
+        k_n = f % nz
+        j_n = (f // nz) % ny
+        i_n = f // (nz * ny)
+        if not (k_n == (0 if kval == 0 else nz - 1)).all():
+            return False
+        e = fe[rows]
+        t_id = e % 5
+        cell = e // 5
+        kz = cell % nzc
+        jy = (cell // nzc) % nyc
+        ix = cell // (nzc * nyc)
+        if not (kz == (0 if kval == 0 else nzc - 1)).all():
+            return False
+        a = i_n - ix[:, None]
+        b = j_n - jy[:, None]
+        d = k_n - kz[:, None]
+        if not (((a == 0) | (a == 1)) & ((b == 0) | (b == 1))
+                & ((d == 0) | (d == 1))).all():
+            return False
+        codes = a * 4 + b * 2 + d
+        parv = (ix + jy + kz) % 2
+        groups = {0: {}, 1: {}}
+        for r in range(rows.size):
+            key = (int(t_id[r]), tuple(int(c) for c in codes[r]))
+            groups[int(parv[r])].setdefault(key, set()).add(
+                (int(ix[r]), int(jy[r])))
+        for pv in (0, 1):
+            cells_pv = {(i, j) for i in range(nxc) for j in range(nyc)
+                        if (i + j + (0 if kval == 0 else nzc - 1)) % 2
+                        == pv}
+            if len(groups[pv]) != 2 or any(
+                    cs != cells_pv for cs in groups[pv].values()):
+                return False
+    return True
+
+
+def grid_step_applicable(param: Param, ctx) -> bool:
+    """grid3d.grid_step_applicable (this package has no sharded axis)."""
+    ctrl = param.control
+    return (ctx.sgrid is not None and len(ctx.sgrid) == 3
+            and ctx.ndims == 3
+            and not ctrl.has_hydraulic_diffusion
+            and not ctrl.has_PT
+            and param.mat.rheol_type in (RH_ELASTIC, RH_VISCOUS, RH_MAXWELL,
+                                         RH_EP, RH_EVP))
+
+
+def pallas3d_step_applicable(param: Param, ctx) -> bool:
+    """Static gate of the fused 3D step (pallas3d.pallas3d_step_applicable
+    folded with grid3d.grid_step_applicable)."""
+    if not grid_step_applicable(param, ctx):
+        return False
+    ctrl = param.control
+    if ctrl.surface_process_option not in (0, 1) and ctx.surf.etop > 0:
+        return False
+    if _surf_on(param, ctx) and not _surf_maps_ok(ctx):
+        return False
+    if param.sim.float_dtype != "float32":
+        return False
+    if param.sim.is_outputting_averaged_fields:
+        return False
+    if not ctrl.has_moving_mesh:
+        return False
+    if ctrl.damping_option not in (0, 1, 2, 3):
+        return False
+    if ctx.sbc.n_neu > 0 or param.bc.has_elastic_foundation:
+        return False
+    if ctx.sbc.n_grav > 0 and not _grav_facets_ok(ctx):
+        return False
+    nx, ny, nz = ctx.sgrid
+    nxc, nyc, nzc = nx - 1, ny - 1, nz - 1
+    if nxc % 128 != 0 or nzc % 8 != 0:
+        return False
+    halo = _H + 1 if _surf_on(param, ctx) else _H
+    if _pick_ty(nyc, nzc, nxc, _nce(param), halo=halo) is None:
+        return False
+    return True
+
+
+def unported_features(param: Param, ctx) -> list:
+    """Features that pass the gate above but that this package's fused 3D
+    step does not compute yet."""
+    out = []
+    if not _uniform_mat(param):
+        out.append("multi-material or radiogenic runs (the per-element "
+                   "const pack of pallas3d.py:131-142, :469)")
+    if ctx.sbc.n_grav > 0:
+        out.append("in-kernel gravity-facet tractions (Winkler / water "
+                   "loading, pallas3d.py:168, :1229-1290)")
+    if _surf_on(param, ctx):
+        out.append("surface process option 1 (pallas3d.py:255, "
+                   ":1324-1394)")
+    return out
+
+
+# ------------------------------------------------------ static step plan
+
+# ip slots (csrc/fused3d.cu Params3::from_host)
+IP_FIELDS = ("nx", "ny", "nz", "rheol", "nmd", "thermal", "gravity_on",
+             "damping", "surf_corr", "quasi_static", "use_gvs", "jaumann")
+# fp slots, then the single material's MAT_FIELDS
+FP_FIELDS = ("surface_T", "visc_min", "visc_max", "tension_max", "fac",
+             "one_m_fac", "two_m_fac", "inertial", "log_q", "log_1e6",
+             "deg2rad", "ps2", "bulkm", "shearm", "kappa", "rhoA", "rhoB",
+             "buoyA", "buoyB", "cpA", "cpB", "hmA")
+
+
+@dataclass
+class StepPlan3:
+    """Everything static about the fused 3D step of one (param, mesh):
+    sizes, switches and float64 constants, each rounded once to the run
+    dtype where it enters the arithmetic (as pallas3d.py rounds its
+    ``_c`` constants), the cell parity, and the same values packed for the
+    CUDA kernel (``ip``, ``fp``) and for dt_refresh (``rip``, ``rfp``)."""
+
+    nx: int
+    ny: int
+    nz: int
+    dtype: torch.dtype
+    rheol: int
+    sw: dict
+    k: dict
+    mc: list
+    par: torch.Tensor  # (nxc, nyc, nzc) bool
+    ip: np.ndarray
+    fp: np.ndarray
+    rip: np.ndarray
+    rfp: np.ndarray
+
+    @property
+    def ncell(self) -> int:
+        return (self.nx - 1) * (self.ny - 1) * (self.nz - 1)
+
+    @property
+    def nnode(self) -> int:
+        return self.nx * self.ny * self.nz
+
+    @property
+    def cells(self) -> tuple:
+        return (self.nx - 1, self.ny - 1, self.nz - 1)
+
+    def nblocks(self) -> int:
+        """Columns of the partials buffer: the larger block count of the
+        per-tet and per-node launches."""
+        return max(-(-5 * self.ncell // BLOCK), -(-self.nnode // BLOCK))
+
+
+def make_plan(param: Param, ctx, device) -> StepPlan3:
+    """Build the StepPlan3 (cf. the closure constants of
+    pallas3d.make_pallas_step; uniform material only)."""
+    ctrl, mat = param.control, param.mat
+    nx, ny, nz = ctx.sgrid
+    dtype = torch.float32 if param.sim.float_dtype == "float32" \
+        else torch.float64
+    tabn = ctx.mat.host()
+    npe = 4.0
+    max_vbc = float(ctx.max_vbc_val)
+    ps = max_vbc * ctrl.inertial_scaling
+    phi = float(tabn["porosity"][0])
+    rho0 = float(tabn["rho0"][0])
+    alpha = float(tabn["alpha"][0])
+    g = float(ctrl.gravity)
+    K = float(tabn["bulk_modulus"][0])
+    G = float(tabn["shear_modulus"][0])
+    cp = float(tabn["heat_capacity"][0])
+    ab = float(tabn["biot_coeff"][0])
+    bf = 1.0 / float(tabn["fluid_bulk_modulus"][0])
+    visc_min = float(tabn["visc_min"])
+    sw = {
+        "nx": nx, "ny": ny, "nz": nz, "rheol": mat.rheol_type,
+        "nmd": int(ctrl.is_using_mixed_stress),
+        "thermal": int(ctrl.has_thermal_diffusion),
+        "gravity_on": int(ctrl.gravity != 0),
+        "damping": ctrl.damping_option,
+        "surf_corr": int(ctrl.has_surface_correction),
+        "quasi_static": int(ctrl.is_quasi_static),
+        "use_gvs": int(ctrl.use_global_velocity_scaling),
+        "fixed_on": int(ctrl.fixed_dt != 0.0),
+        "jaumann": int(bool(mat.rheol_type & RH_ELASTIC)),
+    }
+    k = {
+        "surface_T": float(param.bc.surface_temperature),
+        "visc_min": visc_min, "visc_max": float(tabn["visc_max"]),
+        "tension_max": float(tabn["tension_max"]),
+        "fac": ctrl.damping_factor,
+        "one_m_fac": 1.0 - ctrl.damping_factor,
+        "two_m_fac": 2.0 - ctrl.damping_factor,
+        "inertial": float(ctrl.inertial_scaling),
+        "log_q": FC.LOG_QUARTER, "log_1e6": FC.LOG_1E6,
+        "deg2rad": FC.DEG2RAD, "ps": ps, "ps2": ps * ps,
+        "tdmax": float(tabn["therm_diff_max"]), "max_vbc": max_vbc,
+        "swave_ref": float(np.sqrt(mat.bulk_modulus[mat.mattype_ref]
+                                   / mat.rho0[mat.mattype_ref])),
+        "fixed_dt": float(ctrl.fixed_dt), "frac": float(ctrl.dt_fraction),
+        "big": float(torch.finfo(dtype).max),
+        "dt_maxwell": 0.5 * visc_min / (1e-40 + G),
+        # one material: the mixing means are the material's values
+        # whatever the marker weights (matprops.cxx:115-144)
+        "bulkm": K, "shearm": G, "kappa": float(tabn["therm_cond"][0]),
+        "rhoA": rho0, "rhoB": rho0 * alpha,
+        "buoyA": ((1 - phi) * rho0 + 1000.0 * phi) * g / npe,
+        "buoyB": (1 - phi) * rho0 * alpha * g / npe,
+        "cpA": cp * rho0, "cpB": cp * rho0 * alpha,
+        # hmass coefficient: 3D bulk_comp = 1/K (geometry.cxx:1098)
+        "hmA": ((ab + phi - ab * phi) / K + phi * bf) / npe,
+    }
+    mc = FC.mat_consts(tabn)[:1]
+    ip = np.array([sw[f] for f in IP_FIELDS], dtype=np.int32)
+    fp = np.array([k[f] for f in FP_FIELDS]
+                  + [mc[0][f] for f in FC.MAT_FIELDS], dtype=np.float64)
+    rip, rfp = FC.refresh_params(sw, k)
+    par = torch.as_tensor(parity_3d(nx, ny, nz), device=device)
+    return StepPlan3(nx=nx, ny=ny, nz=nz, dtype=dtype, rheol=mat.rheol_type,
+                     sw=sw, k=k, mc=mc, par=par, ip=ip, fp=fp, rip=rip,
+                     rfp=rfp)
+
+
+# ------------------------------------------- packing (chunk boundaries)
+
+def state_to_planes(s, nx: int, ny: int, nz: int):
+    """State -> (epack (NE, 5, nxc, nyc, nzc), npack (NN, nx, ny, nz))."""
+    cells = (nx - 1, ny - 1, nz - 1)
+    planes = [getattr(s, f).reshape(*cells, 5).permute(3, 0, 1, 2)
+              for f in E_SLOTS]
+    for f in T_SLOTS:
+        t = getattr(s, f).reshape(*cells, 5, 6).permute(4, 3, 0, 1, 2)
+        planes.extend(t[i] for i in range(6))
+    epack = torch.stack(planes).contiguous()
+    nodal = [s.coord[:, 0], s.coord[:, 1], s.coord[:, 2], s.vel[:, 0],
+             s.vel[:, 1], s.vel[:, 2], s.temperature, s.mass, s.tmass,
+             s.hmass, s.volume_n, s.force[:, 0], s.force[:, 1],
+             s.force[:, 2]]
+    npack = torch.stack([a.reshape(nx, ny, nz) for a in nodal]).contiguous()
+    return epack, npack
+
+
+def planes_to_state(s, epack, npack, nx: int, ny: int, nz: int, **scalars):
+    """Packed planes (+ new scalars) -> State; other fields pass through."""
+    nelem = (nx - 1) * (ny - 1) * (nz - 1) * 5
+
+    def p2e(p):
+        return p.permute(1, 2, 3, 0).reshape(nelem)
+
+    upd = {f: p2e(epack[_eslot(f)]) for f in E_SLOTS}
+    for f in T_SLOTS:
+        k = _tslot(f)
+        upd[f] = epack[k:k + 6].permute(2, 3, 4, 1, 0).reshape(nelem, 6)
+
+    def p2n(nm):
+        return npack[_nslot(nm)].reshape(nx * ny * nz)
+
+    for v, names in (("coord", ("coord_x", "coord_y", "coord_z")),
+                     ("vel", ("vel_x", "vel_y", "vel_z")),
+                     ("force", ("force_x", "force_y", "force_z"))):
+        upd[v] = torch.stack([p2n(n) for n in names], dim=1)
+    for nm in ("temperature", "mass", "tmass", "hmass", "volume_n"):
+        upd[nm] = p2n(nm)
+    return s.replace(**upd, **scalars)
+
+
+# ------------------------------------------------ stencils on the planes
+
+def _corner_views(g):
+    """Nodal plane (nx, ny, nz) -> the 8 cell-corner views (nxc, nyc, nzc),
+    corner code a*4 + b*2 + d for offsets (a, b, d) in x/y/z."""
+    nxc, nyc, nzc = (n - 1 for n in g.shape)
+    return [g[a:a + nxc, b:b + nyc, d:d + nzc]
+            for a in (0, 1) for b in (0, 1) for d in (0, 1)]
+
+
+def gather_tets(g, par):
+    """Nodal plane -> 4 corner-slot planes, each (5, nxc, nyc, nzc)."""
+    c = _corner_views(g)
+    return tuple(torch.stack([torch.where(par, c[EVEN_T[t][s]],
+                                          c[ODD_T[t][s]])
+                              for t in range(5)])
+                 for s in range(4))
+
+
+def _scatter_codes(per_code):
+    """Add the 8 per-code cell planes into the node grid, code by code
+    (grid3d._scatter)."""
+    nxc, nyc, nzc = per_code[0].shape
+    out = torch.zeros((nxc + 1, nyc + 1, nzc + 1), dtype=per_code[0].dtype,
+                      device=per_code[0].device)
+    for code, v in enumerate(per_code):
+        a, b, d = code >> 2 & 1, code >> 1 & 1, code & 1
+        out[a:a + nxc, b:b + nyc, d:d + nzc] += v
+    return out
+
+
+def cell_partials(cs, par):
+    """Per-cell corner partials of slot contributions cs (4 planes of
+    (5, nxc, nyc, nzc)): for each corner code, the sum over (tet, slot)
+    in order of the contributions that land on it (grid3d.asm)."""
+    zero = torch.zeros_like(cs[0][0])
+    out = []
+    for code in range(8):
+        acc_e, acc_o = zero, zero
+        for t in range(5):
+            for s in range(4):
+                if EVEN_T[t][s] == code:
+                    acc_e = acc_e + cs[s][t]
+                if ODD_T[t][s] == code:
+                    acc_o = acc_o + cs[s][t]
+        out.append(torch.where(par, acc_e, acc_o))
+    return out
+
+
+def asm(cs, par):
+    """Transpose of gather_tets: slot contributions -> nodal sums."""
+    return _scatter_codes(cell_partials(cs, par))
+
+
+def asm_equal(v, par):
+    """asm() with the same per-tet value at all four corners."""
+    zero = torch.zeros_like(v[0])
+    out = []
+    for code in range(8):
+        acc_e, acc_o = zero, zero
+        for t in range(5):
+            if code in EVEN_T[t]:
+                acc_e = acc_e + v[t]
+            if code in ODD_T[t]:
+                acc_o = acc_o + v[t]
+        out.append(torch.where(par, acc_e, acc_o))
+    return _scatter_codes(out)
+
+
+def shape_fn(xs, ys, zs, vol):
+    """P1 tet gradients (fields.cxx:11-54; pallas3d.py:741-759)."""
+    iv = 1.0 / (6.0 * vol)
+
+    def d(a, i, j):
+        return a[i] - a[j]
+
+    x01, x02, x03 = d(xs, 0, 1), d(xs, 0, 2), d(xs, 0, 3)
+    x12, x13, x23 = d(xs, 1, 2), d(xs, 1, 3), d(xs, 2, 3)
+    y01, y02, y03 = d(ys, 0, 1), d(ys, 0, 2), d(ys, 0, 3)
+    y12, y13, y23 = d(ys, 1, 2), d(ys, 1, 3), d(ys, 2, 3)
+    z01, z02, z03 = d(zs, 0, 1), d(zs, 0, 2), d(zs, 0, 3)
+    z12, z13, z23 = d(zs, 1, 2), d(zs, 1, 3), d(zs, 2, 3)
+    dndx = (iv * (y13 * z12 - y12 * z13), iv * (y02 * z23 - y23 * z02),
+            iv * (y13 * z03 - y03 * z13), iv * (y01 * z02 - y02 * z01))
+    dndy = (iv * (z13 * x12 - z12 * x13), iv * (z02 * x23 - z23 * x02),
+            iv * (z13 * x03 - z03 * x13), iv * (z01 * x02 - z02 * x01))
+    dndz = (iv * (x13 * y12 - x12 * y13), iv * (x02 * y23 - x23 * y02),
+            iv * (x13 * y03 - x03 * y13), iv * (x01 * y02 - x02 * y01))
+    return dndx, dndy, dndz
+
+
+def _dot4(a, b):
+    return a[0] * b[0] + a[1] * b[1] + a[2] * b[2] + a[3] * b[3]
+
+
+def _mean4(a):
+    return (a[0] + a[1] + a[2] + a[3]) / 4.0
+
+
+# ------------------------------------------------- the step, plain torch
+
+def step_planes_plain(P: StepPlan3, ein, nin, cnp, tgt, dt, gvs,
+                      ties=None):
+    """One whole time step on the packed planes, in plain PyTorch: the
+    physics of pallas3d.py:793-1567 on the whole mesh
+    (dynearthsol.cxx:746-956 minus the facet tractions and surface
+    processes), uniform material.
+
+    ``dt``/``gvs`` are 0-d tensors.  Returns (epack, npack, red) with
+    red = (min height, min height / shear-wave speed, max |v|,
+    sum |force|^2), the CFL metrics of the moved mesh and the residual.
+    Under EVP a list passed as ``ties`` receives the (5, nxc, nyc, nzc)
+    mask of the elements whose min-select is an exact tie that matters:
+    both trial invariants 0 and the two trial stresses unequal."""
+    sw, k = P.sw, P.k
+    rheol = P.rheol
+    par = P.par
+    dtype, dev = ein.dtype, ein.device
+
+    def c(v):
+        """A constant rounded once to the run dtype (pallas3d ``_c``)."""
+        return torch.full((), v, dtype=dtype, device=dev)
+
+    def E(nm):
+        return ein[_eslot(nm)]
+
+    def TEN(nm):
+        i = _tslot(nm)
+        return tuple(ein[i + q] for q in range(6))
+
+    def N(nm):
+        return nin[_nslot(nm)]
+
+    bulkm, shearm = c(k["bulkm"]), c(k["shearm"])
+    vol = E("volume")
+    xs, ys, zs = (gather_tets(N(n), par)
+                  for n in ("coord_x", "coord_y", "coord_z"))
+    vxs, vys, vzs = (gather_tets(N(n), par)
+                     for n in ("vel_x", "vel_y", "vel_z"))
+    ts = gather_tets(N("temperature"), par)
+    dndx, dndy, dndz = shape_fn(xs, ys, zs, vol)
+    lxx, lyy, lzz = _dot4(vxs, dndx), _dot4(vys, dndy), _dot4(vzs, dndz)
+
+    # ---- phase 1: dvoldt numerator + temperature diffusion
+    # (geometry.cxx:202-276, fields.cxx:197-283)
+    dvoldt = asm_equal((lxx + lyy + lzz) * vol, par) / N("volume_n")
+    temperature_new = N("temperature")
+    if sw["thermal"]:
+        gx, gy, gz = _dot4(dndx, ts), _dot4(dndy, ts), _dot4(dndz, ts)
+        kv = c(k["kappa"]) * vol
+        contrib = tuple(kv * (dndx[i] * gx + dndy[i] * gy + dndz[i] * gz)
+                        for i in range(4))
+        tdot = asm(contrib, par)
+        temperature_new = torch.where(
+            cnp[0] > 0, c(k["surface_T"]),
+            N("temperature") - dt * tdot / N("tmass"))
+
+    # ---- phase 2a: strain rate, edvoldt, constitutive update
+    temp_e = _mean4(ts)
+    TinC = temp_e - CELSIUS0
+    lxy = 0.5 * (_dot4(vxs, dndy) + _dot4(vys, dndx))
+    lxz = 0.5 * (_dot4(vxs, dndz) + _dot4(vzs, dndx))
+    lyz = 0.5 * (_dot4(vys, dndz) + _dot4(vzs, dndy))
+    sr = (lxx, lyy, lzz, lxy, lxz, lyz)
+    edvoldt = _mean4(gather_tets(dvoldt, par))
+    adj = (edvoldt - (lxx + lyy + lzz)) / 3.0
+    edot = (lxx + adj, lyy + adj, lzz + adj, lxy, lxz, lyz)
+    de = tuple(e * dt for e in edot)
+    strain_old = TEN("strain")
+    strain = tuple(strain_old[i] + de[i] for i in range(6))
+
+    stress_old = TEN("stress")
+    plstrain = E("plstrain")
+    delta_plstrain = E("delta_plstrain")
+    viscosity = E("viscosity")
+
+    def creep_visc():
+        s0 = (stress_old[0] + stress_old[1] + stress_old[2]) / 3.0
+        ed = torch.clamp(torch.sqrt(inv2_6(sr)), min=MIN_STRAIN_RATE)
+        return FC.visc_core_local(P.mc, [1.0], temp_e, s0, ed,
+                                  k["visc_min"], k["visc_max"])
+
+    def plastic():
+        return FC.plastic_props_local(P.mc, [1.0], plstrain,
+                                      k["tension_max"])
+
+    if rheol == RH_ELASTIC:
+        stress_c = R.elastic3_c(bulkm, shearm, de, stress_old)
+    elif rheol == RH_VISCOUS:
+        viscosity = creep_visc()
+        stress_c = R.viscous3_c(bulkm, viscosity,
+                                strain[0] + strain[1] + strain[2], edot)
+    elif rheol == RH_MAXWELL:
+        viscosity = creep_visc()
+        dv = vol / E("volume_old") - 1.0
+        stress_c = R.maxwell3_c(bulkm, shearm, viscosity, dt, dv, de,
+                                stress_old)
+    elif rheol == RH_EP:
+        amc, anphi, anpsi, hardn, ten_max = plastic()
+        stress_c, depls, _ = R.elasto_plastic3_c(
+            bulkm, shearm, amc, anphi, anpsi, hardn, ten_max, de,
+            stress_old)
+        plstrain = plstrain + depls
+        delta_plstrain = depls
+    elif rheol == RH_EVP:
+        viscosity = creep_visc()
+        dv = vol / E("volume_old") - 1.0
+        sv = R.maxwell3_c(bulkm, shearm, viscosity, dt, dv, de, stress_old)
+        amc, anphi, anpsi, hardn, ten_max = plastic()
+        sp, depls, _ = R.elasto_plastic3_c(
+            bulkm, shearm, amc, anphi, anpsi, hardn, ten_max, de,
+            stress_old)
+        # min-magnitude selection (rheology.cxx:869-879)
+        iv, ip = inv2_6(sv), inv2_6(sp)
+        use_v = iv < ip
+        if ties is not None:
+            # 0 < 0 decides the select while the branches differ: there
+            # an ulp elsewhere may pick the other branch
+            ties.append((iv == 0) & (ip == 0) & torch.stack(
+                [p != q for p, q in zip(sv, sp)]).any(0))
+        stress_c = tuple(torch.where(use_v, p, q) for p, q in zip(sv, sp))
+        plstrain = torch.where(use_v, plstrain, plstrain + depls)
+        delta_plstrain = torch.where(use_v, delta_plstrain, depls)
+    else:
+        raise ValueError(f"fused 3D step: unsupported rheology {rheol}")
+
+    # ---- NMD nodal pressure smoothing (pallas3d.py:1171-1228)
+    dpressure = E("dpressure")
+    if sw["nmd"]:
+        old_tr = stress_old[0] + stress_old[1] + stress_old[2]
+        dpressure = stress_c[0] + stress_c[1] + stress_c[2] - old_tr
+        dp_nd = asm_equal(dpressure * vol, par) / N("volume_n")
+        ddp = (_mean4(gather_tets(dp_nd, par)) - dpressure) / 3.0
+        stress_c = (stress_c[0] + ddp, stress_c[1] + ddp,
+                    stress_c[2] + ddp) + stress_c[3:]
+
+    # ---- phase 2b: force assembly with buoyancy (fields.cxx:612-703)
+    s = stress_c
+    if sw["gravity_on"]:
+        buoy = c(k["buoyA"]) - c(k["buoyB"]) * TinC
+    else:
+        buoy = torch.zeros_like(vol)
+    fxc = tuple((s[0] * dndx[i] + s[3] * dndy[i] + s[4] * dndz[i]) * vol
+                for i in range(4))
+    fyc = tuple((s[3] * dndx[i] + s[1] * dndy[i] + s[5] * dndz[i]) * vol
+                for i in range(4))
+    fzc = tuple((s[4] * dndx[i] + s[5] * dndy[i] + s[2] * dndz[i] + buoy)
+                * vol for i in range(4))
+    force = [-asm(fc, par) for fc in (fxc, fyc, fzc)]
+    r2 = (force[0] * force[0] + force[1] * force[1]
+          + force[2] * force[2]).sum()
+
+    # ---- phase 3: damping, velocity, vbcs, coordinates
+    # (fields.cxx:486-582,730-747; bc.cxx)
+    mass_n = N("mass")
+    vel = [N("vel_x"), N("vel_y"), N("vel_z")]
+    damp = sw["damping"]
+    fd = []
+    for f, v in zip(force, vel):
+        if damp == 1:
+            f = f - torch.where(torch.abs(v) > 1e-13,
+                                k["fac"] * torch.abs(f) * torch.sign(v),
+                                torch.zeros_like(v))
+        elif damp == 2:
+            f = f * k["one_m_fac"]
+        elif damp == 3:
+            f = torch.where((f < 0) == (v < 0), f * k["one_m_fac"],
+                            f * k["two_m_fac"])
+        fd.append(f)
+    vel_new = [torch.where(cnp[1 + q] > 0, tgt[q], vel[q] + dt * fd[q]
+                           / mass_n) for q in range(3)]
+    coord_new = [N(n) + vel_new[q] * dt
+                 for q, n in enumerate(("coord_x", "coord_y", "coord_z"))]
+
+    # ---- phase 4: post-move geometry, CFL partials, masses, Jaumann,
+    # surface-element correction (pallas3d.py:1395-1534)
+    xs2, ys2, zs2 = (gather_tets(g, par) for g in coord_new)
+    vxs2, vys2, vzs2 = (gather_tets(v, par) for v in vel_new)
+    rho_e = c(k["rhoA"]) - c(k["rhoB"]) * TinC
+    volume_new = tet_volume(xs2, ys2, zs2)
+    vx_m, vy_m, vz_m = _mean4(vxs2), _mean4(vys2), _mean4(vzs2)
+    vmag = torch.sqrt(vx_m * vx_m + vy_m * vy_m + vz_m * vz_m)
+    minh = tet_min_height(xs2, ys2, zs2, volume_new)
+    swave = torch.sqrt(shearm / rho_e)
+    red = torch.stack([minh.min(), (minh / swave).min(), vmag.max(), r2])
+
+    if sw["use_gvs"]:
+        apparent = torch.minimum(gvs, torch.sqrt(shearm / rho_e))
+        rho_q = bulkm / (apparent * apparent)
+    else:
+        rho_q = bulkm / c(k["ps2"])
+    rho_m = rho_q if sw["quasi_static"] else rho_e
+    volume_n = asm_equal(volume_new, par)
+    mass_new = asm_equal(rho_m * volume_new / 4.0, par)
+    tmass_new = asm_equal(
+        (c(k["cpA"]) - c(k["cpB"]) * TinC) * volume_new / 4.0, par)
+    hmass_new = asm_equal(c(k["hmA"]) * volume_new, par)
+
+    stress3, strain3 = stress_c, strain
+    if sw["jaumann"]:
+        dndx2, dndy2, dndz2 = shape_fn(xs2, ys2, zs2, volume_new)
+        w3t = 0.5 * (_dot4(vxs2, dndy2) - _dot4(vys2, dndx2)) * dt
+        w4t = 0.5 * (_dot4(vxs2, dndz2) - _dot4(vzs2, dndx2)) * dt
+        w5t = 0.5 * (_dot4(vys2, dndz2) - _dot4(vzs2, dndy2)) * dt
+
+        def rot(q):
+            return (q[0] - 2.0 * q[3] * w3t - 2.0 * q[4] * w4t,
+                    q[1] + 2.0 * q[3] * w3t - 2.0 * q[5] * w5t,
+                    q[2] + 2.0 * q[4] * w4t + 2.0 * q[5] * w5t,
+                    q[3] + (q[0] - q[1]) * w3t - q[4] * w5t - q[5] * w4t,
+                    q[4] + (q[0] - q[2]) * w4t + q[3] * w5t - q[5] * w3t,
+                    q[5] + (q[1] - q[2]) * w5t + q[3] * w4t + q[4] * w3t)
+
+        stress3, strain3 = rot(stress_c), rot(strain)
+
+    # correct_surface_element (bc.cxx:1613-1665): every tet of the top
+    # cell row is rescaled by 1/rdv when it grew, and its pre-swap volume
+    # overwritten; rotate-then-scale equals the reference's
+    # scale-then-rotate.  3D has no surface plstrain decay.
+    volume_old_out = vol
+    if sw["surf_corr"]:
+        ztop = torch.zeros_like(vol, dtype=torch.bool)
+        ztop[..., -1] = True
+        rdv = volume_new / vol
+        sc = torch.where(ztop & (rdv >= 1.0), 1.0 / rdv,
+                         torch.ones_like(rdv))
+        stress3 = tuple(x * sc for x in stress3)
+        strain3 = tuple(x * sc for x in strain3)
+        edot = tuple(x * sc for x in edot)
+        plstrain = plstrain * sc
+        volume_old_out = torch.where(ztop, volume_new, vol)
+
+    e_out = {"volume": volume_new, "volume_old": volume_old_out,
+             "plstrain": plstrain, "delta_plstrain": delta_plstrain,
+             "viscosity": viscosity, "dpressure": dpressure,
+             "edvoldt": edvoldt, "stress": stress3, "strain": strain3,
+             "strain_rate": edot}
+    eplanes = [e_out[nm] for nm in E_SLOTS]
+    for nm in T_SLOTS:
+        eplanes.extend(e_out[nm])
+    n_out = {"coord_x": coord_new[0], "coord_y": coord_new[1],
+             "coord_z": coord_new[2], "vel_x": vel_new[0],
+             "vel_y": vel_new[1], "vel_z": vel_new[2],
+             "temperature": temperature_new, "mass": mass_new,
+             "tmass": tmass_new, "hmass": hmass_new, "volume_n": volume_n,
+             "force_x": fd[0], "force_y": fd[1], "force_z": fd[2]}
+    eout = torch.stack([p.expand(vol.shape) for p in eplanes])
+    nout = torch.stack([n_out[nm] for nm in N_SLOTS])
+    return eout, nout, red
+
+
+# ------------------------------------------ per-chunk constants and probes
+
+def const_npack(P: StepPlan3, ctx, s):
+    """Per-chunk constant nodal planes (pallas3d._const_npack): the top
+    mask and the vbc component masks, (NCN, nx, ny, nz)."""
+    shape = (P.nx, P.ny, P.nz)
+    top = ctx.top_mask.to(P.dtype).reshape(shape)
+    a = bc_mod.apply_vbcs(ctx.vbc, torch.zeros_like(s.coord), s.coord,
+                          s.time)
+    b = bc_mod.apply_vbcs(ctx.vbc, torch.ones_like(s.coord), s.coord,
+                          s.time)
+    mask = (a == b).to(P.dtype)  # constrained components
+    return torch.stack([top] + [mask[:, q].reshape(shape)
+                                for q in range(3)]).contiguous()
+
+
+def vbc_targets(ctx, npack, time):
+    """Velocity-BC target planes (3, nx, ny, nz): bc.apply_vbcs probed with
+    zero velocity at the given coordinates and time
+    (pallas3d.py:1619-1637)."""
+    shape = npack.shape[1:]
+    coord = torch.stack([npack[_nslot(n)].reshape(-1)
+                         for n in ("coord_x", "coord_y", "coord_z")], dim=1)
+    tgt = bc_mod.apply_vbcs(ctx.vbc, torch.zeros_like(coord), coord, time)
+    return tgt.t().reshape(3, *shape).contiguous()
+
+
+# ------------------------------------------------------- chunk buffers
+
+@dataclass
+class ChunkBuffers3:
+    """Device buffers of one chunk.  ``ein``/``nin`` hold the state before
+    a step and ``eout``/``nout`` after it; the runner swaps them.  The
+    scalar and flag buffers follow ops/fused2d.ChunkBuffers."""
+
+    ein: torch.Tensor
+    nin: torch.Tensor
+    eout: torch.Tensor
+    nout: torch.Tensor
+    cnp: torch.Tensor
+    tgt: torch.Tensor
+    scal: torch.Tensor     # dt, vmax, gdtmin, time, last L2 partial,
+    #                        dt_maxwell
+    flags: torch.Tensor    # (n, 1): refresh
+    dthist: torch.Tensor   # (n,)
+    part: torch.Tensor     # (NPART, nblocks)
+    ework: torch.Tensor    # (NEWORK, nxc, nyc, nzc) element scratch (CUDA)
+    nwork: torch.Tensor    # (NNWORK, nx, ny, nz) node scratch (CUDA)
+
+    def swap(self):
+        self.ein, self.eout = self.eout, self.ein
+        self.nin, self.nout = self.nout, self.nin
+
+
+def make_buffers(P: StepPlan3, ctx, s, n: int) -> ChunkBuffers3:
+    dev, dtype = s.coord.device, P.dtype
+    ein, nin = state_to_planes(s, P.nx, P.ny, P.nz)
+    ks = s.steps + 1 + torch.arange(n, device=dev)
+    refresh = (ks % 10 == 0) | bool(P.sw["use_gvs"])
+    flags = refresh.to(dtype).reshape(n, 1).contiguous()
+    scal = torch.stack([s.dt, s.max_global_vel_mag, s.global_dt_min,
+                        s.time, torch.zeros_like(s.dt),
+                        torch.full_like(s.dt, P.k["dt_maxwell"])]).to(dtype)
+    part = torch.zeros((NPART, P.nblocks()), dtype=dtype, device=dev)
+    part[:2] = P.k["big"]   # neutral elements of min, min, max, sum
+    cuda = dev.type == "cuda"
+    return ChunkBuffers3(
+        ein=ein, nin=nin, eout=torch.empty_like(ein),
+        nout=torch.empty_like(nin), cnp=const_npack(P, ctx, s),
+        tgt=torch.zeros((3, P.nx, P.ny, P.nz), dtype=dtype, device=dev),
+        scal=scal, flags=flags,
+        dthist=torch.zeros(n, dtype=dtype, device=dev), part=part,
+        ework=torch.empty((NEWORK, *P.cells) if cuda else (0,),
+                          dtype=dtype, device=dev),
+        nwork=torch.empty((NNWORK, P.nx, P.ny, P.nz) if cuda else (0,),
+                          dtype=dtype, device=dev))
+
+
+# ------------------------------------------------ kernel wrapper
+
+def _cuda_args_ok(P: StepPlan3, b: ChunkBuffers3):
+    if P.dtype != torch.float32:
+        raise TypeError("the CUDA fused 3D step is built for float32 only")
+    for name in ("ein", "nin", "eout", "nout", "cnp", "tgt", "scal",
+                 "part", "ework", "nwork"):
+        t = getattr(b, name)
+        if not (t.is_cuda and t.dtype == torch.float32
+                and t.is_contiguous()):
+            raise TypeError(f"{name}: need a contiguous float32 CUDA "
+                            "tensor")
+    if tuple(b.ein.shape) != (NE, 5, *P.cells) \
+            or tuple(b.nin.shape) != (NN, P.nx, P.ny, P.nz) \
+            or tuple(b.ework.shape) != (NEWORK, *P.cells) \
+            or tuple(b.part.shape) != (NPART, P.nblocks()):
+        raise ValueError("plane shapes do not match the step plan")
+
+
+def fused3d_step(P: StepPlan3, b: ChunkBuffers3):
+    """One fused 3D time step: ``b.ein``/``b.nin`` -> ``b.eout``/``b.nout``,
+    with block partials in ``b.part``.  On CUDA tensors it launches
+    csrc/fused3d.cu (and counts the launch in ``fused3d_step.launches``);
+    on CPU tensors it runs step_planes_plain."""
+    if b.ein.is_cuda:
+        from . import _build
+
+        _cuda_args_ok(P, b)
+        lib = _build.load()
+        p = fused2d._ptr
+        rc = lib.des_fused3d_step_f32(
+            P.ip.ctypes.data, P.fp.ctypes.data, p(b.ein), p(b.nin),
+            p(b.eout), p(b.nout), p(b.cnp), p(b.tgt), p(b.scal),
+            p(b.ework), p(b.nwork), p(b.part), b.part.shape[1],
+            fused2d._stream())
+        if rc != 0:
+            raise RuntimeError(f"fused3d step launch failed: {_build.err(rc)}")
+        fused3d_step.launches += 1
+        return
+    if b.ein.device.type != "cpu":
+        raise TypeError(f"no fused 3D step for device {b.ein.device}")
+    fused3d_step_plain(P, b)
+
+
+def fused3d_step_plain(P: StepPlan3, b: ChunkBuffers3):
+    """step_planes_plain on the chunk buffers, on any device: the plain
+    version of fused3d_step with the same inputs and outputs (the
+    full-mesh partials go to column 0 of ``b.part``)."""
+    eout, nout, red = step_planes_plain(
+        P, b.ein, b.nin, b.cnp, b.tgt, b.scal[0],
+        b.scal[1] * P.k["inertial"])
+    b.eout.copy_(eout)
+    b.nout.copy_(nout)
+    b.part[:, 0] = red
+
+
+def evp_ties(P: StepPlan3, ctx, s):
+    """The ``ties`` mask of step_planes_plain for one step from State s,
+    by element id (all False off EVP): the elements where two correct
+    implementations of the EVP step may part after one step."""
+    b = make_buffers(P, ctx, s, 1)
+    b.tgt = vbc_targets(ctx, b.nin, b.scal[3] + b.scal[0])
+    ties = []
+    step_planes_plain(P, b.ein, b.nin, b.cnp, b.tgt, b.scal[0],
+                      b.scal[1] * P.k["inertial"], ties)
+    if not ties:
+        return torch.zeros(5 * P.ncell, dtype=torch.bool,
+                           device=b.ein.device)
+    return ties[0].permute(1, 2, 3, 0).reshape(-1)
+
+
+fused3d_step.launches = 0
+
+
+# ---------------------------------------------------------- chunk runner
+
+def run_chunk(P: StepPlan3, ctx, s, n: int, plain: bool = False):
+    """Advance ``s`` by n fused 3D steps (pallas3d.make_chunk_runner): vbc
+    targets probed every step from the pre-move coordinates at time + dt,
+    time accumulated step by step, vmax and gdtmin set every step and dt
+    on the refresh cadence.  ``plain`` runs the plain versions on the
+    state's device instead of the wrappers (the reference the CUDA kernels
+    are checked against)."""
+    b = make_buffers(P, ctx, s, n)
+    for k in range(n):
+        b.tgt = vbc_targets(ctx, b.nin, b.scal[3] + b.scal[0])
+        if plain:
+            fused3d_step_plain(P, b)
+            fused2d.dt_refresh_plain(P, b.part, b.scal, b.dthist, b.flags,
+                                     k, tiled=True, every=True)
+        else:
+            fused3d_step(P, b)
+            fused2d.dt_refresh(P, b, k, tiled=True, every=True)
+        b.swap()
+    # l2_residual: pallas3d.py:1654 divides by nx*ny*nz*3
+    nnode3 = torch.full((), float(P.nnode * 3), dtype=P.dtype,
+                        device=b.scal.device)
+    return planes_to_state(
+        s, b.ein, b.nin, P.nx, P.ny, P.nz, time=b.scal[3].clone(),
+        dt=b.scal[0].clone(), steps=s.steps + n,
+        max_global_vel_mag=b.scal[1].clone(),
+        global_dt_min=b.scal[2].clone(),
+        l2_residual=torch.sqrt(b.scal[4] / nnode3))
+
+
+def make_chunk_runner(param: Param, ctx, n: int):
+    """run(ctx, state) -> state after n fused 3D steps (the counterpart of
+    pallas3d.make_chunk_runner)."""
+    P = make_plan(param, ctx, ctx.conn.device)
+    return lambda c, s: run_chunk(P, c, s, n)
+

@@ -26,6 +26,20 @@ MAT_FIELDS = ("pw", "pw1_logc", "ea", "va", "nr", "pls0", "pls1", "span",
               "c0", "dc", "f0", "df", "d0", "dd", "hslope")
 
 
+# dt_refresh parameters shared by the 2D and 3D plans (csrc/fused2d.cu
+# RefreshParams): integer switches, then float64 constants
+RIP_FIELDS = ("thermal", "use_gvs", "quasi_static", "fixed_on")
+RFP_FIELDS = ("big", "max_vbc", "fixed_dt", "tdmax", "inertial", "swave_ref",
+              "ps", "frac")
+
+
+def refresh_params(sw: dict, k: dict):
+    """(rip int32, rfp float64) host arrays of the dt_refresh kernel from a
+    plan's switches and constants."""
+    return (np.array([sw[f] for f in RIP_FIELDS], dtype=np.int32),
+            np.array([k[f] for f in RFP_FIELDS], dtype=np.float64))
+
+
 def mat_consts(tabn: dict) -> list:
     """Per-material float64 constants from host tables (MatTables.host())."""
     out = []

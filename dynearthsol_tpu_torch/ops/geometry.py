@@ -19,14 +19,35 @@ def _rdiv(c: float, t: torch.Tensor) -> torch.Tensor:
 
 
 def elem_min_height(coord, conn, volume):
-    """Min altitude of each triangle (geometry.cxx:830-852): 2*A / longest
-    edge."""
+    """Min altitude of each element (geometry.cxx:830-852): 2D 2*A / longest
+    edge; 3D 3*V / largest facet area."""
     x = coord[conn]
+    if x.shape[2] == 3:
+        return tet_min_height([x[:, c, 0] for c in range(4)],
+                              [x[:, c, 1] for c in range(4)],
+                              [x[:, c, 2] for c in range(4)], volume)
     d01 = ((x[:, 0] - x[:, 1]) ** 2).sum(dim=1)
     d12 = ((x[:, 1] - x[:, 2]) ** 2).sum(dim=1)
     d02 = ((x[:, 0] - x[:, 2]) ** 2).sum(dim=1)
     maxl = torch.sqrt(torch.maximum(torch.maximum(d01, d12), d02))
     return 2.0 * volume / maxl
+
+
+def tet_min_height(xs, ys, zs, vol):
+    """3*V / largest facet area of tetrahedra given by corner coordinate
+    lists (the operation order of pallas3d.py:761-774)."""
+    def tri_area(i, j, k):
+        ux, uy, uz = xs[j] - xs[i], ys[j] - ys[i], zs[j] - zs[i]
+        vx, vy, vz = xs[k] - xs[i], ys[k] - ys[i], zs[k] - zs[i]
+        cx = uy * vz - uz * vy
+        cy = uz * vx - ux * vz
+        cz = ux * vy - uy * vx
+        return 0.5 * torch.sqrt(cx * cx + cy * cy + cz * cz)
+
+    maxa = torch.maximum(
+        torch.maximum(tri_area(0, 1, 2), tri_area(0, 1, 3)),
+        torch.maximum(tri_area(2, 3, 0), tri_area(2, 3, 1)))
+    return 3.0 * vol / maxa
 
 
 def compute_dt(coord, conn, volume, vel, shearm_e, rho_e, visc_min,
@@ -42,7 +63,11 @@ def compute_dt(coord, conn, volume, vel, shearm_e, rho_e, visc_min,
     device of ``volume``; nothing is read back to the host."""
     big = torch.finfo(volume.dtype).max
     v_slots = vel[conn]
-    v_el = (v_slots[:, 0] + v_slots[:, 1] + v_slots[:, 2]) / 3.0
+    npe = v_slots.shape[1]
+    v_el = v_slots[:, 0]
+    for c in range(1, npe):
+        v_el = v_el + v_slots[:, c]
+    v_el = v_el / float(npe)
     vmag = torch.sqrt((v_el ** 2).sum(dim=1))
     if fixed_dt != 0.0:
         vmax = torch.clamp(vmag.max(), min=max_vbc_val)
@@ -86,13 +111,13 @@ def compute_dt(coord, conn, volume, vel, shearm_e, rho_e, visc_min,
 def compute_mass(volume, bulkm_e, shearm_e, rho_e, cp_e, phi_e,
                  alpha_biot_e, beta_fluid_e, asm,
                  *, pseudo_speed, pseudo_speed_atp, is_quasi_static: bool,
-                 use_global_velocity_scaling: bool):
-    """(Pseudo-)mass matrices (geometry.cxx:1020-1154), 2D, no hydraulic
+                 use_global_velocity_scaling: bool, ndims: int = 2):
+    """(Pseudo-)mass matrices (geometry.cxx:1020-1154), no hydraulic
     diffusion.  Quasi-static runs use a pseudo-density bulkm/speed^2;
     dynamic runs the true density.  Also lumps nodal volume, thermal mass,
     hydraulic mass and a Young's-modulus mass for Rayleigh damping.
     Returns (volume_n, mass, tmass, hmass, ymass)."""
-    npe = 3
+    npe = ndims + 1
     if use_global_velocity_scaling:
         apparent = torch.minimum(pseudo_speed_atp,
                                  torch.sqrt(shearm_e / rho_e))
@@ -101,7 +126,10 @@ def compute_mass(volume, bulkm_e, shearm_e, rho_e, cp_e, phi_e,
         rho_q = bulkm_e / (pseudo_speed * pseudo_speed)
     rho_m = rho_q if is_quasi_static else rho_e
 
-    bulk_comp = 1.0 / (bulkm_e + shearm_e / 3.0)  # lambda + G
+    if ndims == 2:
+        bulk_comp = 1.0 / (bulkm_e + shearm_e / 3.0)  # lambda + G
+    else:
+        bulk_comp = 1.0 / bulkm_e  # geometry.cxx:1098
     hm_coeff = alpha_biot_e + phi_e - alpha_biot_e * phi_e
 
     m = rho_m * volume / npe

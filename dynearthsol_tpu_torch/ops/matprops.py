@@ -106,7 +106,10 @@ def shearm(tab: MatTables, emw) -> torch.Tensor:
 def elem_temperature(temperature, conn) -> torch.Tensor:
     """Element-average temperature (matprops.cxx:566-575)."""
     T = temperature[conn]
-    return (T[:, 0] + T[:, 1] + T[:, 2]) / 3.0
+    acc = T[:, 0]
+    for c in range(1, T.shape[1]):
+        acc = acc + T[:, c]
+    return acc / float(T.shape[1])
 
 
 def rho(tab: MatTables, emw, temperature, conn) -> torch.Tensor:
@@ -142,7 +145,7 @@ def visc(tab: MatTables, emw, temperature, conn, stress, strain_rate
     (matprops.cxx:258-300), harmonic mixture, clamped to
     [visc_min, visc_max]."""
     T = elem_temperature(temperature, conn)
-    s0 = trace(stress) / 2.0
+    s0 = trace(stress) / (2.0 if stress.shape[-1] == 3 else 3.0)
     edot = torch.clamp(second_invariant(strain_rate), min=MIN_STRAIN_RATE)
     return visc_core(tab, emw, T, s0, edot)
 

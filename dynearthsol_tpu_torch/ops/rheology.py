@@ -1,18 +1,24 @@
-"""2D constitutive cores, componentwise (counterpart of the ``*2_c``
-functions of dynearthsol_tpu/ops/rheology.py).
+"""Constitutive cores, componentwise (counterpart of the ``*2_c`` and
+``*3_c`` functions of dynearthsol_tpu/ops/rheology.py).
 
-Reference: rheology.cxx: elastic (235), maxwell (264), viscous (284) and
-the geoFLAC plane-strain Mohr-Coulomb return map ``elasto_plastic2d``
-(459-674).  Element-level control flow becomes ``torch.where`` masks.
-Each function takes tuples (xx, zz, xz) of same-shape tensors and keeps
-the JAX package's operation order, so that f32 results agree to the last
-bit wherever both round the same operations.  The same functions exist as
-``__device__`` code in csrc/rheology2d.cuh for the fused CUDA step.
+Reference: rheology.cxx: elastic (235), maxwell (264), viscous (284), the
+Mohr-Coulomb return map in principal axes ``elasto_plastic`` (298-457, 3D)
+and the geoFLAC plane-strain variant ``elasto_plastic2d`` (459-674).
+Element-level control flow becomes ``torch.where`` masks.  Each function
+takes tuples of same-shape tensors, (xx, zz, xz) in 2D and (xx, yy, zz,
+xy, xz, yz) in 3D, and keeps the JAX package's operation order, so that
+f32 results agree to the last bit wherever both round the same
+operations.  The same functions exist as ``__device__`` code in
+csrc/rheology2d.cuh and csrc/rheology3d.cuh for the fused CUDA steps.
 """
 
 from __future__ import annotations
 
+import math
+
 import torch
+
+from .eig3 import eigh3_c
 
 _EPS = 1e-15
 
@@ -140,3 +146,91 @@ def elasto_plastic2d_c(bulkm, shearm, amc, anphi, anpsi, hardn, ten_max,
     syy_n = torch.where(cap, tm, torch.where(elastic_out, syy_t, syy_r))
     depls = torch.where(cap & t1, _full(depls, 0.0), depls)
     return (sxx_n, szz_n, sxz_n), syy_n, depls, fmode
+
+
+def elastic3_c(bulkm, shearm, de, s):
+    """Componentwise 3D incremental elasticity (rheology.cxx:235-261)."""
+    lam = bulkm - 2.0 / 3.0 * shearm
+    diag_inc = lam * (de[0] + de[1] + de[2]) + 0.0
+    return (s[0] + 2.0 * shearm * de[0] + diag_inc,
+            s[1] + 2.0 * shearm * de[1] + diag_inc,
+            s[2] + 2.0 * shearm * de[2] + diag_inc,
+            s[3] + 2.0 * shearm * de[3],
+            s[4] + 2.0 * shearm * de[4],
+            s[5] + 2.0 * shearm * de[5])
+
+
+def maxwell3_c(bulkm, shearm, viscosity, dt, dv, de, s):
+    """Componentwise 3D Maxwell viscoelasticity (rheology.cxx:264-281)."""
+    tmp = 0.5 * dt * shearm / viscosity
+    f1 = 1.0 - tmp
+    f2 = 1.0 / (1.0 + tmp)
+    dev = (de[0] + de[1] + de[2]) / 3.0
+    s0 = (s[0] + s[1] + s[2]) / 3.0
+    bdv = bulkm * dv
+    iso = tuple(((s[i] - s0) * f1 + 2.0 * shearm * (de[i] - dev)) * f2
+                + s0 + bdv for i in range(3))
+    dev_c = tuple((s[i] * f1 + 2.0 * shearm * de[i]) * f2
+                  for i in range(3, 6))
+    return iso + dev_c
+
+
+def viscous3_c(bulkm, viscosity, total_dv, edot):
+    """Componentwise 3D viscous flow (rheology.cxx:284-296)."""
+    dev = (edot[0] + edot[1] + edot[2]) / 3.0
+    return tuple(2.0 * viscosity * (edot[i] - dev) + bulkm * total_dv
+                 for i in range(3)) \
+        + tuple(2.0 * viscosity * edot[i] for i in range(3, 6))
+
+
+def elasto_plastic3_c(bulkm, shearm, amc, anphi, anpsi, hardn, ten_max,
+                      de, s):
+    """Componentwise 3D Mohr-Coulomb return map in principal axes
+    (rheology.cxx:298-457) with the analytic eigensolver of ops/eig3.py
+    (the reference uses dsyevh3).  Returns (s_new 6-tuple, depls,
+    failure_mode)."""
+    st = elastic3_c(bulkm, shearm, de, s)
+    (pmin, pmid, pmax), (v0, v1, v2) = eigh3_c(*st)
+
+    a1 = bulkm + 4.0 / 3.0 * shearm
+    a2 = bulkm - 2.0 / 3.0 * shearm
+
+    fs = pmin - pmax * anphi + amc
+    ft = pmax - ten_max
+    no_fail = (fs > 0.0) & (ft < 0.0)
+
+    pa = torch.sqrt(1.0 + anphi * anphi) + anphi
+    ps = ten_max * anphi - amc
+    h = pmax - ten_max + pa * (pmin - ps)
+    shear_fail = h < 0.0
+
+    alam_s = fs / (a1 - a2 * anpsi + a1 * anphi * anpsi - a2 * anphi
+                   + 2.0 * torch.sqrt(anphi) * hardn)
+    alam_t = ft / a1
+    alam = torch.where(shear_fail, alam_s, alam_t)
+
+    dpls_shear = torch.abs(alam) * torch.sqrt(
+        (7.0 + 4.0 * anpsi + 7.0 * anpsi * anpsi) / 18.0)
+    dpls_tens = torch.abs(alam) * math.sqrt(7.0 / 18.0)
+    depls = torch.where(no_fail, 0.0,
+                        torch.where(shear_fail, dpls_shear, dpls_tens))
+
+    d_min = torch.where(shear_fail, alam * (a1 - a2 * anpsi), alam * a2)
+    d_mid = torch.where(shear_fail, alam * (a2 - a2 * anpsi), alam * a2)
+    d_max = torch.where(shear_fail, alam * (a2 - a1 * anpsi), alam * a1)
+    p_new = (pmin - d_min, pmid - d_mid, pmax - d_max)
+
+    # rotate back: s_ab = sum_k p_k v_k[a] v_k[b]
+    vs = (v0, v1, v2)
+
+    def rec(a, b):
+        return (p_new[0] * vs[0][a] * vs[0][b] + p_new[1] * vs[1][a]
+                * vs[1][b] + p_new[2] * vs[2][a] * vs[2][b])
+
+    ret = (rec(0, 0), rec(1, 1), rec(2, 2), rec(0, 1), rec(0, 2),
+           rec(1, 2))
+    s_new = tuple(torch.where(no_fail, t, r) for t, r in zip(st, ret))
+    zi = torch.zeros_like(fs, dtype=torch.int32)
+    failure_mode = torch.where(no_fail, zi,
+                               torch.where(shear_fail, zi + 10, zi + 1))
+    return s_new, depls, failure_mode

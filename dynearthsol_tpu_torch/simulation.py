@@ -2,11 +2,13 @@
 of dynearthsol_tpu/simulation.py).
 
 Mesh, topology, markers and initial conditions are built on the host in
-numpy, then the state moves to ``device``.  The time loop runs the fused
-2D step (ops/fused2d.py): the resident chunk runner where the JAX package
-picks ``pallas2d_res``, the tiled runner where it picks ``pallas2d``.  No
-other step exists in this package yet; any other configuration raises
-``NotImplementedError`` naming the JAX path it would need.
+numpy, then the state moves to ``device`` (the card unless the caller asks
+for the CPU).  The time loop runs the fused steps: in 2D (ops/fused2d.py)
+the resident chunk runner where the JAX package picks ``pallas2d_res`` and
+the tiled runner where it picks ``pallas2d``; in 3D (ops/fused3d.py) the
+fused 5-tet step where it picks ``pallas3d``.  No other step exists in
+this package yet; any other configuration raises ``NotImplementedError``
+naming the JAX path it would need.
 """
 
 from __future__ import annotations
@@ -24,13 +26,13 @@ from .config import (RH_ELASTIC, RH_EP, RH_EP_RSF, RH_EVP, RH_EVP_RSF,
                      RH_MAXWELL, RH_VISCOUS, Param)
 from .constants import BOUNDZ1
 from .mesh import build_topology, create_new_mesh
-from .ops import fused2d
+from .ops import fused2d, fused3d
 from .ops import geometry as G
 from .ops import matprops as M
 from .ops import surface as SP
 from .ops.assembly import node_sum
 from .ops.shapefn import compute_volume
-from .ops.structured import detect_structured_2d
+from .ops.structured import detect_structured_2d, detect_structured_3d
 from .state import State, allocate_state
 
 
@@ -42,7 +44,7 @@ class StepCtx:
     ndims: int
     nnode: int
     nelem: int
-    conn: torch.Tensor          # (nelem, 3) int64
+    conn: torch.Tensor          # (nelem, ndims + 1) int64
     gather_idx: torch.Tensor    # (nnode, max_degree) int64
     gather_mask: torch.Tensor   # (nnode, max_degree) bool
     top_mask: torch.Tensor      # (nnode,) bool, BOUNDZ1 nodes (Dirichlet T)
@@ -51,7 +53,7 @@ class StepCtx:
     mat: M.MatTables
     surf: SP.SurfInfo
     max_vbc_val: float
-    # (nx, nz) when the mesh is the raster structured grid
+    # (nx, nz) / (nx, ny, nz) when the mesh is the raster structured grid
     sgrid: Optional[tuple] = None
 
 
@@ -85,7 +87,8 @@ def make_finalize_fn(param: Param):
             pseudo_speed=ctx.max_vbc_val * ctrl.inertial_scaling,
             pseudo_speed_atp=s.max_global_vel_mag * ctrl.inertial_scaling,
             is_quasi_static=ctrl.is_quasi_static,
-            use_global_velocity_scaling=ctrl.use_global_velocity_scaling)
+            use_global_velocity_scaling=ctrl.use_global_velocity_scaling,
+            ndims=ctx.ndims)
         s = s.replace(volume_n=volume_n, mass=mass, tmass=tmass,
                       hmass=hmass, ymass=ymass)
         viscosity = M.visc(ctx.mat, s.emw, s.temperature, ctx.conn,
@@ -96,11 +99,17 @@ def make_finalize_fn(param: Param):
 
 
 def _jax_path_name(param: Param, ctx: StepCtx) -> str:
-    """The JAX package's 2D step path for a config off the fused gates
-    (grid2d.grid_step_applicable, flat2d.flat_step_applicable, else the
-    generic step)."""
+    """The JAX package's step path for a config off the fused gates
+    (grid2d/grid3d.grid_step_applicable, flat2d.flat_step_applicable,
+    flat3d.flat3d_step_applicable, else the generic step)."""
     ctrl, rheol = param.control, param.mat.rheol_type
     basic = (RH_ELASTIC, RH_VISCOUS, RH_MAXWELL, RH_EP, RH_EVP)
+    if ctx.ndims == 3:
+        if fused3d.grid_step_applicable(param, ctx):
+            return "grid3d"
+        if rheol in basic + (RH_EP_RSF, RH_EVP_RSF):
+            return "flat3d"
+        return "generic"
     if (ctx.sgrid is not None and not ctrl.has_hydraulic_diffusion
             and not ctrl.has_PT and rheol in basic
             and (rheol not in (RH_EP, RH_EVP) or param.mat.is_plane_strain)):
@@ -112,11 +121,26 @@ def _jax_path_name(param: Param, ctx: StepCtx) -> str:
     return "generic"
 
 
+def _detect_sgrid(topo):
+    if topo.ndims == 2:
+        return detect_structured_2d(topo.connectivity, topo.nnode)
+    return detect_structured_3d(topo.connectivity, topo.nnode)
+
+
 class Simulation:
     """End-to-end simulation: mesh/topology/IC on the host, stepping on
-    ``device``."""
+    ``device``.  The default device is the card ("cuda"); without one the
+    constructor raises rather than run on the CPU, which a caller asks for
+    with ``device="cpu"``."""
 
-    def __init__(self, param: Param, device="cpu"):
+    def __init__(self, param: Param, device=None):
+        if device is None:
+            if not torch.cuda.is_available():
+                raise RuntimeError(
+                    "Simulation runs on the CUDA device by default and "
+                    "none is available; pass device='cpu' to run the "
+                    "plain PyTorch versions on the CPU")
+            device = "cuda"
         if param.control.has_hydraulic_diffusion \
                 or param.mat.rheol_type in (RH_EP_RSF, RH_EVP_RSF) \
                 or param.ic.temperature_option == 3 \
@@ -149,13 +173,13 @@ class Simulation:
             mat=M.MatTables.from_param(param.mat, dtype=self.dtype,
                                        device=dev),
             surf=SP.make_surf_info(topo), max_vbc_val=max_vbc_val,
-            sgrid=detect_structured_2d(topo.connectivity, topo.nnode))
+            sgrid=_detect_sgrid(topo))
         # Winkler reference pressure, set by the initial stress state
         self.compensation_pressure = 0.0
         self.state = self._init_state()
         self._chunk_fns = {}
         # name of the dispatched step implementation, set by _chunk_fn:
-        # "pallas2d_res" or "pallas2d", the JAX package's names
+        # "pallas2d_res", "pallas2d" or "pallas3d", the JAX package's names
         self.step_path = None
 
     def _dev(self, x) -> torch.Tensor:
@@ -206,24 +230,28 @@ class Simulation:
     def _chunk_fn(self, n: int):
         if n not in self._chunk_fns:
             param, ctx = self.param, self.ctx
+            # the JAX package's order (simulation.py:1356-1385)
             if fused2d.resident_applicable(param, ctx):
-                path, resident = "pallas2d_res", True
+                path, mod = "pallas2d_res", fused2d
+                make = fused2d.make_resident_chunk_runner
             elif fused2d.pallas_step_applicable(param, ctx):
-                path, resident = "pallas2d", False
+                path, mod = "pallas2d", fused2d
+                make = fused2d.make_chunk_runner
+            elif fused3d.pallas3d_step_applicable(param, ctx):
+                path, mod = "pallas3d", fused3d
+                make = fused3d.make_chunk_runner
             else:
                 raise NotImplementedError(
-                    "this config is off the fused 2D step's gates; the JAX "
+                    "this config is off the fused steps' gates; the JAX "
                     f"package runs it on its {_jax_path_name(param, ctx)!r} "
                     "path, which is not ported yet")
-            missing = fused2d.unported_features(param, ctx)
+            missing = mod.unported_features(param, ctx)
             if missing:
                 raise NotImplementedError(
                     f"the JAX package runs this config on {path!r}, but "
                     "this package's fused step lacks: "
                     + "; ".join(missing))
             self.step_path = path
-            make = (fused2d.make_resident_chunk_runner if resident
-                    else fused2d.make_chunk_runner)
             self._chunk_fns[n] = make(param, ctx, n)
         return self._chunk_fns[n]
 

@@ -26,7 +26,7 @@ def get(s, f):
 
 def _sims(cfg):
     js = jdes.Simulation(jdes.param_from_dict(cfg))
-    ts = tdes.Simulation(tdes.param_from_dict(cfg))
+    ts = tdes.Simulation(tdes.param_from_dict(cfg), device="cpu")
     s0 = state_from_numpy({f: np.asarray(getattr(js.state, f))
                            for f in FIELD_NAMES}, dtype=torch.float32)
     return js, ts, s0
@@ -103,7 +103,7 @@ def test_volume_fixed_point():
     """A step with dt = 0 leaves coordinates unchanged, so the post-move
     volume must equal the initial volume bit for bit (simulation.py
     initialises it with the same operations)."""
-    ts = tdes.Simulation(tdes.param_from_dict(make_sim_cfg()))
+    ts = tdes.Simulation(tdes.param_from_dict(make_sim_cfg()), device="cpu")
     P = fused2d.make_plan(ts.param, ts.ctx, "cpu")
     b = fused2d.make_buffers(P, ts.ctx, ts.state, 1, tiled=False)
     b.scal[0] = 0.0

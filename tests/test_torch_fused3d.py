@@ -1,0 +1,190 @@
+"""The port's fused 3D step (ops/fused3d.py, plain version on the CPU)
+against the JAX package on the 128 x 4 x 8-cell 3D config: the grid3d step
+(the JAX package's oracle for pallas3d, tests/test_pallas3d.py) and the
+Pallas step in interpret mode, both started from the same JAX State
+(state_from_numpy); and the slice end to end through ``run_steps``.
+
+Tolerances are test_pallas3d.py's (tests/torch_cases.py): the 3D EVP
+min-select is chaotic at f32 roundoff, so trajectories are gated on
+maxwell over 10 steps (ending on a dt-refresh step) and EVP on one step.
+"""
+
+import numpy as np
+import pytest
+import torch
+
+import dynearthsol_tpu as jdes
+import dynearthsol_tpu_torch as tdes
+from dynearthsol_tpu.ops import grid3d, pallas3d
+from dynearthsol_tpu_torch.ops import fused2d, fused3d
+from dynearthsol_tpu_torch.state import (FIELD_NAMES, state_from_numpy,
+                                         state_to_numpy)
+from torch_cases import (assert_evp3_one_step_close, assert_maxwell3_close,
+                         make_sim3d_cfg, rel_err)
+
+SCALARS = ("time", "dt", "max_global_vel_mag", "global_dt_min",
+           "l2_residual")
+
+
+def get(s, f):
+    v = getattr(s, f)
+    return v.numpy() if isinstance(v, torch.Tensor) else np.asarray(v)
+
+
+def _sims(cfg):
+    js = jdes.Simulation(jdes.param_from_dict(cfg))
+    ts = tdes.Simulation(tdes.param_from_dict(cfg), device="cpu")
+    s0 = state_from_numpy({f: np.asarray(getattr(js.state, f))
+                           for f in FIELD_NAMES}, dtype=torch.float32)
+    return js, ts, s0
+
+
+def _grid_run(js, n):
+    nx, ny, nz = js.ctx.sgrid
+    gstep = grid3d.make_grid_step(js.param, js.ctx, 0.0)
+    g = grid3d.state_to_grid(js.state, nx, ny, nz)
+    for _ in range(n):
+        g = gstep(js.ctx, g)
+    return grid3d.grid_to_state(g, nx, ny, nz)
+
+
+def _pallas_run(js, n):
+    old = pallas3d.INTERPRET
+    pallas3d.INTERPRET = True
+    try:
+        return pallas3d.make_chunk_runner(js.param, js.ctx, 0.0, n)(
+            js.ctx, js.state)
+    finally:
+        pallas3d.INTERPRET = old
+
+
+@pytest.fixture(scope="module")
+def maxwell():
+    return _sims(make_sim3d_cfg(mat={"rheology_type": "maxwell"},
+                                ic={"weakzone_option": 0}))
+
+
+@pytest.fixture(scope="module")
+def evp():
+    js, ts, s0 = _sims(make_sim3d_cfg(ic={"weakzone_option": 1}))
+    port = fused3d.make_chunk_runner(ts.param, ts.ctx, 1)(ts.ctx, s0)
+    return js, ts, s0, port
+
+
+def test_maxwell_10_steps_vs_grid3d(maxwell):
+    js, ts, s0 = maxwell
+    out = fused3d.make_chunk_runner(ts.param, ts.ctx, 10)(ts.ctx, s0)
+    assert_maxwell3_close(_grid_run(js, 10), out, get)
+
+
+def test_evp_one_step_vs_grid3d(evp):
+    js, _, _, port = evp
+    assert_evp3_one_step_close(_grid_run(js, 1), port, get)
+
+
+def test_evp_one_step_vs_pallas3d(evp):
+    js, _, _, port = evp
+    assert_evp3_one_step_close(_pallas_run(js, 1), port, get)
+
+
+def test_evp_ties_are_few(evp, maxwell):
+    """The exact ties of the EVP min-select at step 1 (fused3d.evp_ties):
+    where the deviatoric trial increment lies below the f32 resolution of
+    the lithostatic stress, both invariants round to 0 while the branches
+    differ in pressure.  A few per cent of the elements at most, and
+    none off EVP."""
+    _, ts, s0, _ = evp
+    tie = fused3d.evp_ties(fused3d.make_plan(ts.param, ts.ctx, "cpu"),
+                           ts.ctx, s0)
+    assert 0 < int(tie.sum()) <= 0.02 * tie.numel()
+    _, tm, m0 = maxwell
+    assert not fused3d.evp_ties(fused3d.make_plan(tm.param, tm.ctx, "cpu"),
+                                tm.ctx, m0).any()
+
+
+def test_scalars_set_every_step(evp):
+    """Step 1 is off the dt-refresh cadence: dt stays, while vmax and
+    gdtmin come from the step's own partials (pallas3d.py:1649-1690), as
+    in the JAX step; the 2D mode of dt_refresh would have kept them."""
+    js, _, s0, port = evp
+    ref = _grid_run(js, 1)
+    for f in SCALARS:
+        a, b = float(get(ref, f)), float(get(port, f))
+        assert abs(a - b) <= 1e-3 * max(abs(a), 1e-300), f
+    assert float(port.dt) == float(s0.dt)
+    assert float(port.max_global_vel_mag) != float(s0.max_global_vel_mag)
+    assert float(port.global_dt_min) != float(s0.global_dt_min)
+
+
+@pytest.mark.parametrize("every", [False, True], ids=["2d", "3d"])
+@pytest.mark.parametrize("refresh", [False, True],
+                         ids=["off_cadence", "refresh"])
+def test_dt_refresh_modes(maxwell, every, refresh):
+    """dt_refresh_plain on given partials: vmax and gdtmin follow them on
+    every step in the 3D mode and on refresh steps only in the 2D mode; dt
+    changes on refresh steps only; time advances by the old dt."""
+    _, ts, s0 = maxwell
+    P = fused3d.make_plan(ts.param, ts.ctx, "cpu")
+    b = fused3d.make_buffers(P, ts.ctx, s0, 1)
+    b.flags[0, 0] = float(refresh)
+    b.part[0, :2] = torch.tensor([400.0, 300.0])
+    b.part[1, :2] = torch.tensor([0.2, 0.1])
+    b.part[2, :2] = torch.tensor([1e-9, 3e-9])
+    b.part[3, :2] = torch.tensor([2.0, 5.0])
+    before = b.scal.clone()
+    fused2d.dt_refresh_plain(P, b.part, b.scal, b.dthist, b.flags, 0,
+                             tiled=True, every=every)
+    assert float(b.dthist[0]) == float(before[0])
+    assert float(b.scal[3]) == float(before[3] + before[0])
+    assert float(b.scal[4]) == 7.0
+    moved = every or refresh
+    vmax = max(3e-9, P.k["max_vbc"])
+    assert float(b.scal[1]) == (pytest.approx(vmax, rel=1e-6) if moved
+                                else float(before[1]))
+    assert float(b.scal[2]) == (pytest.approx(0.1 / 5, rel=1e-6) if moved
+                                else float(before[2]))
+    assert (float(b.scal[0]) != float(before[0])) == refresh
+
+
+def test_dt0_step_keeps_volume(maxwell):
+    """A step with dt = 0 recomputes the initial volume bit for bit
+    (ops/shapefn.compute_volume has the step's operation order)."""
+    _, ts, _ = maxwell
+    P = fused3d.make_plan(ts.param, ts.ctx, "cpu")
+    b = fused3d.make_buffers(P, ts.ctx, ts.state, 1)
+    b.scal[0] = 0.0
+    fused3d.fused3d_step(P, b)
+    vol = fused3d._eslot("volume")
+    assert torch.equal(b.eout[vol], b.ein[vol])
+
+
+def test_slice_matches_jax():
+    """Simulation(...).run_steps(10, chunk=10) in both packages (maxwell,
+    the JAX package on pallas3d in interpret mode), every State field."""
+    cfg = make_sim3d_cfg(mat={"rheology_type": "maxwell"},
+                         ic={"weakzone_option": 0})
+    js = jdes.Simulation(jdes.param_from_dict(cfg))
+    ts = tdes.Simulation(tdes.param_from_dict(cfg), device="cpu")
+    old = pallas3d.INTERPRET
+    pallas3d.INTERPRET = True
+    try:
+        ref = js.run_steps(10, chunk=10)
+    finally:
+        pallas3d.INTERPRET = old
+    out = state_to_numpy(ts.run_steps(10, chunk=10))
+    assert ts.step_path == js.step_path == "pallas3d"
+    tols = {"force": 5e-3, "dpressure": 5e-3}
+    for f in FIELD_NAMES:
+        a, b = np.asarray(getattr(ref, f)), out[f]
+        assert a.shape == b.shape and a.dtype == b.dtype, f
+        assert np.isfinite(b).all(), f
+        if f == "viscosity":
+            d = np.abs(np.log(a.astype(np.float64))
+                       - np.log(b.astype(np.float64)))
+            assert np.median(d) < 0.02
+        elif f in SCALARS:
+            assert abs(float(a) - float(b)) <= 1e-3 * abs(float(a)), f
+        elif f == "steps":
+            assert int(a) == int(b) == 10
+        else:
+            assert rel_err(a, b) < tols.get(f, 1e-3), (f, rel_err(a, b))

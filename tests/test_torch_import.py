@@ -12,7 +12,8 @@ def test_imports_with_jax_blocked():
     code = ("import sys; sys.modules['jax'] = None; "
             "sys.modules['dynearthsol_tpu'] = None; "
             "import dynearthsol_tpu_torch as d; "
-            "from dynearthsol_tpu_torch.ops import fused2d, _build; "
+            "from dynearthsol_tpu_torch.ops import "
+            "fused2d, fused3d, eig3, _build; "
             "print(d.Simulation.__name__)")
     r = subprocess.run([sys.executable, "-c", code], cwd=ROOT,
                        capture_output=True, text=True, timeout=120)

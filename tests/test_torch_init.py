@@ -27,7 +27,7 @@ COMPUTED = ("volume", "volume_old", "volume_n", "mass", "tmass", "hmass",
     ids=["make_sim", "make_sim_f64", "flagship_64x128"])
 def test_initial_state_matches_jax(cfg):
     js = jdes.Simulation(jdes.param_from_dict(cfg))
-    ts = tdes.Simulation(tdes.param_from_dict(cfg))
+    ts = tdes.Simulation(tdes.param_from_dict(cfg), device="cpu")
     out = state_to_numpy(ts.state)
     tol = 5e-7 if cfg["sim"]["float_dtype"] == "float32" else 1e-12
     for f in FIELD_NAMES:
@@ -55,7 +55,7 @@ def test_tiled_dispatch_matches_jax():
     dispatch to the per-step tiled kernel."""
     cfg = make_sim_cfg(control={"use_global_velocity_scaling": True})
     js = jdes.Simulation(jdes.param_from_dict(cfg))
-    ts = tdes.Simulation(tdes.param_from_dict(cfg))
+    ts = tdes.Simulation(tdes.param_from_dict(cfg), device="cpu")
     js._chunk_fn(1)
     ts._chunk_fn(1)
     assert ts.step_path == js.step_path == "pallas2d"
@@ -64,6 +64,6 @@ def test_tiled_dispatch_matches_jax():
 def test_unported_config_raises():
     """A config the JAX package runs on its grid2d path has no step here."""
     cfg = make_sim_cfg(sim={"float_dtype": "float64"})
-    ts = tdes.Simulation(tdes.param_from_dict(cfg))
+    ts = tdes.Simulation(tdes.param_from_dict(cfg), device="cpu")
     with pytest.raises(NotImplementedError, match="grid2d"):
         ts.run_steps(1)

@@ -24,7 +24,7 @@ SCALARS = ("time", "dt", "max_global_vel_mag", "global_dt_min",
 def test_run_steps_matches_jax():
     cfg = make_sim_cfg(mat={"rheology_type": "maxwell"})
     js = jdes.Simulation(jdes.param_from_dict(cfg))
-    ts = tdes.Simulation(tdes.param_from_dict(cfg))
+    ts = tdes.Simulation(tdes.param_from_dict(cfg), device="cpu")
     old = pallas2d.INTERPRET
     pallas2d.INTERPRET = True  # the CPU form of the Pallas kernel
     try:
@@ -51,7 +51,7 @@ def test_run_steps_matches_jax():
 
 
 def test_state_numpy_round_trip():
-    ts = tdes.Simulation(tdes.param_from_dict(make_sim_cfg()))
+    ts = tdes.Simulation(tdes.param_from_dict(make_sim_cfg()), device="cpu")
     d = state_to_numpy(ts.state)
     back = state_from_numpy(d, dtype=torch.float32)
     for f in FIELD_NAMES:

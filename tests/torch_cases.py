@@ -62,6 +62,35 @@ def flagship_cfg(nx_cells=512, nz_cells=256, **over):
     return _merge(d, over)
 
 
+def make_sim3d_cfg(**over):
+    """tests/test_pallas3d.py make_sim config narrowed in y: 128 x 4 x 8
+    cells (20,480 tets; the fused 3D gate needs nxc % 128 == 0 and
+    nzc % 8 == 0), EVP, f32."""
+    d = {
+        "sim": {"ndims": 3, "float_dtype": "float32",
+                "is_outputting_averaged_fields": False},
+        "mesh": {"meshing_option": 1, "meshing_elem_shape": 1,
+                 "xlength": 128e3, "ylength": 4e3, "zlength": 8e3,
+                 "resolution": 1e3,
+                 "quality_check_step_interval": 10**8},
+        "control": {"gravity": 10.0, "inertial_scaling": 1e5,
+                    "has_thermal_diffusion": True, "damping_option": 1},
+        "bc": {"vbc_x0": 1, "vbc_val_x0": -1e-9,
+               "vbc_x1": 1, "vbc_val_x1": 1e-9,
+               "vbc_y0": 1, "vbc_val_y0": 0.0,
+               "vbc_y1": 1, "vbc_val_y1": 0.0,
+               "vbc_z0": 0, "vbc_z1": 0,
+               "has_winkler_foundation": False,
+               "has_water_loading": False},
+        "mat": {"rheology_type": "elasto-visco-plastic",
+                "is_plane_strain": False,
+                "rho0": [2800.0], "bulk_modulus": [50e9],
+                "shear_modulus": [30e9],
+                "visc_max": 1e24, "visc_min": 1e19},
+    }
+    return _merge(d, over)
+
+
 def _merge(d, over):
     for sec, kv in over.items():
         d.setdefault(sec, {}).update(kv)
@@ -120,3 +149,51 @@ def assert_resident_matches_tiled(tiled, res, get):
               "steps"):
         a, b = float(get(tiled, f)), float(get(res, f))
         assert abs(a - b) <= 1e-6 * max(abs(a), 1e-300), f
+
+
+# test_pallas3d.py:79-82 and :112-131: the 3D gates
+FIELDS3 = ("coord", "vel", "temperature", "stress", "strain", "plstrain",
+           "volume", "volume_n", "mass", "tmass", "hmass", "force",
+           "strain_rate", "edvoldt", "delta_plstrain", "volume_old")
+
+
+# one-step cases of the fused 3D step beyond the EVP and maxwell gates:
+# every rheology, and on EVP the damping options and the switches the step
+# reads
+STEP3_CASES = {
+    "elastic": {"mat": {"rheology_type": "elastic"}},
+    "viscous": {"mat": {"rheology_type": "viscous"}},
+    "elasto_plastic": {"mat": {"rheology_type": "elasto-plastic"}},
+    **{f"damping{k}": {"control": {"damping_option": k,
+                                   "damping_factor": 0.4}}
+       for k in (0, 2, 3)},
+    "no_nmd": {"control": {"is_using_mixed_stress": False}},
+    "no_surface_correction": {"control": {"has_surface_correction": False}},
+    "global_velocity_scaling": {
+        "control": {"use_global_velocity_scaling": True}},
+}
+
+
+def assert_maxwell3_close(ref, out, get):
+    """10 maxwell steps: fields within 1e-3 of each field's max (force
+    5e-3), dt/time/vmax/L2 within 1e-3 relative (test_pallas3d.py:112-116).
+    ``get(state, name)`` -> numpy."""
+    for f in FIELDS3:
+        err = rel_err(get(ref, f), get(out, f))
+        assert err < (5e-3 if f == "force" else 1e-3), (f, err)
+    assert np.isfinite(get(out, "viscosity")).all()
+    for f in ("dt", "time", "max_global_vel_mag", "l2_residual"):
+        a, b = float(get(ref, f)), float(get(out, f))
+        assert abs(a - b) <= 1e-3 * max(abs(a), 1e-300), f
+
+
+def assert_evp3_one_step_close(ref, out, get):
+    """One EVP step: fields within 1e-4 (force 1e-3), log-viscosity median
+    below 0.02 (test_pallas3d.py:126-132)."""
+    for f in FIELDS3:
+        err = rel_err(get(ref, f), get(out, f))
+        assert err < (1e-3 if f == "force" else 1e-4), (f, err)
+    va = np.log(np.asarray(get(ref, "viscosity"), dtype=np.float64))
+    vb = np.log(np.asarray(get(out, "viscosity"), dtype=np.float64))
+    assert np.median(np.abs(va - vb)) < 0.02
+    assert np.isfinite(vb).all()
