@@ -34,7 +34,25 @@ Phases, each printed, the first failure exits non-zero:
                 steps;
   7. profile -- torch.profiler over 100 steps of the flagship runner and
                 20 of the flagship3d runner: device time per launch by
-                kernel, device busy and idle share.
+                kernel, device busy and idle share;
+  8. gather/assembly kernels -- the three kernels of csrc/band2d.cu
+                (cgather, asm_pack, asm_gather) against their plain
+                versions with torch.equal (tolerance 0): a small Delaunay
+                mesh, a small tet mesh (npe = 4) and the 277k-triangle mesh
+                of phase 9, float32 and float64, at the k / kg of the flat
+                step's six call sites; their device times at that mesh with
+                the L2 cache flushed between launches, beside the plain
+                versions' and the library calls' (index_select, index_add_);
+  9. unstructured slice -- the flagship config on a Delaunay box mesh
+                (meshing_elem_shape 0: 277,258 triangles, 139,400 nodes,
+                EVP, f32): Simulation(param) with the default device, a
+                warm-up chunk of 100 steps, then 200 timed steps in chunks
+                of 100, with launch counts (2 per step of each kernel, no
+                plain version), and the plain versions' rate over 5 steps;
+                the slice on the card against the port on the CPU at a
+                1,062-triangle mesh (maxwell 10 steps and EVP 1 step in f32
+                at 1e-5, maxwell 10 steps in f64 at 1e-10);
+                the profiler breakdown of 10 steps.
 The last lines are a JSON record of the kernels, the card's name and power
 limit, and {"ok": true, "device": {...}}.
 """
@@ -105,6 +123,27 @@ def flagship_cfg(rheology="elasto-visco-plastic"):
     }
 
 
+def unstructured_cfg(rheology="elasto-visco-plastic", small=False):
+    """bench.py --case unstructured: flagship_param on a Delaunay box mesh
+    (meshing_elem_shape 0).  ``small``: the 16 km x 8 km box of
+    tests/test_flat.py at 500 m, 1,062 triangles."""
+    cfg = flagship_cfg(rheology)
+    cfg["mesh"]["meshing_elem_shape"] = 0
+    if small:
+        cfg["mesh"].update(xlength=16e3, zlength=8e3, resolution=500.0,
+                           quality_check_step_interval=7)
+        del cfg["ic"]
+    return cfg
+
+
+# fields the flat-step gate of tests/test_flat.py:38-42 compares
+FLAT_FIELDS = ("coord", "vel", "temperature", "stress", "stressyy", "strain",
+               "strain_rate", "plstrain", "delta_plstrain", "viscosity",
+               "volume", "volume_old", "volume_n", "mass", "tmass", "hmass",
+               "ymass", "force", "edvoldt", "dt", "time",
+               "max_global_vel_mag", "global_dt_min", "l2_residual")
+
+
 def sim3d_cfg(rheology="elasto-visco-plastic", weakzone=1):
     """tests/test_pallas3d.py make_sim: 128 x 16 x 8 cells, 81,920 tets."""
     return {
@@ -167,7 +206,10 @@ def main():
     sys.path.insert(0, str(Path(__file__).resolve().parent))
     try:
         import dynearthsol_tpu_torch as des
-        from dynearthsol_tpu_torch.ops import _build, fused2d, fused3d
+        from dynearthsol_tpu_torch.mesh.generate import (
+            regular_grid_3d, renumber_mesh, unstructured_box_2d)
+        from dynearthsol_tpu_torch.ops import (_build, band2d, flat2d,
+                                               fused2d, fused3d)
         from dynearthsol_tpu_torch.state import FIELD_NAMES
     except ImportError as e:
         fail(f"the dynearthsol_tpu_torch package is not beside this "
@@ -223,6 +265,48 @@ def main():
         t1.record()
         sync()
         return t0.elapsed_time(t1) / reps
+
+    def cold_ms(fn, reps, flush):
+        """Device time per call with the 50 MB L2 cache flushed before
+        every call, as the flat step finds it (hundreds of element-wise
+        launches lie between two of its gathers): a graph of reps x
+        (flush, call) less a graph of reps x flush."""
+        def graph_ms(body):
+            body()
+            sync()
+            g = torch.cuda.CUDAGraph()
+            with torch.cuda.graph(g):
+                for _ in range(reps):
+                    body()
+            g.replay()
+            sync()
+            t0 = torch.cuda.Event(enable_timing=True)
+            t1 = torch.cuda.Event(enable_timing=True)
+            t0.record()
+            g.replay()
+            t1.record()
+            sync()
+            del g
+            return t0.elapsed_time(t1) / reps
+
+        def both():
+            flush.zero_()
+            fn()
+
+        return graph_ms(both) - graph_ms(flush.zero_)
+
+    wrappers = {"fused2d_step": fused2d.fused_step,
+                "dt_refresh": fused2d.dt_refresh,
+                "fused3d_step": fused3d.fused3d_step,
+                "cgather": band2d.cgather, "asm_pack": band2d.asm_pack,
+                "asm_gather": band2d.asm_gather}
+
+    def zero_counts():
+        """Every kernel's launch count, and the calls of the plain gather
+        and assembly, set to 0: called just before a main path is driven."""
+        for w in wrappers.values():
+            w.launches = 0
+        band2d.gather_corners.calls = band2d.scatter_corners.calls = 0
 
     def nbytes(*ts):
         return sum(t.numel() * t.element_size() for t in ts)
@@ -608,9 +692,7 @@ def main():
     if fsim.step_path != "pallas2d_res":
         fail(f"flagship dispatched to {fsim.step_path!r}, not pallas2d_res")
     time0 = float(fsim.state.time)
-    fused2d.fused_step.launches = 0
-    fused2d.dt_refresh.launches = 0
-    fused3d.fused3d_step.launches = 0
+    zero_counts()
     t = time.perf_counter()
     fsim.run_steps(500, chunk=250)
     sync()
@@ -648,9 +730,7 @@ def main():
     if g3.step_path != "pallas3d":
         fail(f"flagship3d dispatched to {g3.step_path!r}, not pallas3d")
     time0 = float(g3.state.time)
-    fused2d.fused_step.launches = 0
-    fused2d.dt_refresh.launches = 0
-    fused3d.fused3d_step.launches = 0
+    zero_counts()
     t = time.perf_counter()
     g3.run_steps(500, chunk=250)
     sync()
@@ -703,6 +783,10 @@ def main():
                 key = e.name[e.name.index("phase_"):][:7]
             elif "dt_refresh" in e.name:
                 key = "dt_refresh"
+            elif "gather_corners_kernel" in e.name:
+                key = "gather_corners_kernel (cgather, asm_gather)"
+            elif "scatter_corners_kernel" in e.name:
+                key = "scatter_corners_kernel (asm_pack, asm_gather)"
             else:
                 key = "other (PyTorch ops, copies)"
             n, t = rows.get(key, (0, 0.0))
@@ -718,6 +802,222 @@ def main():
                                            True), 100)
     per_kernel("flagship3d", lambda n: fused3d.run_chunk(
         FP3, g3.ctx, g3.state, n), 20)
+
+
+    # ---- 8. the gather and assembly kernels against their plain versions
+    print("phase 8 gather/assembly kernels vs plain (tolerance 0)")
+    from dynearthsol_tpu_torch import simulation as sim_mod
+
+    mesher, mesh_s = sim_mod.create_new_mesh, []
+
+    def timed_mesher(param):
+        t = time.perf_counter()
+        mesh = mesher(param)
+        mesh_s.append(time.perf_counter() - t)
+        return mesh
+
+    sim_mod.create_new_mesh = timed_mesher
+    try:
+        t = time.perf_counter()
+        usim = des.Simulation(des.param_from_dict(unstructured_cfg()))
+        sync()
+        uinit_s = time.perf_counter() - t
+    finally:
+        sim_mod.create_new_mesh = mesher
+    if usim.device.type != "cuda":
+        fail(f"Simulation(param) built on {usim.device}, not the card")
+    unelem, unnode = usim.ctx.nelem, usim.ctx.nnode
+    print(f"  unstructured flagship host setup: {uinit_s:.1f} s, of which "
+          f"the mesh build {mesh_s[0]:.1f} s ({unelem} triangles, {unnode} "
+          f"nodes, sgrid {usim.ctx.sgrid})")
+    if usim.ctx.sgrid is not None:
+        fail("the Delaunay mesh was taken for a structured grid")
+
+    small = unstructured_box_2d(16e3, 8e3, 250.0)
+    small = renumber_mesh(small.coord, small.connectivity)
+    tets = regular_grid_3d(16e3, 8e3, 4e3, 1e3)
+    SITES = {"cgather": (6, 2), "asm_pack": (2, 5),
+             "asm_gather": ((2, 1), (1, 1))}
+    gen = torch.Generator(device="cuda").manual_seed(12345)
+
+    def rnd(shape, dtype):
+        return torch.randn(shape, generator=gen, dtype=dtype, device="cuda")
+
+    band_err = {"cgather": 0.0, "asm_pack": 0.0, "asm_gather": 0.0}
+
+    def band_check(label, bt):
+        for dtype in (torch.float32, torch.float64):
+            worst = dict.fromkeys(band_err, 0.0)
+            for k in SITES["cgather"]:
+                pack = rnd((bt.nnode, k), dtype)
+                a, b = band2d.cgather(pack, bt), \
+                    band2d.gather_corners(pack, bt)
+                worst["cgather"] = max(worst["cgather"],
+                                       float((a - b).abs().max()))
+                if not torch.equal(a, b):
+                    fail(f"{label} {dtype} cgather k={k} differs from "
+                         "its plain version")
+            for k in SITES["asm_pack"]:
+                cols = rnd((k, bt.npe, bt.nelem), dtype)
+                a, b = band2d.asm_pack(cols, bt), \
+                    band2d.scatter_corners(cols, bt)
+                worst["asm_pack"] = max(worst["asm_pack"],
+                                        float((a - b).abs().max()))
+                if not torch.equal(a, b):
+                    fail(f"{label} {dtype} asm_pack k={k} differs from "
+                         "its plain version")
+            for k, kg in SITES["asm_gather"]:
+                cols = rnd((k, bt.npe, bt.nelem), dtype)
+                a, b = band2d.asm_gather(cols, bt, kg), \
+                    band2d.scatter_gather_corners(cols, bt, kg)
+                worst["asm_gather"] = max(
+                    worst["asm_gather"], float((a[0] - b[0]).abs().max()),
+                    float((a[1] - b[1]).abs().max()))
+                if not (torch.equal(a[0], b[0]) and torch.equal(a[1], b[1])):
+                    fail(f"{label} {dtype} asm_gather k={k} kg={kg} "
+                         "differs from its plain version")
+            sync()
+            for name in band_err:
+                band_err[name] = max(band_err[name], worst[name])
+            print(f"  {label}, {str(dtype)[6:]}: cgather k=6,2; asm_pack "
+                  f"k=2,5; asm_gather (k,kg)=(2,1),(1,1) equal bit for bit")
+
+    band_check(f"Delaunay {small[1].shape[0]} triangles",
+               band2d.build_tables(small[1], small[0].shape[0], "cuda"))
+    band_check(f"{tets.nelem} tets",
+               band2d.build_tables(tets.connectivity, tets.nnode, "cuda"))
+    ubt = band2d.build_tables(usim.topo.connectivity, unnode, "cuda")
+    band_check(f"Delaunay {unelem} triangles", ubt)
+
+    # device times at the 277k-triangle mesh, f32, L2 flushed before each
+    # call.  Library calls: index_select(0, conn) gives the gathered rows
+    # as (slots, k); index_add_ into zeros gives the nodal sums, but with
+    # atomics, in an order that changes from run to run.
+    flush = torch.empty(256 * 2 ** 20, dtype=torch.uint8, device="cuda")
+    conn_l = ubt.conn_cm.long()
+    es = 4
+    nslots = 3 * unelem
+    tab_b = nbytes(ubt.row_ptr, ubt.slots)
+    band_t = {}
+    for k in SITES["cgather"]:
+        pack = rnd((unnode, k), torch.float32)
+        band_t[f"cgather k={k}"] = dict(
+            ms=cold_ms(lambda: band2d.cgather(pack, ubt), 20, flush),
+            warm_ms=device_ms(lambda: band2d.cgather(pack, ubt), 50),
+            issue_ms=issue_ms(lambda: band2d.cgather(pack, ubt), 50),
+            plain_ms=cold_ms(lambda: band2d.gather_corners(pack, ubt), 10,
+                             flush),
+            library_ms=cold_ms(lambda: pack.index_select(0, conn_l), 20,
+                               flush),
+            bound=bound(nbytes(pack, ubt.conn_cm), k * nslots * es, 0))
+    for k in SITES["asm_pack"]:
+        cols = rnd((k, 3, unelem), torch.float32)
+        rows = cols.reshape(k, nslots).t().contiguous()
+        band_t[f"asm_pack k={k}"] = dict(
+            ms=cold_ms(lambda: band2d.asm_pack(cols, ubt), 20, flush),
+            warm_ms=device_ms(lambda: band2d.asm_pack(cols, ubt), 50),
+            issue_ms=issue_ms(lambda: band2d.asm_pack(cols, ubt), 50),
+            plain_ms=cold_ms(lambda: band2d.scatter_corners(cols, ubt), 5,
+                             flush),
+            library_ms=cold_ms(
+                lambda: torch.zeros((unnode, k), device="cuda")
+                .index_add_(0, conn_l, rows), 20, flush),
+            bound=bound(nbytes(cols) + tab_b, unnode * k * es, nslots * k))
+    for k, kg in SITES["asm_gather"]:
+        cols = rnd((k, 3, unelem), torch.float32)
+        rows = cols.reshape(k, nslots).t().contiguous()
+        band_t[f"asm_gather k={k} kg={kg}"] = dict(
+            ms=cold_ms(lambda: band2d.asm_gather(cols, ubt, kg), 20, flush),
+            warm_ms=device_ms(lambda: band2d.asm_gather(cols, ubt, kg), 50),
+            issue_ms=issue_ms(lambda: band2d.asm_gather(cols, ubt, kg), 50),
+            plain_ms=cold_ms(
+                lambda: band2d.scatter_gather_corners(cols, ubt, kg), 5,
+                flush),
+            library_ms=None,
+            library_two_calls_ms=cold_ms(
+                lambda: torch.zeros((unnode, k), device="cuda")
+                .index_add_(0, conn_l, rows)[:, :kg]
+                .index_select(0, conn_l), 20, flush),
+            bound=bound(nbytes(cols, ubt.conn_cm) + tab_b,
+                        (unnode * k + kg * nslots) * es, nslots * k))
+    for site, r in band_t.items():
+        lib = (f"{r['library_ms']:.4f}" if r["library_ms"] is not None
+               else f"none as one call (index_add_ + index_select "
+                    f"{r['library_two_calls_ms']:.4f})")
+        print(f"  {site}: {r['ms']:.4f} ms (L2 warm {r['warm_ms']:.4f}, "
+              f"issued from Python {r['issue_ms']:.4f}), plain "
+              f"{r['plain_ms']:.4f} ms, library {lib} ms, bound "
+              f"{r['bound'][0]:.4f} ms by {r['bound'][1]} "
+              f"({r['bound'][2]} bytes)")
+    del flush, conn_l
+
+    # ---- 9. the unstructured slice through the main path
+    t = time.perf_counter()
+    usim.run_steps(100, chunk=100)
+    sync()
+    uwarm_s = time.perf_counter() - t
+    if usim.step_path != "flat2d":
+        fail(f"the unstructured flagship dispatched to {usim.step_path!r}, "
+             "not flat2d")
+    time0 = float(usim.state.time)
+    zero_counts()
+    t = time.perf_counter()
+    usim.run_steps(200, chunk=100)
+    sync()
+    urun_s = time.perf_counter() - t
+    launches_u = {n: wrappers[n].launches
+                  for n in ("cgather", "asm_pack", "asm_gather")}
+    if any(v != 400 for v in launches_u.values()):
+        fail(f"the flat path did not launch each kernel twice per step: "
+             f"{launches_u}")
+    if band2d.gather_corners.calls or band2d.scatter_corners.calls:
+        fail("the flat path on the card took a plain version")
+    s = usim.state
+    if not float(s.time) > time0 or int(s.steps) != 300:
+        fail("unstructured model time or the step count did not advance")
+    for f in FIELD_NAMES:
+        v = getattr(s, f)
+        if v.is_floating_point() and not bool(torch.isfinite(v).all()):
+            fail(f"non-finite values in unstructured {f}")
+    if s.stress.shape != (unelem, 3) or s.coord.shape != (unnode, 2):
+        fail(f"unstructured stress has shape {tuple(s.stress.shape)}")
+    urate = unelem * 200 / urun_s
+    plain_run = flat2d.make_chunk_runner(usim.param, usim.ctx, 5, plain=True)
+    plain_run(usim.ctx, s)
+    sync()
+    t = time.perf_counter()
+    plain_run(usim.ctx, s)
+    sync()
+    uplain_rate = unelem * 5 / (time.perf_counter() - t)
+    print(f"phase 9 unstructured slice: {unelem} triangles, {unnode} nodes, "
+          f"step_path {usim.step_path}, launches {launches_u}, plain "
+          f"versions called 0 times, host setup {uinit_s:.1f} s (mesh "
+          f"{mesh_s[0]:.1f} s), warm-up "
+          f"100 steps {uwarm_s:.2f} s, 200 steps {urun_s:.3f} s, model time "
+          f"{time0:.6e} -> {float(s.time):.6e} s, fields finite")
+    print(f"  elem*steps/s: kernels {urate:.6e}, plain versions "
+          f"{uplain_rate:.6e} (over 5 steps) on {card}")
+
+    # the slice on the card against the port on the CPU, small mesh
+    # (f64 runs the double instantiations of the kernels; the two sides
+    # then differ by the ulps of exp and log only)
+    for rheology, n, dtype, tol in (
+            ("maxwell", 10, "float32", 1e-5),
+            ("elasto-visco-plastic", 1, "float32", 1e-5),
+            ("maxwell", 10, "float64", 1e-10)):
+        cfg = unstructured_cfg(rheology, small=True)
+        cfg["sim"]["float_dtype"] = dtype
+        par = des.param_from_dict(cfg)
+        on_card = des.Simulation(par).run_steps(n, chunk=n)
+        on_cpu = des.Simulation(par, device="cpu").run_steps(n, chunk=n)
+        sync()
+        for f in FLAT_FIELDS:
+            check(f"flat {rheology} {dtype} {n} step(s), card vs CPU, {f}",
+                  rel(getattr(on_cpu, f), getattr(on_card, f).cpu()), tol)
+
+    per_kernel("unstructured flagship (flat2d)",
+               lambda n: flat2d.make_chunk_runner(usim.param, usim.ctx, n)(
+                   usim.ctx, usim.state), 10)
 
     src2 = "dynearthsol_tpu_torch/csrc/fused2d.cu"
     src3 = "dynearthsol_tpu_torch/csrc/fused3d.cu"
@@ -756,11 +1056,46 @@ def main():
          "bound_bytes": step3_bound[2], "bound_ops": step3_bound[3],
          "library_ms": None, "ms_issued_from_python": step3_issue_ms},
     ]
+    srcb = "dynearthsol_tpu_torch/csrc/band2d.cu"
+    for name, main_site, line in (
+            ("asm_gather", "asm_gather k=2 kg=1", 519),
+            ("cgather", "cgather k=6", 663),
+            ("asm_pack", "asm_pack k=5", 795)):
+        r = band_t[main_site]
+        kernels.append({
+            "name": name, "route": "cuda", "source": srcb,
+            "replaces": f"dynearthsol_tpu/ops/band2d.py:{line}",
+            "launches": launches_u[name], "max_abs_err": band_err[name],
+            "err_metric": "max |kernel - plain| over random inputs at a "
+                          "small Delaunay mesh, a tet mesh and the "
+                          "277k-triangle mesh, f32 and f64, every call "
+                          "site's k (torch.equal required)",
+            "ms": r["ms"], "plain_ms": r["plain_ms"],
+            "bound_ms": r["bound"][0], "bound_by": r["bound"][1],
+            "bound_bytes": r["bound"][2], "bound_ops": r["bound"][3],
+            "library_ms": r["library_ms"],
+            "ms_issued_from_python": r["issue_ms"],
+            "timed_at": main_site + ", 277k-triangle mesh, f32, L2 flushed "
+                        "before each call",
+            "call_sites": {
+                site: {"ms": v["ms"], "ms_l2_warm": v["warm_ms"],
+                       "ms_issued_from_python": v["issue_ms"],
+                       "plain_ms": v["plain_ms"],
+                       "library_ms": v["library_ms"],
+                       "library_two_calls_ms":
+                           v.get("library_two_calls_ms"),
+                       "bound_ms": v["bound"][0],
+                       "bound_bytes": v["bound"][2]}
+                for site, v in band_t.items() if site.startswith(name)}})
     print(json.dumps({"kernels": kernels,
                       "elem_steps_per_s": rate,
                       "plain_elem_steps_per_s": plain_rate,
                       "elem_steps_per_s_3d": rate3,
                       "plain_elem_steps_per_s_3d": plain_rate3,
+                      "elem_steps_per_s_unstructured": urate,
+                      "plain_elem_steps_per_s_unstructured": uplain_rate,
+                      "init_s_unstructured": uinit_s,
+                      "mesh_s_unstructured": mesh_s[0],
                       "init_s_3d": init3_s,
                       "script_s": time.perf_counter() - t_start}))
     print(card)

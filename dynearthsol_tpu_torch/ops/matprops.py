@@ -23,6 +23,7 @@ from .tensor import second_invariant, trace
 GAS_CONSTANT = 8.3144
 MIN_STRAIN_RATE = 1e-30
 CELSIUS0 = 273.0
+DEG2RAD = math.pi / 180.0
 
 _SCALARS = ("visc_min", "visc_max", "tension_max", "therm_diff_max")
 
@@ -114,7 +115,12 @@ def elem_temperature(temperature, conn) -> torch.Tensor:
 
 def rho(tab: MatTables, emw, temperature, conn) -> torch.Tensor:
     """rho0 * (1 - alpha*(T - 273C)) mixture (matprops.cxx:565-587)."""
-    TinC = elem_temperature(temperature, conn) - CELSIUS0
+    return rho_from_T(tab, emw, elem_temperature(temperature, conn))
+
+
+def rho_from_T(tab: MatTables, emw, T) -> torch.Tensor:
+    """rho mixture from element-mean temperature; emw (..., nmat), T (...)."""
+    TinC = T - CELSIUS0
     per_mat = tab.rho0 * (1.0 - tab.alpha * TinC[..., None])
     return (per_mat * emw).sum(dim=-1) / emw.sum(dim=-1)
 
@@ -165,3 +171,49 @@ def visc_core(tab: MatTables, emw, T, s0, edot) -> torch.Tensor:
     inv_visc0 = torch.exp(-log_visc0)
     v = emw.sum(dim=-1) / (emw * inv_visc0).sum(dim=-1)
     return torch.clamp(v, tab.visc_min, tab.visc_max)
+
+
+def plastic_weakening(tab: MatTables, emw, pls):
+    """Weight-averaged cohesion/friction/dilation/hardening with linear
+    strain softening between pls0 and pls1 (matprops.cxx:303-341).
+
+    pls: (...) accumulated plastic strain; emw (..., nmat).
+    Returns (cohesion, friction_angle, dilation_angle, hardening), each (...).
+    """
+    pls_m = pls[..., None]
+    span = torch.clamp(tab.pls1 - tab.pls0, min=1e-300)
+    p = torch.clamp((pls_m - tab.pls0) / span, 0.0, 1.0)
+    c_m = tab.cohesion0 + p * (tab.cohesion1 - tab.cohesion0)
+    f_m = tab.friction_angle0 + p * (tab.friction_angle1
+                                     - tab.friction_angle0)
+    d_m = tab.dilation_angle0 + p * (tab.dilation_angle1
+                                     - tab.dilation_angle0)
+    in_weakening = (pls_m >= tab.pls0) & (pls_m < tab.pls1)
+    h_m = torch.where(in_weakening,
+                      ((tab.cohesion1 - tab.cohesion0) / span).expand_as(p),
+                      torch.zeros_like(p))
+    n = emw.sum(dim=-1)
+    cohesion = (c_m * emw).sum(dim=-1) / n
+    friction = (f_m * emw).sum(dim=-1) / n
+    dilation = (d_m * emw).sum(dim=-1) / n
+    hardening = (h_m * emw).sum(dim=-1) / n
+    return cohesion, friction, dilation, hardening
+
+
+def plastic_props(tab: MatTables, emw, pls):
+    """Mohr-Coulomb derived quantities (matprops.cxx:512-530):
+    amc = 2 c sqrt(anphi); anphi/anpsi from friction/dilation angles;
+    ten_max = min(tension_max, c/tan(phi)) (or tension_max at phi=0)."""
+    cohesion, phi, psi, hardn = plastic_weakening(tab, emw, pls)
+    sphi = torch.sin(phi * DEG2RAD)
+    spsi = torch.sin(psi * DEG2RAD)
+    anphi = (1.0 + sphi) / (1.0 - sphi)
+    anpsi = (1.0 + spsi) / (1.0 - spsi)
+    amc = 2.0 * cohesion * torch.sqrt(anphi)
+    tanphi = torch.tan(phi * DEG2RAD)
+    safe_tan = torch.where(tanphi == 0.0, torch.ones_like(tanphi), tanphi)
+    ten_max = torch.where(phi == 0.0,
+                          torch.full_like(phi, tab.tension_max),
+                          torch.clamp(cohesion / safe_tan,
+                                      max=tab.tension_max))
+    return amc, anphi, anpsi, hardn, ten_max

@@ -2,9 +2,11 @@
 of dynearthsol_tpu/ops/surface.py).
 
 Reference: bc.cxx:877-1831.  The surface processes themselves (hillslope
-diffusion, surface_process_option 1) are not ported yet; the fused step
-applies the surface-element correction (bc.cxx:1613-1665) and the
-plastic-strain decay (bc.cxx:1591-1611) with the constants below.
+diffusion, surface_process_option 1) are not ported yet; the fused steps
+apply the surface-element correction (bc.cxx:1613-1665) and the
+plastic-strain decay (bc.cxx:1591-1611) in-kernel with the constants below,
+and the column step (ops/flat2d.py) applies them with ``top_elem_mask`` and
+``surface_plstrain_decay``.
 """
 
 from __future__ import annotations
@@ -12,6 +14,7 @@ from __future__ import annotations
 from dataclasses import dataclass
 
 import numpy as np
+import torch
 
 from ..constants import IBOUNDZ1, YEAR2SEC, dim
 
@@ -32,6 +35,7 @@ class SurfInfo:
     # every element touching any top node via support (create_top_elems,
     # mesh.cxx:2879-2891)
     all_top_elems: np.ndarray  # (ntop_elems,) unique, sorted
+    top_elem_mask: np.ndarray  # (nelem,) bool, the same set as a mask
 
 
 def make_surf_info(topo) -> SurfInfo:
@@ -49,4 +53,17 @@ def make_surf_info(topo) -> SurfInfo:
     return SurfInfo(
         ntop=len(top_nodes), etop=len(bf), top_nodes=top_nodes,
         facet_nodes=facet_nodes, top_elems=top_elems,
-        all_top_elems=np.flatnonzero(touches).astype(np.int32))
+        all_top_elems=np.flatnonzero(touches).astype(np.int32),
+        top_elem_mask=touches)
+
+
+def surface_plstrain_decay(top, plstrain, emw, dt,
+                           mattype_oceanic_crust: int, apply):
+    """Exponential decay of surface plastic strain (anti-landslide,
+    bc.cxx:1593-1613), skipped for oceanic-crust elements.  ``top`` is the
+    top-element mask as a bool tensor, ``apply`` a 0-d bool tensor."""
+    lam = LN2 / PLSTRAIN_HALF_LIFE
+    dominant = torch.argmax(emw, dim=1)
+    dec = torch.where(top & (dominant != mattype_oceanic_crust),
+                      plstrain * lam * dt, torch.zeros_like(plstrain))
+    return plstrain - torch.where(apply, dec, torch.zeros_like(dec))

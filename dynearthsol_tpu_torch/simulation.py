@@ -3,17 +3,19 @@ of dynearthsol_tpu/simulation.py).
 
 Mesh, topology, markers and initial conditions are built on the host in
 numpy, then the state moves to ``device`` (the card unless the caller asks
-for the CPU).  The time loop runs the fused steps: in 2D (ops/fused2d.py)
-the resident chunk runner where the JAX package picks ``pallas2d_res`` and
-the tiled runner where it picks ``pallas2d``; in 3D (ops/fused3d.py) the
-fused 5-tet step where it picks ``pallas3d``.  No other step exists in
-this package yet; any other configuration raises ``NotImplementedError``
-naming the JAX path it would need.
+for the CPU).  The time loop dispatches in the JAX package's order: in 2D
+(ops/fused2d.py) the resident chunk runner where the JAX package picks
+``pallas2d_res`` and the tiled runner where it picks ``pallas2d``; in 3D
+(ops/fused3d.py) the fused 5-tet step where it picks ``pallas3d``; then the
+column step of ops/flat2d.py (any 2D triangle mesh) where it picks
+``flat2d``.  The JAX package's ``grid2d``, ``grid3d``, ``flat3d`` and generic
+steps are not ported yet; a configuration that needs one raises
+``NotImplementedError`` naming it.
 """
 
 from __future__ import annotations
 
-from dataclasses import dataclass
+from dataclasses import dataclass, replace
 from typing import Optional
 
 import numpy as np
@@ -26,7 +28,7 @@ from .config import (RH_ELASTIC, RH_EP, RH_EP_RSF, RH_EVP, RH_EVP_RSF,
                      RH_MAXWELL, RH_VISCOUS, Param)
 from .constants import BOUNDZ1
 from .mesh import build_topology, create_new_mesh
-from .ops import fused2d, fused3d
+from .ops import band2d, flat2d, fused2d, fused3d
 from .ops import geometry as G
 from .ops import matprops as M
 from .ops import surface as SP
@@ -55,6 +57,8 @@ class StepCtx:
     max_vbc_val: float
     # (nx, nz) / (nx, ny, nz) when the mesh is the raster structured grid
     sgrid: Optional[tuple] = None
+    # gather/assembly tables of the flat step, attached at its dispatch
+    band: Optional[band2d.GatherTables] = None
 
 
 def make_finalize_fn(param: Param):
@@ -100,8 +104,8 @@ def make_finalize_fn(param: Param):
 
 def _jax_path_name(param: Param, ctx: StepCtx) -> str:
     """The JAX package's step path for a config off the fused gates
-    (grid2d/grid3d.grid_step_applicable, flat2d.flat_step_applicable,
-    flat3d.flat3d_step_applicable, else the generic step)."""
+    (grid2d/grid3d.grid_step_applicable, flat3d.flat3d_step_applicable,
+    else the generic step; ``flat2d`` where the flat gate holds)."""
     ctrl, rheol = param.control, param.mat.rheol_type
     basic = (RH_ELASTIC, RH_VISCOUS, RH_MAXWELL, RH_EP, RH_EVP)
     if ctx.ndims == 3:
@@ -114,9 +118,7 @@ def _jax_path_name(param: Param, ctx: StepCtx) -> str:
             and not ctrl.has_PT and rheol in basic
             and (rheol not in (RH_EP, RH_EVP) or param.mat.is_plane_strain)):
         return "grid2d"
-    if (rheol in basic + (RH_EP_RSF, RH_EVP_RSF)
-            and (rheol in (RH_ELASTIC, RH_VISCOUS, RH_MAXWELL)
-                 or param.mat.is_plane_strain)):
+    if flat2d.flat_step_applicable(param, ctx):
         return "flat2d"
     return "generic"
 
@@ -179,7 +181,8 @@ class Simulation:
         self.state = self._init_state()
         self._chunk_fns = {}
         # name of the dispatched step implementation, set by _chunk_fn:
-        # "pallas2d_res", "pallas2d" or "pallas3d", the JAX package's names
+        # "pallas2d_res", "pallas2d", "pallas3d" or "flat2d", the JAX
+        # package's names
         self.step_path = None
 
     def _dev(self, x) -> torch.Tensor:
@@ -230,7 +233,8 @@ class Simulation:
     def _chunk_fn(self, n: int):
         if n not in self._chunk_fns:
             param, ctx = self.param, self.ctx
-            # the JAX package's order (simulation.py:1356-1385)
+            # the JAX package's order (simulation.py:1356-1420)
+            jax_path = _jax_path_name(param, ctx)
             if fused2d.resident_applicable(param, ctx):
                 path, mod = "pallas2d_res", fused2d
                 make = fused2d.make_resident_chunk_runner
@@ -240,17 +244,23 @@ class Simulation:
             elif fused3d.pallas3d_step_applicable(param, ctx):
                 path, mod = "pallas3d", fused3d
                 make = fused3d.make_chunk_runner
+            elif jax_path == "flat2d":
+                path, mod = "flat2d", flat2d
+                make = flat2d.make_chunk_runner
             else:
                 raise NotImplementedError(
                     "this config is off the fused steps' gates; the JAX "
-                    f"package runs it on its {_jax_path_name(param, ctx)!r} "
-                    "path, which is not ported yet")
+                    f"package runs it on its {jax_path!r} path, which is "
+                    "not ported yet")
             missing = mod.unported_features(param, ctx)
             if missing:
                 raise NotImplementedError(
                     f"the JAX package runs this config on {path!r}, but "
-                    "this package's fused step lacks: "
-                    + "; ".join(missing))
+                    "this package's step lacks: " + "; ".join(missing))
+            if path == "flat2d" and ctx.band is None:
+                # built once per Simulation, for any node numbering
+                ctx = self.ctx = replace(ctx, band=band2d.build_tables(
+                    self.topo.connectivity, self.topo.nnode, self.device))
             self.step_path = path
             self._chunk_fns[n] = make(param, ctx, n)
         return self._chunk_fns[n]

@@ -1,9 +1,10 @@
-"""The CUDA kernels of the PyTorch port (csrc/fused2d.cu, csrc/fused3d.cu)
-against their plain PyTorch versions, on the card (the checks of
-chip_smoke.py phase 3 at the 16 x 128-cell 2D and 128 x 16 x 8-cell 3D
-sizes), with the CPU tests' tolerances; the 3D kernel against the plain
-version run on the CPU (see _run3).  Imports no JAX.  Skips where there is
-no CUDA device; on the card run it as
+"""The CUDA kernels of the PyTorch port (csrc/fused2d.cu, csrc/fused3d.cu,
+csrc/band2d.cu) against their plain PyTorch versions, on the card (the
+checks of chip_smoke.py phases 3, 4 and 8-9 at the 16 x 128-cell 2D,
+128 x 16 x 8-cell 3D and small unstructured sizes), with the CPU tests'
+tolerances; the 3D kernel against the plain version run on the CPU (see
+_run3); the gather and assembly kernels with tolerance 0.  Imports no JAX.
+Skips where there is no CUDA device; on the card run it as
 
     python -m pytest --noconftest -m cuda tests/test_torch_cuda.py
 """
@@ -12,11 +13,15 @@ import pytest
 import torch
 
 import dynearthsol_tpu_torch as des
-from dynearthsol_tpu_torch.ops import fused2d, fused3d
-from torch_cases import (STEP3_CASES, assert_evp3_one_step_close,
+from dynearthsol_tpu_torch.mesh.generate import (regular_grid_3d,
+                                                 renumber_mesh,
+                                                 unstructured_box_2d)
+from dynearthsol_tpu_torch.ops import band2d, fused2d, fused3d
+from torch_cases import (FLAT_FIELDS, STEP3_CASES,
+                         assert_evp3_one_step_close,
                          assert_evp_one_step_close, assert_maxwell3_close,
                          assert_maxwell_close, assert_resident_matches_tiled,
-                         make_sim3d_cfg, make_sim_cfg)
+                         flat_cfg, make_sim3d_cfg, make_sim_cfg, rel_err)
 
 pytestmark = pytest.mark.cuda
 
@@ -144,3 +149,91 @@ def test_dt_refresh_every_step_mode(cuda, refresh):
     # the L2 partial is a sum in another order; the rest is exact
     assert torch.equal(kb.scal[[0, 1, 2, 3, 5]], scal[[0, 1, 2, 3, 5]])
     assert abs(float(kb.scal[4] - scal[4])) <= 1e-5 * float(scal[4])
+
+
+def _band_mesh(kind):
+    if kind == "tet":
+        m = regular_grid_3d(16e3, 8e3, 4e3, 1e3)
+        return m.connectivity, m.nnode
+    m = unstructured_box_2d(16e3, 8e3, 250.0)
+    coord, conn = renumber_mesh(m.coord, m.connectivity)
+    return conn, coord.shape[0]
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64],
+                         ids=["f32", "f64"])
+@pytest.mark.parametrize("kind", ["tri", "tet"])
+def test_band_kernels_equal_plain(cuda, kind, dtype):
+    """cgather, asm_pack and asm_gather at the k / kg of the flat step's six
+    call sites: torch.equal with the plain versions, launches counted."""
+    conn, nnode = _band_mesh(kind)
+    bt = band2d.build_tables(conn, nnode, cuda)
+    gen = torch.Generator(device="cuda").manual_seed(1)
+
+    def rnd(*shape):
+        return torch.randn(shape, generator=gen, dtype=dtype, device=cuda)
+
+    before = (band2d.cgather.launches, band2d.asm_pack.launches,
+              band2d.asm_gather.launches)
+    for k in (6, 2):
+        pack = rnd(nnode, k)
+        assert torch.equal(band2d.cgather(pack, bt),
+                           band2d.gather_corners(pack, bt))
+    for k in (2, 5):
+        cols = rnd(k, bt.npe, bt.nelem)
+        assert torch.equal(band2d.asm_pack(cols, bt),
+                           band2d.scatter_corners(cols, bt))
+    for k, kg in ((2, 1), (1, 1)):
+        cols = rnd(k, bt.npe, bt.nelem)
+        got = band2d.asm_gather(cols, bt, kg)
+        want = band2d.scatter_gather_corners(cols, bt, kg)
+        assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
+    torch.cuda.synchronize()
+    assert (band2d.cgather.launches, band2d.asm_pack.launches,
+            band2d.asm_gather.launches) == tuple(b + 2 for b in before)
+
+
+def test_band_wrappers_raise_on_the_card(cuda):
+    """On a CUDA tensor a wrapper launches or raises; it never takes the
+    plain version."""
+    conn, nnode = _band_mesh("tri")
+    bt = band2d.build_tables(conn, nnode, cuda)
+    calls = band2d.gather_corners.calls
+    with pytest.raises(ValueError):
+        band2d.cgather(torch.zeros((nnode, 4), device=cuda)[:, ::2], bt)
+    with pytest.raises(TypeError):
+        band2d.cgather(torch.zeros((nnode, 2), device=cuda,
+                                   dtype=torch.float16), bt)
+    with pytest.raises(TypeError, match="conn_cm"):
+        band2d.cgather(torch.zeros((nnode, 2), device=cuda),
+                       band2d.build_tables(conn, nnode, "cpu"))
+    assert band2d.gather_corners.calls == calls
+
+
+@pytest.mark.parametrize("rheology,n,dtype,tol", [
+    ("maxwell", 10, "float32", 1e-5),
+    ("elasto-visco-plastic", 1, "float32", 1e-5),
+    ("maxwell", 10, "float64", 1e-10)])
+def test_flat_slice_card_vs_cpu(cuda, rheology, n, dtype, tol):
+    """The unstructured slice on the card against the port on the CPU
+    (f32: tests/test_flat.py:469-476's tolerance, 1e-5 of each field's max;
+    f64, the double instantiations of the kernels: 1e-10), two launches of
+    each kernel per step and no plain version."""
+    par = des.param_from_dict(flat_cfg(rheology, dtype,
+                                       mesh={"resolution": 500.0}))
+    on_card = des.Simulation(par)
+    before = (band2d.cgather.launches, band2d.asm_pack.launches,
+              band2d.asm_gather.launches, band2d.gather_corners.calls,
+              band2d.scatter_corners.calls)
+    out = on_card.run_steps(n, chunk=n)
+    torch.cuda.synchronize()
+    assert on_card.step_path == "flat2d" and on_card.device.type == "cuda"
+    assert (band2d.cgather.launches, band2d.asm_pack.launches,
+            band2d.asm_gather.launches, band2d.gather_corners.calls,
+            band2d.scatter_corners.calls) == (
+        before[0] + 2 * n, before[1] + 2 * n, before[2] + 2 * n,
+        before[3], before[4])
+    ref = des.Simulation(par, device="cpu").run_steps(n, chunk=n)
+    for f in FLAT_FIELDS:
+        err = rel_err(get(ref, f), get(out, f))
+        assert err < tol, (f, err)

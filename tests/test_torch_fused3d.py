@@ -2,7 +2,10 @@
 against the JAX package on the 128 x 4 x 8-cell 3D config: the grid3d step
 (the JAX package's oracle for pallas3d, tests/test_pallas3d.py) and the
 Pallas step in interpret mode, both started from the same JAX State
-(state_from_numpy); and the slice end to end through ``run_steps``.
+(state_from_numpy); and the slice end to end through ``run_steps``.  Each
+JAX reference is computed once per file: the 10-step maxwell trajectory on
+grid3d serves the trajectory gate and the slice, the one-step EVP grid3d
+state the EVP gate and the scalars test.
 
 Tolerances are test_pallas3d.py's (tests/torch_cases.py): the 3D EVP
 min-select is chaotic at f32 roundoff, so trajectories are gated on
@@ -58,10 +61,20 @@ def _pallas_run(js, n):
         pallas3d.INTERPRET = old
 
 
+MAXWELL_CFG = make_sim3d_cfg(mat={"rheology_type": "maxwell"},
+                             ic={"weakzone_option": 0})
+
+
 @pytest.fixture(scope="module")
 def maxwell():
-    return _sims(make_sim3d_cfg(mat={"rheology_type": "maxwell"},
-                                ic={"weakzone_option": 0}))
+    return _sims(MAXWELL_CFG)
+
+
+@pytest.fixture(scope="module")
+def maxwell_ref(maxwell):
+    """10 maxwell steps of the JAX package's grid3d step from its initial
+    state."""
+    return _grid_run(maxwell[0], 10)
 
 
 @pytest.fixture(scope="module")
@@ -71,15 +84,19 @@ def evp():
     return js, ts, s0, port
 
 
-def test_maxwell_10_steps_vs_grid3d(maxwell):
-    js, ts, s0 = maxwell
+@pytest.fixture(scope="module")
+def evp_ref(evp):
+    return _grid_run(evp[0], 1)
+
+
+def test_maxwell_10_steps_vs_grid3d(maxwell, maxwell_ref):
+    _, ts, s0 = maxwell
     out = fused3d.make_chunk_runner(ts.param, ts.ctx, 10)(ts.ctx, s0)
-    assert_maxwell3_close(_grid_run(js, 10), out, get)
+    assert_maxwell3_close(maxwell_ref, out, get)
 
 
-def test_evp_one_step_vs_grid3d(evp):
-    js, _, _, port = evp
-    assert_evp3_one_step_close(_grid_run(js, 1), port, get)
+def test_evp_one_step_vs_grid3d(evp, evp_ref):
+    assert_evp3_one_step_close(evp_ref, evp[3], get)
 
 
 def test_evp_one_step_vs_pallas3d(evp):
@@ -102,12 +119,12 @@ def test_evp_ties_are_few(evp, maxwell):
                                 tm.ctx, m0).any()
 
 
-def test_scalars_set_every_step(evp):
+def test_scalars_set_every_step(evp, evp_ref):
     """Step 1 is off the dt-refresh cadence: dt stays, while vmax and
     gdtmin come from the step's own partials (pallas3d.py:1649-1690), as
     in the JAX step; the 2D mode of dt_refresh would have kept them."""
-    js, _, s0, port = evp
-    ref = _grid_run(js, 1)
+    _, _, s0, port = evp
+    ref = evp_ref
     for f in SCALARS:
         a, b = float(get(ref, f)), float(get(port, f))
         assert abs(a - b) <= 1e-3 * max(abs(a), 1e-300), f
@@ -158,20 +175,18 @@ def test_dt0_step_keeps_volume(maxwell):
     assert torch.equal(b.eout[vol], b.ein[vol])
 
 
-def test_slice_matches_jax():
-    """Simulation(...).run_steps(10, chunk=10) in both packages (maxwell,
-    the JAX package on pallas3d in interpret mode), every State field."""
-    cfg = make_sim3d_cfg(mat={"rheology_type": "maxwell"},
-                         ic={"weakzone_option": 0})
-    js = jdes.Simulation(jdes.param_from_dict(cfg))
-    ts = tdes.Simulation(tdes.param_from_dict(cfg), device="cpu")
-    old = pallas3d.INTERPRET
-    pallas3d.INTERPRET = True
-    try:
-        ref = js.run_steps(10, chunk=10)
-    finally:
-        pallas3d.INTERPRET = old
+def test_slice_matches_jax(maxwell, maxwell_ref):
+    """The port's Simulation(...).run_steps(10, chunk=10) from its own
+    initial state against 10 steps of the JAX package from its own
+    (maxwell), every State field.  The JAX side is its grid3d step, the
+    plain reference of pallas3d (which test_evp_one_step_vs_pallas3d runs
+    in interpret mode): a second interpreted lowering would cost this file
+    15 s."""
+    js = maxwell[0]
+    ts = tdes.Simulation(tdes.param_from_dict(MAXWELL_CFG), device="cpu")
+    ref = maxwell_ref
     out = state_to_numpy(ts.run_steps(10, chunk=10))
+    js._chunk_fn(10)
     assert ts.step_path == js.step_path == "pallas3d"
     tols = {"force": 5e-3, "dpressure": 5e-3}
     for f in FIELD_NAMES:

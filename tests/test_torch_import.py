@@ -13,7 +13,8 @@ def test_imports_with_jax_blocked():
             "sys.modules['dynearthsol_tpu'] = None; "
             "import dynearthsol_tpu_torch as d; "
             "from dynearthsol_tpu_torch.ops import "
-            "fused2d, fused3d, eig3, _build; "
+            "fused2d, fused3d, eig3, _build, band2d, flat2d, fields; "
+            "from dynearthsol_tpu_torch.mesh import refine2d; "
             "print(d.Simulation.__name__)")
     r = subprocess.run([sys.executable, "-c", code], cwd=ROOT,
                        capture_output=True, text=True, timeout=120)

@@ -91,6 +91,38 @@ def make_sim3d_cfg(**over):
     return _merge(d, over)
 
 
+def flat_cfg(rheology="elasto-visco-plastic", dtype="float64", **over):
+    """tests/test_flat.py mk_param config: a 16 km x 8 km Delaunay box at
+    1 km (262 triangles, 156 nodes), EVP, plane strain, thermal diffusion,
+    damping 1, quality-check interval 7."""
+    d = {
+        "sim": {"ndims": 2, "float_dtype": dtype,
+                "is_outputting_averaged_fields": False},
+        "mesh": {"meshing_option": 1, "meshing_elem_shape": 0,
+                 "xlength": 16e3, "ylength": 0.0, "zlength": 8e3,
+                 "resolution": 1e3, "quality_check_step_interval": 7},
+        "control": {"gravity": 10.0, "inertial_scaling": 1e5,
+                    "has_thermal_diffusion": True, "damping_option": 1},
+        "bc": {"vbc_x0": 1, "vbc_val_x0": -1e-9, "vbc_x1": 1,
+               "vbc_val_x1": 1e-9, "vbc_z0": 0, "vbc_z1": 0,
+               "has_winkler_foundation": False,
+               "has_water_loading": False},
+        "mat": {"rheology_type": rheology, "is_plane_strain": True,
+                "rho0": [2800.0], "bulk_modulus": [50e9],
+                "shear_modulus": [30e9], "visc_max": 1e24,
+                "visc_min": 1e19},
+    }
+    return _merge(d, over)
+
+
+# tests/test_flat.py:38-42: the fields its flat-vs-generic gate compares
+FLAT_FIELDS = ("coord", "vel", "temperature", "stress", "stressyy", "strain",
+               "strain_rate", "plstrain", "delta_plstrain", "viscosity",
+               "volume", "volume_old", "volume_n", "mass", "tmass", "hmass",
+               "ymass", "force", "edvoldt", "dt", "time",
+               "max_global_vel_mag", "global_dt_min", "l2_residual")
+
+
 def _merge(d, over):
     for sec, kv in over.items():
         d.setdefault(sec, {}).update(kv)
