@@ -19,10 +19,13 @@ Phases, each printed, the first failure exits non-zero:
                 over 10 steps and EVP over 1 step with and without NMD
                 (128 x 16 x 8 cells) and one flagship3d EVP step, the plain
                 version on the CPU (see run3); a dt = 0 step that keeps the
-                volume bit for bit, the every-step mode of dt_refresh, one
-                flagship3d maxwell step plane by plane against the plain
-                version on the card; kernel and plain device times at
-                flagship3d shapes;
+                volume bit for bit, the every-step mode of dt_refresh, the
+                chunk form (each step's epilogue pending until the next,
+                one finalize) against 10 complete steps with torch.equal on
+                every plane, one flagship3d maxwell step plane by plane
+                against the plain version on the card; kernel and plain
+                device times at flagship3d shapes, the kernel in its chunk
+                form and its one-step form;
   5. 2D slice -- the flagship config (100 km x 50 km, 512 x 256 cells, EVP,
                 f32): Simulation(param, device="cuda"), 250 warm-up steps,
                 then 500 timed steps, with launch counts, and the plain
@@ -30,11 +33,12 @@ Phases, each printed, the first failure exits non-zero:
   6. 3D slice -- the flagship3d config (256 x 48 x 16 cells x 5 tets,
                 983,040 tetrahedra, EVP, f32): Simulation(param) with the
                 default device, 100 warm-up steps, then 500 timed steps,
-                with launch counts, and the plain version's rate over 5
-                steps;
+                with launch counts (a finalize per chunk, no plain
+                version), and the plain version's rate over 5 steps;
   7. profile -- torch.profiler over 100 steps of the flagship runner and
                 20 of the flagship3d runner: device time per launch by
-                kernel, device busy and idle share;
+                kernel, device busy and idle share; for flagship3d the bytes
+                each phase of the 3D kernel moves and its TB/s;
   8. gather/assembly kernels -- the three kernels of csrc/band2d.cu
                 (cgather, asm_pack, asm_gather) against their plain
                 versions with torch.equal (tolerance 0): a small Delaunay
@@ -224,12 +228,15 @@ def main():
         a, b = a.double(), b.double()
         return float((a - b).abs().max() / a.abs().max().clamp(min=1e-300))
 
-    def check(label, err, tol):
+    def check(label, err, tol, stop=True):
+        """Print err against tol; fail unless it is below (``stop``), or
+        return whether it is."""
         ok = err < tol
         print(f"  {label}: {err:.3e} (tol {tol:.0e}) "
               f"{'ok' if ok else 'FAILED'}")
-        if not ok:
+        if not ok and stop:
             fail(f"{label}: kernel and plain version disagree")
+        return ok
 
     def device_ms(fn, reps):
         """Device time per call: reps calls captured in one CUDA graph and
@@ -298,15 +305,20 @@ def main():
     wrappers = {"fused2d_step": fused2d.fused_step,
                 "dt_refresh": fused2d.dt_refresh,
                 "fused3d_step": fused3d.fused3d_step,
+                "fused3d_finalize": fused3d.fused3d_finalize,
                 "cgather": band2d.cgather, "asm_pack": band2d.asm_pack,
                 "asm_gather": band2d.asm_gather}
+    plain_calls = (band2d.gather_corners, band2d.scatter_corners,
+                   fused3d.chunk_step_plain, fused3d.finalize_plain)
 
     def zero_counts():
-        """Every kernel's launch count, and the calls of the plain gather
-        and assembly, set to 0: called just before a main path is driven."""
+        """Every kernel's launch count, and the calls of the plain versions
+        that count theirs, set to 0: called just before a main path is
+        driven."""
         for w in wrappers.values():
             w.launches = 0
-        band2d.gather_corners.calls = band2d.scatter_corners.calls = 0
+        for f in plain_calls:
+            f.calls = 0
 
     def nbytes(*ts):
         return sum(t.numel() * t.element_size() for t in ts)
@@ -346,6 +358,46 @@ def main():
                 + int((b.cnp[masks] > 0).sum()) * b.tgt.element_size()
                 + nbytes(b.scal, *extra))
         return read, nbytes(b.eout, b.nout, b.part)
+
+    def phase_bytes3(P, b, pending, last):
+        """{phase: bytes} that each launch of csrc/fused3d.cu moves in one
+        step of the chunk form under the plan's switches: every plane a
+        phase loads or stores counted once for that phase (nodal planes it
+        gathers, element, cell-scratch and surface-factor planes), vbc
+        targets only where masked.  ``pending``/``last`` as in the chunk
+        form; the "finalize" entry is the pass after a chunk."""
+        sw = P.sw
+        N = nbytes(b.nin[0])
+        E = nbytes(b.ein[0])
+        C = E // 5
+        S = nbytes(b.sfac)
+        rh, th, nmd = sw["rheol"], sw["thermal"], sw["nmd"]
+        jau, surf = sw["jaumann"], sw["surf_corr"]
+        creep = rh in (fused3d.RH_VISCOUS, fused3d.RH_MAXWELL, fused3d.RH_EVP)
+        masked = int((b.cnp[1:] > 0).sum()) * b.tgt.element_size()
+        # tet planes C loads besides stress, strain, plstrain and volume
+        c_in = ((rh != fused3d.RH_EP) + (not creep)
+                + (rh in (fused3d.RH_MAXWELL, fused3d.RH_EVP))
+                + (not nmd or pending))
+        # and the product dpressure * volume for D (NMD)
+        c_out = 15 + (not creep or last) + 7 * last + nmd
+        ph = {
+            "phase_a": (6 + th) * N + E + (8 + 8 * th) * C,
+            "phase_b": (8 + 8 * th) * C + (4 + 2 * th) * N,
+            "phase_c": (8 + (pending and nmd)) * N + (14 + c_in) * E
+                       + (pending and surf) * S + c_out * E,
+            "phase_d": (E + 2 * N) if nmd else 0,
+            "phase_e": (3 + sw["gravity_on"] + nmd) * N + (7 + nmd) * E
+                       + 24 * C,
+            "phase_f": 24 * C + 10 * N + masked + (6 + 3 * last) * N,
+            "phase_g": 7 * N + 3 * E + (2 + last) * E + surf * S,
+            "phase_h": (3 + last) * E + (3 + last) * N,
+        }
+        # strain rate and plstrain: the scaled top layer
+        top = 14 * surf * E // P.cells[2]
+        ph["finalize"] = (6 * jau + nmd) * N + surf * S + (
+            jau + 12 + nmd) * E + 12 * E + top
+        return ph
 
     # Arithmetic of one fused step, counted by hand from csrc/fused2d.cu,
     # fused3d.cu and their headers: each +, -, *, /, sqrt, exp, log, sin,
@@ -559,8 +611,73 @@ def main():
         P3 = fused3d.make_plan(s3.param, s3.ctx, s3.device)
         out = fused3d.run_chunk(P3, s3.ctx, s3.state, n, plain)
         sync()
-        ties = fused3d.evp_ties(P3, s3.ctx, s3.state) if plain else None
+        ties = fused3d.evp_ties(P3, s3.ctx, s3.state) \
+            if plain and P3.rheol == fused3d.RH_EVP else None
         return out, ties
+
+    def chunk_vs_steps(label, P, ctx, state, n):
+        """The chunk form (run_chunk: each step's epilogue pending until
+        the next step, one finalize after the last) against n complete
+        steps (fused3d_step, dt_refresh, swap), bit for bit on every
+        plane."""
+        out = fused3d.run_chunk(P, ctx, state, n)
+        e_chunk, n_chunk = fused3d.state_to_planes(out, P.nx, P.ny, P.nz)
+        b = fused3d.make_buffers(P, ctx, state, n)
+        for k in range(n):
+            b.tgt = fused3d.vbc_targets(ctx, b.nin, b.scal[3] + b.scal[0])
+            fused3d.fused3d_step(P, b)
+            fused2d.dt_refresh(P, b, k, tiled=True, every=True)
+            b.swap()
+        sync()
+        for i in range(fused3d.NE):
+            if not torch.equal(e_chunk[i], b.ein[i]):
+                fail(f"{label}: chunk form and complete steps differ in "
+                     f"element plane {i}")
+        for i, nm in enumerate(fused3d.N_SLOTS):
+            if not torch.equal(n_chunk[i], b.nin[i]):
+                fail(f"{label}: chunk form and complete steps differ in {nm}")
+        print(f"  {label}: the chunk form equals {n} complete steps bit for "
+              "bit, every plane: ok")
+
+    names3 = [f"e.{n}" for n in fused3d.E_SLOTS] \
+        + [f"e.{t}[{i}]" for t in fused3d.T_SLOTS for i in range(6)] \
+        + [f"n.{n}" for n in fused3d.N_SLOTS]
+
+    def planes_check(label, ref_e, ref_n, ker_e, ker_n, steps=False):
+        """Every element and nodal plane of the kernel against the plain
+        version's, at 1e-4 of each plane's max (force 1e-3, viscosity
+        1e-5 in its log); every plane is printed before a failure.
+        ``steps``, for a run of a few steps: a component of a tensor or a
+        vector against the max over its components instead (a component
+        that is zero but for rounding, as the y-invariant flagship3d's xy
+        shear, has no scale of its own; its error at its own scale is
+        printed beside)."""
+        bad = []
+        ne = len(fused3d.E_SLOTS)
+        for k, nm in enumerate(names3):
+            a, b = (ref_e[k], ker_e[k]) if nm[0] == "e" else \
+                (ref_n[k - fused3d.NE], ker_n[k - fused3d.NE])
+            tol = 1e-3 if nm.startswith("n.force") else 1e-4
+            if nm == "e.viscosity":
+                v = a.double().log() - b.double().log()
+                err, tol, nm = float(v.abs().max()), 1e-5, nm + " (log)"
+            elif steps and ("[" in nm or nm[-2:] in ("_x", "_y", "_z")):
+                if nm[0] == "e":
+                    t0 = ne + (k - ne) // 6 * 6  # the tensor's first plane
+                    comps = ref_e[t0:t0 + 6]
+                else:
+                    v0 = fused3d._nslot(nm[2:-2] + "_x")
+                    comps = ref_n[v0:v0 + 3]
+                scale = float(comps.double().abs().max())
+                err = float((a.double() - b.double()).abs().max()) / scale
+                nm += f" (of the max over its components; of its own " \
+                      f"{rel(a, b):.3e})"
+            else:
+                err = rel(a, b)
+            if not check(f"{label} {nm}", err, tol, stop=False):
+                bad.append(nm)
+        if bad:
+            fail(f"{label}: kernel and plain version disagree in {bad}")
 
     def evp3_check(label, ker, ref, ties):
         """One EVP step, kernel against the plain version on the CPU, at
@@ -621,6 +738,13 @@ def main():
               err, 1e-6)
     del s3, b
 
+    s3 = des.Simulation(des.param_from_dict(sim3d_cfg("maxwell",
+                                                      weakzone=0)),
+                        device="cuda")
+    P3 = fused3d.make_plan(s3.param, s3.ctx, s3.device)
+    chunk_vs_steps("3D maxwell 10 steps", P3, s3.ctx, s3.state, 10)
+    del s3
+
     # the flagship3d main-path Simulation, default device
     t = time.perf_counter()
     g3 = des.Simulation(des.param_from_dict(flagship3d_cfg()))
@@ -642,19 +766,7 @@ def main():
     fused3d.fused3d_step(MP3, kb)
     fused3d.fused3d_step_plain(MP3, pb)
     sync()
-    names = [f"e.{n}" for n in fused3d.E_SLOTS] \
-        + [f"e.{t}[{i}]" for t in fused3d.T_SLOTS for i in range(6)] \
-        + [f"n.{n}" for n in fused3d.N_SLOTS]
-    for k, nm in enumerate(names):
-        if nm == "e.viscosity":
-            v = (pb.eout[k].double().log() - kb.eout[k].double().log())
-            check(f"flagship3d 1 step {nm} (log)", float(v.abs().max()),
-                  1e-5)
-            continue
-        a, b = (pb.eout[k], kb.eout[k]) if nm[0] == "e" else \
-            (pb.nout[k - fused3d.NE], kb.nout[k - fused3d.NE])
-        check(f"flagship3d 1 step {nm}", rel(a, b),
-              1e-3 if nm.startswith("n.force") else 1e-4)
+    planes_check("flagship3d 1 step", pb.eout, pb.nout, kb.eout, kb.nout)
     del kb, pb
 
     # the main path's config (EVP): one step against the plain version on
@@ -673,15 +785,59 @@ def main():
     def step3_plain():
         fused3d.fused3d_step_plain(FP3, pb)
 
-    step3_ms = device_ms(step3_kernel, 20)
+    NCH = 20
+    cb = fused3d.make_buffers(FP3, g3.ctx, g3.state, NCH)
+
+    def chunk3_kernel():
+        """The chunk form as run_chunk issues it, without the host's vbc
+        probe: NCH steps, their dt_refresh calls, one finalize."""
+        for k in range(NCH):
+            fused3d.fused3d_chunk_step(FP3, cb, k, NCH)
+            fused2d.dt_refresh(FP3, cb, k, tiled=True, every=True)
+            cb.swap()
+        fused3d.fused3d_finalize(FP3, cb, cb.ein, cb.nin, cb.dthist[-1])
+
+    step3_ms = device_ms(chunk3_kernel, 1) / NCH
+    step3_one_ms = device_ms(step3_kernel, 20)
     step3_plain_ms = device_ms(step3_plain, 3)
     step3_issue_ms = issue_ms(step3_kernel, 20)
-    step3_bound = bound(*step_bytes(fused3d, FP3, kb, 6),
-                        step_ops(FP3, 3, g3.ctx.nelem, g3.ctx.nnode))
-    print(f"  device time: flagship3d fused step {step3_ms:.4f} ms (plain "
-          f"{step3_plain_ms:.4f} ms, bound {step3_bound[0]:.4f} ms by "
-          f"{step3_bound[1]}); issued from Python {step3_issue_ms:.4f} ms")
-    del kb, pb
+    read3, written3 = step_bytes(fused3d, FP3, kb, 6)
+    ops3 = step_ops(FP3, 3, g3.ctx.nelem, g3.ctx.nnode)
+    step3_bound_one = bound(read3, written3, ops3)
+    # the chunk form's own bound: it writes the last-only planes on one
+    # step of NCH
+    e_lo, n_lo = fused3d.last_only_slots(FP3)
+    last_only = (len(e_lo) * nbytes(kb.eout[0])
+                 + len(n_lo) * nbytes(kb.nout[0]))
+    step3_bound = bound(read3, written3 - last_only * (NCH - 1) / NCH, ops3)
+    print(f"  device time: flagship3d fused step, chunk form (a graph of "
+          f"{NCH} steps, their dt_refresh calls and one finalize, over "
+          f"{NCH}) {step3_ms:.4f} ms (bound {step3_bound[0]:.4f} ms by "
+          f"{step3_bound[1]}, {step3_bound[2] / 1e6:.1f} MB: the last-only "
+          f"planes written on one step of {NCH}); one-step form (step + "
+          f"finalize) {step3_one_ms:.4f} ms (bound "
+          f"{step3_bound_one[0]:.4f} ms, {step3_bound_one[2] / 1e6:.1f} MB); "
+          f"plain {step3_plain_ms:.4f} ms; issued from Python "
+          f"{step3_issue_ms:.4f} ms; on {card}")
+    pb3 = [phase_bytes3(FP3, cb, k > 0, k == NCH - 1) for k in range(NCH)]
+    bytes3 = {ph: sum(d.get(ph, 0) for d in pb3) / NCH
+              for ph in pb3[0]}
+    bytes3["finalize"] = pb3[0]["finalize"] / NCH
+    del kb, pb, cb
+    # the chunk form against complete steps at the main path's config
+    chunk_vs_steps("flagship3d EVP 3 steps", FP3, g3.ctx, g3.state, 3)
+
+    # the chunk form's pending steps at flagship3d size: a 3-step maxwell
+    # run_chunk (its steps 2 and 3 apply the previous step's epilogue
+    # first, the finalize the last one), the kernel on the card against
+    # the plain version's chunk form on the CPU, every plane
+    cfgm = flagship3d_cfg("maxwell")
+    ker, ref = run3(cfgm, 3, False)[0], run3(cfgm, 3, True)[0]
+    planes_check("flagship3d maxwell 3-step chunk",
+                 *fused3d.state_to_planes(ref, MP3.nx, MP3.ny, MP3.nz),
+                 *(t.cpu() for t in fused3d.state_to_planes(
+                     ker, MP3.nx, MP3.ny, MP3.nz)), steps=True)
+    del ker, ref
 
     # ---- 5. the 2D slice through the main path
     nelem = fsim.ctx.nelem
@@ -736,9 +892,14 @@ def main():
     sync()
     run3_s = time.perf_counter() - t
     launches3 = {"fused3d_step": fused3d.fused3d_step.launches,
-                 "dt_refresh": fused2d.dt_refresh.launches}
-    if min(launches3.values()) <= 0:
-        fail(f"a kernel of the 3D path was not launched: {launches3}")
+                 "dt_refresh": fused2d.dt_refresh.launches,
+                 "fused3d_finalize": fused3d.fused3d_finalize.launches}
+    if launches3 != {"fused3d_step": 500, "dt_refresh": 500,
+                     "fused3d_finalize": 2}:
+        fail(f"the 3D path did not launch each step kernel once per step "
+             f"and finalize once per chunk: {launches3}")
+    if fused3d.chunk_step_plain.calls or fused3d.finalize_plain.calls:
+        fail("the 3D path on the card took a plain version")
     s = g3.state
     if not float(s.time) > time0 or int(s.steps) != 600:
         fail("3D model time or the step count did not advance")
@@ -754,7 +915,8 @@ def main():
     sync()
     plain_rate3 = nelem3 * 5 / (time.perf_counter() - t)
     print(f"phase 6 3D slice: flagship3d {nelem3} tets, step_path "
-          f"{g3.step_path}, launches {launches3}, warm-up 100 steps "
+          f"{g3.step_path}, launches {launches3}, plain versions "
+          f"called 0 times, warm-up 100 steps "
           f"{warm3_s:.2f} s, 500 steps {run3_s:.3f} s, model time "
           f"{time0:.6e} -> {float(s.time):.6e} s, fields finite")
     print(f"  elem*steps/s: kernels {rate3:.6e}, plain PyTorch "
@@ -781,6 +943,8 @@ def main():
             busy += us
             if "phase_" in e.name:
                 key = e.name[e.name.index("phase_"):][:7]
+            elif "finalize" in e.name:
+                key = "finalize"
             elif "dt_refresh" in e.name:
                 key = "dt_refresh"
             elif "gather_corners_kernel" in e.name:
@@ -796,12 +960,24 @@ def main():
               f"(idle {max(0.0, 1 - busy / wall_us):.1%} of wall)")
         for key, (n, us) in sorted(rows.items(), key=lambda kv: -kv[1][1]):
             print(f"  {key}: {us:.1f} us/step ({n / steps:g} launches/step)")
+        return rows
 
     per_kernel("flagship 2D (resident runner)",
                lambda n: fused2d.run_chunk(FP, fsim.ctx, fsim.state, n,
                                            True), 100)
-    per_kernel("flagship3d", lambda n: fused3d.run_chunk(
-        FP3, g3.ctx, g3.state, n), 20)
+    rows3 = per_kernel("flagship3d", lambda n: fused3d.run_chunk(
+        FP3, g3.ctx, g3.state, n), NCH)
+    print(f"  flagship3d kernel 3 by phase, chunk form of {NCH} steps "
+          f"(bytes per step as phase_bytes3 counts them), on {card}:")
+    phases3 = {}
+    for ph, nb in bytes3.items():
+        us = rows3.get(ph, (0, 0.0))[1]
+        phases3[ph] = {"bytes": nb, "us": us,
+                       "tb_per_s": nb / us / 1e6 if us else None}
+        bw = f"{nb / us / 1e6:.2f} TB/s" if us else "not launched"
+        print(f"    {ph}: {nb / 1e6:.1f} MB, {us:.1f} us, {bw}")
+    print(f"    sum: {sum(bytes3.values()) / 1e6:.1f} MB per step, "
+          f"{sum(v['us'] for v in phases3.values()):.1f} us")
 
 
     # ---- 8. the gather and assembly kernels against their plain versions
@@ -1052,8 +1228,19 @@ def main():
                        "fields of one flagship3d EVP step, the plain version "
                        "on the CPU",
          "ms": step3_ms, "plain_ms": step3_plain_ms,
+         "timed_as": f"chunk form: a CUDA graph of {NCH} steps, their "
+                     f"dt_refresh calls and one finalize, over {NCH}",
+         "ms_one_step_form": step3_one_ms,
+         "finalize_launches": launches3["fused3d_finalize"],
          "bound_ms": step3_bound[0], "bound_by": step3_bound[1],
          "bound_bytes": step3_bound[2], "bound_ops": step3_bound[3],
+         "bound_note": f"the chunk form's: each step's inputs read once and "
+                       f"its outputs written once, the planes no later step "
+                       f"reads (strain rate, edvoldt, viscosity, force, "
+                       f"hmass) on one step of {NCH}",
+         "bound_ms_one_step_form": step3_bound_one[0],
+         "bound_bytes_one_step_form": step3_bound_one[2],
+         "bytes_by_phase": phases3,
          "library_ms": None, "ms_issued_from_python": step3_issue_ms},
     ]
     srcb = "dynearthsol_tpu_torch/csrc/band2d.cu"

@@ -2,9 +2,10 @@
 //
 // Replaces: dynearthsol_tpu/ops/pallas3d.py make_pallas_step -> kernel /
 // _tile (pallas_call at pallas3d.py:1583), one whole 3D step.  Plain
-// PyTorch version: ops/fused3d.py step_planes_plain.  The per-step scalar
-// update after it is the dt_refresh kernel of fused2d.cu, run with
-// every = 1 (vmax and gdtmin each step, dt on the 10-step cadence).
+// PyTorch version: ops/fused3d.py step_planes_plain, epilogue and
+// finalize_plain.  The per-step scalar update after it is the dt_refresh
+// kernel of fused2d.cu, run with every = 1 (vmax and gdtmin each step, dt
+// on the 10-step cadence).
 //
 // Layout (ops/fused3d.py): element planes (slot, tet, i, j, k) and nodal
 // planes (slot, i, j, k), k contiguous: cell c = (i*nyc + j)*nzc + k, the
@@ -18,29 +19,58 @@
 // nodal planes (214,081 nodes) in f32, with a few hundred to a few
 // thousand flops per tet (the EVP return map with its eigensolver in phase
 // C), below the card's flop/byte balance.  The element->node->element->
-// node chain of the step needs a grid-wide barrier at each hop, so this
-// first form runs one launch per phase, as the 2D kernel does:
-//   A cell   T-diffusion and dvoldt corner partials
-//   B node   temperature, dvoldt
-//   C tet    edvoldt, strain, rheology with eig3
-//   D node   NMD nodal pressure (NMD runs only)
-//   E cell   NMD correction, force corner partials
-//   F node   force, L2 partial, damping, velocity, coordinates
-//   G tet    post-move volume, CFL partials, mass terms, Jaumann, surface
-//            correction
-//   H node   volume_n and masses
-// Phases whose outputs are per-corner sums (A, E) run one thread per cell:
-// it loads the cell's 8 corners once and folds its 5 tets into 8 corner
-// partials, 8 planes of one value per cell instead of 20 per-tet slot
-// planes.  The rheology (C) and the post-move phase (G) run one thread per
-// tet, which keeps the EVP return map's registers to one tet.  The cell
-// phases are templated on the parity so that corner indices are constants.
+// node chain of the step needs a grid-wide barrier at each hop, so it runs
+// one launch per phase:
+//   A cell  T-diffusion and dvoldt corner partials
+//   B node  temperature, dvoldt
+//   C tet   the previous step's epilogue (pending), edvoldt, strain,
+//           rheology with eig3, dpressure * volume for D
+//   D node  NMD nodal pressure (NMD runs only)
+//   E cell  NMD correction (in registers), force corner partials
+//   F node  force, L2 partial, damping, velocity, coordinates
+//   G cell  post-move volumes, CFL partials, mass terms, surface factors
+//   H node  volume_n and masses
+//
+// One pass over the tet state per step.  The step's tensor epilogue (the
+// NMD correction of the stored stress, the Jaumann rotation, the surface-
+// element scaling; apply_epilogue) would otherwise read and write the 19
+// tensor planes twice more (in E and G).  It needs exactly what the next
+// step's C has in registers anyway (the moved coordinates and velocities
+// are the next step's nodal input, the post-move volume its E_VOL, the
+// shape functions the ones C computes), plus the nodal pressure change
+// (nwork slot 1, which D of the next step overwrites only after C), the
+// old E_DP (read from ein before C writes eout), the step's dt and the
+// top-layer surface factors (sfac, written by G).  So the chunk form leaves
+// it pending: C applies the previous step's epilogue to the stress, strain
+// and plstrain it loads (`pending`), and the finalize kernel applies the
+// last step's after a chunk, to the strain rate too.  Planes that no later
+// phase or step reads (strain rate, edvoldt, a creep law's viscosity, the
+// force, hmass) are stored on the chunk's last step only (`last`).  A
+// chunk then gives the State of its complete steps bit for bit.
+//
+// Phases whose outputs are per-corner sums (A, E) fold a cell's 5 tets
+// into 8 corner partials, 8 planes of one value per cell instead of 20
+// per-tet slot planes.  They are templated on the cell parity, so that
+// corner indices are constants, and no warp runs both paths: a block takes
+// 128 cell pairs (k, k+1) along z, one cell of each parity, its first 128
+// threads the even cells and the others the odd ones, so the nodes a pair
+// shares are loaded within one block.  (A thread holding a whole pair's 12
+// nodes, 84 values in A, needed 152 registers, one block per SM, and ran
+// slower.)  The rheology (C) runs one thread per tet, which keeps the EVP
+// return map's registers to one tet.
+//
+// G runs per cell too: a cell's 8 corners serve its 5 tets (8 nodal loads
+// per field instead of 20), and its blocks, one column of CFL partials
+// each, are 256 cells wide, so that dt_refresh (one block) reduces 5 times
+// fewer columns than from a block per 256 tets.
 //
 // Node sums follow ops/fused3d.py (grid3d.asm): for each corner code in
 // order, the cell's partial over (tet, slot) in order, each partial and
-// each node sum started from zero.  No float atomics: the min/max partials
-// are exact in any order and the force-residual sum is a fixed two-pass
-// tree (block partials here, the final pass in dt_refresh).
+// each node sum started from zero; which tets of a cell hold a corner code
+// comes from a compile-time mask per (parity, code).  No float atomics:
+// the min/max partials are exact in any order and the force-residual sum
+// is a fixed two-pass tree (block partials here, the final pass in
+// dt_refresh).
 //
 // Built without FMA contraction (-fmad=false, ops/_build.py): the initial
 // volume (ops/shapefn.compute_volume, the same operations) then equals the
@@ -59,6 +89,8 @@ using namespace des;
 namespace {
 
 constexpr int BLOCK = 256;
+// ework planes (of one value per cell): A's corner partials 0-15, E's
+// 0-23, C's NMD products dpressure * volume 0-4, G's mass terms 0-14
 
 // packed slots: ops/fused3d.py E_SLOTS/T_SLOTS, N_SLOTS, CN_SLOTS
 enum { E_VOL = 0, E_VOLD, E_PLS, E_DPLS, E_VISC, E_DP, E_EDV, E_STRESS,
@@ -80,9 +112,26 @@ __host__ __device__ constexpr int tet_corner(int par, int t, int s) {
   return int(((par ? TET_ODD : TET_EVEN) >> (3 * (t * 4 + s))) & 7ULL);
 }
 
+// The tets of a cell of parity par that hold corner code q, one bit per
+// tet: byte q of tet_masks(par).
+constexpr unsigned long long tet_masks(int par) {
+  unsigned long long r = 0;
+  for (int q = 0; q < 8; ++q)
+    for (int t = 0; t < 5; ++t)
+      for (int s = 0; s < 4; ++s)
+        if (tet_corner(par, t, s) == q) r |= 1ULL << (8 * q + t);
+  return r;
+}
+constexpr unsigned long long MASK_EVEN = tet_masks(0);
+constexpr unsigned long long MASK_ODD = tet_masks(1);
+
+__device__ __forceinline__ int tet_mask(int par, int q) {
+  return int(((par ? MASK_ODD : MASK_EVEN) >> (8 * q)) & 31ULL);
+}
+
 template <typename T> struct Params3 {
-  int nx, ny, nz, nxc, nyc, nzc, NC, NS, rheol, nmd, thermal, gravity_on,
-      damping, surf_corr, quasi_static, use_gvs, jaumann;
+  int nx, ny, nz, nxc, nyc, nzc, NC, NS, NT, rheol, nmd, thermal,
+      gravity_on, damping, surf_corr, quasi_static, use_gvs, jaumann;
   T surface_T, visc_min, visc_max, tension_max, fac, one_m_fac, two_m_fac,
       inertial, log_q, log_1e6, deg2rad, ps2, bulkm, shearm, kappa, rhoA,
       rhoB, buoyA, buoyB, cpA, cpB, hmA;
@@ -99,7 +148,8 @@ Params3<T> from_host(const int* ip, const double* fp) {
   p.damping = ip[7]; p.surf_corr = ip[8]; p.quasi_static = ip[9];
   p.use_gvs = ip[10]; p.jaumann = ip[11];
   p.nxc = p.nx - 1; p.nyc = p.ny - 1; p.nzc = p.nz - 1;
-  p.NC = p.nxc * p.nyc * p.nzc;
+  p.NT = p.nxc * p.nyc;  // cells of one z layer
+  p.NC = p.NT * p.nzc;
   p.NS = p.nx * p.ny * p.nz;
   T* f[NFP0] = {&p.surface_T, &p.visc_min, &p.visc_max, &p.tension_max,
                 &p.fac, &p.one_m_fac, &p.two_m_fac, &p.inertial, &p.log_q,
@@ -121,9 +171,13 @@ template <typename T> struct Bufs3 {
   const T* tgt;   // (3, nx, ny, nz) vbc targets
   const T* scal;  // dt, vmax, gdtmin, time, r2, dt_maxwell
   T* ework;       // (24, nxc, nyc, nzc) scratch
-  T* nwork;       // (2, nx, ny, nz) scratch
+  T* nwork;       // (2, nx, ny, nz): dvoldt, NMD nodal pressure change
+  T* sfac;        // (5, nxc, nyc) surface factors of the top cell layer
+  const T* dtp;   // dt of the step whose epilogue ein carries
   T* part;        // (4, nb) block partials
   int nb;
+  int pending;    // ein carries the previous step's epilogue
+  int last;       // store the planes no later step of the chunk reads
 };
 
 // element value of (slot, tet t, cell c)
@@ -236,12 +290,27 @@ __device__ __forceinline__ void tet_gather(const Params3<T>& p, const T* g,
     out[s] = g[cp.n0 + corner_off(p, tet_corner(cp.par, t, s))];
 }
 
-// the eight corner values of a cell from a nodal plane, by corner code
+// The cell of a thread of a cell phase (A, E, G): each block takes
+// BLOCK / 2 cell pairs (k, k+1) along z, its first half of threads the
+// pairs' even cells and its second half their odd cells, so that every
+// warp runs one parity's template path and the two cells that share a
+// pair's four middle nodes load them in one block.
+template <typename T> struct CellOf {
+  int c, k, n0, odd;
+};
+
 template <typename T>
-__device__ __forceinline__ void cell_gather(const Params3<T>& p, const T* g,
-                                            int n0, T out[8]) {
-#pragma unroll
-  for (int q = 0; q < 8; ++q) out[q] = g[n0 + corner_off(p, q)];
+__device__ __forceinline__ bool cell_of_thread(const Params3<T>& p,
+                                               CellOf<T>& r) {
+  r.odd = threadIdx.x >= BLOCK / 2;
+  const int pr = blockIdx.x * (BLOCK / 2) + threadIdx.x % (BLOCK / 2);
+  if (pr >= p.NC / 2) return false;
+  const CellPos<T> lo = cell_pos(p, 2 * pr);  // k even
+  const int up = r.odd ? 1 - lo.par : lo.par;
+  r.c = 2 * pr + up;
+  r.k = lo.k + up;
+  r.n0 = lo.n0 + up;
+  return true;
 }
 
 // Node (i, j, k): sum over corner codes q (cell (i-a, j-b, k-d)) of the
@@ -267,14 +336,11 @@ __device__ __forceinline__ T node_sum(const Params3<T>& p, int i, int j,
 // its four corners (ops/fused3d.asm_equal): tets in order, from zero.
 template <typename T, class F>
 __device__ __forceinline__ T equal_partial(F v, int q, int cell, int par) {
+  const int m = tet_mask(par, q);
   T acc = T(0);
 #pragma unroll
-  for (int t = 0; t < 5; ++t) {
-    bool hit = false;
-#pragma unroll
-    for (int s = 0; s < 4; ++s) hit = hit || tet_corner(par, t, s) == q;
-    if (hit) acc = acc + v(t, cell);
-  }
+  for (int t = 0; t < 5; ++t)
+    if ((m >> t) & 1) acc = acc + v(t, cell);
   return acc;
 }
 
@@ -292,18 +358,94 @@ __device__ __forceinline__ T block_reduce(T v, T* sh, Op op) {
   return r;
 }
 
+// The CFL partials of one block, for its thread 0: min, min and max over
+// the block, exact in any order (shuffles within each warp, then the
+// warps' values from shared memory).  Every thread of the block calls it.
+template <typename T>
+__device__ __forceinline__ void cfl_reduce(T& hmin, T& hsmin, T& vmax,
+                                           T (*sh)[BLOCK / 32]) {
+#pragma unroll
+  for (int o = 16; o > 0; o >>= 1) {
+    hmin = dmin(hmin, __shfl_xor_sync(0xffffffffu, hmin, o));
+    hsmin = dmin(hsmin, __shfl_xor_sync(0xffffffffu, hsmin, o));
+    vmax = dmax(vmax, __shfl_xor_sync(0xffffffffu, vmax, o));
+  }
+  const int w = threadIdx.x >> 5;
+  if ((threadIdx.x & 31) == 0) {
+    sh[0][w] = hmin;
+    sh[1][w] = hsmin;
+    sh[2][w] = vmax;
+  }
+  __syncthreads();
+  if (threadIdx.x == 0) {
+    for (int q = 1; q < BLOCK / 32; ++q) {
+      hmin = dmin(hmin, sh[0][q]);
+      hsmin = dmin(hsmin, sh[1][q]);
+      vmax = dmax(vmax, sh[2][q]);
+    }
+  }
+}
+
+// Jaumann rotation of a symmetric tensor (fields.cxx:832-907)
+template <typename T>
+__device__ __forceinline__ void jaumann(T q[6], T w3t, T w4t, T w5t) {
+  T r0 = q[0] - T(2) * q[3] * w3t - T(2) * q[4] * w4t;
+  T r1 = q[1] + T(2) * q[3] * w3t - T(2) * q[5] * w5t;
+  T r2 = q[2] + T(2) * q[4] * w4t + T(2) * q[5] * w5t;
+  T r3 = q[3] + (q[0] - q[1]) * w3t - q[4] * w5t - q[5] * w4t;
+  T r4 = q[4] + (q[0] - q[2]) * w4t + q[3] * w5t - q[5] * w3t;
+  T r5 = q[5] + (q[1] - q[2]) * w5t + q[3] * w4t + q[4] * w3t;
+  q[0] = r0; q[1] = r1; q[2] = r2; q[3] = r3; q[4] = r4; q[5] = r5;
+}
+
+// The tensor epilogue of a step (ops/fused3d.py epilogue), deferred by the
+// chunk form: phase C of the next step applies it to the stress, strain
+// and plstrain it loads, the finalize kernel after a chunk's last step
+// (then to the strain rate sr too).  In order: the NMD correction of the
+// stress diagonal from the tet's nodal pressure changes dps and its old
+// dpressure (pallas3d.py:1176-1205); the Jaumann rotation with the step's
+// dt, the moved mesh's velocities and shape functions sh; the surface-
+// element scaling of the top cell layer by sc (bc.cxx:1613-1665).
+template <typename T>
+__device__ __forceinline__ void apply_epilogue(
+    const Params3<T>& p, const Shape3<T>& sh, const T* vx, const T* vy,
+    const T* vz, T dt, const T* dps, T dp_old, bool top, T sc, T st[6],
+    T sn[6], T* sr, T& pls) {
+  if (p.nmd) {
+    const T ddp = (mean4(dps) - dp_old) / T(3);
+#pragma unroll
+    for (int a = 0; a < 3; ++a) st[a] = st[a] + ddp;
+  }
+  if (p.jaumann) {
+    const T w3t = T(0.5) * (dot4(vx, sh.dy) - dot4(vy, sh.dx)) * dt;
+    const T w4t = T(0.5) * (dot4(vx, sh.dz) - dot4(vz, sh.dx)) * dt;
+    const T w5t = T(0.5) * (dot4(vy, sh.dz) - dot4(vz, sh.dy)) * dt;
+    jaumann(st, w3t, w4t, w5t);
+    jaumann(sn, w3t, w4t, w5t);
+  }
+  if (p.surf_corr && top) {
+#pragma unroll
+    for (int a = 0; a < 6; ++a) {
+      st[a] = st[a] * sc;
+      sn[a] = sn[a] * sc;
+      if (sr) sr[a] = sr[a] * sc;
+    }
+    pls = pls * sc;
+  }
+}
+
+// the surface factor of tet t of top-layer cell c
+template <typename T>
+__device__ __forceinline__ int sfac_idx(const Params3<T>& p, int t, int c) {
+  return t * p.NT + c / p.nzc;
+}
+
 // ---- A, cell: T-diffusion and dvoldt corner partials (pallas3d.py:958-997)
 template <int PAR, typename T>
 __device__ __forceinline__ void cell_a(const Params3<T>& p, const Bufs3<T>& b,
-                                       int c, int n0) {
-  T X[8], Y[8], Z[8], VX[8], VY[8], VZ[8], TT[8];
-  cell_gather(p, b.nin + N_CX * p.NS, n0, X);
-  cell_gather(p, b.nin + N_CY * p.NS, n0, Y);
-  cell_gather(p, b.nin + N_CZ * p.NS, n0, Z);
-  cell_gather(p, b.nin + N_VX * p.NS, n0, VX);
-  cell_gather(p, b.nin + N_VY * p.NS, n0, VY);
-  cell_gather(p, b.nin + N_VZ * p.NS, n0, VZ);
-  cell_gather(p, b.nin + N_T * p.NS, n0, TT);
+                                       int c, const T* X, const T* Y,
+                                       const T* Z, const T* VX, const T* VY,
+                                       const T* VZ, const T* TT) {
   T tp[8], dp[8];
 #pragma unroll
   for (int q = 0; q < 8; ++q) { tp[q] = T(0); dp[q] = T(0); }
@@ -343,10 +485,22 @@ __device__ __forceinline__ void cell_a(const Params3<T>& p, const Bufs3<T>& b,
 
 template <typename T>
 __global__ void __launch_bounds__(BLOCK) phase_a(Params3<T> p, Bufs3<T> b) {
-  int c = blockIdx.x * BLOCK + threadIdx.x;
-  if (c >= p.NC) return;
-  CellPos<T> cp = cell_pos(p, c);
-  if (cp.par) cell_a<1>(p, b, c, cp.n0); else cell_a<0>(p, b, c, cp.n0);
+  CellOf<T> cc;
+  if (!cell_of_thread(p, cc)) return;
+  T X[8], Y[8], Z[8], VX[8], VY[8], VZ[8], TT[8];
+  const T* g = b.nin;
+#pragma unroll
+  for (int q = 0; q < 8; ++q) {
+    const int o = cc.n0 + corner_off(p, q);
+    X[q] = g[N_CX * p.NS + o]; Y[q] = g[N_CY * p.NS + o];
+    Z[q] = g[N_CZ * p.NS + o]; VX[q] = g[N_VX * p.NS + o];
+    VY[q] = g[N_VY * p.NS + o]; VZ[q] = g[N_VZ * p.NS + o];
+    TT[q] = p.thermal ? g[N_T * p.NS + o] : T(0);
+  }
+  if (cc.odd)
+    cell_a<1>(p, b, cc.c, X, Y, Z, VX, VY, VZ, TT);
+  else
+    cell_a<0>(p, b, cc.c, X, Y, Z, VX, VY, VZ, TT);
 }
 
 // ---- B, node: temperature and dvoldt (pallas3d.py:999-1005)
@@ -374,8 +528,8 @@ __global__ void __launch_bounds__(BLOCK) phase_b(Params3<T> p, Bufs3<T> b) {
   b.nout[N_T * p.NS + n] = Tnew;
 }
 
-// ---- C, tet: edvoldt, strain, constitutive update, dpressure
-// (pallas3d.py:1046-1169)
+// ---- C, tet: the pending epilogue of the previous step, edvoldt, strain,
+// constitutive update, dpressure (pallas3d.py:1046-1169)
 template <typename T>
 __global__ void __launch_bounds__(BLOCK) phase_c(Params3<T> p, Bufs3<T> b) {
   int e = blockIdx.x * BLOCK + threadIdx.x;
@@ -394,6 +548,26 @@ __global__ void __launch_bounds__(BLOCK) phase_c(Params3<T> p, Bufs3<T> b) {
   tet_gather(p, b.nwork, cp, t, dvs);
   const T vol = b.ein[eidx(p, E_VOL, t, c)];
   Shape3<T> sh = shape3(x, y, z, vol);
+  T so[6], sn[6];
+#pragma unroll
+  for (int a = 0; a < 6; ++a) {
+    so[a] = b.ein[eidx(p, E_STRESS + a, t, c)];
+    sn[a] = b.ein[eidx(p, E_STRAIN + a, t, c)];
+  }
+  T pls = b.ein[eidx(p, E_PLS, t, c)];
+  if (b.pending) {
+    // the previous step's epilogue: ein's coordinates, velocities and
+    // volume are that step's moved mesh, so sh is its shape function
+    T dps[4] = {T(0), T(0), T(0), T(0)}, dp_old = T(0);
+    if (p.nmd) {
+      tet_gather(p, b.nwork + p.NS, cp, t, dps);
+      dp_old = b.ein[eidx(p, E_DP, t, c)];
+    }
+    const bool top = cp.k == p.nzc - 1;
+    const T sc = (p.surf_corr && top) ? b.sfac[sfac_idx(p, t, c)] : T(1);
+    apply_epilogue(p, sh, vx, vy, vz, *b.dtp, dps, dp_old, top, sc, so, sn,
+                   static_cast<T*>(nullptr), pls);
+  }
   const T lxx = dot4(vx, sh.dx), lyy = dot4(vy, sh.dy), lzz = dot4(vz, sh.dz);
   const T sr[6] = {lxx, lyy, lzz,
                    T(0.5) * (dot4(vx, sh.dy) + dot4(vy, sh.dx)),
@@ -402,23 +576,22 @@ __global__ void __launch_bounds__(BLOCK) phase_c(Params3<T> p, Bufs3<T> b) {
   const T temp_e = mean4(ts);
   const T edv = mean4(dvs);
   const T adj = (edv - (lxx + lyy + lzz)) / T(3);
-  T edot[6], de[6], strain[6], so[6];
+  T edot[6], de[6], strain[6];
 #pragma unroll
   for (int a = 0; a < 6; ++a) {
     edot[a] = a < 3 ? sr[a] + adj : sr[a];
     de[a] = edot[a] * dt;
-    strain[a] = b.ein[eidx(p, E_STRAIN + a, t, c)] + de[a];
-    so[a] = b.ein[eidx(p, E_STRESS + a, t, c)];
+    strain[a] = sn[a] + de[a];
   }
   // the viscosity of the creep laws and EP's delta_plstrain are
   // recomputed, so their old values are not loaded
   const int rh = p.rheol;
-  T pls = b.ein[eidx(p, E_PLS, t, c)];
+  const bool creep = rh == RH_VISCOUS || rh == RH_MAXWELL || rh == RH_EVP;
   T dpls = rh == RH_EP ? T(0) : b.ein[eidx(p, E_DPLS, t, c)];
   const T K = p.bulkm, G = p.shearm;
   const T w[1] = {T(1)};
   T visc;
-  if (rh == RH_VISCOUS || rh == RH_MAXWELL || rh == RH_EVP) {
+  if (creep) {
     T s0m = (so[0] + so[1] + so[2]) / T(3);
     T ed = dmax(dsqrt(inv2_6(sr)), T(1e-30));
     visc = visc_core(p.mat, 1, w, temp_e, s0m, ed, p.log_q, p.log_1e6,
@@ -464,13 +637,17 @@ __global__ void __launch_bounds__(BLOCK) phase_c(Params3<T> p, Bufs3<T> b) {
   for (int a = 0; a < 6; ++a) {
     b.eout[eidx(p, E_STRESS + a, t, c)] = sc[a];
     b.eout[eidx(p, E_STRAIN + a, t, c)] = strain[a];
-    b.eout[eidx(p, E_SR + a, t, c)] = edot[a];
   }
   b.eout[eidx(p, E_PLS, t, c)] = pls;
   b.eout[eidx(p, E_DPLS, t, c)] = dpls;
-  b.eout[eidx(p, E_VISC, t, c)] = visc;
   b.eout[eidx(p, E_DP, t, c)] = dp;
-  b.eout[eidx(p, E_EDV, t, c)] = edv;
+  if (p.nmd) b.ework[e] = dp * vol;  // D's per-tet term
+  if (!creep || b.last) b.eout[eidx(p, E_VISC, t, c)] = visc;
+  if (b.last) {
+#pragma unroll
+    for (int a = 0; a < 6; ++a) b.eout[eidx(p, E_SR + a, t, c)] = edot[a];
+    b.eout[eidx(p, E_EDV, t, c)] = edv;
+  }
 }
 
 // ---- D, node: NMD nodal pressure change (pallas3d.py:1171-1175)
@@ -479,29 +656,22 @@ __global__ void __launch_bounds__(BLOCK) phase_d(Params3<T> p, Bufs3<T> b) {
   int n = blockIdx.x * BLOCK + threadIdx.x;
   if (n >= p.NS) return;
   int k = n % p.nz, j = (n / p.nz) % p.ny, i = n / (p.nz * p.ny);
-  const Params3<T>& P = p;
-  const Bufs3<T>& B = b;
+  const int NC = p.NC;
+  const T* w = b.ework;  // dpressure * volume per tet, from C
   T s = node_sum(p, i, j, k, [&](int q, int cell, int par) {
-    return equal_partial<T>(
-        [&](int t, int cl) {
-          return B.eout[eidx(P, E_DP, t, cl)] * B.ein[eidx(P, E_VOL, t, cl)];
-        },
-        q, cell, par);
+    return equal_partial<T>([&](int t, int cl) { return w[t * NC + cl]; },
+                            q, cell, par);
   });
   b.nwork[p.NS + n] = s / b.nin[N_VOLN * p.NS + n];
 }
 
-// ---- E, cell: NMD correction and force corner partials
-// (pallas3d.py:1025-1044, :1176-1205)
+// ---- E, cell: NMD correction (in registers: the stored stress keeps its
+// epilogue pending) and force corner partials (pallas3d.py:1025-1044,
+// :1176-1205)
 template <int PAR, typename T>
 __device__ __forceinline__ void cell_e(const Params3<T>& p, const Bufs3<T>& b,
-                                       int c, int n0) {
-  T X[8], Y[8], Z[8], TT[8], DP[8];
-  cell_gather(p, b.nin + N_CX * p.NS, n0, X);
-  cell_gather(p, b.nin + N_CY * p.NS, n0, Y);
-  cell_gather(p, b.nin + N_CZ * p.NS, n0, Z);
-  cell_gather(p, b.nin + N_T * p.NS, n0, TT);
-  if (p.nmd) cell_gather(p, b.nwork + p.NS, n0, DP);
+                                       int c, const T* X, const T* Y,
+                                       const T* Z, const T* TT, const T* DP) {
   T fp[3][8];
 #pragma unroll
   for (int q = 0; q < 8; ++q) fp[0][q] = fp[1][q] = fp[2][q] = T(0);
@@ -524,13 +694,10 @@ __device__ __forceinline__ void cell_e(const Params3<T>& p, const Bufs3<T>& b,
       for (int s = 0; s < 4; ++s) dps[s] = DP[tet_corner(PAR, t, s)];
       T ddp = (mean4(dps) - b.eout[eidx(p, E_DP, t, c)]) / T(3);
 #pragma unroll
-      for (int a = 0; a < 3; ++a) {
-        st[a] = st[a] + ddp;
-        b.eout[eidx(p, E_STRESS + a, t, c)] = st[a];
-      }
+      for (int a = 0; a < 3; ++a) st[a] = st[a] + ddp;
     }
-    T TinC = mean4(ts) - T(273.0);
-    T buoy = p.gravity_on ? p.buoyA - p.buoyB * TinC : T(0);
+    T buoy = T(0);
+    if (p.gravity_on) buoy = p.buoyA - p.buoyB * (mean4(ts) - T(273.0));
 #pragma unroll
     for (int s = 0; s < 4; ++s) {
       const int q = tet_corner(PAR, t, s);
@@ -550,10 +717,22 @@ __device__ __forceinline__ void cell_e(const Params3<T>& p, const Bufs3<T>& b,
 
 template <typename T>
 __global__ void __launch_bounds__(BLOCK) phase_e(Params3<T> p, Bufs3<T> b) {
-  int c = blockIdx.x * BLOCK + threadIdx.x;
-  if (c >= p.NC) return;
-  CellPos<T> cp = cell_pos(p, c);
-  if (cp.par) cell_e<1>(p, b, c, cp.n0); else cell_e<0>(p, b, c, cp.n0);
+  CellOf<T> cc;
+  if (!cell_of_thread(p, cc)) return;
+  T X[8], Y[8], Z[8], TT[8], DP[8];
+  const T* g = b.nin;
+#pragma unroll
+  for (int q = 0; q < 8; ++q) {
+    const int o = cc.n0 + corner_off(p, q);
+    X[q] = g[N_CX * p.NS + o]; Y[q] = g[N_CY * p.NS + o];
+    Z[q] = g[N_CZ * p.NS + o];
+    TT[q] = p.gravity_on ? g[N_T * p.NS + o] : T(0);
+    DP[q] = p.nmd ? b.nwork[p.NS + o] : T(0);
+  }
+  if (cc.odd)
+    cell_e<1>(p, b, cc.c, X, Y, Z, TT, DP);
+  else
+    cell_e<0>(p, b, cc.c, X, Y, Z, TT, DP);
 }
 
 // ---- F, node: force, L2 partial, damping, velocity + vbc, coordinates
@@ -593,32 +772,31 @@ __global__ void __launch_bounds__(BLOCK) phase_f(Params3<T> p, Bufs3<T> b) {
                                                  : v + dt * fd / m;
       b.nout[(N_CX + a) * p.NS + n] = b.nin[(N_CX + a) * p.NS + n] + vn * dt;
       b.nout[(N_VX + a) * p.NS + n] = vn;
-      b.nout[(N_FX + a) * p.NS + n] = fd;
+      if (b.last) b.nout[(N_FX + a) * p.NS + n] = fd;
     }
   }
   T s = block_reduce(r2, shm, [](T a, T c) { return a + c; });
   if (threadIdx.x == 0) b.part[3 * b.nb + blockIdx.x] = s;
 }
 
-// ---- G, tet: post-move volume, CFL partials, mass terms, Jaumann
-// rotation and surface-element correction (pallas3d.py:1395-1534)
-template <typename T>
-__global__ void __launch_bounds__(BLOCK) phase_g(Params3<T> p, Bufs3<T> b) {
-  __shared__ T shm[BLOCK];
-  int e = blockIdx.x * BLOCK + threadIdx.x;
-  T hmin = T(FLT_MAX), hsmin = T(FLT_MAX), vmax = T(0);
-  if (e < 5 * p.NC) {
-    const int t = e / p.NC, c = e % p.NC;
-    CellPos<T> cp = cell_pos(p, c);
-    const T dt = b.scal[0];
+// ---- G, cell: each of the cell's tets' post-move volume, CFL partials,
+// mass terms and surface factor of the epilogue (pallas3d.py:1395-1534)
+template <int PAR, typename T>
+__device__ __forceinline__ void cell_g(const Params3<T>& p, const Bufs3<T>& b,
+                                       int c, bool top, const T* X,
+                                       const T* Y, const T* Z, const T* VX,
+                                       const T* VY, const T* VZ, const T* TT,
+                                       T& hmin, T& hsmin, T& vmax) {
+  T* w = b.ework;
+#pragma unroll
+  for (int t = 0; t < 5; ++t) {
     T x[4], y[4], z[4], vx[4], vy[4], vz[4], ts[4];
-    tet_gather(p, b.nout + N_CX * p.NS, cp, t, x);
-    tet_gather(p, b.nout + N_CY * p.NS, cp, t, y);
-    tet_gather(p, b.nout + N_CZ * p.NS, cp, t, z);
-    tet_gather(p, b.nout + N_VX * p.NS, cp, t, vx);
-    tet_gather(p, b.nout + N_VY * p.NS, cp, t, vy);
-    tet_gather(p, b.nout + N_VZ * p.NS, cp, t, vz);
-    tet_gather(p, b.nin + N_T * p.NS, cp, t, ts);
+#pragma unroll
+    for (int s = 0; s < 4; ++s) {
+      const int q = tet_corner(PAR, t, s);
+      x[s] = X[q]; y[s] = Y[q]; z[s] = Z[q];
+      vx[s] = VX[q]; vy[s] = VY[q]; vz[s] = VZ[q]; ts[s] = TT[q];
+    }
     const T TinC = mean4(ts) - T(273.0);
     const T rho_e = p.rhoA - p.rhoB * TinC;
     const T vol = b.ein[eidx(p, E_VOL, t, c)];
@@ -626,9 +804,10 @@ __global__ void __launch_bounds__(BLOCK) phase_g(Params3<T> p, Bufs3<T> b) {
 
     // CFL partials, every step (pallas3d.py:1435-1450)
     const T vxm = mean4(vx), vym = mean4(vy), vzm = mean4(vz);
-    vmax = dsqrt(vxm * vxm + vym * vym + vzm * vzm);
-    hmin = tet_min_height(x, y, z, vn);
-    hsmin = hmin / dsqrt(p.shearm / rho_e);
+    const T h = tet_min_height(x, y, z, vn);
+    vmax = dmax(vmax, dsqrt(vxm * vxm + vym * vym + vzm * vzm));
+    hmin = dmin(hmin, h);
+    hsmin = dmin(hsmin, h / dsqrt(p.shearm / rho_e));
 
     // (pseudo-)mass matrices (geometry.cxx:1020-1154)
     T rho_q;
@@ -639,66 +818,51 @@ __global__ void __launch_bounds__(BLOCK) phase_g(Params3<T> p, Bufs3<T> b) {
       rho_q = p.bulkm / p.ps2;
     }
     const T rho_m = p.quasi_static ? rho_q : rho_e;
-    b.ework[0 * 5 * p.NC + e] = rho_m * vn / T(4);
-    b.ework[1 * 5 * p.NC + e] = (p.cpA - p.cpB * TinC) * vn / T(4);
-    b.ework[2 * 5 * p.NC + e] = p.hmA * vn;
+    const int e = t * p.NC + c;
+    w[0 * 5 * p.NC + e] = rho_m * vn / T(4);
+    w[1 * 5 * p.NC + e] = (p.cpA - p.cpB * TinC) * vn / T(4);
+    if (b.last) w[2 * 5 * p.NC + e] = p.hmA * vn;
 
-    T st[6], sn[6], ed[6];
-#pragma unroll
-    for (int a = 0; a < 6; ++a) {
-      st[a] = b.eout[eidx(p, E_STRESS + a, t, c)];
-      sn[a] = b.eout[eidx(p, E_STRAIN + a, t, c)];
-      ed[a] = b.eout[eidx(p, E_SR + a, t, c)];
-    }
-    T pls = b.eout[eidx(p, E_PLS, t, c)];
-    if (p.jaumann) {  // Jaumann rotation (fields.cxx:832-907)
-      Shape3<T> s2 = shape3(x, y, z, vn);
-      const T w3t = T(0.5) * (dot4(vx, s2.dy) - dot4(vy, s2.dx)) * dt;
-      const T w4t = T(0.5) * (dot4(vx, s2.dz) - dot4(vz, s2.dx)) * dt;
-      const T w5t = T(0.5) * (dot4(vy, s2.dz) - dot4(vz, s2.dy)) * dt;
-      T* tens[2] = {st, sn};
-#pragma unroll
-      for (int r = 0; r < 2; ++r) {
-        T* q = tens[r];
-        T r0 = q[0] - T(2) * q[3] * w3t - T(2) * q[4] * w4t;
-        T r1 = q[1] + T(2) * q[3] * w3t - T(2) * q[5] * w5t;
-        T r2 = q[2] + T(2) * q[4] * w4t + T(2) * q[5] * w5t;
-        T r3 = q[3] + (q[0] - q[1]) * w3t - q[4] * w5t - q[5] * w4t;
-        T r4 = q[4] + (q[0] - q[2]) * w4t + q[3] * w5t - q[5] * w3t;
-        T r5 = q[5] + (q[1] - q[2]) * w5t + q[3] * w4t + q[4] * w3t;
-        q[0] = r0; q[1] = r1; q[2] = r2; q[3] = r3; q[4] = r4; q[5] = r5;
-      }
-    }
+    // correct_surface_element (bc.cxx:1613-1665): the top layer's factor
+    // for the epilogue and its pre-swap volume
     T vold = vol;
-    if (p.surf_corr) {  // correct_surface_element (bc.cxx:1613-1665)
-      const bool ztop = cp.k == p.nzc - 1;
+    if (p.surf_corr && top) {
       const T rdv = vn / vol;
-      const T sc = (ztop && rdv >= T(1)) ? T(1) / rdv : T(1);
-#pragma unroll
-      for (int a = 0; a < 6; ++a) {
-        st[a] = st[a] * sc;
-        sn[a] = sn[a] * sc;
-        ed[a] = ed[a] * sc;
-      }
-      pls = pls * sc;
-      vold = ztop ? vn : vol;
+      b.sfac[sfac_idx(p, t, c)] = rdv >= T(1) ? T(1) / rdv : T(1);
+      vold = vn;
     }
     b.eout[eidx(p, E_VOL, t, c)] = vn;
     b.eout[eidx(p, E_VOLD, t, c)] = vold;
-#pragma unroll
-    for (int a = 0; a < 6; ++a) {
-      b.eout[eidx(p, E_STRESS + a, t, c)] = st[a];
-      b.eout[eidx(p, E_STRAIN + a, t, c)] = sn[a];
-      b.eout[eidx(p, E_SR + a, t, c)] = ed[a];
-    }
-    b.eout[eidx(p, E_PLS, t, c)] = pls;
   }
-  T r = block_reduce(hmin, shm, [](T a, T q) { return dmin(a, q); });
-  if (threadIdx.x == 0) b.part[blockIdx.x] = r;
-  r = block_reduce(hsmin, shm, [](T a, T q) { return dmin(a, q); });
-  if (threadIdx.x == 0) b.part[b.nb + blockIdx.x] = r;
-  r = block_reduce(vmax, shm, [](T a, T q) { return dmax(a, q); });
-  if (threadIdx.x == 0) b.part[2 * b.nb + blockIdx.x] = r;
+}
+
+template <typename T>
+__global__ void __launch_bounds__(BLOCK) phase_g(Params3<T> p, Bufs3<T> b) {
+  __shared__ T shm[3][BLOCK / 32];
+  T hmin = T(FLT_MAX), hsmin = T(FLT_MAX), vmax = T(0);
+  CellOf<T> cc;
+  if (cell_of_thread(p, cc)) {
+    T X[8], Y[8], Z[8], VX[8], VY[8], VZ[8], TT[8];
+#pragma unroll
+    for (int q = 0; q < 8; ++q) {
+      const int o = cc.n0 + corner_off(p, q);
+      X[q] = b.nout[N_CX * p.NS + o]; Y[q] = b.nout[N_CY * p.NS + o];
+      Z[q] = b.nout[N_CZ * p.NS + o]; VX[q] = b.nout[N_VX * p.NS + o];
+      VY[q] = b.nout[N_VY * p.NS + o]; VZ[q] = b.nout[N_VZ * p.NS + o];
+      TT[q] = b.nin[N_T * p.NS + o];
+    }
+    const bool top = cc.k == p.nzc - 1;
+    if (cc.odd)
+      cell_g<1>(p, b, cc.c, top, X, Y, Z, VX, VY, VZ, TT, hmin, hsmin, vmax);
+    else
+      cell_g<0>(p, b, cc.c, top, X, Y, Z, VX, VY, VZ, TT, hmin, hsmin, vmax);
+  }
+  cfl_reduce(hmin, hsmin, vmax, shm);
+  if (threadIdx.x == 0) {
+    b.part[blockIdx.x] = hmin;
+    b.part[b.nb + blockIdx.x] = hsmin;
+    b.part[2 * b.nb + blockIdx.x] = vmax;
+  }
 }
 
 // ---- H, node: volume_n, mass, tmass, hmass (pallas3d.py:1471-1474)
@@ -716,6 +880,7 @@ __global__ void __launch_bounds__(BLOCK) phase_h(Params3<T> p, Bufs3<T> b) {
   const int slot[3] = {N_MASS, N_TMASS, N_HMASS};
 #pragma unroll
   for (int a = 0; a < 3; ++a) {
+    if (a == 2 && !b.last) break;
     const T* w = b.ework + a * 5 * NC;
     b.nout[slot[a] * p.NS + n] = node_sum(p, i, j, k, [&](int q, int cell, int par) {
       return equal_partial<T>([&](int t, int cl) { return w[t * NC + cl]; },
@@ -724,16 +889,73 @@ __global__ void __launch_bounds__(BLOCK) phase_h(Params3<T> p, Bufs3<T> b) {
   }
 }
 
+// ---- finalize, tet: the pending epilogue of the step that wrote e / n,
+// in place on stress, strain, strain rate and plstrain (after a chunk's
+// last step, and after a complete step)
+template <typename T>
+__global__ void __launch_bounds__(BLOCK)
+    finalize(Params3<T> p, T* e, const T* n, const T* nwork, const T* sfac,
+             const T* dtp) {
+  int id = blockIdx.x * BLOCK + threadIdx.x;
+  if (id >= 5 * p.NC) return;
+  const int t = id / p.NC, c = id % p.NC;
+  CellPos<T> cp = cell_pos(p, c);
+  T vx[4] = {}, vy[4] = {}, vz[4] = {};
+  Shape3<T> sh = {};
+  if (p.jaumann) {
+    T x[4], y[4], z[4];
+    tet_gather(p, n + N_CX * p.NS, cp, t, x);
+    tet_gather(p, n + N_CY * p.NS, cp, t, y);
+    tet_gather(p, n + N_CZ * p.NS, cp, t, z);
+    tet_gather(p, n + N_VX * p.NS, cp, t, vx);
+    tet_gather(p, n + N_VY * p.NS, cp, t, vy);
+    tet_gather(p, n + N_VZ * p.NS, cp, t, vz);
+    sh = shape3(x, y, z, e[eidx(p, E_VOL, t, c)]);
+  }
+  // strain rate and plstrain change on the scaled top layer only
+  const bool top = cp.k == p.nzc - 1, scaled = p.surf_corr && top;
+  T st[6], sn[6], sr[6] = {}, pls = T(0);
+#pragma unroll
+  for (int a = 0; a < 6; ++a) {
+    st[a] = e[eidx(p, E_STRESS + a, t, c)];
+    sn[a] = e[eidx(p, E_STRAIN + a, t, c)];
+  }
+  if (scaled) {
+#pragma unroll
+    for (int a = 0; a < 6; ++a) sr[a] = e[eidx(p, E_SR + a, t, c)];
+    pls = e[eidx(p, E_PLS, t, c)];
+  }
+  T dps[4] = {T(0), T(0), T(0), T(0)}, dp_old = T(0);
+  if (p.nmd) {
+    tet_gather(p, nwork + p.NS, cp, t, dps);
+    dp_old = e[eidx(p, E_DP, t, c)];
+  }
+  const T sc = scaled ? sfac[sfac_idx(p, t, c)] : T(1);
+  apply_epilogue(p, sh, vx, vy, vz, *dtp, dps, dp_old, top, sc, st, sn, sr,
+                 pls);
+#pragma unroll
+  for (int a = 0; a < 6; ++a) {
+    e[eidx(p, E_STRESS + a, t, c)] = st[a];
+    e[eidx(p, E_STRAIN + a, t, c)] = sn[a];
+  }
+  if (scaled) {
+#pragma unroll
+    for (int a = 0; a < 6; ++a) e[eidx(p, E_SR + a, t, c)] = sr[a];
+    e[eidx(p, E_PLS, t, c)] = pls;
+  }
+}
+
 template <typename T>
 int step(const int* ip, const double* fp, Bufs3<T> b, cudaStream_t s) {
   Params3<T> p = from_host<T>(ip, fp);
-  const int gc = (p.NC + BLOCK - 1) / BLOCK;
+  if (p.nzc % 2) return int(cudaErrorInvalidValue);  // cell pairs along z
+  const int gc = (p.NC / 2 + BLOCK / 2 - 1) / (BLOCK / 2);  // cell phases
   const int gt = (5 * p.NC + BLOCK - 1) / BLOCK;
   const int gn = (p.NS + BLOCK - 1) / BLOCK;
-  if (gt > b.nb || gn > b.nb) return int(cudaErrorInvalidValue);
+  if (gc > b.nb || gn > b.nb) return int(cudaErrorInvalidValue);
   cudaError_t e;
-#define DES_LAUNCH(K, G)                      \
-  K<T><<<G, BLOCK, 0, s>>>(p, b);             \
+#define DES_LAUNCH(K, G)                \
+  K<T><<<G, BLOCK, 0, s>>>(p, b);       \
   if ((e = cudaGetLastError()) != cudaSuccess) return int(e);
   DES_LAUNCH(phase_a, gc)
   DES_LAUNCH(phase_b, gn)
@@ -741,27 +963,51 @@ int step(const int* ip, const double* fp, Bufs3<T> b, cudaStream_t s) {
   if (p.nmd) { DES_LAUNCH(phase_d, gn) }
   DES_LAUNCH(phase_e, gc)
   DES_LAUNCH(phase_f, gn)
-  DES_LAUNCH(phase_g, gt)
+  DES_LAUNCH(phase_g, gc)
   DES_LAUNCH(phase_h, gn)
 #undef DES_LAUNCH
   return 0;
+}
+
+template <typename T>
+int finalize_step(const int* ip, const double* fp, T* e, const T* n,
+                  const T* nwork, const T* sfac, const T* dtp,
+                  cudaStream_t s) {
+  Params3<T> p = from_host<T>(ip, fp);
+  const int gt = (5 * p.NC + BLOCK - 1) / BLOCK;
+  finalize<T><<<gt, BLOCK, 0, s>>>(p, e, n, nwork, sfac, dtp);
+  return int(cudaGetLastError());
 }
 
 }  // namespace
 
 extern "C" {
 
-// One fused 3D step.  Returns 0 or the cudaError_t of the first launch that
-// failed (faults during the run surface at the caller's next
-// synchronisation).
+// One fused 3D step in the chunk form: ein carries the pending epilogue of
+// the previous step when `pending` (its dt at dtp), eout is left with this
+// step's (nwork slot 1 and sfac hold its inputs); `last` stores the planes
+// no later step of the chunk reads.  Returns 0 or the cudaError_t of the
+// first launch that failed (faults during the run surface at the caller's
+// next synchronisation).
 int des_fused3d_step_f32(const int* ip, const double* fp, const float* ein,
                          const float* nin, float* eout, float* nout,
                          const float* cnp, const float* tgt, const float* scal,
-                         float* ework, float* nwork, float* part, int nb,
-                         void* stream) {
-  Bufs3<float> b{ein, nin, eout, nout, cnp, tgt, scal, ework, nwork, part,
-                 nb};
+                         float* ework, float* nwork, float* sfac,
+                         const float* dtp, float* part, int nb, int pending,
+                         int last, void* stream) {
+  Bufs3<float> b{ein,   nin,   eout, nout, cnp, tgt,     scal, ework,
+                 nwork, sfac,  dtp,  part, nb,  pending, last};
   return step<float>(ip, fp, b, static_cast<cudaStream_t>(stream));
+}
+
+// The pending epilogue of the step that wrote e / n (its dt at dtp),
+// applied in place to e: after it e and n are a State's planes.
+int des_fused3d_finalize_f32(const int* ip, const double* fp, float* e,
+                             const float* n, const float* nwork,
+                             const float* sfac, const float* dtp,
+                             void* stream) {
+  return finalize_step<float>(ip, fp, e, n, nwork, sfac, dtp,
+                              static_cast<cudaStream_t>(stream));
 }
 
 }  // extern "C"

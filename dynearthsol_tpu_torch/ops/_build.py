@@ -97,7 +97,7 @@ def ptxas_report() -> dict:
         m = re.search(r"Compiling entry function '(\S+)'", line)
         if m:
             raw = m.group(1)
-            k = re.search(r"(phase_[a-h]|dt_refresh|"
+            k = re.search(r"(phase_[a-h]|finalize|dt_refresh|"
                           r"(?:gather|scatter)_corners_kernelI[fd])", raw)
             src = re.search(r"_(fused\w+?|band2d)_cu_", raw)
             name = (f"{src.group(1) if src else '?'}:"
@@ -123,8 +123,10 @@ def load():
         lib.des_dt_refresh_f32.argtypes = [_P] * 3 + [_I, _P, _P, _P, _I,
                                                       _I, _I, _P]
         lib.des_dt_refresh_f32.restype = _I
-        lib.des_fused3d_step_f32.argtypes = [_P] * 12 + [_I, _P]
+        lib.des_fused3d_step_f32.argtypes = [_P] * 14 + [_I, _I, _I, _P]
         lib.des_fused3d_step_f32.restype = _I
+        lib.des_fused3d_finalize_f32.argtypes = [_P] * 8
+        lib.des_fused3d_finalize_f32.restype = _I
         lib.des_gather_corners.argtypes = [_I, _P, _I, _I, _P, _I, _I, _P,
                                            _P]
         lib.des_gather_corners.restype = _I

@@ -24,6 +24,11 @@ Node sums follow grid3d.asm: for each corner code, a per-cell partial over
 (tet, slot) in order, then the eight codes in order.  The CUDA kernel adds
 in the same order with no atomics.
 
+A chunk runs in a chunk form (``run_chunk``): each step leaves its tensor
+epilogue (``epilogue``) pending on the planes for the next step to apply,
+and one finalize applies the last; the result equals that many complete
+steps (``fused3d_step``) bit for bit.
+
 Scalars stay on the device as in 2D (ops/fused2d.py ``scal``, ``flags``).
 Unlike the 2D step, the 3D step sets vmax and gdtmin from the CFL partials
 of EVERY step and only dt waits for the 10-step cadence
@@ -73,7 +78,8 @@ CN_SLOTS = ("top_mask", "vbc_mask_x", "vbc_mask_y", "vbc_mask_z")
 NCN = len(CN_SLOTS)
 
 NPART = 4          # min height, min height / swave, max |v|, sum |f|^2
-BLOCK = 256        # threads per block of csrc/fused3d.cu
+BLOCK = 256        # threads (tets, cells or nodes) per block of
+#                    csrc/fused3d.cu
 NEWORK = 24        # element scratch planes of one cell each (csrc)
 NNWORK = 2         # node scratch planes
 
@@ -313,8 +319,8 @@ class StepPlan3:
 
     def nblocks(self) -> int:
         """Columns of the partials buffer: the larger block count of the
-        per-tet and per-node launches."""
-        return max(-(-5 * self.ncell // BLOCK), -(-self.nnode // BLOCK))
+        launches that write them, phase G (per cell) and F (per node)."""
+        return max(-(-self.ncell // BLOCK), -(-self.nnode // BLOCK))
 
 
 def make_plan(param: Param, ctx, device) -> StepPlan3:
@@ -531,19 +537,81 @@ def _mean4(a):
 
 # ------------------------------------------------- the step, plain torch
 
-def step_planes_plain(P: StepPlan3, ein, nin, cnp, tgt, dt, gvs,
-                      ties=None):
-    """One whole time step on the packed planes, in plain PyTorch: the
-    physics of pallas3d.py:793-1567 on the whole mesh
-    (dynearthsol.cxx:746-956 minus the facet tractions and surface
-    processes), uniform material.
+def epilogue(P: StepPlan3, nin, vol, dt, dp_old, dp_nd, sfac, stress,
+             strain, pls, sr=None):
+    """The tensor epilogue of a step, which the chunk form defers to the
+    next step's rheology phase (csrc/fused3d.cu ``apply_epilogue``), in
+    the order the complete step applies it:
 
-    ``dt``/``gvs`` are 0-d tensors.  Returns (epack, npack, red) with
-    red = (min height, min height / shear-wave speed, max |v|,
-    sum |force|^2), the CFL metrics of the moved mesh and the residual.
-    Under EVP a list passed as ``ties`` receives the (5, nxc, nyc, nzc)
-    mask of the elements whose min-select is an exact tie that matters:
-    both trial invariants 0 and the two trial stresses unequal."""
+    1. the NMD correction of the stress diagonal, ddp = (mean of the nodal
+       pressure change ``dp_nd`` over the tet's corners - the element's
+       ``dp_old``) / 3 (pallas3d.py:1176-1205);
+    2. the Jaumann rotation of stress and strain (fields.cxx:832-907) with
+       the step's ``dt``, the velocities and the shape functions of the
+       moved mesh (``nin``, volume ``vol``);
+    3. correct_surface_element (bc.cxx:1613-1665): stress, strain, strain
+       rate and plstrain of the top cell layer times ``sfac`` (1/rdv where
+       the element grew, else 1); rotate-then-scale equals the reference's
+       scale-then-rotate.  3D has no surface plstrain decay.
+
+    Returns (stress, strain, pls, sr)."""
+    sw, par = P.sw, P.par
+    if sw["nmd"]:
+        ddp = (_mean4(gather_tets(dp_nd, par)) - dp_old) / 3.0
+        stress = (stress[0] + ddp, stress[1] + ddp,
+                  stress[2] + ddp) + tuple(stress[3:])
+    if sw["jaumann"]:
+        xs, ys, zs, vxs, vys, vzs = (
+            gather_tets(nin[_nslot(n)], par)
+            for n in ("coord_x", "coord_y", "coord_z", "vel_x", "vel_y",
+                      "vel_z"))
+        dndx, dndy, dndz = shape_fn(xs, ys, zs, vol)
+        w3t = 0.5 * (_dot4(vxs, dndy) - _dot4(vys, dndx)) * dt
+        w4t = 0.5 * (_dot4(vxs, dndz) - _dot4(vzs, dndx)) * dt
+        w5t = 0.5 * (_dot4(vys, dndz) - _dot4(vzs, dndy)) * dt
+
+        def rot(q):
+            return (q[0] - 2.0 * q[3] * w3t - 2.0 * q[4] * w4t,
+                    q[1] + 2.0 * q[3] * w3t - 2.0 * q[5] * w5t,
+                    q[2] + 2.0 * q[4] * w4t + 2.0 * q[5] * w5t,
+                    q[3] + (q[0] - q[1]) * w3t - q[4] * w5t - q[5] * w4t,
+                    q[4] + (q[0] - q[2]) * w4t + q[3] * w5t - q[5] * w3t,
+                    q[5] + (q[1] - q[2]) * w5t + q[3] * w4t + q[4] * w3t)
+
+        stress, strain = rot(stress), rot(strain)
+    if sw["surf_corr"]:
+        def scale(x):
+            return torch.cat([x[..., :-1], (x[..., -1] * sfac)[..., None]],
+                             dim=-1)
+
+        stress = tuple(scale(x) for x in stress)
+        strain = tuple(scale(x) for x in strain)
+        pls = scale(pls)
+        if sr is not None:
+            sr = tuple(scale(x) for x in sr)
+    return stress, strain, pls, sr
+
+
+def step_planes_plain(P: StepPlan3, ein, nin, cnp, tgt, dt, gvs,
+                      ties=None, pending=None):
+    """One time step on the packed planes, in plain PyTorch, in the chunk
+    form of csrc/fused3d.cu: the physics of pallas3d.py:793-1567 on the
+    whole mesh (dynearthsol.cxx:746-956 minus the facet tractions and
+    surface processes), uniform material, with the tensor epilogue
+    (``epilogue``) left pending on the stress, strain, strain-rate and
+    plstrain planes it returns.
+
+    ``pending`` is None, or (dt, dp_nd, sfac) of the previous step when
+    ``ein`` carries that step's pending epilogue: it is applied to the old
+    stress, strain and plstrain before the step uses them.  ``dt``/``gvs``
+    are 0-d tensors.  Returns (epack, npack, red, dp_nd, sfac) with red =
+    (min height, min height / shear-wave speed, max |v|, sum |force|^2),
+    the CFL metrics of the moved mesh and the residual, and dp_nd / sfac
+    this step's nodal pressure change (NMD) and top-layer surface factors
+    (5, nxc, nyc) (surface correction), else None.  Under EVP a list passed
+    as ``ties`` receives the (5, nxc, nyc, nzc) mask of the elements whose
+    min-select is an exact tie that matters: both trial invariants 0 and
+    the two trial stresses unequal."""
     sw, k = P.sw, P.k
     rheol = P.rheol
     par = P.par
@@ -598,11 +666,14 @@ def step_planes_plain(P: StepPlan3, ein, nin, cnp, tgt, dt, gvs,
     adj = (edvoldt - (lxx + lyy + lzz)) / 3.0
     edot = (lxx + adj, lyy + adj, lzz + adj, lxy, lxz, lyz)
     de = tuple(e * dt for e in edot)
-    strain_old = TEN("strain")
+    stress_old, strain_old = TEN("stress"), TEN("strain")
+    plstrain = E("plstrain")
+    if pending is not None:
+        stress_old, strain_old, plstrain, _ = epilogue(
+            P, nin, vol, pending[0], E("dpressure"), pending[1], pending[2],
+            stress_old, strain_old, plstrain)
     strain = tuple(strain_old[i] + de[i] for i in range(6))
 
-    stress_old = TEN("stress")
-    plstrain = E("plstrain")
     delta_plstrain = E("delta_plstrain")
     viscosity = E("viscosity")
 
@@ -656,18 +727,18 @@ def step_planes_plain(P: StepPlan3, ein, nin, cnp, tgt, dt, gvs,
     else:
         raise ValueError(f"fused 3D step: unsupported rheology {rheol}")
 
-    # ---- NMD nodal pressure smoothing (pallas3d.py:1171-1228)
+    # ---- NMD nodal pressure smoothing (pallas3d.py:1171-1228): the force
+    # takes the corrected stress, the stored stress waits for epilogue()
     dpressure = E("dpressure")
+    s, dp_nd = stress_c, None
     if sw["nmd"]:
         old_tr = stress_old[0] + stress_old[1] + stress_old[2]
         dpressure = stress_c[0] + stress_c[1] + stress_c[2] - old_tr
         dp_nd = asm_equal(dpressure * vol, par) / N("volume_n")
         ddp = (_mean4(gather_tets(dp_nd, par)) - dpressure) / 3.0
-        stress_c = (stress_c[0] + ddp, stress_c[1] + ddp,
-                    stress_c[2] + ddp) + stress_c[3:]
+        s = (s[0] + ddp, s[1] + ddp, s[2] + ddp) + s[3:]
 
     # ---- phase 2b: force assembly with buoyancy (fields.cxx:612-703)
-    s = stress_c
     if sw["gravity_on"]:
         buoy = c(k["buoyA"]) - c(k["buoyB"]) * TinC
     else:
@@ -704,8 +775,8 @@ def step_planes_plain(P: StepPlan3, ein, nin, cnp, tgt, dt, gvs,
     coord_new = [N(n) + vel_new[q] * dt
                  for q, n in enumerate(("coord_x", "coord_y", "coord_z"))]
 
-    # ---- phase 4: post-move geometry, CFL partials, masses, Jaumann,
-    # surface-element correction (pallas3d.py:1395-1534)
+    # ---- phase 4: post-move geometry, CFL partials, masses, the surface
+    # factors of epilogue() (pallas3d.py:1395-1534)
     xs2, ys2, zs2 = (gather_tets(g, par) for g in coord_new)
     vxs2, vys2, vzs2 = (gather_tets(v, par) for v in vel_new)
     rho_e = c(k["rhoA"]) - c(k["rhoB"]) * TinC
@@ -728,44 +799,20 @@ def step_planes_plain(P: StepPlan3, ein, nin, cnp, tgt, dt, gvs,
         (c(k["cpA"]) - c(k["cpB"]) * TinC) * volume_new / 4.0, par)
     hmass_new = asm_equal(c(k["hmA"]) * volume_new, par)
 
-    stress3, strain3 = stress_c, strain
-    if sw["jaumann"]:
-        dndx2, dndy2, dndz2 = shape_fn(xs2, ys2, zs2, volume_new)
-        w3t = 0.5 * (_dot4(vxs2, dndy2) - _dot4(vys2, dndx2)) * dt
-        w4t = 0.5 * (_dot4(vxs2, dndz2) - _dot4(vzs2, dndx2)) * dt
-        w5t = 0.5 * (_dot4(vys2, dndz2) - _dot4(vzs2, dndy2)) * dt
-
-        def rot(q):
-            return (q[0] - 2.0 * q[3] * w3t - 2.0 * q[4] * w4t,
-                    q[1] + 2.0 * q[3] * w3t - 2.0 * q[5] * w5t,
-                    q[2] + 2.0 * q[4] * w4t + 2.0 * q[5] * w5t,
-                    q[3] + (q[0] - q[1]) * w3t - q[4] * w5t - q[5] * w4t,
-                    q[4] + (q[0] - q[2]) * w4t + q[3] * w5t - q[5] * w3t,
-                    q[5] + (q[1] - q[2]) * w5t + q[3] * w4t + q[4] * w3t)
-
-        stress3, strain3 = rot(stress_c), rot(strain)
-
-    # correct_surface_element (bc.cxx:1613-1665): every tet of the top
-    # cell row is rescaled by 1/rdv when it grew, and its pre-swap volume
-    # overwritten; rotate-then-scale equals the reference's
-    # scale-then-rotate.  3D has no surface plstrain decay.
-    volume_old_out = vol
+    # correct_surface_element (bc.cxx:1613-1665): the top cell layer's
+    # factor 1/rdv where the element grew (applied by epilogue()), and its
+    # pre-swap volume overwritten
+    volume_old_out, sfac = vol, None
     if sw["surf_corr"]:
-        ztop = torch.zeros_like(vol, dtype=torch.bool)
-        ztop[..., -1] = True
-        rdv = volume_new / vol
-        sc = torch.where(ztop & (rdv >= 1.0), 1.0 / rdv,
-                         torch.ones_like(rdv))
-        stress3 = tuple(x * sc for x in stress3)
-        strain3 = tuple(x * sc for x in strain3)
-        edot = tuple(x * sc for x in edot)
-        plstrain = plstrain * sc
-        volume_old_out = torch.where(ztop, volume_new, vol)
+        rdv = volume_new[..., -1] / vol[..., -1]
+        sfac = torch.where(rdv >= 1.0, 1.0 / rdv, torch.ones_like(rdv))
+        volume_old_out = torch.cat([vol[..., :-1], volume_new[..., -1:]],
+                                   dim=-1)
 
     e_out = {"volume": volume_new, "volume_old": volume_old_out,
              "plstrain": plstrain, "delta_plstrain": delta_plstrain,
              "viscosity": viscosity, "dpressure": dpressure,
-             "edvoldt": edvoldt, "stress": stress3, "strain": strain3,
+             "edvoldt": edvoldt, "stress": stress_c, "strain": strain,
              "strain_rate": edot}
     eplanes = [e_out[nm] for nm in E_SLOTS]
     for nm in T_SLOTS:
@@ -778,7 +825,7 @@ def step_planes_plain(P: StepPlan3, ein, nin, cnp, tgt, dt, gvs,
              "force_x": fd[0], "force_y": fd[1], "force_z": fd[2]}
     eout = torch.stack([p.expand(vol.shape) for p in eplanes])
     nout = torch.stack([n_out[nm] for nm in N_SLOTS])
-    return eout, nout, red
+    return eout, nout, red, dp_nd, sfac
 
 
 # ------------------------------------------ per-chunk constants and probes
@@ -814,7 +861,10 @@ def vbc_targets(ctx, npack, time):
 class ChunkBuffers3:
     """Device buffers of one chunk.  ``ein``/``nin`` hold the state before
     a step and ``eout``/``nout`` after it; the runner swaps them.  The
-    scalar and flag buffers follow ops/fused2d.ChunkBuffers."""
+    scalar and flag buffers follow ops/fused2d.ChunkBuffers.  Inside a
+    chunk the tensor planes carry the pending epilogue of the step that
+    wrote them (``epilogue``), whose nodal pressure change is ``nwork[1]``
+    and whose top-layer surface factors are ``sfac``."""
 
     ein: torch.Tensor
     nin: torch.Tensor
@@ -828,7 +878,9 @@ class ChunkBuffers3:
     dthist: torch.Tensor   # (n,)
     part: torch.Tensor     # (NPART, nblocks)
     ework: torch.Tensor    # (NEWORK, nxc, nyc, nzc) element scratch (CUDA)
-    nwork: torch.Tensor    # (NNWORK, nx, ny, nz) node scratch (CUDA)
+    nwork: torch.Tensor    # (NNWORK, nx, ny, nz) node scratch: dvoldt, and
+    #                        the NMD nodal pressure change
+    sfac: torch.Tensor     # (5, nxc, nyc) surface factors of the top layer
 
     def swap(self):
         self.ein, self.eout = self.eout, self.ein
@@ -855,17 +907,30 @@ def make_buffers(P: StepPlan3, ctx, s, n: int) -> ChunkBuffers3:
         dthist=torch.zeros(n, dtype=dtype, device=dev), part=part,
         ework=torch.empty((NEWORK, *P.cells) if cuda else (0,),
                           dtype=dtype, device=dev),
-        nwork=torch.empty((NNWORK, P.nx, P.ny, P.nz) if cuda else (0,),
-                          dtype=dtype, device=dev))
+        nwork=torch.empty((NNWORK, P.nx, P.ny, P.nz), dtype=dtype,
+                          device=dev),
+        sfac=torch.empty((5, P.nx - 1, P.ny - 1), dtype=dtype, device=dev))
 
 
-# ------------------------------------------------ kernel wrapper
+def last_only_slots(P: StepPlan3):
+    """(element slots, nodal slots) that no later phase or step of a chunk
+    reads, which the chunk form stores on its last step only: strain rate,
+    edvoldt and the viscosity a creep law recomputes; hmass and the
+    force."""
+    e = [_eslot("edvoldt")] + [_tslot("strain_rate") + q for q in range(6)]
+    if P.rheol in (RH_VISCOUS, RH_MAXWELL, RH_EVP):
+        e.append(_eslot("viscosity"))
+    n = [_nslot(f) for f in ("hmass", "force_x", "force_y", "force_z")]
+    return e, n
+
+
+# ------------------------------------------------ kernel wrappers
 
 def _cuda_args_ok(P: StepPlan3, b: ChunkBuffers3):
     if P.dtype != torch.float32:
         raise TypeError("the CUDA fused 3D step is built for float32 only")
     for name in ("ein", "nin", "eout", "nout", "cnp", "tgt", "scal",
-                 "part", "ework", "nwork"):
+                 "dthist", "part", "ework", "nwork", "sfac"):
         t = getattr(b, name)
         if not (t.is_cuda and t.dtype == torch.float32
                 and t.is_contiguous()):
@@ -874,45 +939,133 @@ def _cuda_args_ok(P: StepPlan3, b: ChunkBuffers3):
     if tuple(b.ein.shape) != (NE, 5, *P.cells) \
             or tuple(b.nin.shape) != (NN, P.nx, P.ny, P.nz) \
             or tuple(b.ework.shape) != (NEWORK, *P.cells) \
+            or tuple(b.nwork.shape) != (NNWORK, P.nx, P.ny, P.nz) \
+            or tuple(b.sfac.shape) != (5, *P.cells[:2]) \
             or tuple(b.part.shape) != (NPART, P.nblocks()):
         raise ValueError("plane shapes do not match the step plan")
+    if P.cells[2] % 2:
+        # the cell phases take the cells (k, k + 1) in pairs
+        raise ValueError("the CUDA fused 3D step needs an even nzc")
+
+
+def _launch_step(P: StepPlan3, b: ChunkBuffers3, pending: bool, last: bool,
+                 dt_prev):
+    from . import _build
+
+    _cuda_args_ok(P, b)
+    p = fused2d._ptr
+    rc = _build.load().des_fused3d_step_f32(
+        P.ip.ctypes.data, P.fp.ctypes.data, p(b.ein), p(b.nin), p(b.eout),
+        p(b.nout), p(b.cnp), p(b.tgt), p(b.scal), p(b.ework), p(b.nwork),
+        p(b.sfac), p(dt_prev), p(b.part), b.part.shape[1], int(pending),
+        int(last), fused2d._stream())
+    if rc != 0:
+        raise RuntimeError(f"fused3d step launch failed: {_build.err(rc)}")
+    fused3d_step.launches += 1
 
 
 def fused3d_step(P: StepPlan3, b: ChunkBuffers3):
-    """One fused 3D time step: ``b.ein``/``b.nin`` -> ``b.eout``/``b.nout``,
-    with block partials in ``b.part``.  On CUDA tensors it launches
-    csrc/fused3d.cu (and counts the launch in ``fused3d_step.launches``);
-    on CPU tensors it runs step_planes_plain."""
-    if b.ein.is_cuda:
-        from . import _build
-
-        _cuda_args_ok(P, b)
-        lib = _build.load()
-        p = fused2d._ptr
-        rc = lib.des_fused3d_step_f32(
-            P.ip.ctypes.data, P.fp.ctypes.data, p(b.ein), p(b.nin),
-            p(b.eout), p(b.nout), p(b.cnp), p(b.tgt), p(b.scal),
-            p(b.ework), p(b.nwork), p(b.part), b.part.shape[1],
-            fused2d._stream())
-        if rc != 0:
-            raise RuntimeError(f"fused3d step launch failed: {_build.err(rc)}")
-        fused3d_step.launches += 1
-        return
-    if b.ein.device.type != "cpu":
-        raise TypeError(f"no fused 3D step for device {b.ein.device}")
-    fused3d_step_plain(P, b)
+    """One complete fused 3D time step: ``b.ein``/``b.nin`` (a State's
+    planes, no pending epilogue) -> ``b.eout``/``b.nout`` (the same), with
+    block partials in ``b.part``: the chunk-form step on its own, then its
+    epilogue (fused3d_chunk_step, fused3d_finalize: on CUDA tensors the
+    kernels, on CPU tensors their plain versions)."""
+    fused3d_chunk_step(P, b, 0, 1)
+    fused3d_finalize(P, b, b.eout, b.nout, b.scal[0])
 
 
 def fused3d_step_plain(P: StepPlan3, b: ChunkBuffers3):
-    """step_planes_plain on the chunk buffers, on any device: the plain
-    version of fused3d_step with the same inputs and outputs (the
-    full-mesh partials go to column 0 of ``b.part``)."""
-    eout, nout, red = step_planes_plain(
+    """The plain version of fused3d_step on the chunk buffers, on any
+    device, with the same inputs and outputs (the full-mesh partials go to
+    column 0 of ``b.part``)."""
+    chunk_step_plain(P, b, 0, 1)
+    finalize_plain(P, b, b.eout, b.nout, b.scal[0])
+
+
+def fused3d_chunk_step(P: StepPlan3, b: ChunkBuffers3, k: int, n: int):
+    """Step k of an n-step chunk in the chunk form (the entry run_chunk
+    uses): ``b.ein`` carries the pending epilogue of step k - 1 (k > 0,
+    with that step's dt from ``b.dthist[k - 1]``) and ``b.eout`` is left
+    with step k's; the planes of last_only_slots are stored on step n - 1
+    only.  On CUDA tensors it launches csrc/fused3d.cu (counted in
+    ``fused3d_step.launches``); on CPU tensors it runs chunk_step_plain."""
+    if b.ein.is_cuda:
+        _launch_step(P, b, k > 0, k == n - 1,
+                     b.dthist[k - 1] if k else b.scal[0])
+        return
+    if b.ein.device.type != "cpu":
+        raise TypeError(f"no fused 3D step for device {b.ein.device}")
+    chunk_step_plain(P, b, k, n)
+
+
+def chunk_step_plain(P: StepPlan3, b: ChunkBuffers3, k: int, n: int):
+    """The plain version of fused3d_chunk_step, on any device (counted in
+    ``chunk_step_plain.calls``, so that a run on the card can show it never
+    took it)."""
+    chunk_step_plain.calls += 1
+    pending = (b.dthist[k - 1], b.nwork[1], b.sfac) if k else None
+    eout, nout, red, dp_nd, sfac = step_planes_plain(
         P, b.ein, b.nin, b.cnp, b.tgt, b.scal[0],
-        b.scal[1] * P.k["inertial"])
-    b.eout.copy_(eout)
-    b.nout.copy_(nout)
+        b.scal[1] * P.k["inertial"], pending=pending)
+    if k == n - 1:
+        b.eout.copy_(eout)
+        b.nout.copy_(nout)
+    else:
+        skip_e, skip_n = last_only_slots(P)
+        ke = [i for i in range(NE) if i not in skip_e]
+        kn = [i for i in range(NN) if i not in skip_n]
+        b.eout[ke] = eout[ke]
+        b.nout[kn] = nout[kn]
+    if dp_nd is not None:
+        b.nwork[1] = dp_nd
+    if sfac is not None:
+        b.sfac.copy_(sfac)
     b.part[:, 0] = red
+
+
+def fused3d_finalize(P: StepPlan3, b: ChunkBuffers3, e, n, dt):
+    """Apply the pending epilogue of the step that wrote the planes ``e``
+    / ``n`` (its dt the 0-d tensor ``dt``) to ``e`` in place, stress,
+    strain, strain rate and plstrain: after it the planes are a State's.
+    On CUDA tensors it launches the finalize kernel of csrc/fused3d.cu
+    (counted in ``fused3d_finalize.launches``); on CPU tensors it runs
+    finalize_plain."""
+    if e.is_cuda:
+        from . import _build
+
+        _cuda_args_ok(P, b)
+        if not any(e.data_ptr() == t.data_ptr() for t in (b.ein, b.eout)) \
+                or not any(n.data_ptr() == t.data_ptr()
+                           for t in (b.nin, b.nout)):
+            raise ValueError("finalize takes planes of the chunk buffers")
+        p = fused2d._ptr
+        rc = _build.load().des_fused3d_finalize_f32(
+            P.ip.ctypes.data, P.fp.ctypes.data, p(e), p(n), p(b.nwork),
+            p(b.sfac), p(dt), fused2d._stream())
+        if rc != 0:
+            raise RuntimeError(
+                f"fused3d finalize launch failed: {_build.err(rc)}")
+        fused3d_finalize.launches += 1
+        return
+    if e.device.type != "cpu":
+        raise TypeError(f"no fused 3D finalize for device {e.device}")
+    finalize_plain(P, b, e, n, dt)
+
+
+def finalize_plain(P: StepPlan3, b: ChunkBuffers3, e, n, dt):
+    """The plain version of fused3d_finalize, on any device (counted in
+    ``finalize_plain.calls``)."""
+    finalize_plain.calls += 1
+    st, sn, sr = (_tslot(f) for f in T_SLOTS)
+    pl = _eslot("plstrain")
+    stress, strain, pls, rate = epilogue(
+        P, n, e[_eslot("volume")], dt, e[_eslot("dpressure")], b.nwork[1],
+        b.sfac, tuple(e[st:st + 6]), tuple(e[sn:sn + 6]), e[pl],
+        tuple(e[sr:sr + 6]))
+    e[st:st + 6] = torch.stack(stress)
+    e[sn:sn + 6] = torch.stack(strain)
+    e[sr:sr + 6] = torch.stack(rate)
+    e[pl] = pls
 
 
 def evp_ties(P: StepPlan3, ctx, s):
@@ -931,28 +1084,36 @@ def evp_ties(P: StepPlan3, ctx, s):
 
 
 fused3d_step.launches = 0
+fused3d_finalize.launches = 0
+chunk_step_plain.calls = 0
+finalize_plain.calls = 0
 
 
 # ---------------------------------------------------------- chunk runner
 
 def run_chunk(P: StepPlan3, ctx, s, n: int, plain: bool = False):
-    """Advance ``s`` by n fused 3D steps (pallas3d.make_chunk_runner): vbc
-    targets probed every step from the pre-move coordinates at time + dt,
-    time accumulated step by step, vmax and gdtmin set every step and dt
-    on the refresh cadence.  ``plain`` runs the plain versions on the
-    state's device instead of the wrappers (the reference the CUDA kernels
-    are checked against)."""
+    """Advance ``s`` by n fused 3D steps (pallas3d.make_chunk_runner) in
+    the chunk form: each step leaves its tensor epilogue pending for the
+    next (fused3d_chunk_step) and one finalize after the last step applies
+    the last one, so the State returned is the State of n complete steps,
+    bit for bit.  vbc targets probed every step from the pre-move
+    coordinates at time + dt, time accumulated step by step, vmax and
+    gdtmin set every step and dt on the refresh cadence.  ``plain`` runs
+    the plain versions on the state's device instead of the wrappers (the
+    reference the CUDA kernels are checked against)."""
     b = make_buffers(P, ctx, s, n)
     for k in range(n):
         b.tgt = vbc_targets(ctx, b.nin, b.scal[3] + b.scal[0])
         if plain:
-            fused3d_step_plain(P, b)
+            chunk_step_plain(P, b, k, n)
             fused2d.dt_refresh_plain(P, b.part, b.scal, b.dthist, b.flags,
                                      k, tiled=True, every=True)
         else:
-            fused3d_step(P, b)
+            fused3d_chunk_step(P, b, k, n)
             fused2d.dt_refresh(P, b, k, tiled=True, every=True)
         b.swap()
+    (finalize_plain if plain else fused3d_finalize)(
+        P, b, b.ein, b.nin, b.dthist[n - 1])
     # l2_residual: pallas3d.py:1654 divides by nx*ny*nz*3
     nnode3 = torch.full((), float(P.nnode * 3), dtype=P.dtype,
                         device=b.scal.device)
@@ -969,4 +1130,3 @@ def make_chunk_runner(param: Param, ctx, n: int):
     pallas3d.make_chunk_runner)."""
     P = make_plan(param, ctx, ctx.conn.device)
     return lambda c, s: run_chunk(P, c, s, n)
-

@@ -99,10 +99,12 @@ def _cfg3(**over):
 
 def test_fused3d_maxwell_10_steps(cuda):
     cfg = _cfg3(mat={"rheology_type": "maxwell"}, ic={"weakzone_option": 0})
-    before = (fused3d.fused3d_step.launches, fused2d.dt_refresh.launches)
+    before = (fused3d.fused3d_step.launches, fused2d.dt_refresh.launches,
+              fused3d.fused3d_finalize.launches)
     out = _run3(cfg, 10, False)
-    assert (fused3d.fused3d_step.launches,
-            fused2d.dt_refresh.launches) == (before[0] + 10, before[1] + 10)
+    assert (fused3d.fused3d_step.launches, fused2d.dt_refresh.launches,
+            fused3d.fused3d_finalize.launches) == (
+        before[0] + 10, before[1] + 10, before[2] + 1)
     assert_maxwell3_close(_run3(cfg, 10, True), out, get)
 
 
@@ -128,6 +130,50 @@ def test_fused3d_initial_volume_is_the_kernels(cuda):
     torch.cuda.synchronize()
     vol = fused3d._eslot("volume")
     assert torch.equal(b.eout[vol], b.ein[vol])
+
+
+def test_fused3d_chunk_equals_complete_steps(cuda):
+    """The kernel's chunk form (run_chunk: the epilogue of each step
+    pending until the next, one finalize) against 10 complete kernel steps
+    (fused3d_step, then dt_refresh and a swap): every plane equal, bit for
+    bit (the test of tests/test_torch_fused3d.py on the card)."""
+    sim = des.Simulation(des.param_from_dict(
+        _cfg3(mat={"rheology_type": "maxwell"}, ic={"weakzone_option": 0})),
+        device="cuda")
+    P = fused3d.make_plan(sim.param, sim.ctx, sim.device)
+    before = fused3d.fused3d_finalize.launches
+    out = fused3d.run_chunk(P, sim.ctx, sim.state, 10)
+    assert fused3d.fused3d_finalize.launches == before + 1
+    e, nd = fused3d.state_to_planes(out, P.nx, P.ny, P.nz)
+    b = fused3d.make_buffers(P, sim.ctx, sim.state, 10)
+    for k in range(10):
+        b.tgt = fused3d.vbc_targets(sim.ctx, b.nin, b.scal[3] + b.scal[0])
+        fused3d.fused3d_step(P, b)
+        fused2d.dt_refresh(P, b, k, tiled=True, every=True)
+        b.swap()
+    torch.cuda.synchronize()
+    for i in range(fused3d.NE):
+        assert torch.equal(e[i], b.ein[i]), i
+    for i in range(fused3d.NN):
+        assert torch.equal(nd[i], b.nin[i]), fused3d.N_SLOTS[i]
+
+
+def test_fused3d_chunk_stores_last_only_planes_once(cuda):
+    """The kernel leaves the planes of last_only_slots unwritten on a
+    chunk's inner steps and writes every other one."""
+    sim = des.Simulation(des.param_from_dict(_cfg3()), device="cuda")
+    P = fused3d.make_plan(sim.param, sim.ctx, sim.device)
+    b = fused3d.make_buffers(P, sim.ctx, sim.state, 2)
+    b.eout.fill_(float("nan"))
+    b.nout.fill_(float("nan"))
+    b.tgt = fused3d.vbc_targets(sim.ctx, b.nin, b.scal[3] + b.scal[0])
+    fused3d.fused3d_chunk_step(P, b, 0, 2)
+    torch.cuda.synchronize()
+    skip_e, skip_n = fused3d.last_only_slots(P)
+    for i in range(fused3d.NE):
+        assert bool(b.eout[i].isnan().all()) == (i in skip_e), i
+    for i in range(fused3d.NN):
+        assert bool(b.nout[i].isnan().all()) == (i in skip_n), i
 
 
 @pytest.mark.parametrize("refresh", [0.0, 1.0], ids=["off_cadence",

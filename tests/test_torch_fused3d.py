@@ -7,10 +7,19 @@ JAX reference is computed once per file: the 10-step maxwell trajectory on
 grid3d serves the trajectory gate and the slice, the one-step EVP grid3d
 state the EVP gate and the scalars test.
 
+The chunk form of the step (each step's tensor epilogue, the NMD stress
+correction, Jaumann rotation and surface-element scaling, pending until the
+next step's rheology; one finalize after the last step) must give the State
+of its complete steps (fused3d_step: step, then epilogue) bit for bit,
+every plane, in f32 and f64: plain version only, no JAX.
+
 Tolerances are test_pallas3d.py's (tests/torch_cases.py): the 3D EVP
 min-select is chaotic at f32 roundoff, so trajectories are gated on
 maxwell over 10 steps (ending on a dt-refresh step) and EVP on one step.
 """
+
+from contextlib import contextmanager
+from dataclasses import replace
 
 import numpy as np
 import pytest
@@ -203,3 +212,91 @@ def test_slice_matches_jax(maxwell, maxwell_ref):
             assert int(a) == int(b) == 10
         else:
             assert rel_err(a, b) < tols.get(f, 1e-3), (f, rel_err(a, b))
+
+
+# ---- the chunk form against complete steps (plain version, bit for bit)
+
+@contextmanager
+def torch_threads(n):
+    """Run at n intra-op threads (these planes are small: a pool of
+    threads per element-wise op costs more than it saves)."""
+    old = torch.get_num_threads()
+    torch.set_num_threads(n)
+    try:
+        yield
+    finally:
+        torch.set_num_threads(old)
+
+
+# (sims fixture, steps, dtype, switches set off in the step plan)
+CHUNK_CASES = {
+    "maxwell_10_f32": ("maxwell", 10, torch.float32, ()),
+    "maxwell_10_f64": ("maxwell", 10, torch.float64, ()),
+    "evp_3_f32": ("evp", 3, torch.float32, ()),
+    "evp_3_f64": ("evp", 3, torch.float64, ()),
+    "evp_3_no_jaumann_no_surface_correction": (
+        "evp", 3, torch.float32, ("jaumann", "surf_corr")),
+    "evp_3_no_nmd": ("evp", 3, torch.float32, ("nmd",)),
+}
+
+
+def chunk_setup(ts, s0, dtype, off=()):
+    """The plan of the port's Simulation ``ts`` in ``dtype`` with the
+    switches ``off`` set to 0 (in ``sw`` and in the kernel's ``ip``), and
+    the initial state ``s0`` in ``dtype``."""
+    P = replace(fused3d.make_plan(ts.param, ts.ctx, ts.device), dtype=dtype)
+    for name in off:
+        P.sw[name] = 0
+        P.ip[fused3d.IP_FIELDS.index(name)] = 0
+    return P, state_from_numpy(state_to_numpy(s0), ts.device, dtype)
+
+
+def complete_steps(P, ctx, s, n):
+    """n complete steps (fused3d_step, the runner's scalar update, swap):
+    the planes and scalars after them."""
+    b = fused3d.make_buffers(P, ctx, s, n)
+    for k in range(n):
+        b.tgt = fused3d.vbc_targets(ctx, b.nin, b.scal[3] + b.scal[0])
+        fused3d.fused3d_step(P, b)
+        fused2d.dt_refresh(P, b, k, tiled=True, every=True)
+        b.swap()
+    return b.ein, b.nin, b.scal
+
+
+@pytest.mark.parametrize("case", list(CHUNK_CASES))
+def test_chunk_equals_complete_steps(case, request):
+    cfg, n, dtype, off = CHUNK_CASES[case]
+    ts, s0 = request.getfixturevalue(cfg)[1:3]
+    P, s = chunk_setup(ts, s0, dtype, off)
+    assert P.sw["nmd"] == int(case != "evp_3_no_nmd")
+    with torch_threads(1):
+        out = fused3d.run_chunk(P, ts.ctx, s, n)
+        ein, nin, scal = complete_steps(P, ts.ctx, s, n)
+    e, nd = fused3d.state_to_planes(out, P.nx, P.ny, P.nz)
+    names = [f"e.{f}" for f in fused3d.E_SLOTS] \
+        + [f"e.{t}[{i}]" for t in fused3d.T_SLOTS for i in range(6)]
+    for i, nm in enumerate(names):
+        assert torch.equal(e[i], ein[i]), nm
+    for i, nm in enumerate(fused3d.N_SLOTS):
+        assert torch.equal(nd[i], nin[i]), nm
+    for i, f in enumerate(("dt", "max_global_vel_mag", "global_dt_min",
+                           "time")):
+        assert torch.equal(getattr(out, f), scal[i]), f
+
+
+def test_chunk_stores_last_only_planes_once(evp):
+    """Within a chunk the step leaves the planes of last_only_slots
+    unwritten: on poisoned output buffers, the first of two steps keeps
+    the poison there and nowhere else."""
+    _, ts, s0, _ = evp
+    P, s = chunk_setup(ts, s0, torch.float32)
+    b = fused3d.make_buffers(P, ts.ctx, s, 2)
+    b.eout.fill_(float("nan"))
+    b.nout.fill_(float("nan"))
+    b.tgt = fused3d.vbc_targets(ts.ctx, b.nin, b.scal[3] + b.scal[0])
+    fused3d.fused3d_chunk_step(P, b, 0, 2)
+    skip_e, skip_n = fused3d.last_only_slots(P)
+    for i in range(fused3d.NE):
+        assert bool(b.eout[i].isnan().all()) == (i in skip_e), i
+    for i in range(fused3d.NN):
+        assert bool(b.nout[i].isnan().all()) == (i in skip_n), i
