@@ -9,17 +9,25 @@ Phases, each printed, the first failure exits non-zero:
   2. build   -- nvcc builds csrc/ into build/torch_kernels/, one compile per
                 source, all started together; registers, stack frame and
                 spills per kernel from the -Xptxas -v report;
-  3. 2D kernels -- each 2D CUDA kernel against its plain PyTorch version on
-                the card: maxwell over 10 steps, EVP over 1 step, the
-                resident runner against the tiled runner over 25 steps
-                (16 x 128 cells), then one flagship-size step, with the CPU
-                tests' tolerances; kernel and plain device times at
-                flagship shapes (CUDA graph replay);
+  3. 2D kernel -- the 2D chunk kernel (one cooperative launch per chunk,
+                dt refreshed in the kernel) against its plain PyTorch
+                version on the card: maxwell over 10 steps (one launch per
+                step, then one launch for the 10), EVP over 1 step, the resident runner (one launch)
+                against the tiled runner over 25 steps (16 x 128 cells),
+                then one flagship-size step and its dt refresh, with the CPU
+                tests' tolerances; a 25-step flagship EVP chunk against 25
+                one-step launches, bit for bit; its grid, blocks per SM and
+                registers; device times at flagship shapes of the chunk form
+                (events around 250-step chunks), the one-step form (a
+                CUDA graph of launches, and as Python issues them), the
+                chunk's grid barriers alone and the plain version; the
+                per-phase µs of a chunk from the kernel's clock stamps;
   4. 3D kernels -- the fused 3D step against its plain version: maxwell
                 over 10 steps and EVP over 1 step with and without NMD
                 (128 x 16 x 8 cells) and one flagship3d EVP step, the plain
                 version on the CPU (see run3); a dt = 0 step that keeps the
-                volume bit for bit, the every-step mode of dt_refresh, the
+                volume bit for bit, the every-step mode of dt_refresh (and
+                its device time on flagship3d partials), the
                 chunk form (each step's epilogue pending until the next,
                 one finalize) against 10 complete steps with torch.equal on
                 every plane, one flagship3d maxwell step plane by plane
@@ -28,8 +36,11 @@ Phases, each printed, the first failure exits non-zero:
                 form and its one-step form;
   5. 2D slice -- the flagship config (100 km x 50 km, 512 x 256 cells, EVP,
                 f32): Simulation(param, device="cuda"), 250 warm-up steps,
-                then 500 timed steps, with launch counts, and the plain
-                version's rate over 50 steps;
+                then 500 timed steps, with launch counts (one chunk kernel
+                launch per chunk, no dt_refresh, no plain version), and the
+                plain version's rate over 50 steps; then the tiled runner's
+                path (the flagship with global velocity scaling): 20 steps,
+                one n = 1 launch per step, no dt_refresh, no plain version;
   6. 3D slice -- the flagship3d config (256 x 48 x 16 cells x 5 tets,
                 983,040 tetrahedra, EVP, f32): Simulation(param) with the
                 default device, 100 warm-up steps, then 500 timed steps,
@@ -302,14 +313,15 @@ def main():
 
         return graph_ms(both) - graph_ms(flush.zero_)
 
-    wrappers = {"fused2d_step": fused2d.fused_step,
+    wrappers = {"fused2d_chunk": fused2d.fused_chunk,
                 "dt_refresh": fused2d.dt_refresh,
                 "fused3d_step": fused3d.fused3d_step,
                 "fused3d_finalize": fused3d.fused3d_finalize,
                 "cgather": band2d.cgather, "asm_pack": band2d.asm_pack,
                 "asm_gather": band2d.asm_gather}
     plain_calls = (band2d.gather_corners, band2d.scatter_corners,
-                   fused3d.chunk_step_plain, fused3d.finalize_plain)
+                   fused3d.chunk_step_plain, fused3d.finalize_plain,
+                   fused2d.fused_step_plain, fused2d.dt_refresh_plain)
 
     def zero_counts():
         """Every kernel's launch count, and the calls of the plain versions
@@ -358,6 +370,35 @@ def main():
                 + int((b.cnp[masks] > 0).sum()) * b.tgt.element_size()
                 + nbytes(b.scal, *extra))
         return read, nbytes(b.eout, b.nout, b.part)
+
+    def phase_bytes2(P, b):
+        """{phase: bytes} that each phase of csrc/fused2d.cu's chunk kernel
+        moves in one step under the plan's switches: every plane a phase
+        loads or stores counted once for that phase (nodal planes it
+        gathers, element, scratch and const planes), vbc targets only where
+        masked; the refresh's partials and scalars (a few KB) aside."""
+        sw = P.sw
+        N = nbytes(b.nin[0])
+        E = nbytes(b.ein[0])
+        ce = 0 if P.uniform else E  # a plane of the const element pack
+        rh, th, nmd = sw["rheol"], sw["thermal"], sw["nmd"]
+        creep = rh in (fused2d.RH_VISCOUS, fused2d.RH_MAXWELL,
+                       fused2d.RH_EVP)
+        masked = int((b.cnp[1:3] > 0).sum()) * b.tgt.element_size()
+        # element planes C loads besides vol, strain, stress, syy, plstrain
+        c_in = ((rh != fused2d.RH_EP) + (not creep)
+                + (rh in (fused2d.RH_MAXWELL, fused2d.RH_EVP)) + (not nmd))
+        return {
+            "A": 5 * N + E + (3 * th + 1) * E + 4 * th * ce,
+            "B": (1 + 3 * th) * E + (2 + 2 * th) * N + 2 * N,
+            "C": 6 * N + (9 + c_in) * E + 15 * E + (2 + P.nmat) * ce,
+            "D": (2 * E + 2 * N) if nmd else 0,
+            "E": (3 + nmd) * N + (4 + 3 * nmd) * E + 6 * E
+                 + 2 * sw["gravity_on"] * ce,
+            "F": 6 * E + (7 + (sw["damping"] == 4)) * N + masked + 6 * N,
+            "G": 5 * N + 26 * E + (7 + P.nmat * sw["surf_corr"]) * ce,
+            "H": 4 * E + 4 * N,
+        }
 
     def phase_bytes3(P, b, pending, last):
         """{phase: bytes} that each launch of csrc/fused3d.cu moves in one
@@ -453,7 +494,7 @@ def main():
               f"{spill} B spilled")
 
     # ---- 3. 2D kernels against their plain versions, on the card
-    print("phase 3 2D kernels vs plain (16 x 128 cells, then flagship)")
+    print("phase 3 2D chunk kernel vs plain (16 x 128 cells, then flagship)")
 
     def sim_of(cfg):
         sim = des.Simulation(des.param_from_dict(cfg), device="cuda")
@@ -464,21 +505,25 @@ def main():
         sync()
         return out
 
+    # 10 maxwell steps, as one-step launches (the tiled runner) and as one
+    # 10-step launch (the resident runner), each against the plain version
     sim, P = sim_of(make_sim_cfg("maxwell"))
-    ker = chunk(sim, P, 10, False, False)
-    ref = chunk(sim, P, 10, False, True)
-    for f in ("coord", "vel", "temperature", "stress", "strain", "volume",
-              "volume_n", "mass", "tmass", "hmass", "strain_rate",
-              "edvoldt", "force"):
-        check(f"maxwell 10 steps {f}", rel(getattr(ref, f),
-                                           getattr(ker, f)),
-              1e-3 if f == "force" else 2e-4)
-    dlog = (ref.viscosity.double().log() - ker.viscosity.double().log())
-    check("maxwell 10 steps log-viscosity median",
-          float(dlog.abs().median()), 0.02)
-    for f in ("dt", "time", "max_global_vel_mag"):
-        check(f"maxwell 10 steps {f}", rel(getattr(ref, f),
-                                           getattr(ker, f)), 1e-5)
+    for resident, form in ((False, "one-step launches"),
+                           (True, "one chunk launch")):
+        ker = chunk(sim, P, 10, resident, False)
+        ref = chunk(sim, P, 10, resident, True)
+        lab = f"maxwell 10 steps, {form},"
+        for f in ("coord", "vel", "temperature", "stress", "strain",
+                  "volume", "volume_n", "mass", "tmass", "hmass",
+                  "strain_rate", "edvoldt", "force"):
+            check(f"{lab} {f}", rel(getattr(ref, f), getattr(ker, f)),
+                  1e-3 if f == "force" else 2e-4)
+        dlog = (ref.viscosity.double().log()
+                - ker.viscosity.double().log())
+        check(f"{lab} log-viscosity median", float(dlog.abs().median()),
+              0.02)
+        for f in ("dt", "time", "max_global_vel_mag"):
+            check(f"{lab} {f}", rel(getattr(ref, f), getattr(ker, f)), 1e-5)
 
     sim, P = sim_of(make_sim_cfg())
     ker = chunk(sim, P, 1, False, False)
@@ -503,23 +548,25 @@ def main():
     # a step with dt = 0 recomputes the initial volume bit for bit
     b = fused2d.make_buffers(P, sim.ctx, sim.state, 1, tiled=False)
     b.scal[0] = 0.0
-    fused2d.fused_step(P, b, 0)
+    fused2d.fused_chunk(P, b, 1, tiled=False)
     sync()
     vol = fused2d._eslot("volume")
-    if not torch.equal(b.eout[vol], b.ein[vol]):
+    if not torch.equal(b.ein[vol], b.eout[vol]):
         fail("initial volume differs from the kernel's volume")
     print("  dt = 0 step keeps the initial volume bit for bit: ok")
 
-    # one flagship-size step, kernel vs plain.  On maxwell: with EVP the
-    # first step already meets the min-select tie of rheology.cxx:869-879
-    # in the cold near-surface cells (viscosity at visc_max makes the
-    # viscoelastic and elastic-plastic trial deviators equal in f32), and
-    # one-ulp differences of expf pick either branch.
+    # one flagship-size step and its dt refresh (a refresh step), kernel vs
+    # plain.  On maxwell: with EVP the first step already meets the
+    # min-select tie of rheology.cxx:869-879 in the cold near-surface cells
+    # (viscosity at visc_max makes the viscoelastic and elastic-plastic
+    # trial deviators equal in f32), and one-ulp differences of expf pick
+    # either branch.
     msim, MP = sim_of(flagship_cfg("maxwell"))
     kb = fused2d.make_buffers(MP, msim.ctx, msim.state, 1, tiled=False)
     pb = fused2d.make_buffers(MP, msim.ctx, msim.state, 1, tiled=False)
-    fused2d.fused_step(MP, kb, 0)
-    fused2d.fused_step_plain(MP, pb, 0)
+    kb.flags[0, 0] = pb.flags[0, 0] = 1.0
+    fused2d.fused_chunk(MP, kb, 1, tiled=False)
+    fused2d.chunk_plain(MP, pb, 1, tiled=False)
     sync()
     names = [f"e.{n}" for n in fused2d.E_SLOTS] \
         + [f"e.{t}[{i}]" for t in fused2d.T_SLOTS for i in range(3)] \
@@ -527,72 +574,116 @@ def main():
     step_err = 0.0
     for k, nm in enumerate(names):
         if nm == "e.viscosity":
-            v = (pb.eout[k].double().log() - kb.eout[k].double().log())
+            v = (pb.ein[k].double().log() - kb.ein[k].double().log())
             check(f"flagship 1 step {nm} (log)", float(v.abs().max()), 1e-5)
             continue
-        a, b = (pb.eout[k], kb.eout[k]) if nm[0] == "e" else \
-            (pb.nout[k - fused2d.NE], kb.nout[k - fused2d.NE])
+        a, b = (pb.ein[k], kb.ein[k]) if nm[0] == "e" else \
+            (pb.nin[k - fused2d.NE], kb.nin[k - fused2d.NE])
         err = rel(a, b)
         step_err = max(step_err, err)
         check(f"flagship 1 step {nm}", err, 2e-6)
+    # dt, vmax and gdtmin come from exact min/max partials of values that
+    # agree to f32 roundoff; the L2 sum is taken in another order
+    scal2_err = 0.0
+    for i, nm in enumerate(("dt", "vmax", "gdtmin", "time", "L2 sum")):
+        err = rel(pb.scal[i:i + 1], kb.scal[i:i + 1])
+        scal2_err = max(scal2_err, err)
+        check(f"flagship 1 step refresh {nm}", err, 1e-5 if i == 4 else 1e-6)
     del msim, kb, pb
 
-    # kernel and plain times on the main path's config (EVP)
     fsim, FP = sim_of(flagship_cfg())
-    kb = fused2d.make_buffers(FP, fsim.ctx, fsim.state, 1, tiled=False)
+    occ = fused2d.chunk_occupancy(FP)
+    print(f"  chunk kernel at flagship: {occ['registers']} registers and "
+          f"{occ['local_bytes']} B local memory per thread, "
+          f"{occ['blocks_per_sm']} blocks per SM x {occ['sms']} SMs, grid "
+          f"{occ['grid']} blocks for {FP.nblocks()} virtual blocks")
+
+    # the chunk form against one-step launches at the main path's config
+    NV = 25
+    cb = fused2d.make_buffers(FP, fsim.ctx, fsim.state, NV, tiled=False)
+    fused2d.fused_chunk(FP, cb, NV, tiled=False)
+    ob = fused2d.make_buffers(FP, fsim.ctx, fsim.state, NV, tiled=False)
+    for k in range(NV):
+        fused2d.fused_chunk(FP, ob, 1, tiled=False, k=k)
+    sync()
+    for k, nm in enumerate(names):
+        a, b = (cb.ein[k], ob.ein[k]) if nm[0] == "e" else \
+            (cb.nin[k - fused2d.NE], ob.nin[k - fused2d.NE])
+        if not torch.equal(a, b):
+            fail(f"flagship EVP: a {NV}-step chunk and {NV} one-step "
+                 f"launches differ in {nm}")
+    if not (torch.equal(cb.scal, ob.scal) and torch.equal(cb.dthist,
+                                                           ob.dthist)):
+        fail(f"flagship EVP: a {NV}-step chunk and {NV} one-step launches "
+             "differ in scal or the dt history")
+    print(f"  flagship EVP: a {NV}-step chunk equals {NV} one-step launches "
+          "bit for bit (every plane, scal, dt history): ok")
+    del cb, ob
+
+    # device times on the main path's config (EVP)
+    NCH2 = 250
+    cb = fused2d.make_buffers(FP, fsim.ctx, fsim.state, NCH2, tiled=False)
+    ob = fused2d.make_buffers(FP, fsim.ctx, fsim.state, 1, tiled=False)
     pb = fused2d.make_buffers(FP, fsim.ctx, fsim.state, 1, tiled=False)
 
+    def chunk2_kernel():
+        fused2d.fused_chunk(FP, cb, NCH2, tiled=False)
+
     def step_kernel():
-        fused2d.fused_step(FP, kb, 0)
+        fused2d.fused_chunk(FP, ob, 1, tiled=False)
 
     def step_plain():
-        fused2d.fused_step_plain(FP, pb, 0)
+        fused2d.chunk_plain(FP, pb, 1, tiled=False)
 
-    # a step off the dt-refresh cadence, as nine steps in ten are
-    step_ms = device_ms(step_kernel, 50)
+    labels = fused2d.stamp_labels(FP, NCH2)
+    nsync = len(labels) - 1  # grid syncs of an unstamped chunk
+
+    def barriers():
+        fused2d.grid_barriers(occ["grid"], nsync)
+
+    # events around 2 chunks (a warm-up chunk first); the one-step form is
+    # step 1 of a chunk, off the dt-refresh cadence as nine steps in ten,
+    # timed as device time (a CUDA graph of 100 launches) and as Python
+    # issues it
+    chunk2_ms = issue_ms(chunk2_kernel, 2) / NCH2
+    barrier_ms = issue_ms(barriers, 2) / NCH2
+    step_ms = device_ms(step_kernel, 100)
+    step_issue_ms = issue_ms(step_kernel, 100)
     step_plain_ms = device_ms(step_plain, 5)
-    step_issue_ms = issue_ms(step_kernel, 50)
-    extra = (kb.flags[0],) if kb.cep is None else (kb.flags[0], kb.cep)
-    step_bound = bound(*step_bytes(fused2d, FP, kb, 3, *extra),
+    extra = (ob.flags[0],) if ob.cep is None else (ob.flags[0], ob.cep)
+    step_bound = bound(*step_bytes(fused2d, FP, ob, 3, *extra),
                        step_ops(FP, 2, fsim.ctx.nelem, fsim.ctx.nnode))
-
-    # dt_refresh on a refresh step: kernel vs plain from equal inputs.
-    # Repeated calls redo the same work: they read the same partials and
-    # refresh dt from them.
-    kb.flags[0, 0] = 1.0
-    pb.flags[0, 0] = 1.0
-    step_kernel()
-    pb.part.copy_(kb.part)
-    pb.scal.copy_(kb.scal)
-
-    def refresh_kernel():
-        fused2d.dt_refresh(FP, kb, 0, False)
-
-    def refresh_plain():
-        fused2d.dt_refresh_plain(FP, pb.part, pb.scal, pb.dthist, pb.flags,
-                                 0, False)
-
-    refresh_kernel()
-    refresh_plain()
+    stamps = torch.zeros(len(labels) + 1, dtype=torch.int64, device="cuda")
+    fused2d.fused_chunk(FP, cb, NCH2, tiled=False, stamps=stamps)
     sync()
-    refresh_err = max(rel(pb.scal[i:i + 1], kb.scal[i:i + 1])
-                      for i in range(5))
-    check("flagship dt_refresh scalars", refresh_err, 1e-6)
-    refresh_ms = device_ms(refresh_kernel, 200)
-    refresh_plain_ms = device_ms(refresh_plain, 50)
-    refresh_issue_ms = issue_ms(refresh_kernel, 200)
-    # one min, min, max and add per partial column, then the block's tree
-    refresh_bound = bound(nbytes(kb.part, kb.scal, kb.flags[0, :1]),
-                          nbytes(kb.scal, kb.dthist[:1]),
-                          4 * (kb.part.shape[1] + 256))
-    print(f"  device time: flagship fused step {step_ms:.4f} ms (plain "
-          f"{step_plain_ms:.4f} ms, bound {step_bound[0]:.4f} ms by "
-          f"{step_bound[1]}); dt_refresh {refresh_ms:.4f} ms (plain "
-          f"{refresh_plain_ms:.4f} ms, bound {refresh_bound[0]:.6f} ms by "
-          f"{refresh_bound[1]})")
-    print(f"  issued from Python: fused step {step_issue_ms:.4f} ms, "
-          f"dt_refresh {refresh_issue_ms:.4f} ms per call")
-    del kb, pb
+    span = (stamps[1:] - stamps[:-1]).double().cpu().tolist()
+    stamped_ms = float(stamps[-1] - stamps[0]) / 1e6 / NCH2
+    per = {}
+    for lab, ns in zip(labels, span):
+        per.setdefault(lab, []).append(ns / 1e3)
+    bytes2 = phase_bytes2(FP, cb)
+    phases2 = {}
+    for lab, v in per.items():
+        nb = sum(bytes2[ph] for ph in lab.split("+"))
+        us = sum(v) / len(v)
+        phases2[lab] = {"bytes": nb, "us": us, "intervals": len(v),
+                        "tb_per_s": nb / us / 1e6 if us > 0 else None}
+    print(f"  device time per step at flagship (EVP) on {card}: chunk form "
+          f"(events around 2 chunks of {NCH2} steps) {chunk2_ms:.4f} ms; "
+          f"one-step form {step_ms:.4f} ms (a CUDA graph of 100 launches; "
+          f"{step_issue_ms:.4f} ms issued from Python); "
+          f"the chunk's {nsync} grid barriers alone {barrier_ms:.4f} ms "
+          f"({barrier_ms * NCH2 / nsync * 1e3:.2f} us each); plain "
+          f"{step_plain_ms:.4f} ms; bound {step_bound[0]:.4f} ms by "
+          f"{step_bound[1]} ({step_bound[2] / 1e6:.1f} MB)")
+    print(f"  chunk of {NCH2} steps by interval (the kernel's clock after "
+          f"each barrier; {stamped_ms:.4f} ms per step with the stamps; bytes "
+          "per interval as phase_bytes2 counts them):")
+    for lab, r in phases2.items():
+        bw = f"{r['tb_per_s']:.2f} TB/s" if r["tb_per_s"] else "-"
+        print(f"    {lab}: {r['us']:.2f} us x {r['intervals']}, "
+              f"{r['bytes'] / 1e6:.1f} MB, {bw}")
+    del cb, ob, pb, stamps
 
     # ---- 4. the 3D kernel against its plain version, on the card
     print("phase 4 3D kernels vs plain (128 x 16 x 8 cells, then "
@@ -722,6 +813,7 @@ def main():
 
     # dt_refresh in its every-step mode (the 3D runner's), on an
     # off-cadence and a refresh step
+    refresh_err = 0.0
     for flag in (0.0, 1.0):
         b = fused3d.make_buffers(P3, s3.ctx, s3.state, 1)
         fused3d.fused3d_step(P3, b)
@@ -801,6 +893,31 @@ def main():
     step3_one_ms = device_ms(step3_kernel, 20)
     step3_plain_ms = device_ms(step3_plain, 3)
     step3_issue_ms = issue_ms(step3_kernel, 20)
+
+    # dt_refresh (every-step mode, a refresh step) on the partials of a
+    # flagship3d step: repeated calls redo the same reduction
+    kb.flags[0, 0] = pb.flags[0, 0] = 1.0
+    pb.part.copy_(kb.part)
+
+    def refresh_kernel():
+        fused2d.dt_refresh(FP3, kb, 0, tiled=True, every=True)
+
+    def refresh_plain():
+        fused2d.dt_refresh_plain(FP3, pb.part, pb.scal, pb.dthist, pb.flags,
+                                 0, tiled=True, every=True)
+
+    refresh_ms = device_ms(refresh_kernel, 200)
+    refresh_plain_ms = device_ms(refresh_plain, 50)
+    refresh_issue_ms = issue_ms(refresh_kernel, 200)
+    # one min, min, max and add per partial column, then the block's tree
+    refresh_bound = bound(nbytes(kb.part, kb.scal, kb.flags[0, :1]),
+                          nbytes(kb.scal, kb.dthist[:1]),
+                          4 * (kb.part.shape[1] + 256))
+    print(f"  device time: dt_refresh (every-step mode, {kb.part.shape[1]} "
+          f"partial columns) {refresh_ms:.4f} ms (plain "
+          f"{refresh_plain_ms:.4f} ms, bound {refresh_bound[0]:.6f} ms by "
+          f"{refresh_bound[1]}; issued from Python {refresh_issue_ms:.4f} "
+          f"ms) on {card}")
     read3, written3 = step_bytes(fused3d, FP3, kb, 6)
     ops3 = step_ops(FP3, 3, g3.ctx.nelem, g3.ctx.nnode)
     step3_bound_one = bound(read3, written3, ops3)
@@ -853,10 +970,13 @@ def main():
     fsim.run_steps(500, chunk=250)
     sync()
     run_s = time.perf_counter() - t
-    launches2 = {"fused2d_step": fused2d.fused_step.launches,
+    launches2 = {"fused2d_chunk": fused2d.fused_chunk.launches,
                  "dt_refresh": fused2d.dt_refresh.launches}
-    if min(launches2.values()) <= 0:
-        fail(f"a kernel of the 2D path was not launched: {launches2}")
+    if launches2 != {"fused2d_chunk": 2, "dt_refresh": 0}:
+        fail(f"the 2D path did not launch the chunk kernel once per chunk "
+             f"and dt_refresh never: {launches2}")
+    if fused2d.fused_step_plain.calls or fused2d.dt_refresh_plain.calls:
+        fail("the 2D path on the card took a plain version")
     s = fsim.state
     if not float(s.time) > time0 or int(s.steps) != 750:
         fail("model time or the step count did not advance")
@@ -871,11 +991,47 @@ def main():
     sync()
     plain_rate = nelem * 50 / (time.perf_counter() - t)
     print(f"phase 5 2D slice: flagship {nelem} triangles, step_path "
-          f"{fsim.step_path}, launches {launches2}, warm-up 250 steps "
+          f"{fsim.step_path}, launches {launches2}, plain versions called 0 "
+          f"times, warm-up 250 steps "
           f"{warm_s:.2f} s, 500 steps {run_s:.3f} s, model time "
           f"{time0:.6e} -> {float(s.time):.6e} s, fields finite")
     print(f"  elem*steps/s: kernels {rate:.6e}, plain PyTorch "
           f"{plain_rate:.6e} (over 50 steps) on {card}")
+
+    # the tiled runner's path (pallas2d): the flagship with global velocity
+    # scaling, which the resident runner does not take; one n = 1 launch of
+    # the chunk kernel per step
+    cfg_t = flagship_cfg()
+    cfg_t["control"]["use_global_velocity_scaling"] = True
+    tsim = des.Simulation(des.param_from_dict(cfg_t), device="cuda")
+    tsim.run_steps(10, chunk=10)
+    sync()
+    if tsim.step_path != "pallas2d":
+        fail(f"flagship with global velocity scaling dispatched to "
+             f"{tsim.step_path!r}, not pallas2d")
+    zero_counts()
+    t = time.perf_counter()
+    tsim.run_steps(20, chunk=20)
+    sync()
+    tiled_s = time.perf_counter() - t
+    launches2t = {"fused2d_chunk": fused2d.fused_chunk.launches,
+                  "dt_refresh": fused2d.dt_refresh.launches}
+    if launches2t != {"fused2d_chunk": 20, "dt_refresh": 0}:
+        fail(f"the tiled 2D path did not launch the chunk kernel once per "
+             f"step and dt_refresh never: {launches2t}")
+    if fused2d.fused_step_plain.calls or fused2d.dt_refresh_plain.calls:
+        fail("the tiled 2D path on the card took a plain version")
+    if int(tsim.state.steps) != 30:
+        fail("the tiled 2D path did not advance 30 steps")
+    for f in FIELD_NAMES:
+        v = getattr(tsim.state, f)
+        if v.is_floating_point() and not bool(torch.isfinite(v).all()):
+            fail(f"non-finite values in {f} on the tiled 2D path")
+    tiled_rate = nelem * 20 / tiled_s
+    print(f"  tiled path: step_path {tsim.step_path}, launches "
+          f"{launches2t}, plain versions called 0 times, 20 steps "
+          f"{tiled_s:.3f} s, {tiled_rate:.6e} elem*steps/s, fields finite")
+    del tsim
 
     # ---- 6. the 3D slice through the main path
     nelem3 = g3.ctx.nelem
@@ -945,6 +1101,8 @@ def main():
                 key = e.name[e.name.index("phase_"):][:7]
             elif "finalize" in e.name:
                 key = "finalize"
+            elif "step_chunk2d" in e.name:
+                key = "step_chunk2d (2D chunk kernel)"
             elif "dt_refresh" in e.name:
                 key = "dt_refresh"
             elif "gather_corners_kernel" in e.name:
@@ -1200,23 +1358,60 @@ def main():
     err_metric = ("max |kernel - plain| / max |plain| over the output "
                   "planes of one flagship-size maxwell step, viscosity "
                   "aside")
+    bound2 = {"bound_ms": step_bound[0], "bound_by": step_bound[1],
+              "bound_bytes": step_bound[2], "bound_ops": step_bound[3]}
+    occ2 = {"blocks_per_sm": occ["blocks_per_sm"], "grid": occ["grid"],
+            "registers": occ["registers"],
+            "local_bytes": occ["local_bytes"]}
+    by_phase2 = {"bytes_by_phase": {k: v["bytes"] for k, v in
+                                    phases2.items()},
+                 "us_by_phase": {k: v["us"] for k, v in phases2.items()},
+                 "by_phase_note": f"per interval between the chunk "
+                                  f"kernel's barrier stamps, averaged over a "
+                                  f"{NCH2}-step chunk (A alone on its first "
+                                  f"step, H alone on its last)"}
     kernels = [
         {"name": "fused2d_step", "route": "cuda", "source": src2,
          "replaces": "dynearthsol_tpu/ops/pallas2d.py:1431",
-         "launches": launches2["fused2d_step"], "max_abs_err": step_err,
-         "err_metric": err_metric,
-         "ms": step_ms, "plain_ms": step_plain_ms,
-         "bound_ms": step_bound[0], "bound_by": step_bound[1],
-         "bound_bytes": step_bound[2], "bound_ops": step_bound[3],
-         "library_ms": None, "ms_issued_from_python": step_issue_ms},
+         "form": "the chunk kernel with n = 1, one launch per step: the "
+                 "tiled runner's (pallas2d, driven with global velocity "
+                 "scaling); the resident main path runs no one-step launch",
+         "launches": launches2t["fused2d_chunk"],
+         "launches_by_path": {"pallas2d": launches2t["fused2d_chunk"],
+                              "pallas2d_res": 0},
+         "max_abs_err": step_err,
+         "err_metric": err_metric, "ms": step_ms, "plain_ms": step_plain_ms,
+         "timed_as": "a CUDA graph of 100 launches, over 100",
+         **bound2, "library_ms": None, "ms_issued_from_python":
+             step_issue_ms, **occ2, **by_phase2},
+        {"name": "fused2d_chunk", "route": "cuda", "source": src2,
+         "replaces": "dynearthsol_tpu/ops/pallas2d.py:1330",
+         "form": f"one cooperative launch per chunk of {NCH2} steps, dt "
+                 f"refreshed in the kernel (the resident runner's, the "
+                 f"main path)",
+         "launches": launches2["fused2d_chunk"],
+         "launches_by_path": {"pallas2d_res": launches2["fused2d_chunk"]},
+         "max_abs_err": max(step_err, scal2_err),
+         "err_metric": err_metric + "; its dt refresh's dt, vmax, gdtmin, "
+                       "time and L2 sum; a 25-step chunk equals 25 "
+                       "one-step launches bit for bit",
+         "ms": chunk2_ms, "plain_ms": step_plain_ms,
+         "timed_as": f"per step: CUDA events around 2 chunks of {NCH2} "
+                     f"steps, over {2 * NCH2}",
+         "barrier_only_ms": barrier_ms, "grid_barriers_per_step":
+             nsync / NCH2, "stamped_ms": stamped_ms,
+         **bound2, "library_ms": None, "ms_issued_from_python": chunk2_ms,
+         **occ2, **by_phase2},
         {"name": "dt_refresh", "route": "cuda", "source": src2,
          "replaces": "dynearthsol_tpu/ops/pallas2d.py:1330",
-         "launches": launches2["dt_refresh"] + launches3["dt_refresh"],
-         "launches_by_path": {"pallas2d_res": launches2["dt_refresh"],
-                              "pallas3d": launches3["dt_refresh"]},
+         "form": "one block, launched after every 3D step (the 2D path "
+                 "refreshes dt inside the chunk kernel)",
+         "launches": launches3["dt_refresh"] + launches2["dt_refresh"],
+         "launches_by_path": {"pallas3d": launches3["dt_refresh"],
+                              "pallas2d_res": launches2["dt_refresh"]},
          "max_abs_err": refresh_err,
          "err_metric": "max |kernel - plain| / max |plain| over dt, vmax, "
-                       "gdtmin, time, L2 partial (2D and 3D modes)",
+                       "gdtmin, time, L2 partial (3D every-step mode)",
          "ms": refresh_ms, "plain_ms": refresh_plain_ms,
          "bound_ms": refresh_bound[0], "bound_by": refresh_bound[1],
          "bound_bytes": refresh_bound[2], "bound_ops": refresh_bound[3],
@@ -1277,6 +1472,7 @@ def main():
     print(json.dumps({"kernels": kernels,
                       "elem_steps_per_s": rate,
                       "plain_elem_steps_per_s": plain_rate,
+                      "elem_steps_per_s_tiled": tiled_rate,
                       "elem_steps_per_s_3d": rate3,
                       "plain_elem_steps_per_s_3d": plain_rate3,
                       "elem_steps_per_s_unstructured": urate,

@@ -220,9 +220,11 @@ __device__ __forceinline__ void elasto_plastic2d(
   if (u2) p1s = ten_max;
   if (u2 || u3) p2s = ten_max;
 
-  // rotate principal stresses back (rheology.cxx:665-673)
-  T ps[3] = {p0s, p1s, p2s};
-  T pn1 = ps[idx_si], pn2 = ps[idx_sii], pn3 = ps[idx_syy];
+  // rotate principal stresses back (rheology.cxx:665-673); the sorted
+  // slots are picked by selects, not by indexing an array, which would
+  // live in local memory
+  auto pick = [&](int i) { return i == 0 ? p0s : (i == 1 ? p1s : p2s); };
+  T pn1 = pick(idx_si), pn2 = pick(idx_sii), pn3 = pick(idx_syy);
   T dc2 = (pn1 - pn2) * cos2t;
   T dss = pn1 + pn2;
   T sxx_r = T(0.5) * (dss + dc2);

@@ -98,10 +98,14 @@ def ptxas_report() -> dict:
         if m:
             raw = m.group(1)
             k = re.search(r"(phase_[a-h]|finalize|dt_refresh|"
+                          r"grid_barriers|step_chunk2dIfLb[01]|"
                           r"(?:gather|scatter)_corners_kernelI[fd])", raw)
             src = re.search(r"_(fused\w+?|band2d)_cu_", raw)
-            name = (f"{src.group(1) if src else '?'}:"
-                    f"{k.group(1) if k else raw}")
+            kn = k.group(1) if k else raw
+            if kn.startswith("step_chunk2d"):  # the bool: single material
+                kn = ("step_chunk2d<uniform>" if kn.endswith("1")
+                      else "step_chunk2d<mixed>")
+            name = f"{src.group(1) if src else '?'}:{kn}"
             continue
         m = re.search(r"(\d+) bytes stack frame, (\d+) bytes spill stores",
                       line)
@@ -118,8 +122,13 @@ def load():
     global _LIB
     if _LIB is None:
         lib = ctypes.CDLL(str(build()))
-        lib.des_fused2d_step_f32.argtypes = [_P] * 14 + [_I, _P]
-        lib.des_fused2d_step_f32.restype = _I
+        lib.des_fused2d_chunk_f32.argtypes = [_P] * 15 + [_I, _I, _I, _P,
+                                                          _P]
+        lib.des_fused2d_chunk_f32.restype = _I
+        lib.des_fused2d_chunk_occupancy.argtypes = [_I, _I, _P]
+        lib.des_fused2d_chunk_occupancy.restype = _I
+        lib.des_grid_barriers.argtypes = [_I, _I, _P]
+        lib.des_grid_barriers.restype = _I
         lib.des_dt_refresh_f32.argtypes = [_P] * 3 + [_I, _P, _P, _P, _I,
                                                       _I, _I, _P]
         lib.des_dt_refresh_f32.restype = _I

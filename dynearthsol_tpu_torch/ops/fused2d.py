@@ -3,13 +3,16 @@ dynearthsol_tpu/ops/pallas2d.py).
 
 The JAX package fuses the whole dynearthsol.cxx:746-956 step sequence into
 one Pallas kernel that tiles x with a recomputed halo, so that every state
-plane crosses HBM once per step.  Here the same step is the CUDA file
-csrc/fused2d.cu: one launch per phase (element, node, element, ... : every
-element->node->element hop needs a grid-wide barrier), no halo tiles, edges
-masked by index.  ``step_planes_plain`` is the same step in plain PyTorch
-on the same plane layout (the whole-mesh ``_core`` of pallas2d.py); the CPU
-tests hold it against the JAX package and chip_smoke.py holds the CUDA
-kernel against it on the card.
+plane crosses HBM once per step, and its resident form runs a whole chunk
+of steps in one call.  Here the same steps are the CUDA file
+csrc/fused2d.cu: one persistent cooperative kernel per chunk
+(``fused_chunk``), whose blocks walk the cells or nodes of each phase
+(element, node, element, ...) with a grid-wide barrier at every
+element->node->element hop, no halo tiles, edges masked by index.  The
+tiled runner launches it once per step (n = 1).  ``step_planes_plain`` is
+the same step in plain PyTorch on the same plane layout (the whole-mesh
+``_core`` of pallas2d.py); the CPU tests hold it against the JAX package
+and chip_smoke.py holds the CUDA kernel against it on the card.
 
 Layout.  Element state is packed into ``(NE, 2, nxc, nzc)`` planes (slot,
 triangle, cell column, cell row) and nodal state into ``(NN, nx, nz)``,
@@ -22,10 +25,10 @@ types set components independently of the current velocity).
 
 Scalars stay on the device: dt, vmax, gdtmin, time, the last L2 partial
 and dt_maxwell live in a small buffer ``scal``; per-step refresh and decay
-flags in ``flags``.  After every step the ``dt_refresh`` kernel finishes
-the block partials of the CFL metrics and the L2 residual in a fixed order
-and refreshes dt on the 10-step cadence, so a chunk runs with no host
-round trip.
+flags in ``flags``.  After every step the chunk kernel finishes the block
+partials of the CFL metrics and the L2 residual in a fixed order and
+refreshes dt on the 10-step cadence (``dt_refresh_plain`` is its plain
+version), so a chunk runs with no host round trip.
 
 Gating is pallas2d.py's, ported as it is (alignment rules included) so
 that the two packages dispatch alike.  This package additionally lacks the
@@ -78,10 +81,11 @@ CN_SLOTS = ("top_mask", "vbc_mask_x", "vbc_mask_z", "ymass")
 NCN = len(CN_SLOTS)
 
 # partials (4, NB): min height, min height / shear-wave speed, max |v|,
-# sum of |force|^2 -- one column per CUDA block
+# sum of |force|^2 -- one column per virtual block of 256 cells or nodes
 NPART = 4
 BLOCK = 256     # threads per block of csrc/fused2d.cu
 MAXMAT = 8      # csrc/rheology2d.cuh MAXMAT
+NEWORK = 7      # element scratch planes of csrc/fused2d.cu
 
 
 def _eslot(name: str) -> int:
@@ -245,8 +249,7 @@ class StepPlan:
     switches and constants as Python values (float64, rounded to the run
     dtype where they enter the arithmetic, exactly as pallas2d.py rounds
     them), the cell parity, and the same values packed for the CUDA
-    kernels (``ip`` int32, ``fp`` float64 host arrays; ``rip``/``rfp`` for
-    dt_refresh)."""
+    kernel (``ip`` int32, ``fp`` float64 host arrays)."""
 
     nx: int
     nz: int
@@ -261,8 +264,6 @@ class StepPlan:
     par: torch.Tensor  # (nxc, nzc) bool cell parity
     ip: np.ndarray
     fp: np.ndarray
-    rip: np.ndarray
-    rfp: np.ndarray
 
     @property
     def nxc(self) -> int:
@@ -273,8 +274,8 @@ class StepPlan:
         return self.nz - 1
 
     def nblocks(self) -> int:
-        """Columns of the partials buffer: the larger block count of the
-        element and node launches."""
+        """Columns of the partials buffer: the larger count of virtual
+        blocks of the element and the node phases."""
         ncell, nnode = self.nxc * self.nzc, self.nx * self.nz
         return max(-(-ncell // BLOCK), -(-nnode // BLOCK))
 
@@ -373,12 +374,11 @@ def make_plan(param: Param, ctx, device) -> StepPlan:
                   + [ce_const.get(f, 0.0) for f in CE_SLOTS]
                   + [c[f] for c in mc for f in FC.MAT_FIELDS],
                   dtype=np.float64)
-    rip, rfp = FC.refresh_params(sw, k)
     par = torch.as_tensor(parity_2d(nx, nz), device=device)
     return StepPlan(nx=nx, nz=nz, dtype=dtype,
                     rheol=mat.rheol_type, nmat=nmat, uniform=uniform,
                     ce_const=ce_const, mc=mc, sw=sw, k=k, par=par,
-                    ip=ip, fp=fp, rip=rip, rfp=rfp)
+                    ip=ip, fp=fp)
 
 
 # ------------------------------------------- packing (chunk boundaries)
@@ -874,7 +874,7 @@ def vbc_targets(ctx, npack, time):
 @dataclass
 class ChunkBuffers:
     """Device buffers of one chunk.  ``ein``/``nin`` hold the state before
-    a step and ``eout``/``nout`` after it; the runner swaps them."""
+    a step and ``eout``/``nout`` after it; they swap after every step."""
 
     ein: torch.Tensor
     nin: torch.Tensor
@@ -888,7 +888,7 @@ class ChunkBuffers:
     flags: torch.Tensor    # (n, 2): refresh, decay
     dthist: torch.Tensor   # (n,)
     part: torch.Tensor     # (NPART, nblocks)
-    ework: torch.Tensor    # (6, 2, nxc, nzc) element scratch (CUDA)
+    ework: torch.Tensor    # (NEWORK, 2, nxc, nzc) element scratch (CUDA)
     nwork: torch.Tensor    # (2, nx, nz) node scratch (CUDA)
 
     def swap(self):
@@ -927,7 +927,7 @@ def make_buffers(P: StepPlan, ctx, s, n: int, tiled: bool) -> ChunkBuffers:
              if tiled else vbc_targets(ctx, nin, s.time)),
         scal=scal, flags=flags,
         dthist=torch.zeros(n, dtype=dtype, device=dev), part=part,
-        ework=torch.empty((6, 2, P.nxc, P.nzc) if cuda else (0,),
+        ework=torch.empty((NEWORK, 2, P.nxc, P.nzc) if cuda else (0,),
                           dtype=dtype, device=dev),
         nwork=torch.empty((2, P.nx, P.nz) if cuda else (0,), dtype=dtype,
                           device=dev))
@@ -935,23 +935,50 @@ def make_buffers(P: StepPlan, ctx, s, n: int, tiled: bool) -> ChunkBuffers:
 
 # ------------------------------------------------ kernel wrappers
 
-def _cuda_args_ok(P: StepPlan, b: ChunkBuffers):
+def stamp_labels(P: StepPlan, n: int) -> list:
+    """Names of the intervals between the stamps of an n-step chunk (the
+    grid syncs of csrc/fused2d.cu step_chunk2d): A of the first step, then
+    per step B, C, D, E, F, G (without NMD: B, C+E, F, G) and H with the
+    dt refresh, which shares its interval with the next step's A ("H+A")
+    on every step but the last."""
+    per = ["B", "C", "D", "E", "F", "G"] if P.sw["nmd"] \
+        else ["B", "C+E", "F", "G"]
+    out = ["A"]
+    for k in range(n):
+        out += per + ["H+A" if k + 1 < n else "H"]
+    return out
+
+
+def _cuda_args_ok(P: StepPlan, b: ChunkBuffers, n: int, k: int, stamps):
     if P.dtype != torch.float32:
         raise TypeError("the CUDA fused step is built for float32 only")
-    for name in ("ein", "nin", "eout", "nout", "cnp", "tgt", "scal",
-                 "flags", "dthist", "part", "ework", "nwork"):
+    dev = b.ein.device
+    ep, npl = (2, P.nxc, P.nzc), (P.nx, P.nz)
+    shapes = {"ein": (NE, *ep), "eout": (NE, *ep), "nin": (NN, *npl),
+              "nout": (NN, *npl), "cnp": (NCN, *npl), "tgt": (2, *npl),
+              "scal": (6,), "flags": (b.flags.shape[0], 2),
+              "dthist": (b.dthist.shape[0],), "part": (NPART, P.nblocks()),
+              "ework": (NEWORK, *ep), "nwork": (2, *npl)}
+    if not P.uniform:
+        shapes["cep"] = (len(CE_SLOTS) + P.nmat, *ep)
+    for name, shape in shapes.items():
         t = getattr(b, name)
-        if not (t.is_cuda and t.dtype == torch.float32
-                and t.is_contiguous()):
-            raise TypeError(f"{name}: need a contiguous float32 CUDA "
-                            "tensor")
-    if b.cep is not None and not (b.cep.is_cuda and b.cep.is_contiguous()
-                                  and b.cep.dtype == torch.float32):
-        raise TypeError("cep: need a contiguous float32 CUDA tensor")
-    if tuple(b.ein.shape) != (NE, 2, P.nxc, P.nzc) \
-            or tuple(b.nin.shape) != (NN, P.nx, P.nz) \
-            or tuple(b.part.shape) != (NPART, P.nblocks()):
-        raise ValueError("plane shapes do not match the step plan")
+        if t is None or not (t.device == dev and t.dtype == torch.float32
+                             and t.is_contiguous()):
+            raise TypeError(f"{name}: need a contiguous float32 tensor on "
+                            f"{dev}")
+        if tuple(t.shape) != shape:
+            raise ValueError(f"{name}: shape {tuple(t.shape)}, the step "
+                             f"plan needs {shape}")
+    if n < 1 or k < 0 or k + n > min(b.flags.shape[0], b.dthist.shape[0]):
+        raise ValueError(f"steps {k}..{k + n - 1} are not steps of the "
+                         "chunk buffers")
+    if stamps is not None and not (
+            stamps.device == dev and stamps.dtype == torch.int64
+            and stamps.is_contiguous()
+            and stamps.numel() > len(stamp_labels(P, n))):
+        raise TypeError("stamps: need a contiguous int64 tensor of "
+                        "len(stamp_labels(P, n)) + 1 entries on the card")
 
 
 def _stream():
@@ -962,36 +989,59 @@ def _ptr(t):
     return ctypes.c_void_p(t.data_ptr() if t is not None else 0)
 
 
-def fused_step(P: StepPlan, b: ChunkBuffers, k: int):
-    """One fused time step, step k of the chunk: ``b.ein``/``b.nin`` ->
-    ``b.eout``/``b.nout``, with block partials in ``b.part``.  On CUDA
-    tensors it launches csrc/fused2d.cu (and counts the launch in
-    ``fused_step.launches``); on CPU tensors it runs step_planes_plain."""
+def fused_chunk(P: StepPlan, b: ChunkBuffers, n: int, tiled: bool,
+                k: int = 0, stamps=None):
+    """Steps k .. k+n-1 of the chunk in ``b``, each followed by its dt
+    refresh (time advanced step by step when ``tiled``), with the buffers
+    swapped after every step: ``b.ein``/``b.nin`` then hold the state after
+    the last step and ``b.eout``/``b.nout`` the state before it.  On CUDA
+    tensors one cooperative launch of the chunk kernel of csrc/fused2d.cu
+    (counted in ``fused_chunk.launches``), or raises; ``stamps``, None or
+    an int64 tensor of len(stamp_labels(P, n)) + 1 entries, receives the
+    card's clock (ns) at the start and after every grid barrier.  On CPU
+    tensors chunk_plain."""
     if b.ein.is_cuda:
         from . import _build
 
-        _cuda_args_ok(P, b)
+        _cuda_args_ok(P, b, n, k, stamps)
         lib = _build.load()
-        rc = lib.des_fused2d_step_f32(
+        rc = lib.des_fused2d_chunk_f32(
             P.ip.ctypes.data, P.fp.ctypes.data,
             _ptr(b.ein), _ptr(b.nin), _ptr(b.eout), _ptr(b.nout),
             _ptr(b.cep), _ptr(b.cnp), _ptr(b.tgt), _ptr(b.scal),
-            ctypes.c_void_p(b.flags.data_ptr() + 8 * k),
-            _ptr(b.ework), _ptr(b.nwork), _ptr(b.part), b.part.shape[1],
-            _stream())
+            _ptr(b.flags[k]), _ptr(b.dthist[k:]), _ptr(b.ework),
+            _ptr(b.nwork), _ptr(b.part), b.part.shape[1], n, int(tiled),
+            _ptr(stamps), _stream())
         if rc != 0:
-            raise RuntimeError(f"fused2d step launch failed: {_build.err(rc)}")
-        fused_step.launches += 1
+            raise RuntimeError(f"fused2d chunk launch failed: "
+                               f"{_build.err(rc)}")
+        fused_chunk.launches += 1
+        if n % 2:  # the kernel swaps in and out n times
+            b.swap()
         return
     if b.ein.device.type != "cpu":
         raise TypeError(f"no fused step for device {b.ein.device}")
-    fused_step_plain(P, b, k)
+    chunk_plain(P, b, n, tiled, k)
+
+
+fused_chunk.launches = 0
+
+
+def chunk_plain(P: StepPlan, b: ChunkBuffers, n: int, tiled: bool,
+                k: int = 0):
+    """The plain version of fused_chunk, on any device: for each step
+    fused_step_plain, dt_refresh_plain and a swap."""
+    for j in range(k, k + n):
+        fused_step_plain(P, b, j)
+        dt_refresh_plain(P, b.part, b.scal, b.dthist, b.flags, j, tiled)
+        b.swap()
 
 
 def fused_step_plain(P: StepPlan, b: ChunkBuffers, k: int):
-    """step_planes_plain on the chunk buffers, on any device: the plain
-    version of fused_step with the same inputs and outputs (the full-mesh
-    partials go to column 0 of ``b.part``)."""
+    """step_planes_plain on the chunk buffers, step k: ``b.ein``/``b.nin``
+    -> ``b.eout``/``b.nout`` (the full-mesh partials go to column 0 of
+    ``b.part``), on any device; calls counted in ``.calls``."""
+    fused_step_plain.calls += 1
     eout, nout, red = step_planes_plain(
         P, b.ein, b.nin, b.cep, b.cnp, b.tgt, b.scal[0],
         b.scal[1] * P.k["inertial"], b.flags[k, 0] > 0, b.flags[k, 1] > 0)
@@ -1000,17 +1050,45 @@ def fused_step_plain(P: StepPlan, b: ChunkBuffers, k: int):
     b.part[:, 0] = red
 
 
-fused_step.launches = 0
+fused_step_plain.calls = 0
+
+
+def chunk_occupancy(P: StepPlan) -> dict:
+    """The chunk kernel's launch shape on the current card: blocks per SM,
+    SMs, grid, registers and local (stack) bytes per thread."""
+    from . import _build
+
+    out = (ctypes.c_int * 5)()
+    rc = _build.load().des_fused2d_chunk_occupancy(int(P.uniform),
+                                                   P.nblocks(), out)
+    if rc != 0:
+        raise RuntimeError(f"fused2d occupancy query failed: "
+                           f"{_build.err(rc)}")
+    return dict(zip(("blocks_per_sm", "sms", "grid", "registers",
+                     "local_bytes"), out))
+
+
+def grid_barriers(grid: int, nsync: int):
+    """nsync grid-wide barriers and no work, in one cooperative launch of
+    ``grid`` blocks on the current stream: what a chunk's barriers cost on
+    their own (a measurement of the card; no step of the model)."""
+    from . import _build
+
+    rc = _build.load().des_grid_barriers(grid, nsync, _stream())
+    if rc != 0:
+        raise RuntimeError(f"barrier launch failed: {_build.err(rc)}")
 
 
 def dt_refresh_plain(P, part, scal, dthist, flags, k: int, tiled: bool,
                      every: bool = False):
-    """Plain version of the dt_refresh kernel, in place on ``scal`` and
+    """Plain version of the dt refresh, in place on ``scal`` and
     ``dthist``: record dt, finish the partials of step k, advance time
     (tiled runner) and, on refresh steps, set dt, vmax and gdtmin
     (pallas2d.py:1279-1304 and :1490-1526).  With ``every`` (the 3D step,
     pallas3d.py:1649-1690) vmax and gdtmin are set on every step and only
-    dt waits for the refresh cadence.  ``P`` is a 2D or 3D step plan."""
+    dt waits for the refresh cadence.  ``P`` is a 2D or 3D step plan;
+    calls counted in ``.calls``."""
+    dt_refresh_plain.calls += 1
     sw, kk = P.sw, P.k
 
     def c(v):
@@ -1052,11 +1130,15 @@ def dt_refresh_plain(P, part, scal, dthist, flags, k: int, tiled: bool,
         scal[2] = torch.where(refresh, gdtmin, scal[2])
 
 
+dt_refresh_plain.calls = 0
+
+
 def dt_refresh(P, b, k: int, tiled: bool, every: bool = False):
-    """The per-step scalar update after step k (see dt_refresh_plain), for
-    the chunk buffers of the 2D or the 3D step.  On CUDA tensors it
-    launches the dt_refresh kernel of csrc/fused2d.cu (one block; counted
-    in ``dt_refresh.launches``)."""
+    """The per-step scalar update after step k (see dt_refresh_plain) for
+    the chunk buffers of the 3D step, whose runner calls it with
+    ``every``; the 2D chunk kernel refreshes dt inside its launch.  On
+    CUDA tensors it launches the one-block dt_refresh kernel of
+    csrc/fused2d.cu (counted in ``dt_refresh.launches``)."""
     if b.scal.is_cuda:
         from . import _build
 
@@ -1088,23 +1170,21 @@ dt_refresh.launches = 0
 def run_chunk(P: StepPlan, ctx, s, n: int, resident: bool,
               plain: bool = False):
     """Advance ``s`` by n fused steps.  Resident (pallas2d.py:1371-1413):
-    vbc targets probed once per chunk, time = s.time + sum(dt history).
-    Tiled (pallas2d.py:1457-1532): targets probed every step from the
-    pre-move coordinates at time + dt, time accumulated step by step.
-    ``plain`` runs the plain versions on the state's device instead of the
-    wrappers (the reference the CUDA kernels are checked against)."""
+    vbc targets probed once per chunk, the chunk in one launch, time =
+    s.time + sum(dt history).  Tiled (pallas2d.py:1457-1532): targets
+    probed every step from the pre-move coordinates at time + dt, one
+    launch per step, time accumulated step by step.  ``plain`` runs the
+    plain version on the state's device instead of the kernel (the
+    reference the CUDA kernel is checked against)."""
     tiled = not resident
     b = make_buffers(P, ctx, s, n, tiled)
-    for k in range(n):
-        if tiled:
+    run = chunk_plain if plain else fused_chunk
+    if resident:
+        run(P, b, n, False)
+    else:
+        for k in range(n):
             b.tgt = vbc_targets(ctx, b.nin, b.scal[3] + b.scal[0])
-        if plain:
-            fused_step_plain(P, b, k)
-            dt_refresh_plain(P, b.part, b.scal, b.dthist, b.flags, k, tiled)
-        else:
-            fused_step(P, b, k)
-            dt_refresh(P, b, k, tiled)
-        b.swap()
+            run(P, b, 1, True, k)
     time = b.scal[3].clone() if tiled else s.time + b.dthist.sum()
     nnode2 = torch.full((), float(P.nx * P.nz * 2), dtype=P.dtype,
                         device=b.scal.device)

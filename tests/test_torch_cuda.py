@@ -3,11 +3,14 @@ csrc/band2d.cu) against their plain PyTorch versions, on the card (the
 checks of chip_smoke.py phases 3, 4 and 8-9 at the 16 x 128-cell 2D,
 128 x 16 x 8-cell 3D and small unstructured sizes), with the CPU tests'
 tolerances; the 3D kernel against the plain version run on the CPU (see
-_run3); the gather and assembly kernels with tolerance 0.  Imports no JAX.
+_run3); the gather and assembly kernels with tolerance 0; the 2D chunk
+kernel against its own one-step launches bit for bit.  Imports no JAX.
 Skips where there is no CUDA device; on the card run it as
 
     python -m pytest --noconftest -m cuda tests/test_torch_cuda.py
 """
+
+import dataclasses
 
 import pytest
 import torch
@@ -45,11 +48,18 @@ def _run(cfg, n, resident, plain):
     return out
 
 
+def _counts():
+    return (fused2d.fused_chunk.launches, fused2d.dt_refresh.launches,
+            fused2d.fused_step_plain.calls, fused2d.dt_refresh_plain.calls)
+
+
 def test_maxwell_10_steps(cuda):
+    """The tiled runner: one launch of the chunk kernel per step (n = 1),
+    no dt_refresh launch."""
     cfg = make_sim_cfg(mat={"rheology_type": "maxwell"})
-    before = fused2d.fused_step.launches
+    before = _counts()
     out = _run(cfg, 10, False, False)
-    assert fused2d.fused_step.launches == before + 10
+    assert _counts() == (before[0] + 10, *before[1:])
     assert_maxwell_close(_run(cfg, 10, False, True), out, get)
 
 
@@ -62,10 +72,65 @@ def test_evp_one_step(cuda):
 def test_resident_matches_tiled(cuda):
     cfg = make_sim_cfg()
     tiled = _run(cfg, 25, False, False)
-    before = fused2d.dt_refresh.launches
+    before = _counts()
     res = _run(cfg, 25, True, False)
-    assert fused2d.dt_refresh.launches == before + 25
+    assert _counts() == (before[0] + 1, *before[1:])
     assert_resident_matches_tiled(tiled, res, get)
+
+
+def test_chunk_equals_one_step_launches(cuda):
+    """A 25-step chunk in one launch against 25 one-step launches of the
+    same kernel from the same buffers: every plane, scal and the dt
+    history equal bit for bit."""
+    sim = des.Simulation(des.param_from_dict(make_sim_cfg()), device="cuda")
+    P = fused2d.make_plan(sim.param, sim.ctx, sim.device)
+    n = 25
+    cb = fused2d.make_buffers(P, sim.ctx, sim.state, n, tiled=False)
+    fused2d.fused_chunk(P, cb, n, tiled=False)
+    sb = fused2d.make_buffers(P, sim.ctx, sim.state, n, tiled=False)
+    for k in range(n):
+        fused2d.fused_chunk(P, sb, 1, tiled=False, k=k)
+    torch.cuda.synchronize()
+    for i in range(fused2d.NE):
+        assert torch.equal(cb.ein[i], sb.ein[i]), i
+    for i, nm in enumerate(fused2d.N_SLOTS):
+        assert torch.equal(cb.nin[i], sb.nin[i]), nm
+    assert torch.equal(cb.scal, sb.scal)
+    assert torch.equal(cb.dthist, sb.dthist)
+
+
+def test_chunk_maxwell_10_steps(cuda):
+    """The resident runner, 10 steps in one launch, against the plain
+    version at the maxwell gate of the 2D tests (2e-4, force 1e-3)."""
+    cfg = make_sim_cfg(mat={"rheology_type": "maxwell"})
+    assert_maxwell_close(_run(cfg, 10, True, True), _run(cfg, 10, True, False),
+                         get)
+
+
+def test_2d_path_launches_once_per_chunk(cuda):
+    """Simulation.run_steps on pallas2d_res: one launch of the chunk kernel
+    per chunk, no dt_refresh launch, no call of a plain version."""
+    sim = des.Simulation(des.param_from_dict(make_sim_cfg()), device="cuda")
+    before = _counts()
+    sim.run_steps(20, chunk=10)
+    torch.cuda.synchronize()
+    assert sim.step_path == "pallas2d_res"
+    assert _counts() == (before[0] + 2, *before[1:])
+
+
+def test_refused_launch_raises(cuda):
+    """An error code of the C entry raises in the wrapper: it refuses a plan
+    with more materials than the kernel holds (MAXMAT) before launching."""
+    sim = des.Simulation(des.param_from_dict(make_sim_cfg()), device="cuda")
+    P = fused2d.make_plan(sim.param, sim.ctx, sim.device)
+    b = fused2d.make_buffers(P, sim.ctx, sim.state, 1, tiled=False)
+    ip = P.ip.copy()
+    ip[fused2d.IP_FIELDS.index("nmat")] = fused2d.MAXMAT + 1
+    ip[fused2d.IP_FIELDS.index("uniform")] = 0
+    before = _counts()
+    with pytest.raises(RuntimeError, match="launch failed"):
+        fused2d.fused_chunk(dataclasses.replace(P, ip=ip), b, 1, tiled=False)
+    assert _counts() == before
 
 
 def test_initial_volume_is_the_kernels(cuda):
@@ -73,10 +138,10 @@ def test_initial_volume_is_the_kernels(cuda):
     P = fused2d.make_plan(sim.param, sim.ctx, sim.device)
     b = fused2d.make_buffers(P, sim.ctx, sim.state, 1, tiled=False)
     b.scal[0] = 0.0
-    fused2d.fused_step(P, b, 0)
+    fused2d.fused_chunk(P, b, 1, tiled=False)
     torch.cuda.synchronize()
     vol = fused2d._eslot("volume")
-    assert torch.equal(b.eout[vol], b.ein[vol])
+    assert torch.equal(b.ein[vol], b.eout[vol])
 
 
 def _run3(cfg, n, plain):

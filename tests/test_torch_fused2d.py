@@ -107,6 +107,6 @@ def test_volume_fixed_point():
     P = fused2d.make_plan(ts.param, ts.ctx, "cpu")
     b = fused2d.make_buffers(P, ts.ctx, ts.state, 1, tiled=False)
     b.scal[0] = 0.0
-    fused2d.fused_step(P, b, 0)
+    fused2d.fused_chunk(P, b, 1, tiled=False)
     vol = fused2d._eslot("volume")
-    assert torch.equal(b.eout[vol], b.ein[vol])
+    assert torch.equal(b.ein[vol], b.eout[vol])
