@@ -22,6 +22,14 @@ Phases, each printed, the first failure exits non-zero:
                 CUDA graph of launches, and as Python issues them), the
                 chunk's grid barriers alone and the plain version; the
                 per-phase µs of a chunk from the kernel's clock stamps;
+                then the production instance (Winkler and water
+                tractions, surface process 1, two materials): one EVP
+                step and a 10-step maxwell chunk against the plain
+                version (16 x 128 cells), one full-size maxwell step and
+                its dt refresh plane by plane against the plain version, a
+                25-step chunk at full size against 25 one-step launches
+                bit for bit, its chunk time, stamps and bytes per
+                interval;
   4. 3D kernels -- the fused 3D step against its plain version: maxwell
                 over 10 steps and EVP over 1 step with and without NMD
                 (128 x 16 x 8 cells) and one flagship3d EVP step, the plain
@@ -33,7 +41,14 @@ Phases, each printed, the first failure exits non-zero:
                 every plane, one flagship3d maxwell step plane by plane
                 against the plain version on the card; kernel and plain
                 device times at flagship3d shapes, the kernel in its chunk
-                form and its one-step form;
+                form and its one-step form; the two-material instances (the
+                const pack): a 3-step maxwell chunk, one maxwell step
+                and one EVP step against the plain version on the CPU, the
+                chunk form against 10 complete steps bit for bit; at
+                flagship3d_multimat one maxwell step plane by plane
+                against the plain version on the card and one EVP step
+                against it on the CPU (the small EVP step away from what
+                its ties of rounding reach, fused3d.evp_tie_reach);
   5. 2D slice -- the flagship config (100 km x 50 km, 512 x 256 cells, EVP,
                 f32): Simulation(param, device="cuda"), 250 warm-up steps,
                 then 500 timed steps, with launch counts (one chunk kernel
@@ -41,15 +56,25 @@ Phases, each printed, the first failure exits non-zero:
                 plain version's rate over 50 steps; then the tiled runner's
                 path (the flagship with global velocity scaling): 20 steps,
                 one n = 1 launch per step, no dt_refresh, no plain version;
+  5b. production slice -- bench.py production_param (512 x 256 cells,
+                two materials by markers, Winkler and water tractions,
+                surface process 1, EVP): a warm-up chunk of 250 steps, then
+                2 chunks of 250, 2 chunk-kernel launches, no dt_refresh, no
+                plain version, dhacc moved;
   6. 3D slice -- the flagship3d config (256 x 48 x 16 cells x 5 tets,
                 983,040 tetrahedra, EVP, f32): Simulation(param) with the
                 default device, 100 warm-up steps, then 500 timed steps,
                 with launch counts (a finalize per chunk, no plain
                 version), and the plain version's rate over 5 steps;
-  7. profile -- torch.profiler over 100 steps of the flagship runner and
-                20 of the flagship3d runner: device time per launch by
-                kernel, device busy and idle share; for flagship3d the bytes
-                each phase of the 3D kernel moves and its TB/s;
+  6b. two-material 3D slice -- bench.py flagship3d_param(nmat=2): 100
+                warm-up steps, then 500 in chunks of 250, 500 fused3d_step
+                launches and a finalize per chunk, no plain version; the
+                two-material kernel's device times;
+  7. profile -- torch.profiler over 100 steps of the flagship and
+                production runners and 20 of the flagship3d and
+                flagship3d_multimat runners: device time per launch by
+                kernel, device busy and idle share; for the 3D ones the
+                bytes each phase of the 3D kernel moves and its TB/s;
   8. gather/assembly kernels -- the three kernels of csrc/band2d.cu
                 (cgather, asm_pack, asm_gather) against their plain
                 versions with torch.equal (tolerance 0): a small Delaunay
@@ -151,6 +176,28 @@ def unstructured_cfg(rheology="elasto-visco-plastic", small=False):
     return cfg
 
 
+def production_cfg(rheology="elasto-visco-plastic", small=False):
+    """bench.py production_param, the examples/rifting-2d.cfg feature set:
+    Winkler foundation, water loading, surface process 1 (hillslope
+    diffusion), the surface-element correction and two materials by
+    markers (4 per element), EVP, 512 x 256 cells, 262,144 triangles.
+    ``small``: tests/test_pallas.py _production_sim, the same features on
+    make_sim's 16 x 128 cells with damping 2 (factor 0.4)."""
+    cfg = make_sim_cfg(rheology) if small else flagship_cfg(rheology)
+    cfg["markers"] = {"markers_per_element": 4, "init_marker_option": 1}
+    cfg["control"].update(surface_process_option=1, surface_diffusivity=1e-6,
+                          has_surface_correction=True)
+    if small:
+        cfg["control"].update(damping_option=2, damping_factor=0.4)
+    cfg["bc"].update(has_winkler_foundation=True, has_water_loading=True,
+                     winkler_delta_rho=100.0)
+    cfg.setdefault("ic", {}).update(mattype_layer_depths=[0.3],
+                                    layer_mattypes=[0, 1])
+    cfg["mat"].update(nmat=2, rho0=[2800.0, 3300.0],
+                      bulk_modulus=[50e9, 80e9], shear_modulus=[30e9, 48e9])
+    return cfg
+
+
 # fields the flat-step gate of tests/test_flat.py:38-42 compares
 FLAT_FIELDS = ("coord", "vel", "temperature", "stress", "stressyy", "strain",
                "strain_rate", "plstrain", "delta_plstrain", "viscosity",
@@ -181,10 +228,30 @@ def sim3d_cfg(rheology="elasto-visco-plastic", weakzone=1):
     }
 
 
-def flagship3d_cfg(rheology="elasto-visco-plastic"):
+def multimat3d_cfg(cfg):
+    """A 3D config with the two materials of tests/test_pallas3d.py:135-153
+    (_multimat_over: crust over mantle by markers, contrasting moduli,
+    densities, heat capacities, conductivities and creep laws)."""
+    cfg["mat"].update({
+        "nmat": 2, "rho0": [2700.0, 3300.0], "bulk_modulus": [40e9, 120e9],
+        "shear_modulus": [24e9, 70e9], "heat_capacity": [1000.0, 1200.0],
+        "therm_cond": [2.5, 3.3], "alpha": [3e-5, 2e-5],
+        "visc_coefficient": [1e2, 1e3],
+        "visc_activation_energy": [3.0e5, 4.0e5],
+        "cohesion0": [4e7, 6e7], "friction_angle0": [30.0, 25.0]})
+    cfg.setdefault("ic", {}).update(num_mattype_layers=2,
+                                    layer_mattypes=[0, 1],
+                                    mattype_layer_depths=[0.4])
+    cfg["markers"] = {"markers_per_element": 4, "random_seed": 11}
+    return cfg
+
+
+def flagship3d_cfg(rheology="elasto-visco-plastic", nmat=1):
     """bench.py flagship3d_param: 256 x 48 x 16 cells x 5 tets = 983,040
-    tetrahedra, 214,081 nodes; EVP, one material, f32."""
-    return {
+    tetrahedra, 214,081 nodes; EVP, one material, f32.  ``nmat=2``:
+    flagship3d_param(nmat=2), crust (the top 40 %) over mantle by 4
+    markers per element."""
+    cfg = {
         "sim": {"max_steps": 10**9, "ndims": 3, "float_dtype": "float32",
                 "is_outputting_averaged_fields": False},
         "mesh": {"meshing_option": 1, "meshing_elem_shape": 1,
@@ -202,6 +269,13 @@ def flagship3d_cfg(rheology="elasto-visco-plastic"):
                 "shear_modulus": [30e9], "visc_max": 1e24,
                 "visc_min": 1e19},
     }
+    if nmat == 2:
+        cfg["markers"] = {"markers_per_element": 4, "init_marker_option": 1}
+        cfg["ic"] = {"mattype_layer_depths": [0.4], "layer_mattypes": [0, 1]}
+        cfg["mat"].update(nmat=2, rho0=[2800.0, 3300.0],
+                          bulk_modulus=[50e9, 80e9],
+                          shear_modulus=[30e9, 48e9])
+    return cfg
 
 
 # 3D gates of tests/test_pallas3d.py:79-82, :112-131
@@ -343,10 +417,15 @@ def main():
         where a creep law recomputes it, delta_plstrain under EP,
         dpressure under NMD; volume_old outside the Maxwell trial; tmass
         and the top mask without thermal diffusion; ymass without damping
-        4.  A vbc target is loaded only where its mask is set."""
+        4.  A vbc target is loaded only where its mask is set.  The 2D
+        surface-process accumulators (dhacc, edv) are loaded and stored on
+        the top lane only, and only with surface process 1."""
         sw = P.sw
         skip = {"strain_rate", "edvoldt", "hmass", "force_x", "force_y",
                 "force_z"}
+        acc = [n for n in mod.N_SLOTS if n in ("dhacc", "edv")]
+        acc_b = (len(acc) * b.nin.shape[1] * b.nin.element_size()
+                 if sw.get("surf_on") else 0)
         if sw["rheol"] not in (fused3d.RH_MAXWELL, fused3d.RH_EVP):
             skip.add("volume_old")
         if sw["rheol"] in (fused3d.RH_VISCOUS, fused3d.RH_MAXWELL,
@@ -363,23 +442,30 @@ def main():
         enames = list(mod.E_SLOTS) + [t for t in mod.T_SLOTS
                                       for _ in range(ncomp)]
         n_e = sum(n not in skip for n in enames)
-        n_n = sum(n not in skip for n in mod.N_SLOTS + mod.CN_SLOTS)
+        n_n = sum(n not in skip and n not in acc
+                  for n in mod.N_SLOTS + mod.CN_SLOTS)
         masks = [i for i, n in enumerate(mod.CN_SLOTS)
                  if n.startswith("vbc_mask")]
         read = (n_e * nbytes(b.ein[0]) + n_n * nbytes(b.nin[0])
                 + int((b.cnp[masks] > 0).sum()) * b.tgt.element_size()
-                + nbytes(b.scal, *extra))
-        return read, nbytes(b.eout, b.nout, b.part)
+                + nbytes(b.scal, *extra) + acc_b)
+        written = (nbytes(b.eout, b.part) + acc_b
+                   + (len(mod.N_SLOTS) - len(acc)) * nbytes(b.nout[0]))
+        return read, written
 
     def phase_bytes2(P, b):
         """{phase: bytes} that each phase of csrc/fused2d.cu's chunk kernel
         moves in one step under the plan's switches: every plane a phase
         loads or stores counted once for that phase (nodal planes it
         gathers, element, scratch and const planes), vbc targets only where
-        masked; the refresh's partials and scalars (a few KB) aside."""
+        masked, and the boundary lanes and rows that the facet tractions
+        and surface process 1 read and write; the refresh's partials and
+        scalars (a few KB) aside."""
         sw = P.sw
         N = nbytes(b.nin[0])
         E = nbytes(b.ein[0])
+        es = b.nin.element_size()
+        wink, surf = sw["winkler"], sw["surf_on"]
         ce = 0 if P.uniform else E  # a plane of the const element pack
         rh, th, nmd = sw["rheol"], sw["thermal"], sw["nmd"]
         creep = rh in (fused2d.RH_VISCOUS, fused2d.RH_MAXWELL,
@@ -394,8 +480,11 @@ def main():
             "C": 6 * N + (9 + c_in) * E + 15 * E + (2 + P.nmat) * ce,
             "D": (2 * E + 2 * N) if nmd else 0,
             "E": (3 + nmd) * N + (4 + 3 * nmd) * E + 6 * E
-                 + 2 * sw["gravity_on"] * ce,
-            "F": 6 * E + (7 + (sw["damping"] == 4)) * N + masked + 6 * N,
+                 + 2 * sw["gravity_on"] * ce
+                 + wink * P.nxc * es * (1 + 2 * (not P.uniform)),
+            "F": 6 * E + (7 + (sw["damping"] == 4)) * N + masked + 6 * N
+                 + wink * P.nxc * es + surf * P.nx * es,
+            "S": 8 * P.nx * es if surf else 0,
             "G": 5 * N + 26 * E + (7 + P.nmat * sw["surf_corr"]) * ce,
             "H": 4 * E + 4 * N,
         }
@@ -420,18 +509,22 @@ def main():
         c_in = ((rh != fused3d.RH_EP) + (not creep)
                 + (rh in (fused3d.RH_MAXWELL, fused3d.RH_EVP))
                 + (not nmd or pending))
+        # the const pack of a mixed plan: A reads the radiogenic source and
+        # the weights (thermal), C, E (gravity) and G the weights
+        w = 0 if P.uniform else P.nmat * E
         # and the product dpressure * volume for D (NMD)
         c_out = 15 + (not creep or last) + 7 * last + nmd
         ph = {
-            "phase_a": (6 + th) * N + E + (8 + 8 * th) * C,
+            "phase_a": (6 + th) * N + E + (8 + 8 * th) * C
+                       + th * (w + E * (not P.uniform)),
             "phase_b": (8 + 8 * th) * C + (4 + 2 * th) * N,
             "phase_c": (8 + (pending and nmd)) * N + (14 + c_in) * E
-                       + (pending and surf) * S + c_out * E,
+                       + (pending and surf) * S + c_out * E + w,
             "phase_d": (E + 2 * N) if nmd else 0,
             "phase_e": (3 + sw["gravity_on"] + nmd) * N + (7 + nmd) * E
-                       + 24 * C,
+                       + 24 * C + sw["gravity_on"] * w,
             "phase_f": 24 * C + 10 * N + masked + (6 + 3 * last) * N,
-            "phase_g": 7 * N + 3 * E + (2 + last) * E + surf * S,
+            "phase_g": 7 * N + 3 * E + (2 + last) * E + surf * S + w,
             "phase_h": (3 + last) * E + (3 + last) * N,
         }
         # strain rate and plstrain: the scaled top layer
@@ -455,12 +548,23 @@ def main():
         if nd == 3:  # per tet: phases A, C, D, E, G, H; per node B, D, F, H
             per_e = (96 + 50 * th + 164 + rh + 5 * nmd + 8 * nmd + 163
                      + 9 * nmd + 150 + 197 * jau + 21 * surf + 16)
+            if not P.uniform:
+                # two materials: the mixtures where each phase reads them
+                # (A 25 with thermal diffusion, C 8 and the second
+                # material's creep and weakening terms 30, E 26 with
+                # gravity, G 50)
+                per_e += 25 * th + 38 + 26 * sw["gravity_on"] + 50
             per_n = 9 + 11 * th + 9 * nmd + 57 + 32
         else:        # per triangle: A, B, C, D, E, F, G, H; per node B, D, F
             per_e = (38 + 35 * th + 3 + 3 * th + 54 + rh + 3 * nmd
                      + 6 * nmd + 47 + 6 * nmd + 6 + 22 + 45 * jau
                      + 12 * surf + 12)
             per_n = 1 + 3 * th + nmd + 22
+            # per boundary node: two facets of 13 operations and 4 adds
+            # (each tractions lane); per top node the diffusion's ~40
+            per_n_lane = (30 * (sw["winkler"] + sw["water"])
+                          + 40 * sw["surf_on"])
+            return per_e * nelem + per_n * nnode + per_n_lane * P.nx
         return per_e * nelem + per_n * nnode
 
     def bound(read, written, ops):
@@ -498,7 +602,8 @@ def main():
 
     def sim_of(cfg):
         sim = des.Simulation(des.param_from_dict(cfg), device="cuda")
-        return sim, fused2d.make_plan(sim.param, sim.ctx, sim.device)
+        return sim, fused2d.make_plan(sim.param, sim.ctx, sim.device,
+                                      sim.compensation_pressure)
 
     def chunk(sim, P, n, resident, plain):
         out = fused2d.run_chunk(P, sim.ctx, sim.state, n, resident, plain)
@@ -685,18 +790,167 @@ def main():
               f"{r['bytes'] / 1e6:.1f} MB, {bw}")
     del cb, ob, pb, stamps
 
+    # the production instance of the chunk kernel (Winkler and water
+    # tractions, surface process 1, two materials), 16 x 128 cells: one EVP
+    # step and a 10-step maxwell chunk (one launch) against the plain
+    # version at the gates above.  The velocity is compared at the scale of
+    # its increment dt f / m: its own max is the side walls' 1e-9 m/s, and
+    # at a free node of the Winkler-balanced column the force is the
+    # residual of ~1e12 N element terms.
+    psim, PP = sim_of(production_cfg(small=True))
+    ker = chunk(psim, PP, 1, False, False)
+    ref = chunk(psim, PP, 1, False, True)
+    prod_err = 0.0
+    for f in ("coord", "stress", "strain", "plstrain", "force", "dhacc",
+              "edvacc_surf"):
+        err = rel(getattr(ref, f), getattr(ker, f))
+        prod_err = max(prod_err, err)
+        check(f"production EVP 1 step {f}", err, 2e-6)
+    inc = psim.state.dt * (ref.force / psim.state.mass[:, None]).abs().max()
+    check("production EVP 1 step vel (of dt |f / m|)",
+          float((ref.vel - ker.vel).abs().max() / inc), 2e-6)
+    if not float(ker.dhacc.abs().max()) > 0:
+        fail("production EVP 1 step: surface process 1 left dhacc at 0")
+    msim, MPP = sim_of(production_cfg("maxwell", small=True))
+    ker = chunk(msim, MPP, 10, True, False)
+    ref = chunk(msim, MPP, 10, True, True)
+    lab = "production maxwell 10 steps, one chunk launch,"
+    for f in ("coord", "vel", "temperature", "stress", "strain", "volume",
+              "volume_n", "mass", "tmass", "hmass", "strain_rate",
+              "edvoldt", "force", "dhacc", "edvacc_surf"):
+        check(f"{lab} {f}", rel(getattr(ref, f), getattr(ker, f)),
+              1e-3 if f == "force" else 2e-4)
+    dlog = ref.viscosity.double().log() - ker.viscosity.double().log()
+    check(f"{lab} log-viscosity median", float(dlog.abs().median()), 0.02)
+    for f in ("dt", "time", "max_global_vel_mag"):
+        check(f"{lab} {f}", rel(getattr(ref, f), getattr(ker, f)), 1e-5)
+    del psim, msim, ker, ref
+
+    # one production-size step and its dt refresh, kernel vs plain, every
+    # plane (dhacc and edv included) and the refresh scalars, at the
+    # flagship's gates; on maxwell, as the flagship.  The velocity planes
+    # at the scale of their increment dt |f / m|, as at 16 x 128 cells
+    msim, MPP = sim_of(production_cfg("maxwell"))
+    kb = fused2d.make_buffers(MPP, msim.ctx, msim.state, 1, tiled=False)
+    pb = fused2d.make_buffers(MPP, msim.ctx, msim.state, 1, tiled=False)
+    kb.flags[0, 0] = pb.flags[0, 0] = 1.0
+    fused2d.fused_chunk(MPP, kb, 1, tiled=False)
+    fused2d.chunk_plain(MPP, pb, 1, tiled=False)
+    sync()
+    pn = {nm: pb.nin[fused2d._nslot(nm)] for nm in
+          ("force_x", "force_z", "mass")}
+    inc = float(msim.state.dt * (torch.stack([pn["force_x"], pn["force_z"]])
+                                 .abs() / pn["mass"]).max())
+    for k, nm in enumerate(names):
+        if nm == "e.viscosity":
+            v = (pb.ein[k].double().log() - kb.ein[k].double().log())
+            check(f"production 1 step {nm} (log)", float(v.abs().max()),
+                  1e-5)
+            continue
+        a, b = (pb.ein[k], kb.ein[k]) if nm[0] == "e" else \
+            (pb.nin[k - fused2d.NE], kb.nin[k - fused2d.NE])
+        if nm.startswith("n.vel_"):
+            err = float((a.double() - b.double()).abs().max()) / inc
+            nm += " (of dt |f / m|)"
+        else:
+            err = rel(a, b)
+        prod_err = max(prod_err, err)
+        check(f"production 1 step {nm}", err, 2e-6)
+    for i, nm in enumerate(("dt", "vmax", "gdtmin", "time", "L2 sum")):
+        err = rel(pb.scal[i:i + 1], kb.scal[i:i + 1])
+        prod_err = max(prod_err, err)
+        check(f"production 1 step refresh {nm}", err,
+              1e-5 if i == 4 else 1e-6)
+    del msim, kb, pb
+
+    # the production main path's config: a 25-step EVP chunk against 25
+    # one-step launches, bit for bit, every plane (dhacc and edv too)
+    gsim, GP = sim_of(production_cfg())
+    gocc = fused2d.chunk_occupancy(GP)
+    print(f"  production instance at full size: {gocc['registers']} "
+          f"registers and {gocc['local_bytes']} B local memory per thread, "
+          f"{gocc['blocks_per_sm']} blocks per SM, grid {gocc['grid']}")
+    cb = fused2d.make_buffers(GP, gsim.ctx, gsim.state, NV, tiled=False)
+    fused2d.fused_chunk(GP, cb, NV, tiled=False)
+    ob = fused2d.make_buffers(GP, gsim.ctx, gsim.state, NV, tiled=False)
+    for k in range(NV):
+        fused2d.fused_chunk(GP, ob, 1, tiled=False, k=k)
+    sync()
+    for k, nm in enumerate(names):
+        a, b = (cb.ein[k], ob.ein[k]) if nm[0] == "e" else \
+            (cb.nin[k - fused2d.NE], ob.nin[k - fused2d.NE])
+        if not torch.equal(a, b):
+            fail(f"production EVP: a {NV}-step chunk and {NV} one-step "
+                 f"launches differ in {nm}")
+    if not (torch.equal(cb.scal, ob.scal) and torch.equal(cb.dthist,
+                                                           ob.dthist)):
+        fail(f"production EVP: a {NV}-step chunk and {NV} one-step "
+             "launches differ in scal or the dt history")
+    if not float(cb.nin[fused2d._nslot("dhacc")].abs().max()) > 0:
+        fail(f"production EVP: dhacc did not move in {NV} steps")
+    print(f"  production EVP: a {NV}-step chunk equals {NV} one-step "
+          "launches bit for bit (every plane, dhacc and edv included, "
+          "scal, dt history): ok")
+    del cb, ob
+
+    # device times and the per-interval table of the production chunk
+    gb = fused2d.make_buffers(GP, gsim.ctx, gsim.state, NCH2, tiled=False)
+    gpb = fused2d.make_buffers(GP, gsim.ctx, gsim.state, 1, tiled=False)
+
+    def gchunk_kernel():
+        fused2d.fused_chunk(GP, gb, NCH2, tiled=False)
+
+    def gstep_plain():
+        fused2d.chunk_plain(GP, gpb, 1, tiled=False)
+
+    gchunk_ms = issue_ms(gchunk_kernel, 2) / NCH2
+    gplain_ms = device_ms(gstep_plain, 5)
+    gextra = (gpb.flags[0], gpb.cep[1:])  # the pack less "valid"
+    gbound = bound(*step_bytes(fused2d, GP, gpb, 3, *gextra),
+                   step_ops(GP, 2, gsim.ctx.nelem, gsim.ctx.nnode))
+    glabels = fused2d.stamp_labels(GP, NCH2)
+    stamps = torch.zeros(len(glabels) + 1, dtype=torch.int64, device="cuda")
+    fused2d.fused_chunk(GP, gb, NCH2, tiled=False, stamps=stamps)
+    sync()
+    span = (stamps[1:] - stamps[:-1]).double().cpu().tolist()
+    gstamped_ms = float(stamps[-1] - stamps[0]) / 1e6 / NCH2
+    per = {}
+    for lab, ns in zip(glabels, span):
+        per.setdefault(lab, []).append(ns / 1e3)
+    gbytes = phase_bytes2(GP, gb)
+    gphases = {}
+    for lab, v in per.items():
+        nb = sum(gbytes[ph] for ph in lab.split("+"))
+        us = sum(v) / len(v)
+        gphases[lab] = {"bytes": nb, "us": us, "intervals": len(v),
+                        "tb_per_s": nb / us / 1e6 if us > 0 else None}
+    print(f"  device time per step at production (EVP) on {card}: chunk "
+          f"form (events around 2 chunks of {NCH2} steps) {gchunk_ms:.4f} "
+          f"ms, {(len(glabels) - 1) / NCH2:g} grid barriers per step; plain "
+          f"{gplain_ms:.4f} ms; bound {gbound[0]:.4f} ms by {gbound[1]} "
+          f"({gbound[2] / 1e6:.1f} MB)")
+    print(f"  production chunk of {NCH2} steps by interval "
+          f"({gstamped_ms:.4f} ms per step with the stamps):")
+    for lab, r in gphases.items():
+        bw = f"{r['tb_per_s']:.2f} TB/s" if r["tb_per_s"] else "-"
+        print(f"    {lab}: {r['us']:.2f} us x {r['intervals']}, "
+              f"{r['bytes'] / 1e6:.1f} MB, {bw}")
+    del gb, gpb, stamps
+
     # ---- 4. the 3D kernel against its plain version, on the card
     print("phase 4 3D kernels vs plain (128 x 16 x 8 cells, then "
           "flagship3d)")
 
-    def run3(cfg, n, plain):
+    def run3(cfg, n, plain, reach=False):
         """n fused 3D steps from the config's initial state: the kernel on
         the card, or the plain version on the CPU.  PyTorch on the card
         divides by a Python number as a product with its reciprocal, an
         ulp off true division for a third of the values, which flips exact
         ties of the EVP min-select; on the CPU it divides truly, as the
         kernel does.  The plain run also counts those ties
-        (fused3d.evp_ties)."""
+        (fused3d.evp_ties) and, with ``reach``, returns what ties of equal
+        nonzero invariants can change and how near a tie they are
+        (fused3d.evp_tie_reach)."""
         s3 = des.Simulation(des.param_from_dict(cfg),
                             device="cpu" if plain else "cuda")
         P3 = fused3d.make_plan(s3.param, s3.ctx, s3.device)
@@ -704,6 +958,8 @@ def main():
         sync()
         ties = fused3d.evp_ties(P3, s3.ctx, s3.state) \
             if plain and P3.rheol == fused3d.RH_EVP else None
+        if reach:
+            return out, ties, fused3d.evp_tie_reach(P3, s3.ctx, s3.state)
         return out, ties
 
     def chunk_vs_steps(label, P, ctx, state, n):
@@ -742,8 +998,9 @@ def main():
         vector against the max over its components instead (a component
         that is zero but for rounding, as the y-invariant flagship3d's xy
         shear, has no scale of its own; its error at its own scale is
-        printed beside)."""
-        bad = []
+        printed beside).  Returns the largest error, the viscosity's
+        aside."""
+        bad, worst = [], 0.0
         ne = len(fused3d.E_SLOTS)
         for k, nm in enumerate(names3):
             a, b = (ref_e[k], ker_e[k]) if nm[0] == "e" else \
@@ -765,23 +1022,54 @@ def main():
                       f"{rel(a, b):.3e})"
             else:
                 err = rel(a, b)
+            if nm != "e.viscosity (log)":
+                worst = max(worst, err)
             if not check(f"{label} {nm}", err, tol, stop=False):
                 bad.append(nm)
         if bad:
             fail(f"{label}: kernel and plain version disagree in {bad}")
+        return worst
 
-    def evp3_check(label, ker, ref, ties):
-        """One EVP step, kernel against the plain version on the CPU, at
-        the gate of test_pallas3d.py:126-132 (1e-4 of each field's max,
-        force 1e-3, log-viscosity median 0.02) over every value, the exact
-        ties of the min-select included; returns the largest error."""
-        print(f"  {label}: {int(ties.sum())} of {ties.numel()} elements "
-              "tie exactly in the min-select; none is set aside")
+    def evp3_check(label, ker, ref, ties=None, reach=None):
+        """One step, kernel against the plain version on the CPU, at the
+        gate of test_pallas3d.py:126-132 (1e-4 of each field's max, force
+        1e-3, log-viscosity median 0.02) over every value, the exact ties
+        of the EVP min-select included, or, with ``reach``
+        (fused3d.evp_tie_reach), over the elements and nodes that no tie
+        of equal nonzero invariants reaches, the full error printed
+        beside.  Those are set aside only while each tie is one of
+        rounding (the invariants' float64 gap below the f32 step's own
+        error in them) and they reach at most 5 % of the elements;
+        returns the largest error."""
+        if reach is not None:
+            elems, nodes, gap = reach
+            share = float(elems.double().mean())
+            print(f"  {label}: {int(ties.sum())} of {ties.numel()} "
+                  f"elements tie with both invariants 0, none set aside; "
+                  f"ties of equal nonzero invariants reach "
+                  f"{int(elems.sum())} elements ({share:.2%}, at most 5%) "
+                  f"and {int(nodes.sum())} of {nodes.numel()} "
+                  f"nodes, set aside: their invariants' float64 gap is "
+                  f"{gap:.3f} of the f32 step's own error in them (below "
+                  f"1: a tie of rounding)")
+            if not gap < 1 or share > 0.05:
+                fail(f"{label}: the ties set aside are not ties of "
+                     "rounding, or reach more than 5% of the elements")
+        elif ties is not None:
+            print(f"  {label}: {int(ties.sum())} of {ties.numel()} "
+                  "elements tie exactly in the min-select; none is set "
+                  "aside")
         worst = 0.0
         for f in FIELDS3:
-            err = rel(getattr(ref, f), getattr(ker, f).cpu())
+            a, b = getattr(ref, f), getattr(ker, f).cpu()
+            lab = f"{label} {f}"
+            if reach is not None:
+                m = ~elems if a.shape[0] == elems.numel() else ~nodes
+                lab += f" (all: {rel(a, b):.3e})"
+                a, b = a[m], b[m]
+            err = rel(a, b)
             worst = max(worst, err)
-            check(f"{label} {f}", err, 1e-3 if f == "force" else 1e-4)
+            check(lab, err, 1e-3 if f == "force" else 1e-4)
         dlog = (ref.viscosity.double().log()
                 - ker.viscosity.cpu().double().log())
         check(f"{label} log-viscosity median", float(dlog.abs().median()),
@@ -836,6 +1124,35 @@ def main():
     P3 = fused3d.make_plan(s3.param, s3.ctx, s3.device)
     chunk_vs_steps("3D maxwell 10 steps", P3, s3.ctx, s3.state, 10)
     del s3
+
+    # the mixed instances (two materials, the const pack), 128 x 16 x 8
+    # cells: a 3-step maxwell chunk and one EVP step against the plain
+    # version on the CPU, at the gates above; the chunk form against its
+    # complete steps
+    cfgm = multimat3d_cfg(sim3d_cfg("maxwell", weakzone=1))
+    ker, ref = run3(cfgm, 3, False)[0], run3(cfgm, 3, True)[0]
+    for f in FIELDS3 + ("dt", "time", "max_global_vel_mag", "l2_residual"):
+        check(f"3D two materials maxwell 3-step chunk {f}",
+              rel(getattr(ref, f), getattr(ker, f).cpu()),
+              5e-3 if f == "force" else 1e-3)
+    # the same config on maxwell (no select), one step at the one-step
+    # gate over every value
+    mm_err = evp3_check("3D two materials maxwell 1 step",
+                        run3(cfgm, 1, False)[0], run3(cfgm, 1, True)[0])
+    # on EVP, at visc_max the viscoelastic and elastic-plastic trial
+    # deviators agree and the select compares two invariants that differ
+    # by less than the f32 step rounds them (pressures 1e5 Pa apart)
+    cfge = multimat3d_cfg(sim3d_cfg())
+    mm_err = max(mm_err, evp3_check("3D two materials EVP 1 step",
+                                    run3(cfge, 1, False)[0],
+                                    *run3(cfge, 1, True, reach=True)))
+    s3 = des.Simulation(des.param_from_dict(cfgm), device="cuda")
+    P3 = fused3d.make_plan(s3.param, s3.ctx, s3.device)
+    if P3.uniform:
+        fail("the two-material config took the uniform plan")
+    chunk_vs_steps("3D two materials maxwell 10 steps", P3, s3.ctx,
+                   s3.state, 10)
+    del s3, ker, ref
 
     # the flagship3d main-path Simulation, default device
     t = time.perf_counter()
@@ -956,6 +1273,36 @@ def main():
                      ker, MP3.nx, MP3.ny, MP3.nz)), steps=True)
     del ker, ref
 
+    # the flagship3d_multimat main-path Simulation (bench.py
+    # flagship3d_param(nmat=2)), default device: one maxwell step, every
+    # plane against the plain version on the card, and one step of its
+    # own config (EVP) against the plain version on the CPU over every
+    # value, its ties included
+    t = time.perf_counter()
+    m3 = des.Simulation(des.param_from_dict(flagship3d_cfg(nmat=2)))
+    sync()
+    minit_s = time.perf_counter() - t
+    MP3 = fused3d.make_plan(m3.param, m3.ctx, m3.device)
+    if MP3.uniform or MP3.nmat != 2:
+        fail("flagship3d_multimat did not take the two-material plan")
+    XP3 = fused3d.make_plan(des.param_from_dict(
+        flagship3d_cfg("maxwell", nmat=2)), m3.ctx, m3.device)
+    kb = fused3d.make_buffers(XP3, m3.ctx, m3.state, 1)
+    pb = fused3d.make_buffers(XP3, m3.ctx, m3.state, 1)
+    kb.tgt = pb.tgt = fused3d.vbc_targets(m3.ctx, kb.nin,
+                                          kb.scal[3] + kb.scal[0])
+    fused3d.fused3d_step(XP3, kb)
+    fused3d.fused3d_step_plain(XP3, pb)
+    sync()
+    mm_err = max(mm_err, planes_check("flagship3d_multimat maxwell 1 step",
+                                      pb.eout, pb.nout, kb.eout, kb.nout))
+    del kb, pb
+    ker = fused3d.run_chunk(MP3, m3.ctx, m3.state, 1)
+    mm_err = max(mm_err, evp3_check(
+        "flagship3d_multimat EVP 1 step", ker,
+        *run3(flagship3d_cfg(nmat=2), 1, True)))
+    del ker
+
     # ---- 5. the 2D slice through the main path
     nelem = fsim.ctx.nelem
     t = time.perf_counter()
@@ -1033,6 +1380,52 @@ def main():
           f"{tiled_s:.3f} s, {tiled_rate:.6e} elem*steps/s, fields finite")
     del tsim
 
+    # ---- 5b. the production slice (bench.py production_param): the
+    # production instance of the chunk kernel through the main path
+    t = time.perf_counter()
+    gp = des.Simulation(des.param_from_dict(production_cfg()))
+    sync()
+    ginit_s = time.perf_counter() - t
+    gnelem = gp.ctx.nelem
+    t = time.perf_counter()
+    gp.run_steps(250, chunk=250)
+    sync()
+    gwarm_s = time.perf_counter() - t
+    if gp.step_path != "pallas2d_res":
+        fail(f"production dispatched to {gp.step_path!r}, not pallas2d_res")
+    time0 = float(gp.state.time)
+    zero_counts()
+    t = time.perf_counter()
+    gp.run_steps(500, chunk=250)
+    sync()
+    grun_s = time.perf_counter() - t
+    launches2p = {"fused2d_chunk": fused2d.fused_chunk.launches,
+                  "dt_refresh": fused2d.dt_refresh.launches}
+    if launches2p != {"fused2d_chunk": 2, "dt_refresh": 0}:
+        fail(f"the production path did not launch the chunk kernel once "
+             f"per chunk and dt_refresh never: {launches2p}")
+    if fused2d.fused_step_plain.calls or fused2d.dt_refresh_plain.calls:
+        fail("the production path on the card took a plain version")
+    s = gp.state
+    if not float(s.time) > time0 or int(s.steps) != 750:
+        fail("production model time or the step count did not advance")
+    for f in FIELD_NAMES:
+        v = getattr(s, f)
+        if v.is_floating_point() and not bool(torch.isfinite(v).all()):
+            fail(f"non-finite values in production {f}")
+    if not float(s.dhacc.abs().max()) > 0:
+        fail("production: surface process 1 left dhacc at 0")
+    grate = gnelem * 500 / grun_s
+    print(f"phase 5b production slice: {gnelem} triangles, two materials, "
+          f"Winkler and water tractions, surface process 1; step_path "
+          f"{gp.step_path}, launches {launches2p}, plain versions called 0 "
+          f"times, host setup {ginit_s:.1f} s, warm-up 250 steps "
+          f"{gwarm_s:.2f} s, 500 steps {grun_s:.3f} s, model time "
+          f"{time0:.6e} -> {float(s.time):.6e} s, max |dhacc| "
+          f"{float(s.dhacc.abs().max()):.3e} m, fields finite")
+    print(f"  elem*steps/s: {grate:.6e} on {card}")
+    del gp
+
     # ---- 6. the 3D slice through the main path
     nelem3 = g3.ctx.nelem
     t = time.perf_counter()
@@ -1077,6 +1470,82 @@ def main():
           f"{time0:.6e} -> {float(s.time):.6e} s, fields finite")
     print(f"  elem*steps/s: kernels {rate3:.6e}, plain PyTorch "
           f"{plain_rate3:.6e} (over 5 steps) on {card}")
+
+    # ---- 6b. the flagship3d_multimat slice (bench.py flagship3d_param(
+    # nmat=2)): the mixed instances of kernel 3 through the main path,
+    # chunked as phase 6 chunks flagship3d
+    mnelem = m3.ctx.nelem
+    t = time.perf_counter()
+    m3.run_steps(100, chunk=100)
+    sync()
+    mwarm_s = time.perf_counter() - t
+    if m3.step_path != "pallas3d":
+        fail(f"flagship3d_multimat dispatched to {m3.step_path!r}, not "
+             "pallas3d")
+    time0 = float(m3.state.time)
+    zero_counts()
+    t = time.perf_counter()
+    m3.run_steps(500, chunk=250)
+    sync()
+    mrun_s = time.perf_counter() - t
+    launches3m = {"fused3d_step": fused3d.fused3d_step.launches,
+                  "dt_refresh": fused2d.dt_refresh.launches,
+                  "fused3d_finalize": fused3d.fused3d_finalize.launches}
+    if launches3m != {"fused3d_step": 500, "dt_refresh": 500,
+                      "fused3d_finalize": 2}:
+        fail(f"the two-material 3D path did not launch each step kernel "
+             f"once per step and finalize once per chunk: {launches3m}")
+    if fused3d.chunk_step_plain.calls or fused3d.finalize_plain.calls:
+        fail("the two-material 3D path on the card took a plain version")
+    s = m3.state
+    if not float(s.time) > time0 or int(s.steps) != 600:
+        fail("two-material 3D model time or the step count did not advance")
+    for f in FIELD_NAMES:
+        v = getattr(s, f)
+        if v.is_floating_point() and not bool(torch.isfinite(v).all()):
+            fail(f"non-finite values in two-material 3D {f}")
+    mrate = mnelem * 500 / mrun_s
+    print(f"phase 6b 3D two-material slice: flagship3d_multimat {mnelem} "
+          f"tets, step_path {m3.step_path}, launches {launches3m}, plain "
+          f"versions called 0 times, host setup {minit_s:.1f} s, warm-up "
+          f"100 steps {mwarm_s:.2f} s, 500 steps {mrun_s:.3f} s, model time "
+          f"{time0:.6e} -> {float(s.time):.6e} s, fields finite")
+    print(f"  elem*steps/s: {mrate:.6e} on {card}")
+
+    # the mixed kernel's device times at this size, as phase 4 times the
+    # uniform one
+    mcb = fused3d.make_buffers(MP3, m3.ctx, m3.state, NCH)
+    mkb = fused3d.make_buffers(MP3, m3.ctx, m3.state, 1)
+    mpb = fused3d.make_buffers(MP3, m3.ctx, m3.state, 1)
+
+    def mchunk_kernel():
+        for k in range(NCH):
+            fused3d.fused3d_chunk_step(MP3, mcb, k, NCH)
+            fused2d.dt_refresh(MP3, mcb, k, tiled=True, every=True)
+            mcb.swap()
+        fused3d.fused3d_finalize(MP3, mcb, mcb.ein, mcb.nin, mcb.dthist[-1])
+
+    mstep_ms = device_ms(mchunk_kernel, 1) / NCH
+    mstep_one_ms = device_ms(lambda: fused3d.fused3d_step(MP3, mkb), 20)
+    mstep_plain_ms = device_ms(lambda: fused3d.fused3d_step_plain(MP3, mpb),
+                               2)
+    mread, mwritten = step_bytes(fused3d, MP3, mkb, 6, mkb.cep)
+    mops = step_ops(MP3, 3, mnelem, m3.ctx.nnode)
+    e_lo, n_lo = fused3d.last_only_slots(MP3)
+    m_last_only = (len(e_lo) * nbytes(mkb.eout[0])
+                   + len(n_lo) * nbytes(mkb.nout[0]))
+    mbound = bound(mread, mwritten - m_last_only * (NCH - 1) / NCH, mops)
+    mbound_one = bound(mread, mwritten, mops)
+    mpb3 = [phase_bytes3(MP3, mcb, k > 0, k == NCH - 1) for k in range(NCH)]
+    mbytes3 = {ph: sum(d.get(ph, 0) for d in mpb3) / NCH for ph in mpb3[0]}
+    mbytes3["finalize"] = mpb3[0]["finalize"] / NCH
+    print(f"  device time: flagship3d_multimat fused step, chunk form (a "
+          f"graph of {NCH} steps, their dt_refresh calls and one finalize, "
+          f"over {NCH}) {mstep_ms:.4f} ms (bound {mbound[0]:.4f} ms by "
+          f"{mbound[1]}, {mbound[2] / 1e6:.1f} MB); one-step form "
+          f"{mstep_one_ms:.4f} ms (bound {mbound_one[0]:.4f} ms); plain "
+          f"{mstep_plain_ms:.4f} ms; on {card}")
+    del mcb, mkb, mpb
 
     # ---- 7. device time per launch, by kernel
     from torch.autograd import DeviceType
@@ -1123,6 +1592,9 @@ def main():
     per_kernel("flagship 2D (resident runner)",
                lambda n: fused2d.run_chunk(FP, fsim.ctx, fsim.state, n,
                                            True), 100)
+    per_kernel("production 2D (resident runner)",
+               lambda n: fused2d.run_chunk(GP, gsim.ctx, gsim.state, n,
+                                           True), 100)
     rows3 = per_kernel("flagship3d", lambda n: fused3d.run_chunk(
         FP3, g3.ctx, g3.state, n), NCH)
     print(f"  flagship3d kernel 3 by phase, chunk form of {NCH} steps "
@@ -1136,6 +1608,19 @@ def main():
         print(f"    {ph}: {nb / 1e6:.1f} MB, {us:.1f} us, {bw}")
     print(f"    sum: {sum(bytes3.values()) / 1e6:.1f} MB per step, "
           f"{sum(v['us'] for v in phases3.values()):.1f} us")
+    rows3m = per_kernel("flagship3d_multimat", lambda n: fused3d.run_chunk(
+        MP3, m3.ctx, m3.state, n), NCH)
+    print(f"  flagship3d_multimat kernel 3 (mixed instances) by phase, "
+          f"chunk form of {NCH} steps, on {card}:")
+    phases3m = {}
+    for ph, nb in mbytes3.items():
+        us = rows3m.get(ph, (0, 0.0))[1]
+        phases3m[ph] = {"bytes": nb, "us": us,
+                        "tb_per_s": nb / us / 1e6 if us else None}
+        bw = f"{nb / us / 1e6:.2f} TB/s" if us else "not launched"
+        print(f"    {ph}: {nb / 1e6:.1f} MB, {us:.1f} us, {bw}")
+    print(f"    sum: {sum(mbytes3.values()) / 1e6:.1f} MB per step, "
+          f"{sum(v['us'] for v in phases3m.values()):.1f} us")
 
 
     # ---- 8. the gather and assembly kernels against their plain versions
@@ -1316,7 +1801,8 @@ def main():
     if s.stress.shape != (unelem, 3) or s.coord.shape != (unnode, 2):
         fail(f"unstructured stress has shape {tuple(s.stress.shape)}")
     urate = unelem * 200 / urun_s
-    plain_run = flat2d.make_chunk_runner(usim.param, usim.ctx, 5, plain=True)
+    plain_run = flat2d.make_chunk_runner(
+        usim.param, usim.ctx, usim.compensation_pressure, 5, plain=True)
     plain_run(usim.ctx, s)
     sync()
     t = time.perf_counter()
@@ -1350,7 +1836,8 @@ def main():
                   rel(getattr(on_cpu, f), getattr(on_card, f).cpu()), tol)
 
     per_kernel("unstructured flagship (flat2d)",
-               lambda n: flat2d.make_chunk_runner(usim.param, usim.ctx, n)(
+               lambda n: flat2d.make_chunk_runner(
+                   usim.param, usim.ctx, usim.compensation_pressure, n)(
                    usim.ctx, usim.state), 10)
 
     src2 = "dynearthsol_tpu_torch/csrc/fused2d.cu"
@@ -1402,6 +1889,37 @@ def main():
              nsync / NCH2, "stamped_ms": stamped_ms,
          **bound2, "library_ms": None, "ms_issued_from_python": chunk2_ms,
          **occ2, **by_phase2},
+        {"name": "fused2d_chunk_production", "route": "cuda",
+         "source": src2,
+         "replaces": "dynearthsol_tpu/ops/pallas2d.py:1330",
+         "form": f"the chunk kernel's instance with the Winkler and water "
+                 f"tractions and surface process 1 (two materials), one "
+                 f"cooperative launch per chunk of {NCH2} steps: the "
+                 f"production path (pallas2d_res)",
+         "launches": launches2p["fused2d_chunk"],
+         "launches_by_path": {"pallas2d_res (production)":
+                              launches2p["fused2d_chunk"]},
+         "max_abs_err": prod_err,
+         "err_metric": "max |kernel - plain| / max |plain| over coord, "
+                       "stress, strain, plstrain, force, dhacc and "
+                       "edvacc_surf after one production EVP step (16 x "
+                       "128 cells), and over every plane (viscosity "
+                       "aside, the velocity of dt |f / m|) and the refresh "
+                       "scalars of one full-size production maxwell step; "
+                       "a 25-step chunk at full size equals 25 one-step "
+                       "launches bit for bit",
+         "ms": gchunk_ms, "plain_ms": gplain_ms,
+         "timed_as": f"per step: CUDA events around 2 chunks of {NCH2} "
+                     f"steps, over {2 * NCH2}",
+         "stamped_ms": gstamped_ms,
+         "grid_barriers_per_step": (len(glabels) - 1) / NCH2,
+         "bound_ms": gbound[0], "bound_by": gbound[1],
+         "bound_bytes": gbound[2], "bound_ops": gbound[3],
+         "library_ms": None, "ms_issued_from_python": gchunk_ms,
+         "blocks_per_sm": gocc["blocks_per_sm"], "grid": gocc["grid"],
+         "registers": gocc["registers"], "local_bytes": gocc["local_bytes"],
+         "bytes_by_phase": {k: v["bytes"] for k, v in gphases.items()},
+         "us_by_phase": {k: v["us"] for k, v in gphases.items()}},
         {"name": "dt_refresh", "route": "cuda", "source": src2,
          "replaces": "dynearthsol_tpu/ops/pallas2d.py:1330",
          "form": "one block, launched after every 3D step (the 2D path "
@@ -1437,6 +1955,30 @@ def main():
          "bound_bytes_one_step_form": step3_bound_one[2],
          "bytes_by_phase": phases3,
          "library_ms": None, "ms_issued_from_python": step3_issue_ms},
+        {"name": "fused3d_step_multimat", "route": "cuda", "source": src3,
+         "replaces": "dynearthsol_tpu/ops/pallas3d.py:1583",
+         "form": "the mixed instances of phases A, C, E and G (two "
+                 "materials: the const pack's weights, the mixtures where "
+                 "each phase reads them): the flagship3d_multimat path "
+                 "(pallas3d)",
+         "launches": launches3m["fused3d_step"], "max_abs_err": mm_err,
+         "err_metric": "max |kernel - plain| / max |plain| over the State "
+                       "fields of one two-material maxwell step and one "
+                       "EVP step (128 x 16 x 8 cells) and one "
+                       "flagship3d_multimat EVP step, the plain version "
+                       "on the CPU (the small EVP step away from what its "
+                       "ties of rounding reach), and over every plane "
+                       "(viscosity aside) of one flagship3d_multimat "
+                       "maxwell step, the plain version on the card",
+         "ms": mstep_ms, "plain_ms": mstep_plain_ms,
+         "timed_as": f"chunk form: a CUDA graph of {NCH} steps, their "
+                     f"dt_refresh calls and one finalize, over {NCH}",
+         "ms_one_step_form": mstep_one_ms,
+         "finalize_launches": launches3m["fused3d_finalize"],
+         "bound_ms": mbound[0], "bound_by": mbound[1],
+         "bound_bytes": mbound[2], "bound_ops": mbound[3],
+         "bound_ms_one_step_form": mbound_one[0],
+         "bytes_by_phase": phases3m, "library_ms": None},
     ]
     srcb = "dynearthsol_tpu_torch/csrc/band2d.cu"
     for name, main_site, line in (
@@ -1473,8 +2015,10 @@ def main():
                       "elem_steps_per_s": rate,
                       "plain_elem_steps_per_s": plain_rate,
                       "elem_steps_per_s_tiled": tiled_rate,
+                      "elem_steps_per_s_production": grate,
                       "elem_steps_per_s_3d": rate3,
                       "plain_elem_steps_per_s_3d": plain_rate3,
+                      "elem_steps_per_s_3d_multimat": mrate,
                       "elem_steps_per_s_unstructured": urate,
                       "plain_elem_steps_per_s_unstructured": uplain_rate,
                       "init_s_unstructured": uinit_s,

@@ -344,8 +344,10 @@ def pp_bc_mask(bc, bcflag: np.ndarray) -> np.ndarray:
 class StressBCSpec:
     """Static facet tables for traction boundary conditions
     (apply_stress_bcs / apply_stress_bcs_neumann, bc.cxx:632-875), host
-    numpy, in 2D and 3D.  The tractions themselves are not ported yet: the
-    fused steps refuse ``n_grav > 0`` and ``n_neu > 0``.
+    numpy, in 2D and 3D.  The fused 2D step computes the gravity-facet
+    tractions (Winkler, water loading; ops/fused2d.py); the fused 3D step
+    and the column step refuse ``n_grav > 0``, and every step refuses
+    ``n_neu > 0``.
 
     kind: 0 = Winkler foundation (bottom), 1 = hydrostatic water loading
     (top), 2 = lithostatic sidewall.

@@ -9,7 +9,8 @@
 // and dt_refresh_plain.
 //
 // What bounds it on this card: memory traffic.  A step reads and writes
-// the 17 element planes (2 * nxc * nzc each) and 11 nodal planes (nx * nz)
+// the 17 element planes (2 * nxc * nzc each) and 11 nodal planes (nx * nz;
+// 13 with surface process 1)
 // of the state, f32: at the 512 x 256-cell flagship about 41 MB, a few
 // hundred flops per element and no matrix work, far below the card's
 // flop/byte balance.  The TPU kernel kept the planes in VMEM and recomputed
@@ -33,6 +34,16 @@
 // same kernel with n = 1.  The refresh runs in the last block, which has
 // the least work of the H interval.  The 50 MB L2 does not hold a chunk's
 // ~58 MB of planes and scratch, so no residency is promised.
+//
+// The gravity-facet tractions (Winkler foundation on the bottom node lane,
+// water loading on the top lane) and surface process option 1 (hillslope
+// diffusion of the top lane) live in instances of their own, the template
+// switch X: the instances without them carry none of that code.  The
+// tractions are two more terms of a boundary node's force in F; the
+// Winkler pressure takes the density of the bottom row's cells, which E
+// stores in a scratch plane as it passes them.  The diffusion of a top
+// node reads its neighbours' moved heights, so it runs in a pass of its
+// own (S) behind one more grid sync, on the top lane only.
 //
 // Node sums reproduce the stencil assembly of pallas2d.py asm_local /
 // asm_equal_local / _pad4: each node adds its up-to-four cells' corner
@@ -73,26 +84,29 @@ constexpr int BLOCK = 256;
 enum { E_VOL = 0, E_VOLD, E_SYY, E_PLS, E_DPLS, E_VISC, E_DP, E_EDV,
        E_STRESS, E_STRAIN = E_STRESS + 3, E_SR = E_STRAIN + 3 };
 enum { N_CX = 0, N_CZ, N_VX, N_VZ, N_T, N_MASS, N_TMASS, N_HMASS, N_VOLN,
-       N_FX, N_FZ };
+       N_FX, N_FZ, N_DHACC, N_EDV };
 enum { CE_VALID = 0, CE_RAD, CE_BULK, CE_SHEAR, CE_KAPPA, CE_RHOA, CE_RHOB,
        CE_BUOYA, CE_BUOYB, CE_CPA, CE_CPB, CE_HMA, NCE0 };
 enum { CN_TOP = 0, CN_MX, CN_MZ, CN_YM };
 // ework planes (ops/fused2d.py NEWORK): E's force contributions take 0-5;
 // A's T-diffusion corners 0-2 and dvoldt term 3; G's mass terms 4-6, so
-// that the next step's A writes none of the planes H still reads
-enum { W_DV = 3, W_MASS = 4 };
+// that the next step's A writes none of the planes H still reads; E's
+// bottom-row densities for F's Winkler pressure 6 (one value per column)
+enum { W_DV = 3, W_MASS = 4, W_RHO = 6 };
 // rheology bits (config.py RH_*)
 enum { RH_ELASTIC = 1, RH_VISCOUS = 2, RH_MAXWELL = 3, RH_EP = 5,
        RH_EVP = 7 };
-constexpr int NFP0 = 23;  // ops/fused2d.py FP_FIELDS
+constexpr int NFP0 = 33;  // ops/fused2d.py FP_FIELDS
 
 template <typename T> struct StepParams {
   int nx, nz, nxc, nzc, nmat, rheol, uniform, nmd, thermal, gravity_on,
       damping, surf_corr, quasi_static, use_gvs, oceanic, decay_uniform,
-      fixed_on, jaumann;
+      fixed_on, jaumann, winkler, water, tri_bottom, surf_on;
   T surface_T, visc_min, visc_max, tension_max, fac, one_m_fac, two_m_fac,
       ps2, lam_hl, inertial, log_q, log_1e6, deg2rad, tdmax, max_vbc, ps,
-      swave_ref, fixed_dt, frac, big, lam_u, a1_u, rhoq_u;
+      swave_ref, fixed_dt, frac, big, lam_u, a1_u, rhoq_u, gravity, comp_p,
+      winkler_drho, zlength, sgn_bottom, sgn_top, surf_base, surf_diff,
+      surf_rt, surf_rm;
   T ce[NCE0];
   MatConst<T> mat[MAXMAT];
 };
@@ -109,13 +123,18 @@ StepParams<T> from_host(const int* ip, const double* fp) {
   p.gravity_on = ip[7]; p.damping = ip[8]; p.surf_corr = ip[9];
   p.quasi_static = ip[10]; p.use_gvs = ip[11]; p.oceanic = ip[12];
   p.decay_uniform = ip[13]; p.fixed_on = ip[14]; p.jaumann = ip[15];
+  p.winkler = ip[16]; p.water = ip[17]; p.tri_bottom = ip[18];
+  p.surf_on = ip[19];
   p.nxc = p.nx - 1;
   p.nzc = p.nz - 1;
   T* f[NFP0] = {&p.surface_T, &p.visc_min, &p.visc_max, &p.tension_max,
                 &p.fac, &p.one_m_fac, &p.two_m_fac, &p.ps2, &p.lam_hl,
                 &p.inertial, &p.log_q, &p.log_1e6, &p.deg2rad, &p.tdmax,
                 &p.max_vbc, &p.ps, &p.swave_ref, &p.fixed_dt, &p.frac,
-                &p.big, &p.lam_u, &p.a1_u, &p.rhoq_u};
+                &p.big, &p.lam_u, &p.a1_u, &p.rhoq_u, &p.gravity,
+                &p.comp_p, &p.winkler_drho, &p.zlength, &p.sgn_bottom,
+                &p.sgn_top, &p.surf_base, &p.surf_diff, &p.surf_rt,
+                &p.surf_rm};
   for (int i = 0; i < NFP0; ++i) *f[i] = static_cast<T>(fp[i]);
   for (int i = 0; i < NCE0; ++i) p.ce[i] = static_cast<T>(fp[NFP0 + i]);
   const double* mf = fp + NFP0 + NCE0;
@@ -160,7 +179,7 @@ RefreshParams<T> refresh_of(const StepParams<T>& p) {
 // launch that reads them, so none of them is const.
 template <typename T> struct Bufs {
   T* ein;          // (17, 2, nxc, nzc) state before the step
-  T* nin;          // (11, nx, nz)
+  T* nin;          // (13, nx, nz)
   T* eout;         // state after the step
   T* nout;
   const T* cep;    // (12 + nmat, 2, nxc, nzc) or null (single material)
@@ -198,7 +217,9 @@ template <typename T, bool U> struct Ctx {
     if constexpr (U) {
       w[0] = T(1);
     } else {
-      for (int m = 0; m < p.nmat; ++m) w[m] = b.cep[(NCE0 + m) * 2 * ES + e];
+#pragma unroll  // constant indices: w stays in registers
+      for (int m = 0; m < MAXMAT; ++m)
+        w[m] = m < p.nmat ? b.cep[(NCE0 + m) * 2 * ES + e] : T(0);
     }
   }
   __device__ Moduli<T> moduli(int e) const {
@@ -556,8 +577,9 @@ __device__ __forceinline__ void phase_d(const Ctx<T, U>& C, int n) {
 }
 
 // ---- E, element: NMD correction and force contributions
-// (pallas2d.py:820-836)
-template <typename T, bool U>
+// (pallas2d.py:820-836); with X and the Winkler foundation, the density of
+// the bottom row's facet triangle for F (pallas2d.py:871-873)
+template <typename T, bool U, bool X>
 __device__ __forceinline__ void phase_e(const Ctx<T, U>& C, int c) {
   if (c >= C.ES) return;
   const StepParams<T>& p = C.p;
@@ -587,6 +609,10 @@ __device__ __forceinline__ void phase_e(const Ctx<T, U>& C, int c) {
       C.put(E_STRESS + 1, e, st[1]);
     }
     T TinC = mean3(TT) - T(273.0);
+    if constexpr (X) {
+      if (p.winkler && j == 0 && t == p.tri_bottom)
+        C.work(W_RHO)[i] = C.ce(CE_RHOA, e) - C.ce(CE_RHOB, e) * TinC;
+    }
     T buoy = p.gravity_on ? C.ce(CE_BUOYA, e) - C.ce(CE_BUOYB, e) * TinC
                           : T(0);
     for (int a = 0; a < 3; ++a) {
@@ -596,10 +622,49 @@ __device__ __forceinline__ void phase_e(const Ctx<T, U>& C, int c) {
   }
 }
 
-// ---- F, node: force, damping, velocity + vbc, coordinates
-// (pallas2d.py:837-950 without the facet tractions :840-894); returns the
-// node's |force|^2 for the L2 partial (0 past the end)
+// The gravity-facet tractions of node i of a boundary lane
+// (apply_stress_bcs, bc.cxx:632-790; pallas2d.py:840-894), added to its
+// force: the lane's facets (i, i+1) and (i-1, i), in that order, each
+// adding (-p sgn dz, p sgn dx) / 2 from the pre-move coordinates.  On the
+// bottom lane the Winkler pressure compensation - (rho + drho) g (z +
+// zlength), rho the bottom-row density E stored; on the top lane water
+// loading 1030 g (base - z) below the base level.
 template <typename T, bool U>
+__device__ __forceinline__ void facet_forces(const Ctx<T, U>& C, int i,
+                                             bool bottom, T& fx, T& fz) {
+  const StepParams<T>& p = C.p;
+  const int lane = bottom ? 0 : p.nz - 1;
+  const T* cx = C.b.nin + N_CX * C.NS + lane;  // node column a at a * nz
+  const T* cz = C.b.nin + N_CZ * C.NS + lane;
+  const T sgn = bottom ? p.sgn_bottom : p.sgn_top;
+  T f[2][2] = {{T(0), T(0)}, {T(0), T(0)}};
+#pragma unroll
+  for (int q = 0; q < 2; ++q) {
+    const int a = i - q;  // the facet between node columns a and a + 1
+    if (a < 0 || a >= p.nxc) continue;
+    const T x0 = cx[a * p.nz], x1 = cx[(a + 1) * p.nz];
+    const T z0 = cz[a * p.nz], z1 = cz[(a + 1) * p.nz];
+    const T zc = T(0.5) * (z1 + z0);
+    T pr;
+    if (bottom)
+      pr = p.comp_p - (C.work(W_RHO)[a] + p.winkler_drho) * p.gravity *
+                          (zc + p.zlength);
+    else
+      pr = zc < p.surf_base ? T(1030.0) * p.gravity * (p.surf_base - zc)
+                            : T(0);
+    f[q][0] = T(-0.5) * pr * sgn * (z1 - z0);
+    f[q][1] = T(0.5) * pr * sgn * (x1 - x0);
+  }
+  fx = fx + (f[0][0] + f[1][0]);
+  fz = fz + (f[0][1] + f[1][1]);
+}
+
+// ---- F, node: force (with X the facet tractions first), damping,
+// velocity + vbc, coordinates (pallas2d.py:837-950); returns the node's
+// |force|^2 for the L2 partial (0 past the end), which takes the
+// tractions (pallas2d.py:896-901).  With surface process 1 a top node's
+// moved height also goes to nwork 0, which S reads.
+template <typename T, bool U, bool X>
 __device__ __forceinline__ T phase_f(const Ctx<T, U>& C, int n) {
   if (n >= C.NS) return T(0);
   const StepParams<T>& p = C.p;
@@ -610,6 +675,10 @@ __device__ __forceinline__ T phase_f(const Ctx<T, U>& C, int n) {
                         p.nzc);
   T fz = -asm_corner<T>(C.work(3), C.work(4), C.work(5), C.ES, i, j, p.nxc,
                         p.nzc);
+  if constexpr (X) {
+    if (p.winkler && j == 0) facet_forces(C, i, true, fx, fz);
+    if (p.water && j == p.nz - 1) facet_forces(C, i, false, fx, fz);
+  }
   T r2 = fx * fx + fz * fz;
   T m = C.nin(N_MASS, n), vx = C.nin(N_VX, n), vz = C.nin(N_VZ, n);
   T fdx = fx, fdz = fz;
@@ -634,13 +703,65 @@ __device__ __forceinline__ T phase_f(const Ctx<T, U>& C, int n) {
   T vzn = vz + dt * fdz / m;
   if (b.cnp[CN_MX * C.NS + n] > T(0)) vxn = b.tgt[n];
   if (b.cnp[CN_MZ * C.NS + n] > T(0)) vzn = b.tgt[C.NS + n];
+  const T zn = C.nin(N_CZ, n) + vzn * dt;
   b.nout[N_CX * C.NS + n] = C.nin(N_CX, n) + vxn * dt;
-  b.nout[N_CZ * C.NS + n] = C.nin(N_CZ, n) + vzn * dt;
+  b.nout[N_CZ * C.NS + n] = zn;
+  if constexpr (X) {
+    if (p.surf_on && j == p.nz - 1) b.nwork[n] = zn;
+  }
   b.nout[N_VX * C.NS + n] = vxn;
   b.nout[N_VZ * C.NS + n] = vzn;
   b.nout[N_FX * C.NS + n] = fdx;
   b.nout[N_FZ * C.NS + n] = fdz;
   return r2;
+}
+
+// ---- S, top node i (surface process option 1, X only): FD hillslope
+// diffusion of the top lane (surface_dh_2d, bc.cxx:990-1073;
+// pallas2d.py:952-991) between the coordinate update and the post-move
+// geometry.  It reads the moved heights F left in nwork 0 (so that no
+// thread reads a height another has already diffused) and the moved x of
+// the nodes i-1 .. i+2, and writes the diffused height, dhacc, and the
+// per-facet deposited volume edv = (dh_i + dh_i+1) |dx| / 2 of the facet
+// (i, i+1) at its left node (bc.cxx:1745-1760).
+template <typename T, bool U>
+__device__ __forceinline__ void phase_s(const Ctx<T, U>& C, int i) {
+  const StepParams<T>& p = C.p;
+  if (i >= p.nx) return;
+  const Bufs<T>& b = C.b;
+  const int L = p.nz - 1;
+  const T* X = b.nout + N_CX * C.NS + L;  // node column a at a * nz
+  const T* Z = b.nwork + L;
+  const T* top = b.cnp + CN_TOP * C.NS + L;
+  const T dt = b.scal[0];
+  // slope of the facet between node columns a and a + 1, and its |dx|
+  auto slope = [&](int a, T& adx) {
+    adx = dabs(X[(a + 1) * p.nz] - X[a * p.nz]);
+    return (Z[(a + 1) * p.nz] - Z[a * p.nz]) / (adx > T(0) ? adx : T(1));
+  };
+  auto dh_at = [&](int m) {
+    T sa = T(0), da = T(0), sb = T(0), db = T(0);
+    if (m < p.nxc) sa = -slope(m, da);
+    if (m >= 1) sb = slope(m - 1, db);
+    const T ts = sa + sb, td = da + db;
+    const T conv = p.surf_diff * dt * ts / (td > T(0) ? td : T(1));
+    const T z = Z[m * p.nz];
+    const T dh = (z > p.surf_base && conv > T(0))    ? -p.surf_rt * conv
+                 : (z <= p.surf_base && conv < T(0)) ? -p.surf_rm * conv
+                                                     : -conv;
+    return top[m * p.nz] > T(0) ? dh : T(0);
+  };
+  const int n = i * p.nz + L;
+  const T dh = dh_at(i);
+  T dv = T(0);
+  if (i < p.nxc) {
+    T adx;
+    slope(i, adx);
+    dv = (dh_at(i + 1) + dh) * adx * T(0.5);
+  }
+  b.nout[N_CZ * C.NS + n] = Z[i * p.nz] + dh;
+  b.nout[N_DHACC * C.NS + n] = C.nin(N_DHACC, n) + dh;
+  b.nout[N_EDV * C.NS + n] = C.nin(N_EDV, n) + dv;
 }
 
 // CFL metrics of one cell: min height, min height / shear-wave speed,
@@ -744,7 +865,9 @@ __device__ __forceinline__ Cfl<T> phase_g(const Ctx<T, U>& C, int c,
         C.weights(e, w);
         T dom = w[0];
         int dom_m = 0;
-        for (int m = 1; m < p.nmat; ++m) {
+#pragma unroll
+        for (int m = 1; m < MAXMAT; ++m) {
+          if (m >= p.nmat) break;
           if (w[m] > dom) dom_m = m;
           dom = dmax(dom, w[m]);
         }
@@ -892,9 +1015,16 @@ __device__ __forceinline__ void for_vblocks(int nvb, F body) {
 //             Without NMD there is no D, and C and E share an interval: E
 //             reads only its own cell's C outputs, written by the same
 //             thread.
-//   after E:  F sums E's force contributions (ework 0-5).
+//   after E:  F sums E's force contributions (ework 0-5) and, with the
+//             Winkler foundation (X), reads E's bottom-row densities of
+//             neighbouring columns (ework 6; H read it last, two syncs
+//             earlier).
 //   after F:  G gathers F's moved coordinates and velocities; G
-//             overwrites ework 4-5, which F read.
+//             overwrites ework 4-6, which F read.  With surface process 1
+//             (X) S comes first: it reads the moved heights and x of
+//             neighbouring top nodes (nwork 0, nout) that F wrote.
+//   after S:  (surface process 1) G gathers the top lane's diffused
+//             heights.
 //   after G:  H sums G's volumes (eout E_VOL) and mass terms (ework 4-6);
 //             the refresh finishes F's L2 and G's CFL partials of every
 //             block.  Step k+1's A runs in the same interval: it reads the
@@ -908,7 +1038,7 @@ __device__ __forceinline__ void for_vblocks(int nvb, F body) {
 // spilled), which puts every virtual block of a flagship phase on the card
 // at once; on an H100 that is faster than 2 blocks per SM at the 90
 // registers the kernel takes uncapped, and than 3 (PERF.md).
-template <typename T, bool U>
+template <typename T, bool U, bool X>
 __global__ void __launch_bounds__(BLOCK, 4)
     step_chunk2d(StepParams<T> p, RefreshParams<T> rp, Bufs<T> b, int n,
                  int tiled, unsigned long long* stamps) {
@@ -950,13 +1080,20 @@ __global__ void __launch_bounds__(BLOCK, 4)
       for_vblocks(gn, [&](int i, int) { phase_d(C, i); });
       sync();
     }
-    for_vblocks(gc, [&](int c, int) { phase_e(C, c); });
+    for_vblocks(gc, [&](int c, int) { phase_e<T, U, X>(C, c); });
     sync();
     for_vblocks(gn, [&](int i, int vb) {
-      T r2 = block_reduce(phase_f(C, i), sh, AddOp<T>());
+      T r2 = block_reduce(phase_f<T, U, X>(C, i), sh, AddOp<T>());
       if (threadIdx.x == 0) s.part[3 * s.nb + vb] = r2;
     });
     sync();
+    if constexpr (X) {
+      if (p.surf_on) {  // a kernel argument: uniform across the grid
+        for_vblocks((p.nx + BLOCK - 1) / BLOCK,
+                    [&](int i, int) { phase_s(C, i); });
+        sync();
+      }
+    }
     const bool refresh = s.flag[0] > T(0);  // uniform across the grid
     const bool decay = s.flag[1] > T(0);
     for_vblocks(gc, [&](int c, int vb) {
@@ -995,7 +1132,7 @@ __global__ void __launch_bounds__(BLOCK) grid_barriers(int nsync) {
 // The chunk kernel's grid: as many blocks as the card holds at once, at
 // most one per virtual block.  info (or null): blocks per SM, SMs, grid,
 // registers per thread, local (stack) bytes per thread.
-template <typename T, bool U>
+template <typename T, bool U, bool X>
 cudaError_t chunk_grid(int nvb, int* grid, int* info) {
   int dev, sms, bps;
   cudaError_t e;
@@ -1004,13 +1141,14 @@ cudaError_t chunk_grid(int nvb, int* grid, int* info) {
                                   dev)) != cudaSuccess)
     return e;
   if ((e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
-           &bps, step_chunk2d<T, U>, BLOCK, 0)) != cudaSuccess)
+           &bps, step_chunk2d<T, U, X>, BLOCK, 0)) != cudaSuccess)
     return e;
   if (bps < 1) return cudaErrorCooperativeLaunchTooLarge;
   *grid = nvb < bps * sms ? nvb : bps * sms;
   if (info) {
     cudaFuncAttributes a;
-    if ((e = cudaFuncGetAttributes(&a, step_chunk2d<T, U>)) != cudaSuccess)
+    if ((e = cudaFuncGetAttributes(&a, step_chunk2d<T, U, X>)) !=
+        cudaSuccess)
       return e;
     info[0] = bps; info[1] = sms; info[2] = *grid;
     info[3] = a.numRegs; info[4] = int(a.localSizeBytes);
@@ -1018,19 +1156,19 @@ cudaError_t chunk_grid(int nvb, int* grid, int* info) {
   return cudaSuccess;
 }
 
-template <typename T, bool U>
+template <typename T, bool U, bool X>
 int launch_chunk(StepParams<T> p, Bufs<T> b, int n, int tiled,
                  unsigned long long* stamps, cudaStream_t s) {
   const int gc = (p.nxc * p.nzc + BLOCK - 1) / BLOCK;
   const int gn = (p.nx * p.nz + BLOCK - 1) / BLOCK;
   if (gc > b.nb || gn > b.nb || n < 1) return int(cudaErrorInvalidValue);
   int grid;
-  cudaError_t e = chunk_grid<T, U>(gc > gn ? gc : gn, &grid, nullptr);
+  cudaError_t e = chunk_grid<T, U, X>(gc > gn ? gc : gn, &grid, nullptr);
   if (e != cudaSuccess) return int(e);
   RefreshParams<T> rp = refresh_of(p);
   void* args[] = {&p, &rp, &b, &n, &tiled, &stamps};
   e = cudaLaunchCooperativeKernel(
-      (const void*)step_chunk2d<T, U>, dim3(grid),
+      (const void*)step_chunk2d<T, U, X>, dim3(grid),
       dim3(BLOCK), args, 0, s);
   cudaError_t last = cudaGetLastError();
   return int(e != cudaSuccess ? e : last);
@@ -1058,16 +1196,25 @@ int des_fused2d_chunk_f32(const int* ip, const double* fp, float* ein,
   Bufs<float> b{ein, nin, eout, nout, cep, cnp, tgt, scal, flag, dthist,
                 ework, nwork, part, nb};
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  return p.uniform ? launch_chunk<float, true>(p, b, n, tiled, stamps, s)
-                   : launch_chunk<float, false>(p, b, n, tiled, stamps, s);
+  // X: the instance with the facet tractions and surface process 1
+  const bool x = p.winkler || p.water || p.surf_on;
+  if (p.uniform)
+    return x ? launch_chunk<float, true, true>(p, b, n, tiled, stamps, s)
+             : launch_chunk<float, true, false>(p, b, n, tiled, stamps, s);
+  return x ? launch_chunk<float, false, true>(p, b, n, tiled, stamps, s)
+           : launch_chunk<float, false, false>(p, b, n, tiled, stamps, s);
 }
 
-// The chunk kernel's grid for nvb virtual blocks; out: blocks per SM, SMs,
-// grid, registers per thread, local bytes per thread.
-int des_fused2d_chunk_occupancy(int uniform, int nvb, int* out) {
+// The grid of the chunk kernel's instance (uniform, extras: the facet
+// tractions and surface process 1) for nvb virtual blocks; out: blocks per
+// SM, SMs, grid, registers per thread, local bytes per thread.
+int des_fused2d_chunk_occupancy(int uniform, int extras, int nvb, int* out) {
   int grid;
-  return int(uniform ? chunk_grid<float, true>(nvb, &grid, out)
-                     : chunk_grid<float, false>(nvb, &grid, out));
+  if (uniform)
+    return int(extras ? chunk_grid<float, true, true>(nvb, &grid, out)
+                      : chunk_grid<float, true, false>(nvb, &grid, out));
+  return int(extras ? chunk_grid<float, false, true>(nvb, &grid, out)
+                    : chunk_grid<float, false, false>(nvb, &grid, out));
 }
 
 // nsync grid syncs on a cooperative grid of `grid` blocks, nothing else

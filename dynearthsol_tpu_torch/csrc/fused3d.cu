@@ -72,6 +72,17 @@
 // is a fixed two-pass tree (block partials here, the final pass in
 // dt_refresh).
 //
+// Material properties (pallas3d.py:825-946): a single material with
+// uniform ICs takes them as plan constants (the template switch U);
+// otherwise the const pack `cep` holds the radiogenic source and each
+// material's raw marker weight per tet, and each phase that reads a
+// property mixes it from the weights where it reads it (Props: harmonic
+// means of the moduli, arithmetic means of the rest, matprops.cxx:115-144),
+// as the TPU kernel recomputes them:
+// A (conductivity, density, radiogenic source), C (moduli, the viscosity's
+// and the plastic weakening's material loops), E (buoyancy), G (density,
+// moduli, heat capacity, the hmass coefficient).
+//
 // Built without FMA contraction (-fmad=false, ops/_build.py): the initial
 // volume (ops/shapefn.compute_volume, the same operations) then equals the
 // step's volume bit for bit, and every +, -, * and / rounds as in the plain
@@ -100,7 +111,14 @@ enum { N_CX = 0, N_CY, N_CZ, N_VX, N_VY, N_VZ, N_T, N_MASS, N_TMASS, N_HMASS,
 enum { CN_TOP = 0, CN_MX, CN_MY, CN_MZ };
 enum { RH_ELASTIC = 1, RH_VISCOUS = 2, RH_MAXWELL = 3, RH_EP = 5,
        RH_EVP = 7 };
-constexpr int NFP0 = 22;  // ops/fused3d.py FP_FIELDS
+constexpr int NFP0 = 23;  // ops/fused3d.py FP_FIELDS
+
+// Per-material table values of the mixtures (ops/fused3d.py MIX_FIELDS),
+// in the run dtype
+template <typename T> struct MixConst {
+  T K, G, kappa, rho0, rho0a, phi, cp, biot, ifbm;
+};
+constexpr int NMIX = 9;
 
 // structured.tet_tables(), 3 bits per (tet, slot) entry, entry t*4 + s:
 // even ((0,1,4,2), (1,2,3,7), (1,4,7,5), (2,4,6,7), (1,2,7,4)),
@@ -131,22 +149,26 @@ __device__ __forceinline__ int tet_mask(int par, int q) {
 
 template <typename T> struct Params3 {
   int nx, ny, nz, nxc, nyc, nzc, NC, NS, NT, rheol, nmd, thermal,
-      gravity_on, damping, surf_corr, quasi_static, use_gvs, jaumann;
+      gravity_on, damping, surf_corr, quasi_static, use_gvs, jaumann,
+      uniform, nmat;
   T surface_T, visc_min, visc_max, tension_max, fac, one_m_fac, two_m_fac,
       inertial, log_q, log_1e6, deg2rad, ps2, bulkm, shearm, kappa, rhoA,
-      rhoB, buoyA, buoyB, cpA, cpB, hmA;
-  MatConst<T> mat[1];
+      rhoB, buoyA, buoyB, cpA, cpB, hmA, g_npe;
+  MatConst<T> mat[MAXMAT];
+  MixConst<T> mix[MAXMAT];
 };
 
 // ip/fp are ops/fused3d.py StepPlan3.ip (IP_FIELDS) and .fp (FP_FIELDS,
-// then MAT_FIELDS of the one material); each float64 is rounded to T once.
+// then per material its MAT_FIELDS and MIX_FIELDS); each float64 is
+// rounded to T once.  The caller has refused nmat > MAXMAT.
 template <typename T>
 Params3<T> from_host(const int* ip, const double* fp) {
   Params3<T> p;
   p.nx = ip[0]; p.ny = ip[1]; p.nz = ip[2]; p.rheol = ip[3];
   p.nmd = ip[4]; p.thermal = ip[5]; p.gravity_on = ip[6];
   p.damping = ip[7]; p.surf_corr = ip[8]; p.quasi_static = ip[9];
-  p.use_gvs = ip[10]; p.jaumann = ip[11];
+  p.use_gvs = ip[10]; p.jaumann = ip[11]; p.uniform = ip[12];
+  p.nmat = ip[13];
   p.nxc = p.nx - 1; p.nyc = p.ny - 1; p.nzc = p.nz - 1;
   p.NT = p.nxc * p.nyc;  // cells of one z layer
   p.NC = p.NT * p.nzc;
@@ -155,10 +177,15 @@ Params3<T> from_host(const int* ip, const double* fp) {
                 &p.fac, &p.one_m_fac, &p.two_m_fac, &p.inertial, &p.log_q,
                 &p.log_1e6, &p.deg2rad, &p.ps2, &p.bulkm, &p.shearm,
                 &p.kappa, &p.rhoA, &p.rhoB, &p.buoyA, &p.buoyB, &p.cpA,
-                &p.cpB, &p.hmA};
+                &p.cpB, &p.hmA, &p.g_npe};
   for (int i = 0; i < NFP0; ++i) *f[i] = static_cast<T>(fp[i]);
-  T* v = &p.mat[0].pw;  // MatConst is NMATFIELD consecutive T
-  for (int q = 0; q < NMATFIELD; ++q) v[q] = static_cast<T>(fp[NFP0 + q]);
+  for (int m = 0; m < p.nmat && m < MAXMAT; ++m) {
+    const double* mf = fp + NFP0 + m * (NMATFIELD + NMIX);
+    T* v = &p.mat[m].pw;  // MatConst is NMATFIELD consecutive T
+    for (int q = 0; q < NMATFIELD; ++q) v[q] = static_cast<T>(mf[q]);
+    T* x = &p.mix[m].K;   // MixConst is NMIX consecutive T
+    for (int q = 0; q < NMIX; ++q) x[q] = static_cast<T>(mf[NMATFIELD + q]);
+  }
   return p;
 }
 
@@ -167,6 +194,7 @@ template <typename T> struct Bufs3 {
   const T* nin;   // (14, nx, ny, nz)
   T* eout;        // state after the step
   T* nout;
+  const T* cep;   // (1 + nmat, 5, nxc, nyc, nzc) const pack, or null (U)
   const T* cnp;   // (4, nx, ny, nz)
   const T* tgt;   // (3, nx, ny, nz) vbc targets
   const T* scal;  // dt, vmax, gdtmin, time, r2, dt_maxwell
@@ -207,6 +235,101 @@ __device__ __forceinline__ CellPos<T> cell_pos(const Params3<T>& p, int c) {
   r.n0 = (r.i * p.ny + r.j) * p.nz + r.k;
   return r;
 }
+
+// The material properties of tet t of cell c (pallas3d.py CE, W): plan
+// constants for a single material (U); else mixed from the raw weights of
+// the const pack, each mixture computed where it is read, as
+// ops/fused3d.py mixtures orders it: amean = (w0 v0 + w1 v1 + ...) / ws,
+// hmean = ws / (w0 / v0 + w1 / v1 + ...), ws the weights' sum (1 where 0).
+template <typename T, bool U> struct Props {
+  const Params3<T>& p;
+  T w[U ? 1 : MAXMAT], ws;
+  __device__ Props(const Params3<T>& p_, const Bufs3<T>& b, int t, int c)
+      : p(p_) {
+    if constexpr (U) {
+      w[0] = T(1);
+      ws = T(1);
+    } else {
+      ws = T(0);
+#pragma unroll
+      for (int m = 0; m < MAXMAT; ++m) {
+        w[m] = m < p.nmat ? b.cep[eidx(p, 1 + m, t, c)] : T(0);
+        if (m == 0) ws = w[0];
+        else if (m < p.nmat) ws = ws + w[m];
+      }
+      ws = ws > T(0) ? ws : T(1);
+    }
+  }
+  template <class F> __device__ T amean(F f) const {
+    T acc = w[0] * f(p.mix[0]);
+#pragma unroll
+    for (int m = 1; m < MAXMAT; ++m)
+      if (m < p.nmat) acc = acc + w[m] * f(p.mix[m]);
+    return acc / ws;
+  }
+  template <class F> __device__ T hmean(F f) const {
+    T acc = w[0] / f(p.mix[0]);
+#pragma unroll
+    for (int m = 1; m < MAXMAT; ++m)
+      if (m < p.nmat) acc = acc + w[m] / f(p.mix[m]);
+    return ws / acc;
+  }
+  __device__ T bulkm() const {
+    if constexpr (U) return p.bulkm;
+    else return hmean([](const MixConst<T>& q) { return q.K; });
+  }
+  __device__ T shearm() const {
+    if constexpr (U) return p.shearm;
+    else return hmean([](const MixConst<T>& q) { return q.G; });
+  }
+  __device__ T kappa() const {
+    if constexpr (U) return p.kappa;
+    else return amean([](const MixConst<T>& q) { return q.kappa; });
+  }
+  __device__ T rhoA() const {
+    if constexpr (U) return p.rhoA;
+    else return amean([](const MixConst<T>& q) { return q.rho0; });
+  }
+  __device__ T rhoB() const {
+    if constexpr (U) return p.rhoB;
+    else return amean([](const MixConst<T>& q) { return q.rho0a; });
+  }
+  __device__ T phi() const {
+    return amean([](const MixConst<T>& q) { return q.phi; });
+  }
+  __device__ T buoyA() const {
+    if constexpr (U) {
+      return p.buoyA;
+    } else {
+      const T f = phi();
+      return ((T(1) - f) * rhoA() + T(1000) * f) * p.g_npe;
+    }
+  }
+  __device__ T buoyB() const {
+    if constexpr (U) return p.buoyB;
+    else return (T(1) - phi()) * rhoB() * p.g_npe;
+  }
+  __device__ T cpA() const {
+    if constexpr (U) return p.cpA;
+    else return amean([](const MixConst<T>& q) { return q.cp; }) * rhoA();
+  }
+  __device__ T cpB() const {
+    if constexpr (U) return p.cpB;
+    else return amean([](const MixConst<T>& q) { return q.cp; }) * rhoB();
+  }
+  // 3D bulk_comp = 1/K (geometry.cxx:1098)
+  __device__ T hmA() const {
+    if constexpr (U) {
+      return p.hmA;
+    } else {
+      const T f = phi();
+      const T ab = amean([](const MixConst<T>& q) { return q.biot; });
+      return ((ab + f - ab * f) / bulkm() +
+              f * hmean([](const MixConst<T>& q) { return q.ifbm; })) /
+             T(4);
+    }
+  }
+};
 
 template <typename T> struct Shape3 {
   T dx[4], dy[4], dz[4];
@@ -440,8 +563,9 @@ __device__ __forceinline__ int sfac_idx(const Params3<T>& p, int t, int c) {
   return t * p.NT + c / p.nzc;
 }
 
-// ---- A, cell: T-diffusion and dvoldt corner partials (pallas3d.py:958-997)
-template <int PAR, typename T>
+// ---- A, cell: T-diffusion and dvoldt corner partials (pallas3d.py:958-997),
+// with a radiogenic source when the material is mixed (U false)
+template <int PAR, bool U, typename T>
 __device__ __forceinline__ void cell_a(const Params3<T>& p, const Bufs3<T>& b,
                                        int c, const T* X, const T* Y,
                                        const T* Z, const T* VX, const T* VY,
@@ -468,11 +592,25 @@ __device__ __forceinline__ void cell_a(const Params3<T>& p, const Bufs3<T>& b,
     }
     if (p.thermal) {
       T gx = dot4(sh.dx, ts), gy = dot4(sh.dy, ts), gz = dot4(sh.dz, ts);
-      T kv = p.kappa * vol;
+      if constexpr (U) {
+        T kv = p.kappa * vol;
 #pragma unroll
-      for (int s = 0; s < 4; ++s) {
-        const int q = tet_corner(PAR, t, s);
-        tp[q] = tp[q] + kv * (sh.dx[s] * gx + sh.dy[s] * gy + sh.dz[s] * gz);
+        for (int s = 0; s < 4; ++s) {
+          const int q = tet_corner(PAR, t, s);
+          tp[q] = tp[q] + kv * (sh.dx[s] * gx + sh.dy[s] * gy + sh.dz[s] * gz);
+        }
+      } else {
+        // radiogenic source (fields.cxx:197-283; pallas3d.py:985-991)
+        const Props<T, false> pr(p, b, t, c);
+        const T kv = pr.kappa() * vol;
+        const T rho = pr.rhoA() - pr.rhoB() * (mean4(ts) - T(273.0));
+        const T src = b.cep[eidx(p, 0, t, c)] * vol * rho / T(4);
+#pragma unroll
+        for (int s = 0; s < 4; ++s) {
+          const int q = tet_corner(PAR, t, s);
+          tp[q] = tp[q] +
+                  (kv * (sh.dx[s] * gx + sh.dy[s] * gy + sh.dz[s] * gz) - src);
+        }
       }
     }
   }
@@ -483,7 +621,7 @@ __device__ __forceinline__ void cell_a(const Params3<T>& p, const Bufs3<T>& b,
   }
 }
 
-template <typename T>
+template <typename T, bool U>
 __global__ void __launch_bounds__(BLOCK) phase_a(Params3<T> p, Bufs3<T> b) {
   CellOf<T> cc;
   if (!cell_of_thread(p, cc)) return;
@@ -498,9 +636,9 @@ __global__ void __launch_bounds__(BLOCK) phase_a(Params3<T> p, Bufs3<T> b) {
     TT[q] = p.thermal ? g[N_T * p.NS + o] : T(0);
   }
   if (cc.odd)
-    cell_a<1>(p, b, cc.c, X, Y, Z, VX, VY, VZ, TT);
+    cell_a<1, U>(p, b, cc.c, X, Y, Z, VX, VY, VZ, TT);
   else
-    cell_a<0>(p, b, cc.c, X, Y, Z, VX, VY, VZ, TT);
+    cell_a<0, U>(p, b, cc.c, X, Y, Z, VX, VY, VZ, TT);
 }
 
 // ---- B, node: temperature and dvoldt (pallas3d.py:999-1005)
@@ -530,7 +668,7 @@ __global__ void __launch_bounds__(BLOCK) phase_b(Params3<T> p, Bufs3<T> b) {
 
 // ---- C, tet: the pending epilogue of the previous step, edvoldt, strain,
 // constitutive update, dpressure (pallas3d.py:1046-1169)
-template <typename T>
+template <typename T, bool U>
 __global__ void __launch_bounds__(BLOCK) phase_c(Params3<T> p, Bufs3<T> b) {
   int e = blockIdx.x * BLOCK + threadIdx.x;
   if (e >= 5 * p.NC) return;
@@ -588,13 +726,14 @@ __global__ void __launch_bounds__(BLOCK) phase_c(Params3<T> p, Bufs3<T> b) {
   const int rh = p.rheol;
   const bool creep = rh == RH_VISCOUS || rh == RH_MAXWELL || rh == RH_EVP;
   T dpls = rh == RH_EP ? T(0) : b.ein[eidx(p, E_DPLS, t, c)];
-  const T K = p.bulkm, G = p.shearm;
-  const T w[1] = {T(1)};
+  const Props<T, U> pr(p, b, t, c);
+  const T K = pr.bulkm(), G = pr.shearm();
+  const int nmat = U ? 1 : p.nmat;
   T visc;
   if (creep) {
     T s0m = (so[0] + so[1] + so[2]) / T(3);
     T ed = dmax(dsqrt(inv2_6(sr)), T(1e-30));
-    visc = visc_core(p.mat, 1, w, temp_e, s0m, ed, p.log_q, p.log_1e6,
+    visc = visc_core(p.mat, nmat, pr.w, temp_e, s0m, ed, p.log_q, p.log_1e6,
                      p.visc_min, p.visc_max);
   } else {
     visc = b.ein[eidx(p, E_VISC, t, c)];
@@ -609,8 +748,8 @@ __global__ void __launch_bounds__(BLOCK) phase_c(Params3<T> p, Bufs3<T> b) {
     maxwell3(K, G, visc, dt, dv, de, so, sc);
   } else {  // RH_EP or RH_EVP
     T amc, anphi, anpsi, hardn, ten_max, sp[6], depls;
-    plastic_props(p.mat, 1, w, pls, p.tension_max, p.deg2rad, amc, anphi,
-                  anpsi, hardn, ten_max);
+    plastic_props(p.mat, nmat, pr.w, pls, p.tension_max, p.deg2rad, amc,
+                  anphi, anpsi, hardn, ten_max);
     elasto_plastic3(K, G, amc, anphi, anpsi, hardn, ten_max, de, so, sp,
                     depls);
     bool use_v = false;
@@ -668,7 +807,7 @@ __global__ void __launch_bounds__(BLOCK) phase_d(Params3<T> p, Bufs3<T> b) {
 // ---- E, cell: NMD correction (in registers: the stored stress keeps its
 // epilogue pending) and force corner partials (pallas3d.py:1025-1044,
 // :1176-1205)
-template <int PAR, typename T>
+template <int PAR, bool U, typename T>
 __device__ __forceinline__ void cell_e(const Params3<T>& p, const Bufs3<T>& b,
                                        int c, const T* X, const T* Y,
                                        const T* Z, const T* TT, const T* DP) {
@@ -697,7 +836,10 @@ __device__ __forceinline__ void cell_e(const Params3<T>& p, const Bufs3<T>& b,
       for (int a = 0; a < 3; ++a) st[a] = st[a] + ddp;
     }
     T buoy = T(0);
-    if (p.gravity_on) buoy = p.buoyA - p.buoyB * (mean4(ts) - T(273.0));
+    if (p.gravity_on) {
+      const Props<T, U> pr(p, b, t, c);
+      buoy = pr.buoyA() - pr.buoyB() * (mean4(ts) - T(273.0));
+    }
 #pragma unroll
     for (int s = 0; s < 4; ++s) {
       const int q = tet_corner(PAR, t, s);
@@ -715,7 +857,7 @@ __device__ __forceinline__ void cell_e(const Params3<T>& p, const Bufs3<T>& b,
     for (int q = 0; q < 8; ++q) b.ework[(a * 8 + q) * p.NC + c] = fp[a][q];
 }
 
-template <typename T>
+template <typename T, bool U>
 __global__ void __launch_bounds__(BLOCK) phase_e(Params3<T> p, Bufs3<T> b) {
   CellOf<T> cc;
   if (!cell_of_thread(p, cc)) return;
@@ -730,9 +872,9 @@ __global__ void __launch_bounds__(BLOCK) phase_e(Params3<T> p, Bufs3<T> b) {
     DP[q] = p.nmd ? b.nwork[p.NS + o] : T(0);
   }
   if (cc.odd)
-    cell_e<1>(p, b, cc.c, X, Y, Z, TT, DP);
+    cell_e<1, U>(p, b, cc.c, X, Y, Z, TT, DP);
   else
-    cell_e<0>(p, b, cc.c, X, Y, Z, TT, DP);
+    cell_e<0, U>(p, b, cc.c, X, Y, Z, TT, DP);
 }
 
 // ---- F, node: force, L2 partial, damping, velocity + vbc, coordinates
@@ -781,7 +923,7 @@ __global__ void __launch_bounds__(BLOCK) phase_f(Params3<T> p, Bufs3<T> b) {
 
 // ---- G, cell: each of the cell's tets' post-move volume, CFL partials,
 // mass terms and surface factor of the epilogue (pallas3d.py:1395-1534)
-template <int PAR, typename T>
+template <int PAR, bool U, typename T>
 __device__ __forceinline__ void cell_g(const Params3<T>& p, const Bufs3<T>& b,
                                        int c, bool top, const T* X,
                                        const T* Y, const T* Z, const T* VX,
@@ -797,8 +939,10 @@ __device__ __forceinline__ void cell_g(const Params3<T>& p, const Bufs3<T>& b,
       x[s] = X[q]; y[s] = Y[q]; z[s] = Z[q];
       vx[s] = VX[q]; vy[s] = VY[q]; vz[s] = VZ[q]; ts[s] = TT[q];
     }
+    const Props<T, U> pr(p, b, t, c);
     const T TinC = mean4(ts) - T(273.0);
-    const T rho_e = p.rhoA - p.rhoB * TinC;
+    const T rho_e = pr.rhoA() - pr.rhoB() * TinC;
+    const T shearm = pr.shearm();
     const T vol = b.ein[eidx(p, E_VOL, t, c)];
     const T vn = tet_volume(x, y, z);
 
@@ -807,21 +951,21 @@ __device__ __forceinline__ void cell_g(const Params3<T>& p, const Bufs3<T>& b,
     const T h = tet_min_height(x, y, z, vn);
     vmax = dmax(vmax, dsqrt(vxm * vxm + vym * vym + vzm * vzm));
     hmin = dmin(hmin, h);
-    hsmin = dmin(hsmin, h / dsqrt(p.shearm / rho_e));
+    hsmin = dmin(hsmin, h / dsqrt(shearm / rho_e));
 
     // (pseudo-)mass matrices (geometry.cxx:1020-1154)
     T rho_q;
     if (p.use_gvs) {
-      T app = dmin(b.scal[1] * p.inertial, dsqrt(p.shearm / rho_e));
-      rho_q = p.bulkm / (app * app);
+      T app = dmin(b.scal[1] * p.inertial, dsqrt(shearm / rho_e));
+      rho_q = pr.bulkm() / (app * app);
     } else {
-      rho_q = p.bulkm / p.ps2;
+      rho_q = pr.bulkm() / p.ps2;
     }
     const T rho_m = p.quasi_static ? rho_q : rho_e;
     const int e = t * p.NC + c;
     w[0 * 5 * p.NC + e] = rho_m * vn / T(4);
-    w[1 * 5 * p.NC + e] = (p.cpA - p.cpB * TinC) * vn / T(4);
-    if (b.last) w[2 * 5 * p.NC + e] = p.hmA * vn;
+    w[1 * 5 * p.NC + e] = (pr.cpA() - pr.cpB() * TinC) * vn / T(4);
+    if (b.last) w[2 * 5 * p.NC + e] = pr.hmA() * vn;
 
     // correct_surface_element (bc.cxx:1613-1665): the top layer's factor
     // for the epilogue and its pre-swap volume
@@ -836,7 +980,7 @@ __device__ __forceinline__ void cell_g(const Params3<T>& p, const Bufs3<T>& b,
   }
 }
 
-template <typename T>
+template <typename T, bool U>
 __global__ void __launch_bounds__(BLOCK) phase_g(Params3<T> p, Bufs3<T> b) {
   __shared__ T shm[3][BLOCK / 32];
   T hmin = T(FLT_MAX), hsmin = T(FLT_MAX), vmax = T(0);
@@ -853,9 +997,11 @@ __global__ void __launch_bounds__(BLOCK) phase_g(Params3<T> p, Bufs3<T> b) {
     }
     const bool top = cc.k == p.nzc - 1;
     if (cc.odd)
-      cell_g<1>(p, b, cc.c, top, X, Y, Z, VX, VY, VZ, TT, hmin, hsmin, vmax);
+      cell_g<1, U>(p, b, cc.c, top, X, Y, Z, VX, VY, VZ, TT, hmin, hsmin,
+                   vmax);
     else
-      cell_g<0>(p, b, cc.c, top, X, Y, Z, VX, VY, VZ, TT, hmin, hsmin, vmax);
+      cell_g<0, U>(p, b, cc.c, top, X, Y, Z, VX, VY, VZ, TT, hmin, hsmin,
+                   vmax);
   }
   cfl_reduce(hmin, hsmin, vmax, shm);
   if (threadIdx.x == 0) {
@@ -945,28 +1091,46 @@ __global__ void __launch_bounds__(BLOCK)
   }
 }
 
-template <typename T>
-int step(const int* ip, const double* fp, Bufs3<T> b, cudaStream_t s) {
-  Params3<T> p = from_host<T>(ip, fp);
-  if (p.nzc % 2) return int(cudaErrorInvalidValue);  // cell pairs along z
+template <typename T, bool U>
+int step(const Params3<T>& p, Bufs3<T> b, cudaStream_t s) {
   const int gc = (p.NC / 2 + BLOCK / 2 - 1) / (BLOCK / 2);  // cell phases
   const int gt = (5 * p.NC + BLOCK - 1) / BLOCK;
   const int gn = (p.NS + BLOCK - 1) / BLOCK;
   if (gc > b.nb || gn > b.nb) return int(cudaErrorInvalidValue);
   cudaError_t e;
-#define DES_LAUNCH(K, G)                \
-  K<T><<<G, BLOCK, 0, s>>>(p, b);       \
+  // each launch checked at once: a refused launch never runs
+  phase_a<T, U><<<gc, BLOCK, 0, s>>>(p, b);
   if ((e = cudaGetLastError()) != cudaSuccess) return int(e);
-  DES_LAUNCH(phase_a, gc)
-  DES_LAUNCH(phase_b, gn)
-  DES_LAUNCH(phase_c, gt)
-  if (p.nmd) { DES_LAUNCH(phase_d, gn) }
-  DES_LAUNCH(phase_e, gc)
-  DES_LAUNCH(phase_f, gn)
-  DES_LAUNCH(phase_g, gc)
-  DES_LAUNCH(phase_h, gn)
-#undef DES_LAUNCH
+  phase_b<T><<<gn, BLOCK, 0, s>>>(p, b);
+  if ((e = cudaGetLastError()) != cudaSuccess) return int(e);
+  phase_c<T, U><<<gt, BLOCK, 0, s>>>(p, b);
+  if ((e = cudaGetLastError()) != cudaSuccess) return int(e);
+  if (p.nmd) {
+    phase_d<T><<<gn, BLOCK, 0, s>>>(p, b);
+    if ((e = cudaGetLastError()) != cudaSuccess) return int(e);
+  }
+  phase_e<T, U><<<gc, BLOCK, 0, s>>>(p, b);
+  if ((e = cudaGetLastError()) != cudaSuccess) return int(e);
+  phase_f<T><<<gn, BLOCK, 0, s>>>(p, b);
+  if ((e = cudaGetLastError()) != cudaSuccess) return int(e);
+  phase_g<T, U><<<gc, BLOCK, 0, s>>>(p, b);
+  if ((e = cudaGetLastError()) != cudaSuccess) return int(e);
+  phase_h<T><<<gn, BLOCK, 0, s>>>(p, b);
+  if ((e = cudaGetLastError()) != cudaSuccess) return int(e);
   return 0;
+}
+
+// U: a single material with uniform ICs (ops/fused3d.py _uniform_mat),
+// whose properties are plan constants; else the const pack's mixtures.
+// Refused: an odd nzc (the cell phases take cell pairs along z), more than
+// MAXMAT materials, a mixed plan without its pack.
+template <typename T>
+int step_any(const int* ip, const double* fp, Bufs3<T> b, cudaStream_t s) {
+  if (!ip[12] && (ip[13] > MAXMAT || b.cep == nullptr))
+    return int(cudaErrorInvalidValue);
+  Params3<T> p = from_host<T>(ip, fp);
+  if (p.nzc % 2) return int(cudaErrorInvalidValue);
+  return p.uniform ? step<T, true>(p, b, s) : step<T, false>(p, b, s);
 }
 
 template <typename T>
@@ -991,13 +1155,13 @@ extern "C" {
 // next synchronisation).
 int des_fused3d_step_f32(const int* ip, const double* fp, const float* ein,
                          const float* nin, float* eout, float* nout,
-                         const float* cnp, const float* tgt, const float* scal,
-                         float* ework, float* nwork, float* sfac,
-                         const float* dtp, float* part, int nb, int pending,
-                         int last, void* stream) {
-  Bufs3<float> b{ein,   nin,   eout, nout, cnp, tgt,     scal, ework,
-                 nwork, sfac,  dtp,  part, nb,  pending, last};
-  return step<float>(ip, fp, b, static_cast<cudaStream_t>(stream));
+                         const float* cep, const float* cnp, const float* tgt,
+                         const float* scal, float* ework, float* nwork,
+                         float* sfac, const float* dtp, float* part, int nb,
+                         int pending, int last, void* stream) {
+  Bufs3<float> b{ein,   nin,  eout, nout, cep, cnp, tgt,     scal, ework,
+                 nwork, sfac, dtp,  part, nb,  pending, last};
+  return step_any<float>(ip, fp, b, static_cast<cudaStream_t>(stream));
 }
 
 // The pending epilogue of the step that wrote e / n (its dt at dtp),

@@ -67,6 +67,11 @@ template <typename T> struct Moduli {
   T bulkm, shearm, lam, a1, a2;
 };
 
+// The material loops below run to MAXMAT, unrolled, and stop at nmat:
+// every index is then a constant, so that neither the weights nor the
+// plan's per-material constants (a kernel argument) are copied to local
+// memory to be indexed.
+
 // Dislocation-creep viscosity, harmonic mixture over the materials
 // (visc_core_local).
 template <typename T>
@@ -75,7 +80,9 @@ __device__ __forceinline__ T visc_core(const MatConst<T>* mc, int nmat,
                                        T log_q, T log_1e6, T vmin, T vmax) {
   T log_edot = dlog(edot);
   T acc = T(0), wsum = T(0);
-  for (int m = 0; m < nmat; ++m) {
+#pragma unroll
+  for (int m = 0; m < MAXMAT; ++m) {
+    if (m >= nmat) break;
     T expo = (mc[m].ea + mc[m].va * s0) / (mc[m].nr * Tm);
     T lv = log_q + mc[m].pw * log_edot + mc[m].pw1_logc + expo + log_1e6;
     acc = acc + w[m] * dexp(-lv);
@@ -91,7 +98,9 @@ __device__ __forceinline__ void plastic_props(const MatConst<T>* mc, int nmat,
                                               T deg2rad, T& amc, T& anphi,
                                               T& anpsi, T& hardn, T& ten_max) {
   T c = T(0), f = T(0), d = T(0), h = T(0), wsum = T(0);
-  for (int m = 0; m < nmat; ++m) {
+#pragma unroll
+  for (int m = 0; m < MAXMAT; ++m) {
+    if (m >= nmat) break;
     T p = dclip((pls - mc[m].pls0) / mc[m].span, T(0), T(1));
     T c_m = mc[m].c0 + p * mc[m].dc;
     T f_m = mc[m].f0 + p * mc[m].df;

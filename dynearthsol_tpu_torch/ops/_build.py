@@ -97,14 +97,21 @@ def ptxas_report() -> dict:
         m = re.search(r"Compiling entry function '(\S+)'", line)
         if m:
             raw = m.group(1)
-            k = re.search(r"(phase_[a-h]|finalize|dt_refresh|"
-                          r"grid_barriers|step_chunk2dIfLb[01]|"
+            k = re.search(r"(phase_[a-h](?:IfLb[01])?|finalize|dt_refresh|"
+                          r"grid_barriers|step_chunk2dIfLb[01]ELb[01]|"
                           r"(?:gather|scatter)_corners_kernelI[fd])", raw)
             src = re.search(r"_(fused\w+?|band2d)_cu_", raw)
             kn = k.group(1) if k else raw
-            if kn.startswith("step_chunk2d"):  # the bool: single material
-                kn = ("step_chunk2d<uniform>" if kn.endswith("1")
-                      else "step_chunk2d<mixed>")
+            if kn.startswith("phase_") and len(kn) > 7:
+                # the 3D phases that read material properties: the bool
+                # is a single material
+                kn = kn[:7] + ("<uniform>" if kn.endswith("1")
+                               else "<mixed>")
+            if kn.startswith("step_chunk2d"):
+                # the bools: single material, facets and surface process 1
+                kn = ("step_chunk2d<"
+                      + ("uniform" if kn[-5] == "1" else "mixed")
+                      + (",facets+sp1" if kn.endswith("1") else "") + ">")
             name = f"{src.group(1) if src else '?'}:{kn}"
             continue
         m = re.search(r"(\d+) bytes stack frame, (\d+) bytes spill stores",
@@ -125,14 +132,14 @@ def load():
         lib.des_fused2d_chunk_f32.argtypes = [_P] * 15 + [_I, _I, _I, _P,
                                                           _P]
         lib.des_fused2d_chunk_f32.restype = _I
-        lib.des_fused2d_chunk_occupancy.argtypes = [_I, _I, _P]
+        lib.des_fused2d_chunk_occupancy.argtypes = [_I, _I, _I, _P]
         lib.des_fused2d_chunk_occupancy.restype = _I
         lib.des_grid_barriers.argtypes = [_I, _I, _P]
         lib.des_grid_barriers.restype = _I
         lib.des_dt_refresh_f32.argtypes = [_P] * 3 + [_I, _P, _P, _P, _I,
                                                       _I, _I, _P]
         lib.des_dt_refresh_f32.restype = _I
-        lib.des_fused3d_step_f32.argtypes = [_P] * 14 + [_I, _I, _I, _P]
+        lib.des_fused3d_step_f32.argtypes = [_P] * 15 + [_I, _I, _I, _P]
         lib.des_fused3d_step_f32.restype = _I
         lib.des_fused3d_finalize_f32.argtypes = [_P] * 8
         lib.des_fused3d_finalize_f32.restype = _I

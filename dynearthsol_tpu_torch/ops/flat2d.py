@@ -508,10 +508,13 @@ def make_flat_step(param: Param, ctx, plain: bool = False):
     return step
 
 
-def make_chunk_runner(param: Param, ctx, n: int, plain: bool = False):
+def make_chunk_runner(param: Param, ctx, compensation_pressure: float,
+                      n: int, plain: bool = False):
     """run(ctx, state) -> state after n flat steps: transpose the element
     tensors, step n times, transpose back (the counterpart of
-    flat2d.make_chunk_runner)."""
+    flat2d.make_chunk_runner, with its arguments).  The Winkler reference
+    pressure ``compensation_pressure`` is read by the facet tractions only,
+    which unported_features refuses."""
     step = make_flat_step(param, ctx, plain)
 
     def run_chunk(sctx, state):

@@ -30,10 +30,15 @@ partials of the CFL metrics and the L2 residual in a fixed order and
 refreshes dt on the 10-step cadence (``dt_refresh_plain`` is its plain
 version), so a chunk runs with no host round trip.
 
+The gravity-facet tractions (Winkler foundation on the bottom node lane,
+water loading on the top lane; pallas2d.py:840-894) and surface process
+option 1 (hillslope diffusion of the top lane with its ``dhacc`` and
+per-facet ``edv`` accumulators; pallas2d.py:952-991) run inside the step,
+in the plain version and in the kernel's instance compiled for them.
+
 Gating is pallas2d.py's, ported as it is (alignment rules included) so
-that the two packages dispatch alike.  This package additionally lacks the
-in-kernel gravity-facet tractions and surface process option 1:
-``unported_features`` names them and the simulation refuses such configs.
+that the two packages dispatch alike; ``unported_features`` names what
+passes the gates and is still refused (more than MAXMAT materials).
 """
 
 from __future__ import annotations
@@ -63,10 +68,12 @@ E_SLOTS = ("volume", "volume_old", "stressyy", "plstrain", "delta_plstrain",
 T_SLOTS = ("stress", "strain", "strain_rate")  # 3 planes each
 NE = len(E_SLOTS) + 3 * len(T_SLOTS)
 
-# nodal pack (NN, nx, nz).  pallas2d.py carries two more planes for surface
-# process option 1 (dhacc, edv), which this package does not run yet.
+# nodal pack (NN, nx, nz).  "dhacc" is the surface-process height
+# accumulator (top lane only); "edv" carries edvacc_surf per top facet,
+# stored at the facet's left node column on the top lane (pallas2d.py).
 N_SLOTS = ("coord_x", "coord_z", "vel_x", "vel_z", "temperature",
-           "mass", "tmass", "hmass", "volume_n", "force_x", "force_z")
+           "mass", "tmass", "hmass", "volume_n", "force_x", "force_z",
+           "dhacc", "edv")
 NN = len(N_SLOTS)
 
 # const element pack (per chunk) + nmat material-weight planes
@@ -165,6 +172,43 @@ def _grav_facets_canonical(ctx) -> bool:
     return True
 
 
+def grav_facets(ctx):
+    """The gravity-traction facet spec of a canonical table
+    (pallas2d._grav_facets_structured): which lanes carry facets
+    (``winkler`` bottom, ``water`` top), the triangle of the bottom row
+    that the Winkler facets belong to (``tri_bottom``) and the sign of the
+    stored node order (``sgn_bottom``/``sgn_top``, 1 for left-to-right
+    rows).  The gate has refused tables that _grav_facets_canonical
+    rejects."""
+    spec = {"winkler": False, "water": False, "tri_bottom": 0,
+            "sgn_bottom": 1.0, "sgn_top": 1.0}
+    if ctx.sbc.n_grav == 0:
+        return spec
+    nz = ctx.sgrid[1]
+    fn, fe, kind = ctx.sbc.facet_nodes, ctx.sbc.facet_elem, ctx.sbc.kind
+    for kval, name, flag in ((0, "bottom", "winkler"), (1, "top", "water")):
+        rows = np.where(kind == kval)[0]
+        if rows.size == 0:
+            continue
+        cols = fn[rows] // nz
+        spec[flag] = True
+        spec[f"sgn_{name}"] = 1.0 if cols[0, 0] < cols[0, 1] else -1.0
+        if kval == 0:
+            spec["tri_bottom"] = int(fe[rows[0]] % 2)
+    return spec
+
+
+def surf_facet_cols(ctx):
+    """(etop,) column of each top facet's left node, or None without top
+    facets (pallas2d.surf_facet_cols): the top facets of the structured
+    grid run between node columns (i, i+1)."""
+    if int(ctx.surf.etop) == 0:
+        return None
+    fn = np.asarray(ctx.surf.facet_nodes)
+    return torch.as_tensor(fn.min(axis=1) // ctx.sgrid[1],
+                           dtype=torch.int64)
+
+
 def _pick_tc(nxc: int):
     force = os.environ.get("DES_PALLAS_TC")
     if force and nxc % int(force) == 0:
@@ -229,16 +273,10 @@ def resident_applicable(param: Param, ctx) -> bool:
 
 def unported_features(param: Param, ctx) -> list:
     """Features that pass the gates above but that this package's fused
-    step does not compute yet (pallas2d.py:840-894 and :952-991)."""
-    out = []
-    if ctx.sbc.n_grav > 0:
-        out.append("in-kernel gravity-facet tractions (Winkler / water "
-                   "loading)")
-    if param.control.surface_process_option == 1:
-        out.append("surface process option 1")
+    step does not compute."""
     if param.mat.nmat > MAXMAT:
-        out.append(f"more than {MAXMAT} materials")
-    return out
+        return [f"more than {MAXMAT} materials"]
+    return []
 
 
 # ------------------------------------------------------ static step plan
@@ -261,6 +299,8 @@ class StepPlan:
     mc: list
     sw: dict          # integer switches
     k: dict           # float constants
+    grav: dict         # grav_facets(ctx)
+    surf_cols: torch.Tensor | None  # surf_facet_cols(ctx)
     par: torch.Tensor  # (nxc, nzc) bool cell parity
     ip: np.ndarray
     fp: np.ndarray
@@ -283,18 +323,24 @@ class StepPlan:
 # ip slots (csrc/fused2d.cu StepParams::from_host)
 IP_FIELDS = ("nx", "nz", "nmat", "rheol", "uniform", "nmd", "thermal",
              "gravity_on", "damping", "surf_corr", "quasi_static", "use_gvs",
-             "oceanic", "decay_uniform", "fixed_on", "jaumann")
+             "oceanic", "decay_uniform", "fixed_on", "jaumann", "winkler",
+             "water", "tri_bottom", "surf_on")
 # fp slots before the 12 CE constants and the per-material blocks
 FP_FIELDS = ("surface_T", "visc_min", "visc_max", "tension_max", "fac",
              "one_m_fac", "two_m_fac", "ps2", "lam_hl", "inertial",
              "log_q", "log_1e6", "deg2rad", "tdmax", "max_vbc", "ps",
              "swave_ref", "fixed_dt", "frac", "big", "lam_u", "a1_u",
-             "rhoq_u")
+             "rhoq_u", "gravity", "comp_p", "winkler_drho", "zlength",
+             "sgn_bottom", "sgn_top", "surf_base", "surf_diff", "surf_rt",
+             "surf_rm")
 
 
-def make_plan(param: Param, ctx, device) -> StepPlan:
+def make_plan(param: Param, ctx, device,
+              compensation_pressure: float) -> StepPlan:
     """Build the StepPlan (cf. the closure constants of
-    pallas2d.make_pallas_step)."""
+    pallas2d.make_pallas_step); ``compensation_pressure`` is the Winkler
+    reference pressure of the initial stress state (float64, rounded once
+    to the run dtype where the step uses it)."""
     ctrl, mat = param.control, param.mat
     nx, nz = ctx.sgrid
     dtype = torch.float32 if param.sim.float_dtype == "float32" \
@@ -340,7 +386,12 @@ def make_plan(param: Param, ctx, device) -> StepPlan:
         "fixed_on": int(ctrl.fixed_dt != 0.0),
         "jaumann": int(bool(mat.rheol_type & RH_ELASTIC)),
         "qcsi": param.mesh.quality_check_step_interval,
+        "surf_on": int(ctrl.surface_process_option == 1
+                       and int(ctx.surf.etop) > 0),
     }
+    grav = grav_facets(ctx)
+    for f in ("winkler", "water", "tri_bottom"):
+        sw[f] = int(grav[f])
     ps = max_vbc * ctrl.inertial_scaling
     k = {
         "surface_T": float(param.bc.surface_temperature),
@@ -361,6 +412,14 @@ def make_plan(param: Param, ctx, device) -> StepPlan:
                                    / mat.rho0[mat.mattype_ref])),
         "fixed_dt": float(ctrl.fixed_dt), "frac": float(ctrl.dt_fraction),
         "big": float(torch.finfo(dtype).max),
+        "comp_p": float(compensation_pressure),
+        "winkler_drho": float(param.bc.winkler_delta_rho),
+        "zlength": float(param.mesh.zlength),
+        "sgn_bottom": grav["sgn_bottom"], "sgn_top": grav["sgn_top"],
+        "surf_base": float(ctrl.surf_base_level),
+        "surf_diff": float(ctrl.surface_diffusivity),
+        "surf_rt": float(ctrl.surf_diff_ratio_terrig),
+        "surf_rm": float(ctrl.surf_diff_ratio_marine),
     }
     # single-material moduli combinations are formed in float64 before
     # they meet the f32 arithmetic, as the Python floats of pallas2d.py
@@ -377,14 +436,16 @@ def make_plan(param: Param, ctx, device) -> StepPlan:
     par = torch.as_tensor(parity_2d(nx, nz), device=device)
     return StepPlan(nx=nx, nz=nz, dtype=dtype,
                     rheol=mat.rheol_type, nmat=nmat, uniform=uniform,
-                    ce_const=ce_const, mc=mc, sw=sw, k=k, par=par,
-                    ip=ip, fp=fp)
+                    ce_const=ce_const, mc=mc, sw=sw, k=k, grav=grav,
+                    surf_cols=surf_facet_cols(ctx), par=par, ip=ip, fp=fp)
 
 
 # ------------------------------------------- packing (chunk boundaries)
 
-def state_to_planes(s, nx: int, nz: int):
-    """State -> (epack (NE, 2, nxc, nzc), npack (NN, nx, nz)), contiguous."""
+def state_to_planes(s, nx: int, nz: int, surf_cols=None):
+    """State -> (epack (NE, 2, nxc, nzc), npack (NN, nx, nz)), contiguous.
+    ``surf_cols`` (surf_facet_cols) places edvacc_surf on the "edv" plane,
+    at each top facet's left node column (pallas2d.state_to_pgrid)."""
     nxc, nzc = nx - 1, nz - 1
     planes = [getattr(s, f).reshape(nxc, nzc, 2).permute(2, 0, 1)
               for f in E_SLOTS]
@@ -392,15 +453,21 @@ def state_to_planes(s, nx: int, nz: int):
         t = getattr(s, f).reshape(nxc, nzc, 2, 3).permute(3, 2, 0, 1)
         planes.extend([t[0], t[1], t[2]])
     epack = torch.stack(planes).contiguous()
+    edv = torch.zeros((nx, nz), dtype=s.coord.dtype, device=s.coord.device)
+    if surf_cols is not None:
+        edv[surf_cols.to(edv.device), nz - 1] = s.edvacc_surf
     nodal = [s.coord[:, 0], s.coord[:, 1], s.vel[:, 0], s.vel[:, 1],
              s.temperature, s.mass, s.tmass, s.hmass, s.volume_n,
-             s.force[:, 0], s.force[:, 1]]
-    npack = torch.stack([a.reshape(nx, nz) for a in nodal]).contiguous()
+             s.force[:, 0], s.force[:, 1], s.dhacc]
+    npack = torch.stack([a.reshape(nx, nz) for a in nodal]
+                        + [edv]).contiguous()
     return epack, npack
 
 
-def planes_to_state(s, epack, npack, nx: int, nz: int, **scalars):
-    """Packed planes (+ new scalars) -> State; other fields pass through."""
+def planes_to_state(s, epack, npack, nx: int, nz: int, surf_cols=None,
+                    **scalars):
+    """Packed planes (+ new scalars) -> State; other fields pass through
+    (edvacc_surf read back at ``surf_cols``, as state_to_planes put it)."""
     nxc, nzc = nx - 1, nz - 1
     nelem = nxc * nzc * 2
 
@@ -418,8 +485,12 @@ def planes_to_state(s, epack, npack, nx: int, nz: int, **scalars):
     upd["coord"] = torch.stack([p2n("coord_x"), p2n("coord_z")], dim=1)
     upd["vel"] = torch.stack([p2n("vel_x"), p2n("vel_z")], dim=1)
     upd["force"] = torch.stack([p2n("force_x"), p2n("force_z")], dim=1)
-    for nm in ("temperature", "mass", "tmass", "hmass", "volume_n"):
+    for nm in ("temperature", "mass", "tmass", "hmass", "volume_n",
+               "dhacc"):
         upd[nm] = p2n(nm)
+    if surf_cols is not None:
+        upd["edvacc_surf"] = npack[_nslot("edv")][
+            surf_cols.to(npack.device), nz - 1]
     return s.replace(**upd, **scalars)
 
 
@@ -506,8 +577,9 @@ def _div(a, b):
 def step_planes_plain(P: StepPlan, ein, nin, cep, cnp, tgt, dt, gvs,
                       refresh, decay):
     """One whole time step on the packed planes, in plain PyTorch: the
-    whole-mesh ``_core`` of pallas2d.py (dynearthsol.cxx:746-956 minus the
-    gravity-facet tractions and surface processes).
+    whole-mesh ``_core`` of pallas2d.py (dynearthsol.cxx:746-956, with the
+    gravity-facet tractions and surface process option 1 where the plan
+    has them).
 
     ``dt``/``gvs`` are 0-d tensors, ``refresh``/``decay`` 0-d bools.
     Returns (epack, npack, red) with red = (min height, min height /
@@ -518,6 +590,10 @@ def step_planes_plain(P: StepPlan, ein, nin, cep, cnp, tgt, dt, gvs,
     par = P.par
     npe = 3.0
     dtype = ein.dtype
+
+    def c(v):
+        """A constant rounded once to the run dtype (pallas2d ``_c``)."""
+        return torch.full((), v, dtype=dtype, device=ein.device)
 
     def E(nm):
         return ein[_eslot(nm)]
@@ -667,6 +743,44 @@ def step_planes_plain(P: StepPlan, ein, nin, cep, cnp, tgt, dt, gvs,
                for i in range(3))
     force_x = -asm_planes(*fx, par)
     force_z = -asm_planes(*fz, par)
+
+    # gravity-facet tractions (apply_stress_bcs, bc.cxx:632-790;
+    # pallas2d.py:840-894) from the pre-move coordinates: the Winkler
+    # foundation on the bottom node lane, water loading on the top lane.
+    # The facet between node columns i and i+1 adds (-p sgn dz, p sgn dx) / 2
+    # to both its nodes, the two facets of a node in the order i, i - 1.
+    g = P.grav
+    if g["winkler"] or g["water"]:
+        gconst = c(k["gravity"])
+
+        def facet_add(fx_, fz_, lane, p, sgn):
+            cx, cz = N("coord_x")[:, lane], N("coord_z")[:, lane]
+            cxf = -0.5 * p * sgn * (cz[1:] - cz[:-1])
+            czf = 0.5 * p * sgn * (cx[1:] - cx[:-1])
+            fx_, fz_ = fx_.clone(), fz_.clone()
+            fx_[:, lane] = fx_[:, lane] + (nnf.pad(cxf, (0, 1))
+                                           + nnf.pad(cxf, (1, 0)))
+            fz_[:, lane] = fz_[:, lane] + (nnf.pad(czf, (0, 1))
+                                           + nnf.pad(czf, (1, 0)))
+            return fx_, fz_
+
+        def zc_f(lane):
+            cz = N("coord_z")[:, lane]
+            return 0.5 * (cz[1:] + cz[:-1])
+
+        if g["winkler"]:
+            rho_b = rho_e[g["tri_bottom"]][:, 0]  # bottom row cells
+            p_wink = c(k["comp_p"]) - (rho_b + c(k["winkler_drho"])) \
+                * gconst * (zc_f(0) + c(k["zlength"]))
+            force_x, force_z = facet_add(force_x, force_z, 0, p_wink,
+                                         k["sgn_bottom"])
+        if g["water"]:
+            base = c(k["surf_base"])
+            zc = zc_f(-1)
+            p_wat = torch.where(zc < base, c(1030.0) * gconst * (base - zc),
+                                torch.zeros_like(zc))
+            force_x, force_z = facet_add(force_x, force_z, -1, p_wat,
+                                         k["sgn_top"])
     r2 = (force_x * force_x + force_z * force_z).sum()
 
     # damping + velocity + vbcs (fields.cxx:486-582,730-747; bc.cxx)
@@ -712,6 +826,32 @@ def step_planes_plain(P: StepPlan, ein, nin, cep, cnp, tgt, dt, gvs,
     # coordinate update + post-move geometry (dynearthsol.cxx:431-473)
     coord_x = N("coord_x") + vel_x * dt
     coord_z = N("coord_z") + vel_z * dt
+
+    # surface process option 1 (surface_dh_2d, bc.cxx:990-1073;
+    # pallas2d.py:952-991): FD hillslope diffusion of the top lane between
+    # the coordinate update and the post-move geometry, terrigenous above
+    # the base level and marine below it, accumulated in dhacc and, per
+    # top facet, in edv = (dh_i + dh_i+1) |dx| / 2 (bc.cxx:1745-1760)
+    dhacc, edv = N("dhacc"), N("edv")
+    if sw["surf_on"]:
+        one, zero = c(1.0), c(0.0)
+        xt, zt = coord_x[:, -1], coord_z[:, -1]
+        adx = torch.abs(xt[1:] - xt[:-1])
+        slope = (zt[1:] - zt[:-1]) / torch.where(adx > 0, adx, one)
+        tslope = nnf.pad(-slope, (0, 1)) + nnf.pad(slope, (1, 0))
+        tdx = nnf.pad(adx, (0, 1)) + nnf.pad(adx, (1, 0))
+        conv = c(k["surf_diff"]) * dt * tslope \
+            / torch.where(tdx > 0, tdx, one)
+        base = c(k["surf_base"])
+        dh = torch.where((zt > base) & (conv > 0), -c(k["surf_rt"]) * conv,
+                         torch.where((zt <= base) & (conv < 0),
+                                     -c(k["surf_rm"]) * conv, -conv))
+        dh = torch.where(cnp[0][:, -1] > 0, dh, zero)
+        coord_z, dhacc, edv = coord_z.clone(), dhacc.clone(), edv.clone()
+        coord_z[:, -1] = zt + dh
+        dhacc[:, -1] = dhacc[:, -1] + dh
+        edv[:, -1] = edv[:, -1] + nnf.pad((dh[1:] + dh[:-1]) * adx
+                                          * c(0.5), (0, 1))
     xs2 = gather_planes(coord_x, par)
     zs2 = gather_planes(coord_z, par)
     vxs2 = gather_planes(vel_x, par)
@@ -804,7 +944,8 @@ def step_planes_plain(P: StepPlan, ein, nin, cep, cnp, tgt, dt, gvs,
     n_out = {"coord_x": coord_x, "coord_z": coord_z, "vel_x": vel_x,
              "vel_z": vel_z, "temperature": temperature_new,
              "mass": mass_new, "tmass": tmass_new, "hmass": hmass_new,
-             "volume_n": volume_n, "force_x": fdx, "force_z": fdz}
+             "volume_n": volume_n, "force_x": fdx, "force_z": fdz,
+             "dhacc": dhacc, "edv": edv}
     shape_e = vol.shape
     eout = torch.stack([p.expand(shape_e) for p in eplanes])
     nout = torch.stack([n_out[nm] for nm in N_SLOTS])
@@ -905,8 +1046,12 @@ def dt_maxwell(P: StepPlan, ctx, emw):
 
 def make_buffers(P: StepPlan, ctx, s, n: int, tiled: bool) -> ChunkBuffers:
     dev, dtype = s.coord.device, P.dtype
-    ein, nin = state_to_planes(s, P.nx, P.nz)
+    ein, nin = state_to_planes(s, P.nx, P.nz, P.surf_cols)
     cep, cnp = const_packs(P, ctx, s)
+    # dhacc and edv change on the top lane only, and only with surface
+    # process 1: both buffers start with the other values
+    nout = torch.empty_like(nin)
+    nout[_nslot("dhacc"):] = nin[_nslot("dhacc"):]
     ks = s.steps + 1 + torch.arange(n, device=dev)
     refresh = ks % 10 == 0
     if tiled and P.sw["use_gvs"]:
@@ -921,8 +1066,8 @@ def make_buffers(P: StepPlan, ctx, s, n: int, tiled: bool) -> ChunkBuffers:
     part[:2] = P.k["big"]   # neutral elements of min, min, max, sum
     cuda = dev.type == "cuda"
     return ChunkBuffers(
-        ein=ein, nin=nin, eout=torch.empty_like(ein),
-        nout=torch.empty_like(nin), cep=cep, cnp=cnp,
+        ein=ein, nin=nin, eout=torch.empty_like(ein), nout=nout, cep=cep,
+        cnp=cnp,
         tgt=(torch.zeros((2, P.nx, P.nz), dtype=dtype, device=dev)
              if tiled else vbc_targets(ctx, nin, s.time)),
         scal=scal, flags=flags,
@@ -938,11 +1083,12 @@ def make_buffers(P: StepPlan, ctx, s, n: int, tiled: bool) -> ChunkBuffers:
 def stamp_labels(P: StepPlan, n: int) -> list:
     """Names of the intervals between the stamps of an n-step chunk (the
     grid syncs of csrc/fused2d.cu step_chunk2d): A of the first step, then
-    per step B, C, D, E, F, G (without NMD: B, C+E, F, G) and H with the
-    dt refresh, which shares its interval with the next step's A ("H+A")
-    on every step but the last."""
-    per = ["B", "C", "D", "E", "F", "G"] if P.sw["nmd"] \
-        else ["B", "C+E", "F", "G"]
+    per step B, C, D, E, F, G (without NMD: B, C+E, F, G; with surface
+    process 1 the top-lane pass S between F and G) and H with the dt
+    refresh, which shares its interval with the next step's A ("H+A") on
+    every step but the last."""
+    per = ["B", "C", "D", "E", "F"] if P.sw["nmd"] else ["B", "C+E", "F"]
+    per += ["S", "G"] if P.sw["surf_on"] else ["G"]
     out = ["A"]
     for k in range(n):
         out += per + ["H+A" if k + 1 < n else "H"]
@@ -1053,14 +1199,21 @@ def fused_step_plain(P: StepPlan, b: ChunkBuffers, k: int):
 fused_step_plain.calls = 0
 
 
+def has_extras(P: StepPlan) -> bool:
+    """Whether the plan runs the facet tractions or surface process 1, which
+    the chunk kernel compiles into an instance of their own."""
+    return bool(P.sw["winkler"] or P.sw["water"] or P.sw["surf_on"])
+
+
 def chunk_occupancy(P: StepPlan) -> dict:
-    """The chunk kernel's launch shape on the current card: blocks per SM,
-    SMs, grid, registers and local (stack) bytes per thread."""
+    """The launch shape of the plan's chunk kernel instance on the current
+    card: blocks per SM, SMs, grid, registers and local (stack) bytes per
+    thread."""
     from . import _build
 
     out = (ctypes.c_int * 5)()
-    rc = _build.load().des_fused2d_chunk_occupancy(int(P.uniform),
-                                                   P.nblocks(), out)
+    rc = _build.load().des_fused2d_chunk_occupancy(
+        int(P.uniform), int(has_extras(P)), P.nblocks(), out)
     if rc != 0:
         raise RuntimeError(f"fused2d occupancy query failed: "
                            f"{_build.err(rc)}")
@@ -1189,21 +1342,25 @@ def run_chunk(P: StepPlan, ctx, s, n: int, resident: bool,
     nnode2 = torch.full((), float(P.nx * P.nz * 2), dtype=P.dtype,
                         device=b.scal.device)
     return planes_to_state(
-        s, b.ein, b.nin, P.nx, P.nz, time=time, dt=b.scal[0].clone(),
+        s, b.ein, b.nin, P.nx, P.nz, P.surf_cols, time=time,
+        dt=b.scal[0].clone(),
         steps=s.steps + n, max_global_vel_mag=b.scal[1].clone(),
         global_dt_min=b.scal[2].clone(),
         l2_residual=torch.sqrt(b.scal[4] / nnode2))
 
 
-def make_chunk_runner(param: Param, ctx, n: int):
+def make_chunk_runner(param: Param, ctx, compensation_pressure: float,
+                      n: int):
     """run(ctx, state) -> state after n fused steps, tiled form (the
-    counterpart of pallas2d.make_chunk_runner)."""
-    P = make_plan(param, ctx, ctx.conn.device)
+    counterpart of pallas2d.make_chunk_runner, with its arguments)."""
+    P = make_plan(param, ctx, ctx.conn.device, compensation_pressure)
     return lambda c, s: run_chunk(P, c, s, n, resident=False)
 
 
-def make_resident_chunk_runner(param: Param, ctx, n: int):
+def make_resident_chunk_runner(param: Param, ctx,
+                               compensation_pressure: float, n: int):
     """run(ctx, state) -> state after n fused steps, resident form (the
-    counterpart of pallas2d.make_resident_chunk_runner)."""
-    P = make_plan(param, ctx, ctx.conn.device)
+    counterpart of pallas2d.make_resident_chunk_runner, with its
+    arguments)."""
+    P = make_plan(param, ctx, ctx.conn.device, compensation_pressure)
     return lambda c, s: run_chunk(P, c, s, n, resident=True)

@@ -34,22 +34,31 @@ Unlike the 2D step, the 3D step sets vmax and gdtmin from the CFL partials
 of EVERY step and only dt waits for the 10-step cadence
 (pallas3d.py:1649-1690); ``dt_refresh`` runs with ``every=True``.
 
+Material properties.  A single material with uniform ICs
+(``_uniform_mat``) takes its properties as plan constants.  Otherwise a
+const element pack (``const_epack``, pallas3d._const_epack) holds the
+radiogenic source and the raw marker weight of each material, and the
+step mixes the properties from the weights where it uses them
+(matprops.cxx:115-144, pallas3d.py:825-946): harmonic means of the moduli,
+arithmetic means of the rest, and the viscosity's and the plastic
+weakening's material loops.
+
 Gating is pallas3d.py's together with grid3d.grid_step_applicable, ported
 as it is so that both packages dispatch alike.  This package additionally
-lacks the multi-material const pack, the Winkler/water facet tractions and
-surface process option 1: ``unported_features`` names them and the
-simulation refuses such configs.
+lacks the Winkler/water facet tractions and surface process option 1:
+``unported_features`` names them and the simulation refuses such configs.
 """
 
 from __future__ import annotations
 
-from dataclasses import dataclass
+from dataclasses import dataclass, replace
 
 import numpy as np
 import torch
 
 from .. import bc as bc_mod
 from ..config import RH_ELASTIC, RH_EP, RH_EVP, RH_MAXWELL, RH_VISCOUS, Param
+from ..state import state_from_numpy, state_to_numpy
 from . import fused2d
 from . import fused_common as FC
 from . import rheology as R
@@ -82,6 +91,14 @@ BLOCK = 256        # threads (tets, cells or nodes) per block of
 #                    csrc/fused3d.cu
 NEWORK = 24        # element scratch planes of one cell each (csrc)
 NNWORK = 2         # node scratch planes
+MAXMAT = fused2d.MAXMAT  # csrc/rheology2d.cuh MAXMAT
+
+# per-material table values the mixtures take (csrc/fused3d.cu MixConst),
+# after the material's MAT_FIELDS: moduli, conductivity, rho0, rho0 * alpha,
+# porosity, heat capacity, Biot coefficient, 1 / fluid bulk modulus
+MIX_FIELDS = ("bulk_modulus", "shear_modulus", "therm_cond", "rho0",
+              "rho0_alpha", "porosity", "heat_capacity", "biot_coeff",
+              "inv_fluid_bulk_modulus")
 
 EVEN_T, ODD_T = tet_tables()
 
@@ -259,9 +276,8 @@ def unported_features(param: Param, ctx) -> list:
     """Features that pass the gate above but that this package's fused 3D
     step does not compute yet."""
     out = []
-    if not _uniform_mat(param):
-        out.append("multi-material or radiogenic runs (the per-element "
-                   "const pack of pallas3d.py:131-142, :469)")
+    if len(param.mat.rho0) > MAXMAT:
+        out.append(f"more than {MAXMAT} materials")
     if ctx.sbc.n_grav > 0:
         out.append("in-kernel gravity-facet tractions (Winkler / water "
                    "loading, pallas3d.py:168, :1229-1290)")
@@ -275,12 +291,13 @@ def unported_features(param: Param, ctx) -> list:
 
 # ip slots (csrc/fused3d.cu Params3::from_host)
 IP_FIELDS = ("nx", "ny", "nz", "rheol", "nmd", "thermal", "gravity_on",
-             "damping", "surf_corr", "quasi_static", "use_gvs", "jaumann")
-# fp slots, then the single material's MAT_FIELDS
+             "damping", "surf_corr", "quasi_static", "use_gvs", "jaumann",
+             "uniform", "nmat")
+# fp slots, then per material its MAT_FIELDS and MIX_FIELDS
 FP_FIELDS = ("surface_T", "visc_min", "visc_max", "tension_max", "fac",
              "one_m_fac", "two_m_fac", "inertial", "log_q", "log_1e6",
              "deg2rad", "ps2", "bulkm", "shearm", "kappa", "rhoA", "rhoB",
-             "buoyA", "buoyB", "cpA", "cpB", "hmA")
+             "buoyA", "buoyB", "cpA", "cpB", "hmA", "g_npe")
 
 
 @dataclass
@@ -289,16 +306,22 @@ class StepPlan3:
     sizes, switches and float64 constants, each rounded once to the run
     dtype where it enters the arithmetic (as pallas3d.py rounds its
     ``_c`` constants), the cell parity, and the same values packed for the
-    CUDA kernel (``ip``, ``fp``) and for dt_refresh (``rip``, ``rfp``)."""
+    CUDA kernel (``ip``, ``fp``) and for dt_refresh (``rip``, ``rfp``).
+    ``uniform``: one material with uniform ICs, whose properties are the
+    constants of ``k``; otherwise ``mix`` holds every material's table
+    values for the mixtures (MIX_FIELDS) and ``mc`` its MAT_FIELDS."""
 
     nx: int
     ny: int
     nz: int
     dtype: torch.dtype
     rheol: int
+    uniform: bool
+    nmat: int
     sw: dict
     k: dict
     mc: list
+    mix: list
     par: torch.Tensor  # (nxc, nyc, nzc) bool
     ip: np.ndarray
     fp: np.ndarray
@@ -325,7 +348,7 @@ class StepPlan3:
 
 def make_plan(param: Param, ctx, device) -> StepPlan3:
     """Build the StepPlan3 (cf. the closure constants of
-    pallas3d.make_pallas_step; uniform material only)."""
+    pallas3d.make_pallas_step)."""
     ctrl, mat = param.control, param.mat
     nx, ny, nz = ctx.sgrid
     dtype = torch.float32 if param.sim.float_dtype == "float32" \
@@ -344,8 +367,11 @@ def make_plan(param: Param, ctx, device) -> StepPlan3:
     ab = float(tabn["biot_coeff"][0])
     bf = 1.0 / float(tabn["fluid_bulk_modulus"][0])
     visc_min = float(tabn["visc_min"])
+    uniform = _uniform_mat(param)
+    nmat = int(tabn["rho0"].shape[0])
     sw = {
         "nx": nx, "ny": ny, "nz": nz, "rheol": mat.rheol_type,
+        "uniform": int(uniform), "nmat": nmat,
         "nmd": int(ctrl.is_using_mixed_stress),
         "thermal": int(ctrl.has_thermal_diffusion),
         "gravity_on": int(ctrl.gravity != 0),
@@ -381,16 +407,24 @@ def make_plan(param: Param, ctx, device) -> StepPlan3:
         "cpA": cp * rho0, "cpB": cp * rho0 * alpha,
         # hmass coefficient: 3D bulk_comp = 1/K (geometry.cxx:1098)
         "hmA": ((ab + phi - ab * phi) / K + phi * bf) / npe,
+        "g_npe": g / npe,
     }
-    mc = FC.mat_consts(tabn)[:1]
+    mc = FC.mat_consts(tabn)
+    # the tables in the run dtype, products and quotients formed in it as
+    # pallas3d.py forms them in numpy (rho0 * alpha, 1 / fluid bulk modulus)
+    tv = {**tabn, "rho0_alpha": tabn["rho0"] * tabn["alpha"],
+          "inv_fluid_bulk_modulus": 1.0 / tabn["fluid_bulk_modulus"]}
+    mix = [{f: float(tv[f][m]) for f in MIX_FIELDS} for m in range(nmat)]
     ip = np.array([sw[f] for f in IP_FIELDS], dtype=np.int32)
     fp = np.array([k[f] for f in FP_FIELDS]
-                  + [mc[0][f] for f in FC.MAT_FIELDS], dtype=np.float64)
+                  + [v for m in range(nmat)
+                     for v in [mc[m][f] for f in FC.MAT_FIELDS]
+                     + [mix[m][f] for f in MIX_FIELDS]], dtype=np.float64)
     rip, rfp = FC.refresh_params(sw, k)
     par = torch.as_tensor(parity_3d(nx, ny, nz), device=device)
     return StepPlan3(nx=nx, ny=ny, nz=nz, dtype=dtype, rheol=mat.rheol_type,
-                     sw=sw, k=k, mc=mc, par=par, ip=ip, fp=fp, rip=rip,
-                     rfp=rfp)
+                     uniform=uniform, nmat=nmat, sw=sw, k=k, mc=mc, mix=mix,
+                     par=par, ip=ip, fp=fp, rip=rip, rfp=rfp)
 
 
 # ------------------------------------------- packing (chunk boundaries)
@@ -592,14 +626,57 @@ def epilogue(P: StepPlan3, nin, vol, dt, dp_old, dp_nd, sfac, stress,
     return stress, strain, pls, sr
 
 
+def mixtures(P: StepPlan3, cep, c):
+    """The element properties of a multi-material plan from the weight
+    planes of the const pack (pallas3d.py:886-946, matprops.cxx:115-144):
+    the harmonic means of the moduli, arithmetic means of the rest, each
+    from the raw weights and their sum; (props, weights).  ``c`` rounds a
+    constant to the run dtype."""
+    w = [cep[1 + m] for m in range(P.nmat)]
+    ws = w[0]
+    for wm in w[1:]:
+        ws = ws + wm
+    ws = torch.where(ws > 0, ws, c(1.0))
+
+    def amean(f):
+        acc = w[0] * c(P.mix[0][f])
+        for m in range(1, P.nmat):
+            acc = acc + w[m] * c(P.mix[m][f])
+        return acc / ws
+
+    def hmean(f):
+        acc = w[0] / c(P.mix[0][f])
+        for m in range(1, P.nmat):
+            acc = acc + w[m] / c(P.mix[m][f])
+        return ws / acc
+
+    bulkm = hmean("bulk_modulus")
+    rhoA, rhoB = amean("rho0"), amean("rho0_alpha")
+    phi, cp, ab = amean("porosity"), amean("heat_capacity"), \
+        amean("biot_coeff")
+    g_npe = c(P.k["g_npe"])
+    props = {
+        "radiogenic_source": cep[0], "bulkm": bulkm,
+        "shearm": hmean("shear_modulus"), "kappa": amean("therm_cond"),
+        "rhoA": rhoA, "rhoB": rhoB,
+        "buoyA": ((1.0 - phi) * rhoA + 1000.0 * phi) * g_npe,
+        "buoyB": (1.0 - phi) * rhoB * g_npe,
+        "cpA": cp * rhoA, "cpB": cp * rhoB,
+        # 3D bulk_comp = 1/K (geometry.cxx:1098)
+        "hmA": ((ab + phi - ab * phi) / bulkm
+                + phi * hmean("inv_fluid_bulk_modulus")) / c(4.0)}
+    return props, w
+
+
 def step_planes_plain(P: StepPlan3, ein, nin, cnp, tgt, dt, gvs,
-                      ties=None, pending=None):
+                      ties=None, pending=None, cep=None):
     """One time step on the packed planes, in plain PyTorch, in the chunk
     form of csrc/fused3d.cu: the physics of pallas3d.py:793-1567 on the
     whole mesh (dynearthsol.cxx:746-956 minus the facet tractions and
-    surface processes), uniform material, with the tensor epilogue
-    (``epilogue``) left pending on the stress, strain, strain-rate and
-    plstrain planes it returns.
+    surface processes), with the tensor epilogue (``epilogue``) left
+    pending on the stress, strain, strain-rate and plstrain planes it
+    returns.  ``cep`` is the const pack of a multi-material plan
+    (const_epack), whose properties it mixes (``mixtures``).
 
     ``pending`` is None, or (dt, dp_nd, sfac) of the previous step when
     ``ein`` carries that step's pending epilogue: it is applied to the old
@@ -609,9 +686,10 @@ def step_planes_plain(P: StepPlan3, ein, nin, cnp, tgt, dt, gvs,
     the CFL metrics of the moved mesh and the residual, and dp_nd / sfac
     this step's nodal pressure change (NMD) and top-layer surface factors
     (5, nxc, nyc) (surface correction), else None.  Under EVP a list passed
-    as ``ties`` receives the (5, nxc, nyc, nzc) mask of the elements whose
-    min-select is an exact tie that matters: both trial invariants 0 and
-    the two trial stresses unequal."""
+    as ``ties`` receives the (5, nxc, nyc, nzc) masks of the elements whose
+    min-select is an exact tie that matters (the two trial stresses
+    unequal), with both trial invariants 0 and with two equal nonzero
+    ones, then the two invariants themselves (2, 5, nxc, nyc, nzc)."""
     sw, k = P.sw, P.k
     rheol = P.rheol
     par = P.par
@@ -631,7 +709,18 @@ def step_planes_plain(P: StepPlan3, ein, nin, cnp, tgt, dt, gvs,
     def N(nm):
         return nin[_nslot(nm)]
 
-    bulkm, shearm = c(k["bulkm"]), c(k["shearm"])
+    if P.uniform:
+        w = [1.0]
+
+        def CE(nm):
+            return c(k[nm])
+    else:
+        props, w = mixtures(P, cep, c)
+
+        def CE(nm):
+            return props[nm]
+
+    bulkm, shearm = CE("bulkm"), CE("shearm")
     vol = E("volume")
     xs, ys, zs = (gather_tets(N(n), par)
                   for n in ("coord_x", "coord_y", "coord_z"))
@@ -647,9 +736,14 @@ def step_planes_plain(P: StepPlan3, ein, nin, cnp, tgt, dt, gvs,
     temperature_new = N("temperature")
     if sw["thermal"]:
         gx, gy, gz = _dot4(dndx, ts), _dot4(dndy, ts), _dot4(dndz, ts)
-        kv = c(k["kappa"]) * vol
+        kv = CE("kappa") * vol
         contrib = tuple(kv * (dndx[i] * gx + dndy[i] * gy + dndz[i] * gz)
                         for i in range(4))
+        if not P.uniform:
+            # radiogenic source (fields.cxx:197-283; pallas3d.py:985-991)
+            rho_e1 = CE("rhoA") - CE("rhoB") * (_mean4(ts) - CELSIUS0)
+            source = CE("radiogenic_source") * vol * rho_e1 / c(4.0)
+            contrib = tuple(x - source for x in contrib)
         tdot = asm(contrib, par)
         temperature_new = torch.where(
             cnp[0] > 0, c(k["surface_T"]),
@@ -680,12 +774,11 @@ def step_planes_plain(P: StepPlan3, ein, nin, cnp, tgt, dt, gvs,
     def creep_visc():
         s0 = (stress_old[0] + stress_old[1] + stress_old[2]) / 3.0
         ed = torch.clamp(torch.sqrt(inv2_6(sr)), min=MIN_STRAIN_RATE)
-        return FC.visc_core_local(P.mc, [1.0], temp_e, s0, ed,
+        return FC.visc_core_local(P.mc, w, temp_e, s0, ed,
                                   k["visc_min"], k["visc_max"])
 
     def plastic():
-        return FC.plastic_props_local(P.mc, [1.0], plstrain,
-                                      k["tension_max"])
+        return FC.plastic_props_local(P.mc, w, plstrain, k["tension_max"])
 
     if rheol == RH_ELASTIC:
         stress_c = R.elastic3_c(bulkm, shearm, de, stress_old)
@@ -717,10 +810,15 @@ def step_planes_plain(P: StepPlan3, ein, nin, cnp, tgt, dt, gvs,
         iv, ip = inv2_6(sv), inv2_6(sp)
         use_v = iv < ip
         if ties is not None:
-            # 0 < 0 decides the select while the branches differ: there
-            # an ulp elsewhere may pick the other branch
-            ties.append((iv == 0) & (ip == 0) & torch.stack(
-                [p != q for p, q in zip(sv, sp)]).any(0))
+            # x < x decides the select while the branches differ: there an
+            # ulp elsewhere may pick the other branch.  Both invariants 0
+            # first, then an equal nonzero pair (the trial deviators
+            # agree, at visc_max, while the pressures do not)
+            differ = torch.stack([p != q for p, q in zip(sv, sp)]).any(0)
+            zero = (iv == 0) & (ip == 0)
+            ties.append(zero & differ)
+            ties.append((iv == ip) & ~zero & differ)
+            ties.append(torch.stack([iv, ip]))
         stress_c = tuple(torch.where(use_v, p, q) for p, q in zip(sv, sp))
         plstrain = torch.where(use_v, plstrain, plstrain + depls)
         delta_plstrain = torch.where(use_v, delta_plstrain, depls)
@@ -740,7 +838,7 @@ def step_planes_plain(P: StepPlan3, ein, nin, cnp, tgt, dt, gvs,
 
     # ---- phase 2b: force assembly with buoyancy (fields.cxx:612-703)
     if sw["gravity_on"]:
-        buoy = c(k["buoyA"]) - c(k["buoyB"]) * TinC
+        buoy = CE("buoyA") - CE("buoyB") * TinC
     else:
         buoy = torch.zeros_like(vol)
     fxc = tuple((s[0] * dndx[i] + s[3] * dndy[i] + s[4] * dndz[i]) * vol
@@ -779,7 +877,7 @@ def step_planes_plain(P: StepPlan3, ein, nin, cnp, tgt, dt, gvs,
     # factors of epilogue() (pallas3d.py:1395-1534)
     xs2, ys2, zs2 = (gather_tets(g, par) for g in coord_new)
     vxs2, vys2, vzs2 = (gather_tets(v, par) for v in vel_new)
-    rho_e = c(k["rhoA"]) - c(k["rhoB"]) * TinC
+    rho_e = CE("rhoA") - CE("rhoB") * TinC
     volume_new = tet_volume(xs2, ys2, zs2)
     vx_m, vy_m, vz_m = _mean4(vxs2), _mean4(vys2), _mean4(vzs2)
     vmag = torch.sqrt(vx_m * vx_m + vy_m * vy_m + vz_m * vz_m)
@@ -796,8 +894,8 @@ def step_planes_plain(P: StepPlan3, ein, nin, cnp, tgt, dt, gvs,
     volume_n = asm_equal(volume_new, par)
     mass_new = asm_equal(rho_m * volume_new / 4.0, par)
     tmass_new = asm_equal(
-        (c(k["cpA"]) - c(k["cpB"]) * TinC) * volume_new / 4.0, par)
-    hmass_new = asm_equal(c(k["hmA"]) * volume_new, par)
+        (CE("cpA") - CE("cpB") * TinC) * volume_new / 4.0, par)
+    hmass_new = asm_equal(CE("hmA") * volume_new, par)
 
     # correct_surface_element (bc.cxx:1613-1665): the top cell layer's
     # factor 1/rdv where the element grew (applied by epilogue()), and its
@@ -829,6 +927,20 @@ def step_planes_plain(P: StepPlan3, ein, nin, cnp, tgt, dt, gvs,
 
 
 # ------------------------------------------ per-chunk constants and probes
+
+def const_epack(P: StepPlan3, s):
+    """Per-chunk constant element planes of a multi-material plan
+    (pallas3d._const_epack): the radiogenic source, then the raw marker
+    weight of each material, (1 + nmat, 5, nxc, nyc, nzc); None for a
+    uniform plan."""
+    if P.uniform:
+        return None
+    cells = P.cells
+    planes = [s.radiogenic_source.reshape(*cells, 5).permute(3, 0, 1, 2)]
+    emw = s.emw.reshape(*cells, 5, P.nmat).permute(3, 0, 1, 2, 4)
+    planes += [emw[..., m] for m in range(P.nmat)]
+    return torch.stack(planes).to(P.dtype).contiguous()
+
 
 def const_npack(P: StepPlan3, ctx, s):
     """Per-chunk constant nodal planes (pallas3d._const_npack): the top
@@ -870,6 +982,7 @@ class ChunkBuffers3:
     nin: torch.Tensor
     eout: torch.Tensor
     nout: torch.Tensor
+    cep: torch.Tensor | None  # const_epack (multi-material plans)
     cnp: torch.Tensor
     tgt: torch.Tensor
     scal: torch.Tensor     # dt, vmax, gdtmin, time, last L2 partial,
@@ -893,15 +1006,19 @@ def make_buffers(P: StepPlan3, ctx, s, n: int) -> ChunkBuffers3:
     ks = s.steps + 1 + torch.arange(n, device=dev)
     refresh = (ks % 10 == 0) | bool(P.sw["use_gvs"])
     flags = refresh.to(dtype).reshape(n, 1).contiguous()
+    # the Maxwell limit, constant through a chunk: the material's, or the
+    # least over the elements' mixed shear moduli (pallas3d.py:1660-1669)
+    dtm = (torch.full_like(s.dt, P.k["dt_maxwell"]) if P.uniform
+           else fused2d.dt_maxwell(P, ctx, s.emw))
     scal = torch.stack([s.dt, s.max_global_vel_mag, s.global_dt_min,
-                        s.time, torch.zeros_like(s.dt),
-                        torch.full_like(s.dt, P.k["dt_maxwell"])]).to(dtype)
+                        s.time, torch.zeros_like(s.dt), dtm]).to(dtype)
     part = torch.zeros((NPART, P.nblocks()), dtype=dtype, device=dev)
     part[:2] = P.k["big"]   # neutral elements of min, min, max, sum
     cuda = dev.type == "cuda"
     return ChunkBuffers3(
         ein=ein, nin=nin, eout=torch.empty_like(ein),
-        nout=torch.empty_like(nin), cnp=const_npack(P, ctx, s),
+        nout=torch.empty_like(nin), cep=const_epack(P, s),
+        cnp=const_npack(P, ctx, s),
         tgt=torch.zeros((3, P.nx, P.ny, P.nz), dtype=dtype, device=dev),
         scal=scal, flags=flags,
         dthist=torch.zeros(n, dtype=dtype, device=dev), part=part,
@@ -936,6 +1053,13 @@ def _cuda_args_ok(P: StepPlan3, b: ChunkBuffers3):
                 and t.is_contiguous()):
             raise TypeError(f"{name}: need a contiguous float32 CUDA "
                             "tensor")
+    if not P.uniform and (
+            b.cep is None or not (b.cep.is_cuda
+                                  and b.cep.dtype == torch.float32
+                                  and b.cep.is_contiguous())
+            or tuple(b.cep.shape) != (1 + P.nmat, 5, *P.cells)):
+        raise TypeError("cep: need the plan's contiguous float32 const "
+                        "pack on the card (const_epack)")
     if tuple(b.ein.shape) != (NE, 5, *P.cells) \
             or tuple(b.nin.shape) != (NN, P.nx, P.ny, P.nz) \
             or tuple(b.ework.shape) != (NEWORK, *P.cells) \
@@ -956,7 +1080,8 @@ def _launch_step(P: StepPlan3, b: ChunkBuffers3, pending: bool, last: bool,
     p = fused2d._ptr
     rc = _build.load().des_fused3d_step_f32(
         P.ip.ctypes.data, P.fp.ctypes.data, p(b.ein), p(b.nin), p(b.eout),
-        p(b.nout), p(b.cnp), p(b.tgt), p(b.scal), p(b.ework), p(b.nwork),
+        p(b.nout), p(b.cep), p(b.cnp), p(b.tgt), p(b.scal), p(b.ework),
+        p(b.nwork),
         p(b.sfac), p(dt_prev), p(b.part), b.part.shape[1], int(pending),
         int(last), fused2d._stream())
     if rc != 0:
@@ -1006,7 +1131,7 @@ def chunk_step_plain(P: StepPlan3, b: ChunkBuffers3, k: int, n: int):
     pending = (b.dthist[k - 1], b.nwork[1], b.sfac) if k else None
     eout, nout, red, dp_nd, sfac = step_planes_plain(
         P, b.ein, b.nin, b.cnp, b.tgt, b.scal[0],
-        b.scal[1] * P.k["inertial"], pending=pending)
+        b.scal[1] * P.k["inertial"], pending=pending, cep=b.cep)
     if k == n - 1:
         b.eout.copy_(eout)
         b.nout.copy_(nout)
@@ -1068,19 +1193,56 @@ def finalize_plain(P: StepPlan3, b: ChunkBuffers3, e, n, dt):
     e[pl] = pls
 
 
-def evp_ties(P: StepPlan3, ctx, s):
-    """The ``ties`` mask of step_planes_plain for one step from State s,
-    by element id (all False off EVP): the elements where two correct
-    implementations of the EVP step may part after one step."""
+def _plain_ties(P: StepPlan3, ctx, s):
+    """The ``ties`` list of step_planes_plain for one step from State s
+    (empty off EVP), each entry by element id in its last dimension."""
     b = make_buffers(P, ctx, s, 1)
     b.tgt = vbc_targets(ctx, b.nin, b.scal[3] + b.scal[0])
     ties = []
     step_planes_plain(P, b.ein, b.nin, b.cnp, b.tgt, b.scal[0],
-                      b.scal[1] * P.k["inertial"], ties)
-    if not ties:
-        return torch.zeros(5 * P.ncell, dtype=torch.bool,
-                           device=b.ein.device)
-    return ties[0].permute(1, 2, 3, 0).reshape(-1)
+                      b.scal[1] * P.k["inertial"], ties, cep=b.cep)
+    return [t.movedim(-4, -1).reshape(*t.shape[:-4], -1) for t in ties]
+
+
+def evp_ties(P: StepPlan3, ctx, s):
+    """The elements, by id, whose EVP min-select after one step from State
+    s is an exact tie with both trial invariants 0 and the trial stresses
+    unequal (all False off EVP): both invariants are exactly 0 in any
+    correct step, which must resolve them alike."""
+    ties = _plain_ties(P, ctx, s)
+    return ties[0] if ties else torch.zeros(
+        5 * P.ncell, dtype=torch.bool, device=s.coord.device)
+
+
+def evp_tie_reach(P: StepPlan3, ctx, s):
+    """What the ties of equal nonzero trial invariants of one step from
+    State s can change, and how near a tie they are: (element mask, node
+    mask, gap).  A tie element's branch moves its nodes' forces and NMD
+    pressure change, which every element on those nodes takes into its
+    stress, and so into its own nodes' forces.  ``gap`` is the max over
+    the ties of |iv - ip| / e, with iv and ip taken in float64 from the
+    same inputs and constants and e the larger of the run dtype's own
+    errors in them: below 1, the step rounds the invariants by more than
+    they differ, so which is the smaller is a matter of rounding and two
+    correct steps may pick either branch (0 without such ties)."""
+    lo = _plain_ties(P, ctx, s)
+    conn = ctx.conn.to(s.coord.device)
+    nodes = torch.zeros(ctx.nnode, dtype=torch.bool, device=conn.device)
+    if not lo:
+        return nodes[conn].any(1), nodes, 0.0
+    hi = _plain_ties(replace(P, dtype=torch.float64), ctx, state_from_numpy(
+        state_to_numpy(s), s.coord.device, torch.float64))
+    tie = lo[1]
+    nodes[conn[tie].reshape(-1)] = True
+    elems = nodes[conn].any(1)
+    reach = torch.zeros_like(nodes)
+    reach[conn[elems].reshape(-1)] = True
+    # (iv, ip) at the ties, in the run dtype and in float64
+    a, b = lo[2][:, tie].double(), hi[2][:, tie]
+    d, err = (b[0] - b[1]).abs(), (a - b).abs().max(0).values
+    gap = float(torch.where(d == 0, 0.0, d / err).max()) \
+        if bool(tie.any()) else 0.0
+    return elems, reach, gap
 
 
 fused3d_step.launches = 0
@@ -1125,8 +1287,11 @@ def run_chunk(P: StepPlan3, ctx, s, n: int, plain: bool = False):
         l2_residual=torch.sqrt(b.scal[4] / nnode3))
 
 
-def make_chunk_runner(param: Param, ctx, n: int):
+def make_chunk_runner(param: Param, ctx, compensation_pressure: float,
+                      n: int):
     """run(ctx, state) -> state after n fused 3D steps (the counterpart of
-    pallas3d.make_chunk_runner)."""
+    pallas3d.make_chunk_runner, with its arguments).  The Winkler reference
+    pressure ``compensation_pressure`` is read by the 3D facet tractions
+    only, which unported_features refuses."""
     P = make_plan(param, ctx, ctx.conn.device)
     return lambda c, s: run_chunk(P, c, s, n)

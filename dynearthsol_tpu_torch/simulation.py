@@ -262,7 +262,10 @@ class Simulation:
                 ctx = self.ctx = replace(ctx, band=band2d.build_tables(
                     self.topo.connectivity, self.topo.nnode, self.device))
             self.step_path = path
-            self._chunk_fns[n] = make(param, ctx, n)
+            # every runner takes the Winkler reference pressure, as the
+            # JAX package's do (simulation.py:1368-1425)
+            self._chunk_fns[n] = make(param, ctx, self.compensation_pressure,
+                                      n)
         return self._chunk_fns[n]
 
     def run_steps(self, n: int, chunk: Optional[int] = None) -> State:

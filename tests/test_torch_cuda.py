@@ -24,7 +24,8 @@ from torch_cases import (FLAT_FIELDS, STEP3_CASES,
                          assert_evp3_one_step_close,
                          assert_evp_one_step_close, assert_maxwell3_close,
                          assert_maxwell_close, assert_resident_matches_tiled,
-                         flat_cfg, make_sim3d_cfg, make_sim_cfg, rel_err)
+                         flat_cfg, make_sim3d_cfg, make_sim_cfg,
+                         multimat3d_cfg, production_cfg, rel_err)
 
 pytestmark = pytest.mark.cuda
 
@@ -42,7 +43,8 @@ def get(s, f):
 
 def _run(cfg, n, resident, plain):
     sim = des.Simulation(des.param_from_dict(cfg), device="cuda")
-    P = fused2d.make_plan(sim.param, sim.ctx, sim.device)
+    P = fused2d.make_plan(sim.param, sim.ctx, sim.device,
+                          sim.compensation_pressure)
     out = fused2d.run_chunk(P, sim.ctx, sim.state, n, resident, plain)
     torch.cuda.synchronize()
     return out
@@ -78,12 +80,16 @@ def test_resident_matches_tiled(cuda):
     assert_resident_matches_tiled(tiled, res, get)
 
 
-def test_chunk_equals_one_step_launches(cuda):
+@pytest.mark.parametrize("cfg", [make_sim_cfg(), production_cfg()],
+                         ids=["flagship_features", "production"])
+def test_chunk_equals_one_step_launches(cuda, cfg):
     """A 25-step chunk in one launch against 25 one-step launches of the
-    same kernel from the same buffers: every plane, scal and the dt
-    history equal bit for bit."""
-    sim = des.Simulation(des.param_from_dict(make_sim_cfg()), device="cuda")
-    P = fused2d.make_plan(sim.param, sim.ctx, sim.device)
+    same kernel from the same buffers: every plane (with the production
+    features dhacc and edv too), scal and the dt history equal bit for
+    bit."""
+    sim = des.Simulation(des.param_from_dict(cfg), device="cuda")
+    P = fused2d.make_plan(sim.param, sim.ctx, sim.device,
+                          sim.compensation_pressure)
     n = 25
     cb = fused2d.make_buffers(P, sim.ctx, sim.state, n, tiled=False)
     fused2d.fused_chunk(P, cb, n, tiled=False)
@@ -122,7 +128,8 @@ def test_refused_launch_raises(cuda):
     """An error code of the C entry raises in the wrapper: it refuses a plan
     with more materials than the kernel holds (MAXMAT) before launching."""
     sim = des.Simulation(des.param_from_dict(make_sim_cfg()), device="cuda")
-    P = fused2d.make_plan(sim.param, sim.ctx, sim.device)
+    P = fused2d.make_plan(sim.param, sim.ctx, sim.device,
+                          sim.compensation_pressure)
     b = fused2d.make_buffers(P, sim.ctx, sim.state, 1, tiled=False)
     ip = P.ip.copy()
     ip[fused2d.IP_FIELDS.index("nmat")] = fused2d.MAXMAT + 1
@@ -133,9 +140,34 @@ def test_refused_launch_raises(cuda):
     assert _counts() == before
 
 
+def test_production_kernel_vs_plain(cuda):
+    """The production instance (Winkler and water tractions, surface
+    process 1, two materials; 16 x 128 cells) against the plain version on
+    the card: one EVP step at the one-step gate (2e-6) on coord, stress,
+    strain, plstrain, force, dhacc and edvacc_surf, the velocity at the
+    scale of its increment dt f / m (tests/test_torch_production2d.py);
+    10 maxwell steps in one chunk launch at the maxwell gate (2e-4, force
+    1e-3), the surface accumulators included."""
+    cfg = production_cfg()
+    sim = des.Simulation(des.param_from_dict(cfg), device="cuda")
+    ref, out = _run(cfg, 1, False, True), _run(cfg, 1, False, False)
+    assert_evp_one_step_close(ref, out, get, fields=(
+        "coord", "stress", "strain", "plstrain", "force", "dhacc",
+        "edvacc_surf"))
+    inc = sim.state.dt * (ref.force / sim.state.mass[:, None]).abs().max()
+    assert float((ref.vel - out.vel).abs().max()) < 2e-6 * float(inc)
+    assert float(out.dhacc.abs().max()) > 0
+    cfg = production_cfg("maxwell")
+    ref, out = _run(cfg, 10, True, True), _run(cfg, 10, True, False)
+    assert_maxwell_close(ref, out, get)
+    for f in ("dhacc", "edvacc_surf"):
+        assert rel_err(get(ref, f), get(out, f)) < 2e-4, f
+
+
 def test_initial_volume_is_the_kernels(cuda):
     sim = des.Simulation(des.param_from_dict(make_sim_cfg()), device="cuda")
-    P = fused2d.make_plan(sim.param, sim.ctx, sim.device)
+    P = fused2d.make_plan(sim.param, sim.ctx, sim.device,
+                          sim.compensation_pressure)
     b = fused2d.make_buffers(P, sim.ctx, sim.state, 1, tiled=False)
     b.scal[0] = 0.0
     fused2d.fused_chunk(P, b, 1, tiled=False)
@@ -184,6 +216,51 @@ def test_fused3d_one_step_cases(cuda, case):
     cfg = _cfg3(ic={"weakzone_option": 1}, **STEP3_CASES[case])
     assert_evp3_one_step_close(_run3(cfg, 1, True), _run3(cfg, 1, False),
                                get)
+
+
+def test_fused3d_multimat_vs_plain(cuda):
+    """The mixed instance of the 3D kernel (two materials, the const pack)
+    against the plain version on the CPU: 3 maxwell steps in the chunk
+    form at the maxwell gate (1e-3, force 5e-3), one maxwell step at the
+    one-step gate (1e-4, force 1e-3, log-viscosity median 0.02) over every
+    value, and one EVP step at the one-step gate away from what its ties
+    of equal nonzero invariants reach (fused3d.evp_tie_reach): there the
+    two trial deviators agree at visc_max, and the invariants differ by
+    less than the f32 step rounds them (their float64 gap below 1 of that
+    error), so either branch is a correct f32 step.  The reach stays
+    within 5 % of the elements."""
+    cfg = multimat3d_cfg("maxwell", mesh={"ylength": 16e3})
+    assert_maxwell3_close(_run3(cfg, 3, True), _run3(cfg, 3, False), get)
+    assert_evp3_one_step_close(_run3(cfg, 1, True), _run3(cfg, 1, False),
+                               get)
+    cfg = multimat3d_cfg(mesh={"ylength": 16e3}, ic={"weakzone_option": 1})
+    sim = des.Simulation(des.param_from_dict(cfg), device="cpu")
+    elems, nodes, gap = fused3d.evp_tie_reach(
+        fused3d.make_plan(sim.param, sim.ctx, "cpu"), sim.ctx, sim.state)
+    assert gap < 1 and float(elems.double().mean()) <= 0.05
+
+    def away_from_ties(s, f):
+        v = get(s, f)
+        return v[~(elems if v.shape[0] == elems.numel() else nodes).numpy()]
+
+    assert_evp3_one_step_close(_run3(cfg, 1, True), _run3(cfg, 1, False),
+                               away_from_ties)
+
+
+def test_fused3d_refused_launch_raises(cuda):
+    """The 3D entry refuses a mixed plan with more materials than the
+    kernel holds (MAXMAT), and the wrapper raises without counting a
+    launch."""
+    sim = des.Simulation(des.param_from_dict(multimat3d_cfg(
+        mesh={"ylength": 16e3})), device="cuda")
+    P = fused3d.make_plan(sim.param, sim.ctx, sim.device)
+    b = fused3d.make_buffers(P, sim.ctx, sim.state, 1)
+    ip = P.ip.copy()
+    ip[fused3d.IP_FIELDS.index("nmat")] = fused3d.MAXMAT + 1
+    before = fused3d.fused3d_step.launches
+    with pytest.raises(RuntimeError, match="launch failed"):
+        fused3d.fused3d_chunk_step(dataclasses.replace(P, ip=ip), b, 0, 1)
+    assert fused3d.fused3d_step.launches == before
 
 
 def test_fused3d_initial_volume_is_the_kernels(cuda):

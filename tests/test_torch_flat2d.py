@@ -195,7 +195,7 @@ def test_refused_at_construction(over):
 def test_flat_step_needs_tables():
     ts = tdes.Simulation(tdes.param_from_dict(flat_cfg()), device="cpu")
     with pytest.raises(ValueError, match="build_tables"):
-        tflat.make_chunk_runner(ts.param, ts.ctx, 1)
+        tflat.make_chunk_runner(ts.param, ts.ctx, 0.0, 1)
 
 
 @pytest.mark.parametrize("dtype", ["float64", "float32"])

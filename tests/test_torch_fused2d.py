@@ -3,7 +3,10 @@ against the JAX package's Pallas step (ops/pallas2d.py, interpret mode as
 tests/test_pallas.py runs it), both started from the same JAX State
 (state_from_numpy).  Tolerances are test_pallas.py's: a maxwell trajectory
 gate and a one-step EVP gate, because the EVP min-select
-(rheology.cxx:869-879) flips at f32 roundoff and then amplifies."""
+(rheology.cxx:869-879) flips at f32 roundoff and then amplifies.  One pair
+of Simulations serves the EVP cases that differ only in the step (the
+damping options: the param of each case on the shared mesh and state),
+and one the maxwell ones."""
 
 import numpy as np
 import pytest
@@ -16,7 +19,7 @@ from dynearthsol_tpu_torch.ops import fused2d
 from dynearthsol_tpu_torch.state import FIELD_NAMES, state_from_numpy
 from torch_cases import (assert_evp_one_step_close, assert_maxwell_close,
                          assert_resident_matches_tiled, make_sim_cfg,
-                         rel_err)
+                         rel_err, with_param)
 
 
 def get(s, f):
@@ -47,12 +50,22 @@ def _jax_run(js, n, resident=False):
 def _port_run(ts, s0, n, resident=False):
     mk = (fused2d.make_resident_chunk_runner if resident
           else fused2d.make_chunk_runner)
-    return mk(ts.param, ts.ctx, n)(ts.ctx, s0)
+    return mk(ts.param, ts.ctx, ts.compensation_pressure, n)(ts.ctx, s0)
 
 
-def test_maxwell_10_steps():
+@pytest.fixture(scope="module")
+def evp():
+    return _sims(make_sim_cfg())
+
+
+@pytest.fixture(scope="module")
+def maxwell():
+    return _sims(make_sim_cfg(mat={"rheology_type": "maxwell"}))
+
+
+def test_maxwell_10_steps(maxwell):
     """Ends on a dt-refresh step (dynearthsol.cxx:861-871 cadence)."""
-    js, ts, s0 = _sims(make_sim_cfg(mat={"rheology_type": "maxwell"}))
+    js, ts, s0 = maxwell
     assert_maxwell_close(_jax_run(js, 10), _port_run(ts, s0, 10), get)
 
 
@@ -67,14 +80,21 @@ CASES["two_materials"] = {
 
 
 @pytest.mark.parametrize("case", list(CASES))
-def test_evp_one_step(case):
+def test_evp_one_step(case, evp):
     """One EVP step per damping option 0-4 and with two materials (the
-    const-pack path), at f32 roundoff: 2e-6 of each field's max."""
-    js, ts, s0 = _sims(make_sim_cfg(**CASES[case]))
+    const-pack path, whose state is its own), at f32 roundoff: 2e-6 of
+    each field's max."""
+    cfg = make_sim_cfg(**CASES[case])
+    if "mat" in CASES[case]:
+        js, ts, s0 = _sims(cfg)
+    else:
+        js, ts, s0 = evp
+        js = with_param(js, jdes.param_from_dict(cfg))
+        ts = with_param(ts, tdes.param_from_dict(cfg))
     assert_evp_one_step_close(_jax_run(js, 1), _port_run(ts, s0, 1), get)
 
 
-def test_resident_25_steps():
+def test_resident_25_steps(evp, maxwell):
     """Across dt refreshes at steps 10 and 20.  EVP: the resident runner
     against the port's tiled runner, same core (test_pallas.py:151-169
     bounds; the branch-selected fields may show a near-tie flip).  Maxwell:
@@ -82,11 +102,11 @@ def test_resident_25_steps():
     25-step bounds test_pallas.py:171-183 sets between two
     implementations."""
     n = 25
-    js, ts, s0 = _sims(make_sim_cfg())
+    js, ts, s0 = evp
     assert_resident_matches_tiled(_port_run(ts, s0, n),
                                   _port_run(ts, s0, n, resident=True), get)
 
-    js, ts, s0 = _sims(make_sim_cfg(mat={"rheology_type": "maxwell"}))
+    js, ts, s0 = maxwell
     ref = _jax_run(js, n, resident=True)
     out = _port_run(ts, s0, n, resident=True)
     tols = {"force": 2e-3, "vel": 1e-3, "stress": 1e-3, "plstrain": 5e-4}
@@ -104,7 +124,7 @@ def test_volume_fixed_point():
     volume must equal the initial volume bit for bit (simulation.py
     initialises it with the same operations)."""
     ts = tdes.Simulation(tdes.param_from_dict(make_sim_cfg()), device="cpu")
-    P = fused2d.make_plan(ts.param, ts.ctx, "cpu")
+    P = fused2d.make_plan(ts.param, ts.ctx, "cpu", ts.compensation_pressure)
     b = fused2d.make_buffers(P, ts.ctx, ts.state, 1, tiled=False)
     b.scal[0] = 0.0
     fused2d.fused_chunk(P, b, 1, tiled=False)

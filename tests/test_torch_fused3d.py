@@ -43,12 +43,21 @@ def get(s, f):
     return v.numpy() if isinstance(v, torch.Tensor) else np.asarray(v)
 
 
+_SIMS = {}
+
+
 def _sims(cfg):
-    js = jdes.Simulation(jdes.param_from_dict(cfg))
-    ts = tdes.Simulation(tdes.param_from_dict(cfg), device="cpu")
-    s0 = state_from_numpy({f: np.asarray(getattr(js.state, f))
-                           for f in FIELD_NAMES}, dtype=torch.float32)
-    return js, ts, s0
+    """(JAX Simulation, port Simulation, the JAX initial state as a port
+    State) of a config, built once per process for this file and
+    tests/test_torch_fused3d_cases.py, which only read them."""
+    key = repr(cfg)
+    if key not in _SIMS:
+        js = jdes.Simulation(jdes.param_from_dict(cfg))
+        ts = tdes.Simulation(tdes.param_from_dict(cfg), device="cpu")
+        s0 = state_from_numpy({f: np.asarray(getattr(js.state, f))
+                               for f in FIELD_NAMES}, dtype=torch.float32)
+        _SIMS[key] = js, ts, s0
+    return _SIMS[key]
 
 
 def _grid_run(js, n):
@@ -89,7 +98,7 @@ def maxwell_ref(maxwell):
 @pytest.fixture(scope="module")
 def evp():
     js, ts, s0 = _sims(make_sim3d_cfg(ic={"weakzone_option": 1}))
-    port = fused3d.make_chunk_runner(ts.param, ts.ctx, 1)(ts.ctx, s0)
+    port = fused3d.make_chunk_runner(ts.param, ts.ctx, 0.0, 1)(ts.ctx, s0)
     return js, ts, s0, port
 
 
@@ -100,7 +109,7 @@ def evp_ref(evp):
 
 def test_maxwell_10_steps_vs_grid3d(maxwell, maxwell_ref):
     _, ts, s0 = maxwell
-    out = fused3d.make_chunk_runner(ts.param, ts.ctx, 10)(ts.ctx, s0)
+    out = fused3d.make_chunk_runner(ts.param, ts.ctx, 0.0, 10)(ts.ctx, s0)
     assert_maxwell3_close(maxwell_ref, out, get)
 
 

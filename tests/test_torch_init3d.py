@@ -98,11 +98,14 @@ def test_gate_matches_jax(over):
 
 
 @pytest.mark.parametrize("over,missing", [
-    ({"mat": {"nmat": 2, "rho0": [2800.0, 3300.0],
-              "bulk_modulus": [50e9, 80e9],
-              "shear_modulus": [30e9, 48e9]},
-      "ic": {"mattype_layer_depths": [0.4], "layer_mattypes": [0, 1]}},
-     "multi-material"),
+    # two materials run (tests/test_torch_multimat3d.py); more than the
+    # kernel's MAXMAT (8) do not
+    ({"mat": {"nmat": 9, "rho0": [2800.0 + 50 * m for m in range(9)],
+              "bulk_modulus": [50e9] * 9, "shear_modulus": [30e9] * 9},
+      "ic": {"num_mattype_layers": 9,
+             "mattype_layer_depths": [0.1 * m for m in range(1, 9)],
+             "layer_mattypes": list(range(9))}},
+     "more than 8 materials"),
     ({"bc": {"has_winkler_foundation": True, "winkler_delta_rho": 100.0}},
      "Winkler"),
     ({"control": {"surface_process_option": 1,

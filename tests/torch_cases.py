@@ -1,6 +1,8 @@
 """Configs and comparison helpers shared by the tests of the PyTorch port
 (tests/test_torch_*.py).  Imports neither JAX nor the port."""
 
+from types import SimpleNamespace
+
 import numpy as np
 
 
@@ -26,6 +28,25 @@ def make_sim_cfg(**over):
                 "shear_modulus": [30e9],
                 "visc_max": 1e24, "visc_min": 1e19},
     }
+    return _merge(d, over)
+
+
+def production_cfg(rheology="elasto-visco-plastic", **over):
+    """tests/test_pallas.py _production_sim: the examples/rifting-2d.cfg
+    feature set (Winkler foundation, water loading, surface process 1, the
+    surface-element correction, two materials by markers) on make_sim's 16
+    x 128 cells, damping 2 (factor 0.4)."""
+    d = make_sim_cfg(
+        control={"surface_process_option": 1, "surface_diffusivity": 1e-6,
+                 "has_surface_correction": True, "damping_option": 2,
+                 "damping_factor": 0.4},
+        bc={"has_winkler_foundation": True, "has_water_loading": True,
+            "winkler_delta_rho": 100.0},
+        markers={"markers_per_element": 4, "init_marker_option": 1},
+        ic={"mattype_layer_depths": [0.3], "layer_mattypes": [0, 1]},
+        mat={"nmat": 2, "rho0": [2800.0, 3300.0],
+             "bulk_modulus": [50e9, 80e9], "shear_modulus": [30e9, 48e9],
+             "rheology_type": rheology})
     return _merge(d, over)
 
 
@@ -91,6 +112,55 @@ def make_sim3d_cfg(**over):
     return _merge(d, over)
 
 
+# tests/test_pallas3d.py:135-153 _multimat_over: two layers of two
+# materials (crust over mantle) by markers, with contrasting properties
+MULTIMAT3 = {
+    "mat": {"num_materials": 2, "rho0": [2700.0, 3300.0],
+            "bulk_modulus": [40e9, 120e9], "shear_modulus": [24e9, 70e9],
+            "heat_capacity": [1000.0, 1200.0], "therm_cond": [2.5, 3.3],
+            "alpha": [3e-5, 2e-5], "visc_coefficient": [1e2, 1e3],
+            "visc_activation_energy": [3.0e5, 4.0e5],
+            "cohesion0": [4e7, 6e7], "friction_angle0": [30.0, 25.0],
+            "visc_max": 1e24, "visc_min": 1e19},
+    "ic": {"num_mattype_layers": 2, "layer_mattypes": [0, 1],
+           "mattype_layer_depths": [0.4]},
+    "markers": {"markers_per_element": 4, "random_seed": 11}}
+
+
+def multimat3d_cfg(rheology="elasto-visco-plastic", **over):
+    """make_sim3d_cfg with MULTIMAT3 (128 x 4 x 8 cells)."""
+    d = make_sim3d_cfg(**{k: dict(v) for k, v in MULTIMAT3.items()})
+    d["mat"]["rheology_type"] = rheology
+    return _merge(d, over)
+
+
+def flagship3d_multimat_cfg():
+    """bench.py flagship3d_param(nmat=2): 256 x 48 x 16 cells of 1 km,
+    983,040 tets, EVP, crust (0-40 %) over mantle by 4 markers per
+    element."""
+    return {
+        "sim": {"max_steps": 10**9, "ndims": 3, "float_dtype": "float32",
+                "is_outputting_averaged_fields": False},
+        "mesh": {"meshing_option": 1, "meshing_elem_shape": 1,
+                 "xlength": 256e3, "ylength": 48e3, "zlength": 16e3,
+                 "resolution": 1e3, "quality_check_step_interval": 10**8},
+        "markers": {"markers_per_element": 4, "init_marker_option": 1},
+        "ic": {"mattype_layer_depths": [0.4], "layer_mattypes": [0, 1]},
+        "control": {"gravity": 10.0, "inertial_scaling": 1e5,
+                    "has_thermal_diffusion": True, "damping_option": 1},
+        "bc": {"vbc_x0": 1, "vbc_val_x0": -1e-9, "vbc_x1": 1,
+               "vbc_val_x1": 1e-9, "vbc_y0": 1, "vbc_val_y0": 0.0,
+               "vbc_y1": 1, "vbc_val_y1": 0.0, "vbc_z0": 0, "vbc_z1": 0,
+               "has_winkler_foundation": False, "has_water_loading": False,
+               "surface_temperature": 273.0, "mantle_temperature": 1600.0},
+        "mat": {"rheology_type": "elasto-visco-plastic",
+                "is_plane_strain": False, "nmat": 2,
+                "rho0": [2800.0, 3300.0], "bulk_modulus": [50e9, 80e9],
+                "shear_modulus": [30e9, 48e9], "visc_max": 1e24,
+                "visc_min": 1e19},
+    }
+
+
 def flat_cfg(rheology="elasto-visco-plastic", dtype="float64", **over):
     """tests/test_flat.py mk_param config: a 16 km x 8 km Delaunay box at
     1 km (262 triangles, 156 nodes), EVP, plane strain, thermal diffusion,
@@ -121,6 +191,18 @@ FLAT_FIELDS = ("coord", "vel", "temperature", "stress", "stressyy", "strain",
                "volume", "volume_old", "volume_n", "mass", "tmass", "hmass",
                "ymass", "force", "edvoldt", "dt", "time",
                "max_global_vel_mag", "global_dt_min", "l2_residual")
+
+
+def with_param(sim, param):
+    """A stand-in for ``sim`` (a Simulation of either package) with another
+    param on the same mesh, context and state: what the chunk runners and
+    step plans read of a Simulation.  The tests that share one Simulation
+    between configs that differ only in the step (rheology, damping,
+    switches) run each config's step from the shared state."""
+    return SimpleNamespace(param=param, ctx=sim.ctx, state=sim.state,
+                           device=getattr(sim, "device", None),
+                           compensation_pressure=getattr(
+                               sim, "compensation_pressure", 0.0))
 
 
 def _merge(d, over):
@@ -160,9 +242,14 @@ def assert_maxwell_close(ref, out, get):
         assert abs(a - b) <= 1e-5 * max(abs(a), 1e-300), f
 
 
-def assert_evp_one_step_close(ref, out, get, tol=2e-6):
+EVP_ONE_STEP_FIELDS = ("coord", "vel", "stress", "strain", "plstrain",
+                       "force")
+
+
+def assert_evp_one_step_close(ref, out, get, tol=2e-6,
+                              fields=EVP_ONE_STEP_FIELDS):
     """Single-step EVP gate at f32 roundoff (test_pallas.py:108-117)."""
-    for f in ("coord", "vel", "stress", "strain", "plstrain", "force"):
+    for f in fields:
         err = rel_err(get(ref, f), get(out, f))
         assert err < tol, (f, err)
 
