@@ -70,11 +70,27 @@ Phases, each printed, the first failure exits non-zero:
                 warm-up steps, then 500 in chunks of 250, 500 fused3d_step
                 launches and a finalize per chunk, no plain version; the
                 two-material kernel's device times;
+  6c. production3d -- kernel 3's boundary-process instances (the Winkler
+                and water facet tractions, surface process 1 with its top-lane
+                pass S): at 128 x 16 x 8 cells a 10-step maxwell chunk with
+                the tractions and surface process 1 and one production3d
+                EVP step against the plain version on the CPU, every
+                field's error printed, dhacc and edvacc_surf included (the
+                EVP step away from what its ties of rounding reach); then
+                bench.py production3d_param (983,040 tets, two materials):
+                one maxwell step plane by plane against the plain version
+                on the card, a 20-step EVP chunk against 20 complete steps
+                bit for bit, the kernel's chunk-form and one-step device
+                times and the plain version's, and the main path through
+                Simulation.run_steps: 100 warm-up steps, then 500 in chunks
+                of 250, 500 fused3d_step launches and a finalize per chunk,
+                no plain version, dhacc moved, its elem*steps/s;
   7. profile -- torch.profiler over 100 steps of the flagship and
-                production runners and 20 of the flagship3d and
-                flagship3d_multimat runners: device time per launch by
-                kernel, device busy and idle share; for the 3D ones the
-                bytes each phase of the 3D kernel moves and its TB/s;
+                production runners and 20 of the flagship3d,
+                flagship3d_multimat and production3d runners: device time
+                per launch by kernel, device busy and idle share; for the 3D
+                ones the bytes each phase of the 3D kernel moves and its
+                TB/s;
   8. gather/assembly kernels -- the three kernels of csrc/band2d.cu
                 (cgather, asm_pack, asm_gather) against their plain
                 versions with torch.equal (tolerance 0): a small Delaunay
@@ -278,6 +294,35 @@ def flagship3d_cfg(rheology="elasto-visco-plastic", nmat=1):
     return cfg
 
 
+# bench.py production3d_param's boundary processes: surface process 1
+# (diffusivity 1e-6 m^2/s) with the surface correction, the Winkler
+# foundation (delta rho 100) and water loading
+BOUNDARY3 = {
+    "control": {"surface_process_option": 1, "surface_diffusivity": 1e-6,
+                "has_surface_correction": True},
+    "bc": {"has_winkler_foundation": True, "has_water_loading": True,
+           "winkler_delta_rho": 100.0}}
+
+
+def production3d_cfg(rheology="elasto-visco-plastic", small=False, nmat=2):
+    """bench.py production3d_param: flagship3d_param(nmat=2) with
+    BOUNDARY3, 983,040 tets.  ``small``: the same features at 128 x 16 x 8
+    cells (tests/test_pallas3d.py:287-303; two materials as
+    multimat3d_cfg, or one with ``nmat=1`` and no weak zone, :262-276), the
+    base level raised to 10 m so that the flat top takes water pressure."""
+    if small:
+        cfg = sim3d_cfg(rheology, weakzone=int(nmat == 2))
+        if nmat == 2:
+            cfg = multimat3d_cfg(cfg)
+    else:
+        cfg = flagship3d_cfg(rheology, nmat=2)
+    for sec, kv in BOUNDARY3.items():
+        cfg[sec].update(kv)
+    if small:
+        cfg["control"]["surf_base_level"] = 10.0
+    return cfg
+
+
 # 3D gates of tests/test_pallas3d.py:79-82, :112-131
 FIELDS3 = ("coord", "vel", "temperature", "stress", "strain", "plstrain",
            "volume", "volume_n", "mass", "tmass", "hmass", "force",
@@ -426,6 +471,10 @@ def main():
         acc = [n for n in mod.N_SLOTS if n in ("dhacc", "edv")]
         acc_b = (len(acc) * b.nin.shape[1] * b.nin.element_size()
                  if sw.get("surf_on") else 0)
+        if mod is fused3d and sw["surf_on"]:
+            # the 3D accumulator planes (dhacc, edv_a, edv_b): the top lane
+            acc_b = (len(fused3d.SURF_SLOTS) * b.nin.shape[1]
+                     * b.nin.shape[2] * b.nin.element_size())
         if sw["rheol"] not in (fused3d.RH_MAXWELL, fused3d.RH_EVP):
             skip.add("volume_old")
         if sw["rheol"] in (fused3d.RH_VISCOUS, fused3d.RH_MAXWELL,
@@ -494,8 +543,12 @@ def main():
         step of the chunk form under the plan's switches: every plane a
         phase loads or stores counted once for that phase (nodal planes it
         gathers, element, cell-scratch and surface-factor planes), vbc
-        targets only where masked.  ``pending``/``last`` as in the chunk
-        form; the "finalize" entry is the pass after a chunk."""
+        targets only where masked; with the boundary processes the facet
+        partials (12 columns' planes a boundary row, written by E, read by
+        F) and the top-lane planes of surface process 1 (S: x, y, z, the
+        top mask, dh; G: dh, edv_a and edv_b in and out; H: dh, z and
+        dhacc).  ``pending``/``last`` as in the chunk form; the "finalize"
+        entry is the pass after a chunk."""
         sw = P.sw
         N = nbytes(b.nin[0])
         E = nbytes(b.ein[0])
@@ -527,6 +580,18 @@ def main():
             "phase_g": 7 * N + 3 * E + (2 + last) * E + surf * S + w,
             "phase_h": (3 + last) * E + (3 + last) * N,
         }
+        es = b.nin.element_size()
+        rows = 12 * P.cells[0] * P.cells[1] * es * (sw["winkler"]
+                                                    + sw["water"])
+        lane = P.nx * P.ny * es
+        ph["phase_e"] += rows
+        ph["phase_f"] += rows
+        if sw["surf_on"]:
+            ph = {**{k: v for k, v in ph.items() if k <= "phase_f"},
+                  "phase_s": 5 * lane,
+                  **{k: v for k, v in ph.items() if k > "phase_f"}}
+            ph["phase_g"] += 5 * lane
+            ph["phase_h"] += 5 * lane
         # strain rate and plstrain: the scaled top layer
         top = 14 * surf * E // P.cells[2]
         ph["finalize"] = (6 * jau + nmd) * N + surf * S + (
@@ -555,6 +620,15 @@ def main():
                 # gravity, G 50)
                 per_e += 25 * th + 38 + 26 * sw["gravity_on"] + 50
             per_n = 9 + 11 * th + 9 * nmd + 57 + 32
+            # per (x, y) column, with the boundary processes: each
+            # boundary row's two facets (about 56 operations each in E)
+            # and F's lane sums (15); surface process 1's S (up to 8
+            # triangles of about 37 operations), G's deposited volumes
+            # (26) and H's two additions
+            per_col = (127 * (sw["winkler"] + sw["water"])
+                       + 329 * sw["surf_on"])
+            return (per_e * nelem + per_n * nnode
+                    + per_col * P.nx * P.ny)
         else:        # per triangle: A, B, C, D, E, F, G, H; per node B, D, F
             per_e = (38 + 35 * th + 3 + 3 * th + 54 + rh + 3 * nmd
                      + 6 * nmd + 47 + 6 * nmd + 6 + 22 + 45 * jau
@@ -565,7 +639,6 @@ def main():
             per_n_lane = (30 * (sw["winkler"] + sw["water"])
                           + 40 * sw["surf_on"])
             return per_e * nelem + per_n * nnode + per_n_lane * P.nx
-        return per_e * nelem + per_n * nnode
 
     def bound(read, written, ops):
         """Least time the card could take, in ms: bytes (each input read
@@ -953,7 +1026,8 @@ def main():
         (fused3d.evp_tie_reach)."""
         s3 = des.Simulation(des.param_from_dict(cfg),
                             device="cpu" if plain else "cuda")
-        P3 = fused3d.make_plan(s3.param, s3.ctx, s3.device)
+        P3 = fused3d.make_plan(s3.param, s3.ctx, s3.device,
+                               s3.compensation_pressure)
         out = fused3d.run_chunk(P3, s3.ctx, s3.state, n, plain)
         sync()
         ties = fused3d.evp_ties(P3, s3.ctx, s3.state) \
@@ -968,7 +1042,8 @@ def main():
         steps (fused3d_step, dt_refresh, swap), bit for bit on every
         plane."""
         out = fused3d.run_chunk(P, ctx, state, n)
-        e_chunk, n_chunk = fused3d.state_to_planes(out, P.nx, P.ny, P.nz)
+        e_chunk, n_chunk = fused3d.state_to_planes(out, P.nx, P.ny, P.nz,
+                                                   P.smaps)
         b = fused3d.make_buffers(P, ctx, state, n)
         for k in range(n):
             b.tgt = fused3d.vbc_targets(ctx, b.nin, b.scal[3] + b.scal[0])
@@ -980,7 +1055,8 @@ def main():
             if not torch.equal(e_chunk[i], b.ein[i]):
                 fail(f"{label}: chunk form and complete steps differ in "
                      f"element plane {i}")
-        for i, nm in enumerate(fused3d.N_SLOTS):
+        for i, nm in enumerate((fused3d.N_SLOTS + fused3d.SURF_SLOTS)
+                               [:P.nn]):
             if not torch.equal(n_chunk[i], b.nin[i]):
                 fail(f"{label}: chunk form and complete steps differ in {nm}")
         print(f"  {label}: the chunk form equals {n} complete steps bit for "
@@ -1002,7 +1078,9 @@ def main():
         aside."""
         bad, worst = [], 0.0
         ne = len(fused3d.E_SLOTS)
-        for k, nm in enumerate(names3):
+        names = names3 + [f"n.{n}" for n in fused3d.SURF_SLOTS][
+            :ref_n.shape[0] - fused3d.NN]
+        for k, nm in enumerate(names):
             a, b = (ref_e[k], ker_e[k]) if nm[0] == "e" else \
                 (ref_n[k - fused3d.NE], ker_n[k - fused3d.NE])
             tol = 1e-3 if nm.startswith("n.force") else 1e-4
@@ -1547,6 +1625,149 @@ def main():
           f"{mstep_plain_ms:.4f} ms; on {card}")
     del mcb, mkb, mpb
 
+    # ---- 6c. production3d (bench.py production3d_param): kernel 3's
+    # boundary-process instances (the Winkler and water facet tractions,
+    # surface process 1 and its top-lane pass S), first at 128 x 16 x 8
+    # cells against the plain version on the CPU, then at full size and
+    # through the main path
+    print("phase 6c production3d: kernel 3 with the facet tractions and "
+          "surface process 1 (128 x 16 x 8 cells, then full size)")
+    # a 10-step maxwell chunk of one material with the tractions and
+    # surface process 1, at the maxwell gate of test_pallas3d.py:262-276
+    # (dhacc and edvacc_surf 5e-3)
+    cfgw = production3d_cfg("maxwell", small=True, nmat=1)
+    ker, ref = run3(cfgw, 10, False)[0], run3(cfgw, 10, True)[0]
+    prod_err = 0.0
+    for f in FIELDS3 + ("dhacc", "edvacc_surf"):
+        err = rel(getattr(ref, f), getattr(ker, f).cpu())
+        prod_err = max(prod_err, err)
+        check(f"3D facets + surface process 1 maxwell 10-step chunk {f}",
+              err, 5e-3 if f in ("force", "dhacc", "edvacc_surf") else 1e-3)
+    for f in ("dt", "time", "max_global_vel_mag", "l2_residual"):
+        check(f"3D facets + surface process 1 maxwell 10-step chunk {f}",
+              rel(getattr(ref, f), getattr(ker, f).cpu()), 1e-3)
+    if not float(ref.dhacc.abs().max()) > 0:
+        fail("3D surface process 1 left dhacc at 0")
+    # one step of the production3d feature set (two materials, EVP) at the
+    # one-step gate, away from what its ties of rounding reach; dhacc and
+    # edvacc_surf printed, not gated (test_pallas3d.py:287-303 excludes
+    # them: the min-select amplifies a rounding into them)
+    cfgp = production3d_cfg(small=True)
+    ker = run3(cfgp, 1, False)[0]
+    ref, ties, reach = run3(cfgp, 1, True, reach=True)
+    prod_err = max(prod_err, evp3_check("3D production3d EVP 1 step", ker,
+                                        ref, ties, reach))
+    for f in ("dhacc", "edvacc_surf"):
+        a, b = getattr(ref, f), getattr(ker, f).cpu()
+        line = f"all {rel(a, b):.3e}"
+        if f == "dhacc":
+            away = rel(a[~reach[1]], b[~reach[1]])
+            line += f", away from the ties' reach {away:.3e}"
+        print(f"  3D production3d EVP 1 step {f}: {line} (not gated)")
+    del ker, ref
+
+    t = time.perf_counter()
+    p3 = des.Simulation(des.param_from_dict(production3d_cfg()))
+    sync()
+    pinit_s = time.perf_counter() - t
+    PP3 = fused3d.make_plan(p3.param, p3.ctx, p3.device,
+                            p3.compensation_pressure)
+    if PP3.uniform or not (PP3.facets and PP3.sw["surf_on"]):
+        fail("production3d did not take the two-material plan with the "
+             "facet tractions and surface process 1")
+    pnelem = p3.ctx.nelem
+    print(f"  production3d host setup: {pinit_s:.1f} s ({pnelem} tets, "
+          f"{p3.ctx.nnode} nodes, {p3.ctx.sbc.n_grav} gravity facets, "
+          f"{p3.ctx.surf.etop} top facets)")
+    # one maxwell step, every plane against the plain version on the card
+    XP3 = fused3d.make_plan(des.param_from_dict(production3d_cfg("maxwell")),
+                            p3.ctx, p3.device, p3.compensation_pressure)
+    kb = fused3d.make_buffers(XP3, p3.ctx, p3.state, 1)
+    pb = fused3d.make_buffers(XP3, p3.ctx, p3.state, 1)
+    kb.tgt = pb.tgt = fused3d.vbc_targets(p3.ctx, kb.nin,
+                                          kb.scal[3] + kb.scal[0])
+    fused3d.fused3d_step(XP3, kb)
+    fused3d.fused3d_step_plain(XP3, pb)
+    sync()
+    prod_err = max(prod_err, planes_check("production3d maxwell 1 step",
+                                          pb.eout, pb.nout, kb.eout, kb.nout))
+    del kb, pb
+    # its own config (EVP): a 20-step chunk against 20 complete steps
+    chunk_vs_steps("production3d EVP 20 steps", PP3, p3.ctx, p3.state, NCH)
+
+    # device times at this size, as phase 4 times flagship3d
+    pcb = fused3d.make_buffers(PP3, p3.ctx, p3.state, NCH)
+    pkb = fused3d.make_buffers(PP3, p3.ctx, p3.state, 1)
+    ppb = fused3d.make_buffers(PP3, p3.ctx, p3.state, 1)
+
+    def pchunk_kernel():
+        for k in range(NCH):
+            fused3d.fused3d_chunk_step(PP3, pcb, k, NCH)
+            fused2d.dt_refresh(PP3, pcb, k, tiled=True, every=True)
+            pcb.swap()
+        fused3d.fused3d_finalize(PP3, pcb, pcb.ein, pcb.nin, pcb.dthist[-1])
+
+    pstep_ms = device_ms(pchunk_kernel, 1) / NCH
+    pstep_one_ms = device_ms(lambda: fused3d.fused3d_step(PP3, pkb), 20)
+    pstep_plain_ms = device_ms(lambda: fused3d.fused3d_step_plain(PP3, ppb),
+                               2)
+    pread, pwritten = step_bytes(fused3d, PP3, pkb, 6, pkb.cep)
+    pops = step_ops(PP3, 3, pnelem, p3.ctx.nnode)
+    e_lo, n_lo = fused3d.last_only_slots(PP3)
+    p_last_only = (len(e_lo) * nbytes(pkb.eout[0])
+                   + len(n_lo) * nbytes(pkb.nout[0]))
+    pbound = bound(pread, pwritten - p_last_only * (NCH - 1) / NCH, pops)
+    pbound_one = bound(pread, pwritten, pops)
+    ppb3 = [phase_bytes3(PP3, pcb, k > 0, k == NCH - 1) for k in range(NCH)]
+    pbytes3 = {ph: sum(d.get(ph, 0) for d in ppb3) / NCH for ph in ppb3[0]}
+    pbytes3["finalize"] = ppb3[0]["finalize"] / NCH
+    print(f"  device time: production3d fused step, chunk form (a graph of "
+          f"{NCH} steps, their dt_refresh calls and one finalize, over "
+          f"{NCH}) {pstep_ms:.4f} ms (bound {pbound[0]:.4f} ms by "
+          f"{pbound[1]}, {pbound[2] / 1e6:.1f} MB); one-step form "
+          f"{pstep_one_ms:.4f} ms (bound {pbound_one[0]:.4f} ms); plain "
+          f"{pstep_plain_ms:.4f} ms; on {card}")
+    del pcb, pkb, ppb
+
+    # the main path
+    t = time.perf_counter()
+    p3.run_steps(100, chunk=100)
+    sync()
+    pwarm_s = time.perf_counter() - t
+    if p3.step_path != "pallas3d":
+        fail(f"production3d dispatched to {p3.step_path!r}, not pallas3d")
+    time0 = float(p3.state.time)
+    zero_counts()
+    t = time.perf_counter()
+    p3.run_steps(500, chunk=250)
+    sync()
+    prun_s = time.perf_counter() - t
+    launches3p = {"fused3d_step": fused3d.fused3d_step.launches,
+                  "dt_refresh": fused2d.dt_refresh.launches,
+                  "fused3d_finalize": fused3d.fused3d_finalize.launches}
+    if launches3p != {"fused3d_step": 500, "dt_refresh": 500,
+                      "fused3d_finalize": 2}:
+        fail(f"the production3d path did not launch each step kernel once "
+             f"per step and finalize once per chunk: {launches3p}")
+    if fused3d.chunk_step_plain.calls or fused3d.finalize_plain.calls:
+        fail("the production3d path on the card took a plain version")
+    s = p3.state
+    if not float(s.time) > time0 or int(s.steps) != 600:
+        fail("production3d model time or the step count did not advance")
+    for f in FIELD_NAMES:
+        v = getattr(s, f)
+        if v.is_floating_point() and not bool(torch.isfinite(v).all()):
+            fail(f"non-finite values in production3d {f}")
+    if not float(s.dhacc.abs().max()) > 0:
+        fail("production3d: surface process 1 left dhacc at 0")
+    prate = pnelem * 500 / prun_s
+    print(f"  production3d slice: step_path {p3.step_path}, launches "
+          f"{launches3p}, plain versions called 0 times, warm-up 100 steps "
+          f"{pwarm_s:.2f} s, 500 steps {prun_s:.3f} s, model time "
+          f"{time0:.6e} -> {float(s.time):.6e} s, max |dhacc| "
+          f"{float(s.dhacc.abs().max()):.3e} m, fields finite")
+    print(f"  elem*steps/s: {prate:.6e} on {card}")
+
     # ---- 7. device time per launch, by kernel
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
@@ -1621,6 +1842,19 @@ def main():
         print(f"    {ph}: {nb / 1e6:.1f} MB, {us:.1f} us, {bw}")
     print(f"    sum: {sum(mbytes3.values()) / 1e6:.1f} MB per step, "
           f"{sum(v['us'] for v in phases3m.values()):.1f} us")
+    rows3p = per_kernel("production3d", lambda n: fused3d.run_chunk(
+        PP3, p3.ctx, p3.state, n), NCH)
+    print(f"  production3d kernel 3 (boundary-process instances) by phase, "
+          f"chunk form of {NCH} steps, on {card}:")
+    phases3p = {}
+    for ph, nb in pbytes3.items():
+        us = rows3p.get(ph, (0, 0.0))[1]
+        phases3p[ph] = {"bytes": nb, "us": us,
+                        "tb_per_s": nb / us / 1e6 if us else None}
+        bw = f"{nb / us / 1e6:.2f} TB/s" if us else "not launched"
+        print(f"    {ph}: {nb / 1e6:.1f} MB, {us:.1f} us, {bw}")
+    print(f"    sum: {sum(pbytes3.values()) / 1e6:.1f} MB per step, "
+          f"{sum(v['us'] for v in phases3p.values()):.1f} us")
 
 
     # ---- 8. the gather and assembly kernels against their plain versions
@@ -1979,6 +2213,32 @@ def main():
          "bound_bytes": mbound[2], "bound_ops": mbound[3],
          "bound_ms_one_step_form": mbound_one[0],
          "bytes_by_phase": phases3m, "library_ms": None},
+        {"name": "fused3d_step_production", "route": "cuda", "source": src3,
+         "replaces": "dynearthsol_tpu/ops/pallas3d.py:1583",
+         "form": "the boundary-process instances of phases E, F, G and H "
+                 "(the Winkler and water facet tractions, surface process "
+                 "1) and the top-lane pass S, with the two-material "
+                 "mixtures: the production3d path (pallas3d)",
+         "launches": launches3p["fused3d_step"], "max_abs_err": prod_err,
+         "err_metric": "max |kernel - plain| / max |plain| over the State "
+                       "fields, dhacc and edvacc_surf of a 10-step maxwell "
+                       "chunk with the tractions and surface process 1 and "
+                       "over the State fields of one production3d EVP step "
+                       "(128 x 16 x 8 cells, the plain version on the CPU; "
+                       "the EVP step away from what its ties of rounding "
+                       "reach), and over every plane (viscosity aside) of "
+                       "one full-size production3d maxwell step, the plain "
+                       "version on the card; a 20-step EVP chunk at full "
+                       "size equals 20 complete steps bit for bit",
+         "ms": pstep_ms, "plain_ms": pstep_plain_ms,
+         "timed_as": f"chunk form: a CUDA graph of {NCH} steps, their "
+                     f"dt_refresh calls and one finalize, over {NCH}",
+         "ms_one_step_form": pstep_one_ms,
+         "finalize_launches": launches3p["fused3d_finalize"],
+         "bound_ms": pbound[0], "bound_by": pbound[1],
+         "bound_bytes": pbound[2], "bound_ops": pbound[3],
+         "bound_ms_one_step_form": pbound_one[0],
+         "bytes_by_phase": phases3p, "library_ms": None},
     ]
     srcb = "dynearthsol_tpu_torch/csrc/band2d.cu"
     for name, main_site, line in (
@@ -2019,6 +2279,8 @@ def main():
                       "elem_steps_per_s_3d": rate3,
                       "plain_elem_steps_per_s_3d": plain_rate3,
                       "elem_steps_per_s_3d_multimat": mrate,
+                      "elem_steps_per_s_production3d": prate,
+                      "init_s_production3d": pinit_s,
                       "elem_steps_per_s_unstructured": urate,
                       "plain_elem_steps_per_s_unstructured": uplain_rate,
                       "init_s_unstructured": uinit_s,

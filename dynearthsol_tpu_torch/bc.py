@@ -344,9 +344,9 @@ def pp_bc_mask(bc, bcflag: np.ndarray) -> np.ndarray:
 class StressBCSpec:
     """Static facet tables for traction boundary conditions
     (apply_stress_bcs / apply_stress_bcs_neumann, bc.cxx:632-875), host
-    numpy, in 2D and 3D.  The fused 2D step computes the gravity-facet
-    tractions (Winkler, water loading; ops/fused2d.py); the fused 3D step
-    and the column step refuse ``n_grav > 0``, and every step refuses
+    numpy, in 2D and 3D.  The fused steps compute the gravity-facet
+    tractions (Winkler, water loading; ops/fused2d.py, ops/fused3d.py);
+    the column step refuses ``n_grav > 0``, and every step refuses
     ``n_neu > 0``.
 
     kind: 0 = Winkler foundation (bottom), 1 = hydrostatic water loading

@@ -28,6 +28,7 @@
 //   D node  NMD nodal pressure (NMD runs only)
 //   E cell  NMD correction (in registers), force corner partials
 //   F node  force, L2 partial, damping, velocity, coordinates
+//   S node  (surface process 1) the top lane's diffusion dh
 //   G cell  post-move volumes, CFL partials, mass terms, surface factors
 //   H node  volume_n and masses
 //
@@ -83,6 +84,29 @@
 // and the plastic weakening's material loops), E (buoyancy), G (density,
 // moduli, heat capacity, the hmass coefficient).
 //
+// Boundary processes (the template switch BND, as X of fused2d.cu's
+// step_chunk2d, chosen per plan; the BND = false instances are the flagship
+// paths and compile as if BND did not exist):
+// - The Winkler and water facet tractions (pallas3d.py:1221-1290,
+//   bc.cxx:632-790), which grid3d adds after the residual's partial.  E's
+//   bottom-row (k = 0) and top-row (k = nzc - 1) cells compute their two
+//   boundary facets (the per-parity (tet, corner codes) groups of
+//   ops/fused3d.py grav_facets, in Params3::facets) into per-corner partials
+//   of their own (fwork); F adds a boundary node's partials of its up to
+//   four cells in corner-code order, after the residual and before
+//   damping.  The pressure reads the pre-move coordinates and, for the
+//   Winkler density, the owning tet's pre-update temperature and mixture.
+// - Surface process 1 (pallas3d.py:1324-1394, surface_dh_3d, bc.cxx:
+//   920-1050) runs between the coordinate move and the post-move geometry,
+//   and its slopes read the neighbours' moved heights: one more launch, S,
+//   over the nx * ny top-lane nodes after F, leaves each top node's dh in
+//   nwork slot 0 (free after C; slot 1 still holds the NMD pressure change
+//   of the pending epilogue).  G adds dh to the top corners it loads and,
+//   per top-row cell, each triangle's deposited volume to its edv plane at
+//   the cell's (x0, y0, top) node (diffusion moves z only, the projected
+//   area reads x and y); H adds dh to coord_z and dhacc.  Triangle sums
+//   go in a fixed order as in ops/fused3d.py surface_process.
+//
 // Built without FMA contraction (-fmad=false, ops/_build.py): the initial
 // volume (ops/shapefn.compute_volume, the same operations) then equals the
 // step's volume bit for bit, and every +, -, * and / rounds as in the plain
@@ -101,17 +125,20 @@ namespace {
 
 constexpr int BLOCK = 256;
 // ework planes (of one value per cell): A's corner partials 0-15, E's
-// 0-23, C's NMD products dpressure * volume 0-4, G's mass terms 0-14
+// 0-23, C's NMD products dpressure * volume 0-4, G's mass terms 0-14;
+// fwork planes (of one value per (x, y) column): E's facet partials,
+// (side * 3 + force component) * 4 + corner (a * 2 + b)
 
 // packed slots: ops/fused3d.py E_SLOTS/T_SLOTS, N_SLOTS, CN_SLOTS
 enum { E_VOL = 0, E_VOLD, E_PLS, E_DPLS, E_VISC, E_DP, E_EDV, E_STRESS,
        E_STRAIN = E_STRESS + 6, E_SR = E_STRAIN + 6 };
 enum { N_CX = 0, N_CY, N_CZ, N_VX, N_VY, N_VZ, N_T, N_MASS, N_TMASS, N_HMASS,
-       N_VOLN, N_FX, N_FY, N_FZ };
+       N_VOLN, N_FX, N_FY, N_FZ, N_DHACC, N_EDVA, N_EDVB };
 enum { CN_TOP = 0, CN_MX, CN_MY, CN_MZ };
 enum { RH_ELASTIC = 1, RH_VISCOUS = 2, RH_MAXWELL = 3, RH_EP = 5,
        RH_EVP = 7 };
-constexpr int NFP0 = 23;  // ops/fused3d.py FP_FIELDS
+constexpr int NIP0 = 17;  // ops/fused3d.py IP_FIELDS
+constexpr int NFP0 = 29;  // ops/fused3d.py FP_FIELDS
 
 // Per-material table values of the mixtures (ops/fused3d.py MIX_FIELDS),
 // in the run dtype
@@ -156,6 +183,11 @@ template <typename T> struct Params3 {
       rhoB, buoyA, buoyB, cpA, cpB, hmA, g_npe;
   MatConst<T> mat[MAXMAT];
   MixConst<T> mix[MAXMAT];
+  // the boundary processes (BND): switches, the facet groups (side: bottom,
+  // top; cell parity; group) -> (tet, code0, code1, code2), constants
+  int winkler, water, surf_on;
+  int facets[2][2][2][4];
+  T comp_p, winkler_drho, gravity, zlength, surf_base, surf_diff;
 };
 
 // ip/fp are ops/fused3d.py StepPlan3.ip (IP_FIELDS) and .fp (FP_FIELDS,
@@ -168,7 +200,9 @@ Params3<T> from_host(const int* ip, const double* fp) {
   p.nmd = ip[4]; p.thermal = ip[5]; p.gravity_on = ip[6];
   p.damping = ip[7]; p.surf_corr = ip[8]; p.quasi_static = ip[9];
   p.use_gvs = ip[10]; p.jaumann = ip[11]; p.uniform = ip[12];
-  p.nmat = ip[13];
+  p.nmat = ip[13]; p.winkler = ip[14]; p.water = ip[15]; p.surf_on = ip[16];
+  int* fg = &p.facets[0][0][0][0];
+  for (int i = 0; i < 32; ++i) fg[i] = ip[NIP0 + i];
   p.nxc = p.nx - 1; p.nyc = p.ny - 1; p.nzc = p.nz - 1;
   p.NT = p.nxc * p.nyc;  // cells of one z layer
   p.NC = p.NT * p.nzc;
@@ -177,7 +211,8 @@ Params3<T> from_host(const int* ip, const double* fp) {
                 &p.fac, &p.one_m_fac, &p.two_m_fac, &p.inertial, &p.log_q,
                 &p.log_1e6, &p.deg2rad, &p.ps2, &p.bulkm, &p.shearm,
                 &p.kappa, &p.rhoA, &p.rhoB, &p.buoyA, &p.buoyB, &p.cpA,
-                &p.cpB, &p.hmA, &p.g_npe};
+                &p.cpB, &p.hmA, &p.g_npe, &p.comp_p, &p.winkler_drho,
+                &p.gravity, &p.zlength, &p.surf_base, &p.surf_diff};
   for (int i = 0; i < NFP0; ++i) *f[i] = static_cast<T>(fp[i]);
   for (int m = 0; m < p.nmat && m < MAXMAT; ++m) {
     const double* mf = fp + NFP0 + m * (NMATFIELD + NMIX);
@@ -206,6 +241,7 @@ template <typename T> struct Bufs3 {
   int nb;
   int pending;    // ein carries the previous step's epilogue
   int last;       // store the planes no later step of the chunk reads
+  T* fwork;       // (24, nxc, nyc) facet partials (BND, facets), or null
 };
 
 // element value of (slot, tet t, cell c)
@@ -857,7 +893,88 @@ __device__ __forceinline__ void cell_e(const Params3<T>& p, const Bufs3<T>& b,
     for (int q = 0; q < 8; ++q) b.ework[(a * 8 + q) * p.NC + c] = fp[a][q];
 }
 
-template <typename T, bool U>
+// ---- E's facet tractions (BND): the two boundary facets of a bottom-row
+// (SIDE 0, Winkler) or top-row (SIDE 1, water) cell of parity PAR, from
+// the pre-move coordinates (ops/fused3d.py facet_forces).  Each facet adds
+// -p n / 3 to its three corners (n its area-weighted normal in the stored
+// node order); the cell's partial of each of its four corners on the
+// boundary lane sums its facets in group order, from zero, into fwork.
+template <int SIDE, int PAR, bool U, typename T>
+__device__ __forceinline__ void cell_facets(const Params3<T>& p,
+                                            const Bufs3<T>& b, int c,
+                                            int n0) {
+  const T* g = b.nin;
+  const T third = T(1.0 / 3.0);
+  T part[3][4];
+#pragma unroll
+  for (int f = 0; f < 4; ++f) part[0][f] = part[1][f] = part[2][f] = T(0);
+#pragma unroll
+  for (int gi = 0; gi < 2; ++gi) {
+    // the group's tet, then its facet's corner codes (compile-time
+    // indices into the kernel parameter, so that it stays in the constant
+    // bank)
+    const int t = p.facets[SIDE][PAR][gi][0];
+    const int cd[3] = {p.facets[SIDE][PAR][gi][1], p.facets[SIDE][PAR][gi][2],
+                       p.facets[SIDE][PAR][gi][3]};
+    T x[3], y[3], z[3];
+#pragma unroll
+    for (int m = 0; m < 3; ++m) {
+      const int o = n0 + corner_off(p, cd[m]);
+      x[m] = g[N_CX * p.NS + o];
+      y[m] = g[N_CY * p.NS + o];
+      z[m] = g[N_CZ * p.NS + o];
+    }
+    const T e1x = x[1] - x[0], e1y = y[1] - y[0], e1z = z[1] - z[0];
+    const T e2x = x[2] - x[0], e2y = y[2] - y[0], e2z = z[2] - z[0];
+    const T nr[3] = {T(0.5) * (e1y * e2z - e1z * e2y),
+                     T(0.5) * (e1z * e2x - e1x * e2z),
+                     T(0.5) * (e1x * e2y - e1y * e2x)};
+    const T zc = (z[0] + z[1] + z[2]) * third;
+    T pres;
+    if constexpr (SIDE == 0) {
+      // Winkler: the owning tet's density from its pre-update temperature
+      T ts[4];
+#pragma unroll
+      for (int q = 0; q < 4; ++q)
+        ts[q] = g[N_T * p.NS + n0 + corner_off(p, tet_corner(PAR, t, q))];
+      const Props<T, U> pr(p, b, t, c);
+      const T rho = pr.rhoA() - pr.rhoB() * (mean4(ts) - T(273.0));
+      pres = p.comp_p -
+             (rho + p.winkler_drho) * p.gravity * (zc + p.zlength);
+    } else {
+      // water loading below the base level
+      pres = zc < p.surf_base
+                 ? T(1030.0) * p.gravity * (p.surf_base - zc)
+                 : T(0);
+    }
+#pragma unroll
+    for (int f = 0; f < 4; ++f) {
+      const int code = 2 * f + SIDE;  // (a, b) = (f >> 1, f & 1), d = SIDE
+      if (code == cd[0] || code == cd[1] || code == cd[2]) {
+#pragma unroll
+        for (int a = 0; a < 3; ++a)
+          part[a][f] = part[a][f] + -pres * nr[a] * third;
+      }
+    }
+  }
+  const int col = c / p.nzc;
+#pragma unroll
+  for (int a = 0; a < 3; ++a)
+#pragma unroll
+    for (int f = 0; f < 4; ++f)
+      b.fwork[((SIDE * 3 + a) * 4 + f) * p.NT + col] = part[a][f];
+}
+
+template <int PAR, bool U, typename T>
+__device__ __forceinline__ void cell_e_facets(const Params3<T>& p,
+                                              const Bufs3<T>& b,
+                                              const CellOf<T>& cc) {
+  if (cc.k == 0 && p.winkler) cell_facets<0, PAR, U>(p, b, cc.c, cc.n0);
+  if (cc.k == p.nzc - 1 && p.water)
+    cell_facets<1, PAR, U>(p, b, cc.c, cc.n0);
+}
+
+template <typename T, bool U, bool BND>
 __global__ void __launch_bounds__(BLOCK) phase_e(Params3<T> p, Bufs3<T> b) {
   CellOf<T> cc;
   if (!cell_of_thread(p, cc)) return;
@@ -875,11 +992,37 @@ __global__ void __launch_bounds__(BLOCK) phase_e(Params3<T> p, Bufs3<T> b) {
     cell_e<1, U>(p, b, cc.c, X, Y, Z, TT, DP);
   else
     cell_e<0, U>(p, b, cc.c, X, Y, Z, TT, DP);
+  if constexpr (BND) {
+    if (cc.odd)
+      cell_e_facets<1, U>(p, b, cc);
+    else
+      cell_e_facets<0, U>(p, b, cc);
+  }
 }
 
-// ---- F, node: force, L2 partial, damping, velocity + vbc, coordinates
-// (pallas3d.py:1207-1322 without the facet tractions :1221-1289)
-template <typename T>
+// The facet tractions of boundary lane SIDE at node column (i, j): the
+// partials of the node's up to four cells (corner (a, b) of cell (i - a,
+// j - b)) in corner-code order, from zero, added to the force f
+template <int SIDE, typename T>
+__device__ __forceinline__ void lane_tractions(const Params3<T>& p,
+                                               const Bufs3<T>& b, int i,
+                                               int j, T f[3]) {
+#pragma unroll
+  for (int a = 0; a < 3; ++a) {
+    T acc = T(0);
+#pragma unroll
+    for (int q = 0; q < 4; ++q) {
+      const int ci = i - (q >> 1), cj = j - (q & 1);
+      if (ci >= 0 && ci < p.nxc && cj >= 0 && cj < p.nyc)
+        acc = acc + b.fwork[((SIDE * 3 + a) * 4 + q) * p.NT + ci * p.nyc + cj];
+    }
+    f[a] = f[a] + acc;
+  }
+}
+
+// ---- F, node: force, L2 partial, facet tractions (BND), damping,
+// velocity + vbc, coordinates (pallas3d.py:1207-1322)
+template <typename T, bool BND>
 __global__ void __launch_bounds__(BLOCK) phase_f(Params3<T> p, Bufs3<T> b) {
   __shared__ T shm[BLOCK];
   int n = blockIdx.x * BLOCK + threadIdx.x;
@@ -896,6 +1039,11 @@ __global__ void __launch_bounds__(BLOCK) phase_f(Params3<T> p, Bufs3<T> b) {
         return w[(a * 8 + q) * NC + cell];
       });
     r2 = f[0] * f[0] + f[1] * f[1] + f[2] * f[2];
+    if constexpr (BND) {
+      // after the residual, as grid3d applies them
+      if (k == 0 && p.winkler) lane_tractions<0>(p, b, i, j, f);
+      if (k == p.nz - 1 && p.water) lane_tractions<1>(p, b, i, j, f);
+    }
     const T m = b.nin[N_MASS * p.NS + n];
     const T tiny = T(1e-13);
 #pragma unroll
@@ -919,6 +1067,110 @@ __global__ void __launch_bounds__(BLOCK) phase_f(Params3<T> p, Bufs3<T> b) {
   }
   T s = block_reduce(r2, shm, [](T a, T c) { return a + c; });
   if (threadIdx.x == 0) b.part[3 * b.nb + blockIdx.x] = s;
+}
+
+// The two triangles of a top cell's quad, split along the parity
+// diagonal (ops/fused3d.py TRI_EVEN, TRI_ODD), as the cell's top corners
+// f = a * 2 + b: entry (par * 2 + t3) * 3 + m of TRI_F, 2 bits each
+constexpr int TRI_F[12] = {0, 3, 1, 0, 2, 3, 0, 2, 1, 1, 2, 3};
+constexpr unsigned tri_pack() {
+  unsigned r = 0;
+  for (int e = 0; e < 12; ++e) r |= unsigned(TRI_F[e]) << (2 * e);
+  return r;
+}
+constexpr unsigned TRI_PACK = tri_pack();
+
+__host__ __device__ constexpr int tri_corner(int par, int t3, int m) {
+  return int((TRI_PACK >> (2 * ((par * 2 + t3) * 3 + m))) & 3u);
+}
+
+// A top triangle's area projected on the horizontal plane
+// (ops/fused3d.py _tri_geom)
+template <typename T>
+__device__ __forceinline__ T tri_parea(const T* px, const T* py) {
+  return T(0.5) * ((px[1] - px[0]) * (py[2] - py[0]) -
+                   (py[1] - py[0]) * (px[2] - px[0]));
+}
+
+// ---- S, node: surface process 1, the top lane's dh (surface_dh_3d,
+// bc.cxx:920-1050; pallas3d.py:1324-1380) from F's moved coordinates:
+// each top node sums the slope terms and projected areas of the triangles
+// of its up to four cells (a cell's triangles in order, then the cells in
+// corner-code order), dh = -kappa dt slope / area on top-mask nodes, into
+// nwork slot 0 (G adds it to the corners it loads, H to coord_z and dhacc)
+template <typename T>
+__global__ void __launch_bounds__(BLOCK) phase_s(Params3<T> p, Bufs3<T> b) {
+  const int n2 = blockIdx.x * BLOCK + threadIdx.x;
+  if (n2 >= p.nx * p.ny) return;
+  const int i = n2 / p.ny, j = n2 % p.ny, n = n2 * p.nz + p.nz - 1;
+  const T* g = b.nout;
+  T slope = T(0), area = T(0);
+#pragma unroll
+  for (int f = 0; f < 4; ++f) {
+    // the cell of which the node is top corner f
+    const int ci = i - (f >> 1), cj = j - (f & 1);
+    if (ci < 0 || ci >= p.nxc || cj < 0 || cj >= p.nyc) continue;
+    const int par = (ci + cj + p.nzc - 1) & 1;
+    const int nb = (ci * p.ny + cj) * p.nz + p.nz - 1;
+    T cs = T(0), ca = T(0);
+#pragma unroll
+    for (int t3 = 0; t3 < 2; ++t3) {
+      T px[3], py[3], pz[3];
+      int fm[3];
+#pragma unroll
+      for (int m = 0; m < 3; ++m) {
+        fm[m] = tri_corner(par, t3, m);
+        const int o = nb + (fm[m] >> 1) * p.ny * p.nz + (fm[m] & 1) * p.nz;
+        px[m] = g[N_CX * p.NS + o];
+        py[m] = g[N_CY * p.NS + o];
+        pz[m] = g[N_CZ * p.NS + o];
+      }
+      const T parea = tri_parea(px, py);
+      const T iv = T(1) / (T(2) * (parea != T(0) ? parea : T(1)));
+      const T sdx[3] = {iv * (py[1] - py[2]), iv * (py[2] - py[0]),
+                        iv * (py[0] - py[1])};
+      const T sdy[3] = {iv * (px[2] - px[1]), iv * (px[0] - px[2]),
+                        iv * (px[1] - px[0])};
+      const T gx = sdx[0] * pz[0] + sdx[1] * pz[1] + sdx[2] * pz[2];
+      const T gy = sdy[0] * pz[0] + sdy[1] * pz[1] + sdy[2] * pz[2];
+#pragma unroll
+      for (int m = 0; m < 3; ++m) {
+        if (fm[m] == f) {
+          cs = cs + (sdx[m] * gx + sdy[m] * gy) * parea;
+          ca = ca + parea;
+        }
+      }
+    }
+    slope = slope + cs;
+    area = area + ca;
+  }
+  const T conv = p.surf_diff * b.scal[0] * slope / (area > T(0) ? area : T(1));
+  b.nwork[n] = b.cnp[CN_TOP * p.NS + n] > T(0) ? -conv : T(0);
+}
+
+// G's surface-process accumulators of a top-row cell of parity PAR: each
+// triangle's deposited volume (its corners' dh summed) * area / 3
+// (bc.cxx:1745-1760) added to its edv plane at the cell's (x0, y0, top)
+// node n (pallas3d.py:1381-1394); X, Y the moved corners, DH the top
+// corners' dh
+template <int PAR, typename T>
+__device__ __forceinline__ void cell_edv(const Params3<T>& p,
+                                        const Bufs3<T>& b, int n,
+                                        const T* X, const T* Y,
+                                        const T* DH) {
+#pragma unroll
+  for (int t3 = 0; t3 < 2; ++t3) {
+    T px[3], py[3], d[3];
+#pragma unroll
+    for (int m = 0; m < 3; ++m) {
+      const int q = 2 * tri_corner(PAR, t3, m) + 1;
+      px[m] = X[q];
+      py[m] = Y[q];
+      d[m] = DH[q];
+    }
+    const int o = (t3 ? N_EDVB : N_EDVA) * p.NS + n;
+    b.nout[o] = b.nin[o] + (d[0] + d[1] + d[2]) * tri_parea(px, py) / T(3);
+  }
 }
 
 // ---- G, cell: each of the cell's tets' post-move volume, CFL partials,
@@ -980,7 +1232,7 @@ __device__ __forceinline__ void cell_g(const Params3<T>& p, const Bufs3<T>& b,
   }
 }
 
-template <typename T, bool U>
+template <typename T, bool U, bool BND>
 __global__ void __launch_bounds__(BLOCK) phase_g(Params3<T> p, Bufs3<T> b) {
   __shared__ T shm[3][BLOCK / 32];
   T hmin = T(FLT_MAX), hsmin = T(FLT_MAX), vmax = T(0);
@@ -996,6 +1248,21 @@ __global__ void __launch_bounds__(BLOCK) phase_g(Params3<T> p, Bufs3<T> b) {
       TT[q] = b.nin[N_T * p.NS + o];
     }
     const bool top = cc.k == p.nzc - 1;
+    if constexpr (BND) {
+      if (p.surf_on && top) {
+        // the top corners after S's diffusion, as H stores them
+        T DH[8];
+#pragma unroll
+        for (int q = 1; q < 8; q += 2) {
+          DH[q] = b.nwork[cc.n0 + corner_off(p, q)];
+          Z[q] = Z[q] + DH[q];
+        }
+        if (cc.odd)
+          cell_edv<1>(p, b, cc.n0 + 1, X, Y, DH);
+        else
+          cell_edv<0>(p, b, cc.n0 + 1, X, Y, DH);
+      }
+    }
     if (cc.odd)
       cell_g<1, U>(p, b, cc.c, top, X, Y, Z, VX, VY, VZ, TT, hmin, hsmin,
                    vmax);
@@ -1011,13 +1278,21 @@ __global__ void __launch_bounds__(BLOCK) phase_g(Params3<T> p, Bufs3<T> b) {
   }
 }
 
-// ---- H, node: volume_n, mass, tmass, hmass (pallas3d.py:1471-1474)
-template <typename T>
+// ---- H, node: volume_n, mass, tmass, hmass (pallas3d.py:1471-1474); with
+// surface process 1 the top lane's dh into coord_z and dhacc
+template <typename T, bool BND>
 __global__ void __launch_bounds__(BLOCK) phase_h(Params3<T> p, Bufs3<T> b) {
   int n = blockIdx.x * BLOCK + threadIdx.x;
   if (n >= p.NS) return;
   int k = n % p.nz, j = (n / p.nz) % p.ny, i = n / (p.nz * p.ny);
   const int NC = p.NC;
+  if constexpr (BND) {
+    if (p.surf_on && k == p.nz - 1) {
+      const T dh = b.nwork[n];
+      b.nout[N_CZ * p.NS + n] = b.nout[N_CZ * p.NS + n] + dh;
+      b.nout[N_DHACC * p.NS + n] = b.nin[N_DHACC * p.NS + n] + dh;
+    }
+  }
   const T* vol = b.eout + E_VOL * 5 * NC;
   b.nout[N_VOLN * p.NS + n] = node_sum(p, i, j, k, [&](int q, int cell, int par) {
     return equal_partial<T>([&](int t, int cl) { return vol[t * NC + cl]; },
@@ -1091,7 +1366,7 @@ __global__ void __launch_bounds__(BLOCK)
   }
 }
 
-template <typename T, bool U>
+template <typename T, bool U, bool BND>
 int step(const Params3<T>& p, Bufs3<T> b, cudaStream_t s) {
   const int gc = (p.NC / 2 + BLOCK / 2 - 1) / (BLOCK / 2);  // cell phases
   const int gt = (5 * p.NC + BLOCK - 1) / BLOCK;
@@ -1109,28 +1384,41 @@ int step(const Params3<T>& p, Bufs3<T> b, cudaStream_t s) {
     phase_d<T><<<gn, BLOCK, 0, s>>>(p, b);
     if ((e = cudaGetLastError()) != cudaSuccess) return int(e);
   }
-  phase_e<T, U><<<gc, BLOCK, 0, s>>>(p, b);
+  phase_e<T, U, BND><<<gc, BLOCK, 0, s>>>(p, b);
   if ((e = cudaGetLastError()) != cudaSuccess) return int(e);
-  phase_f<T><<<gn, BLOCK, 0, s>>>(p, b);
+  phase_f<T, BND><<<gn, BLOCK, 0, s>>>(p, b);
   if ((e = cudaGetLastError()) != cudaSuccess) return int(e);
-  phase_g<T, U><<<gc, BLOCK, 0, s>>>(p, b);
+  if constexpr (BND) {
+    if (p.surf_on) {
+      phase_s<T><<<(p.nx * p.ny + BLOCK - 1) / BLOCK, BLOCK, 0, s>>>(p, b);
+      if ((e = cudaGetLastError()) != cudaSuccess) return int(e);
+    }
+  }
+  phase_g<T, U, BND><<<gc, BLOCK, 0, s>>>(p, b);
   if ((e = cudaGetLastError()) != cudaSuccess) return int(e);
-  phase_h<T><<<gn, BLOCK, 0, s>>>(p, b);
+  phase_h<T, BND><<<gn, BLOCK, 0, s>>>(p, b);
   if ((e = cudaGetLastError()) != cudaSuccess) return int(e);
   return 0;
 }
 
 // U: a single material with uniform ICs (ops/fused3d.py _uniform_mat),
 // whose properties are plan constants; else the const pack's mixtures.
-// Refused: an odd nzc (the cell phases take cell pairs along z), more than
-// MAXMAT materials, a mixed plan without its pack.
+// BND: the facet tractions or surface process 1.  Refused: an odd nzc (the
+// cell phases take cell pairs along z), more than MAXMAT materials, a mixed
+// plan without its pack, facets without their scratch.
 template <typename T>
 int step_any(const int* ip, const double* fp, Bufs3<T> b, cudaStream_t s) {
   if (!ip[12] && (ip[13] > MAXMAT || b.cep == nullptr))
     return int(cudaErrorInvalidValue);
   Params3<T> p = from_host<T>(ip, fp);
   if (p.nzc % 2) return int(cudaErrorInvalidValue);
-  return p.uniform ? step<T, true>(p, b, s) : step<T, false>(p, b, s);
+  if ((p.winkler || p.water) && b.fwork == nullptr)
+    return int(cudaErrorInvalidValue);
+  if (p.winkler || p.water || p.surf_on)
+    return p.uniform ? step<T, true, true>(p, b, s)
+                     : step<T, false, true>(p, b, s);
+  return p.uniform ? step<T, true, false>(p, b, s)
+                   : step<T, false, false>(p, b, s);
 }
 
 template <typename T>
@@ -1150,17 +1438,19 @@ extern "C" {
 // One fused 3D step in the chunk form: ein carries the pending epilogue of
 // the previous step when `pending` (its dt at dtp), eout is left with this
 // step's (nwork slot 1 and sfac hold its inputs); `last` stores the planes
-// no later step of the chunk reads.  Returns 0 or the cudaError_t of the
+// no later step of the chunk reads; fwork is the facet scratch of a plan
+// with facet tractions (else null).  Returns 0 or the cudaError_t of the
 // first launch that failed (faults during the run surface at the caller's
 // next synchronisation).
 int des_fused3d_step_f32(const int* ip, const double* fp, const float* ein,
                          const float* nin, float* eout, float* nout,
                          const float* cep, const float* cnp, const float* tgt,
                          const float* scal, float* ework, float* nwork,
-                         float* sfac, const float* dtp, float* part, int nb,
-                         int pending, int last, void* stream) {
-  Bufs3<float> b{ein,   nin,  eout, nout, cep, cnp, tgt,     scal, ework,
-                 nwork, sfac, dtp,  part, nb,  pending, last};
+                         float* sfac, const float* dtp, float* part,
+                         float* fwork, int nb, int pending, int last,
+                         void* stream) {
+  Bufs3<float> b{ein,   nin,  eout, nout, cep, cnp,     tgt,  scal,  ework,
+                 nwork, sfac, dtp,  part, nb,  pending, last, fwork};
   return step_any<float>(ip, fp, b, static_cast<cudaStream_t>(stream));
 }
 

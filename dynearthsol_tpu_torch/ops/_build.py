@@ -97,16 +97,23 @@ def ptxas_report() -> dict:
         m = re.search(r"Compiling entry function '(\S+)'", line)
         if m:
             raw = m.group(1)
-            k = re.search(r"(phase_[a-h](?:IfLb[01])?|finalize|dt_refresh|"
+            k = re.search(r"(phase_[a-hs]|finalize|dt_refresh|"
                           r"grid_barriers|step_chunk2dIfLb[01]ELb[01]|"
                           r"(?:gather|scatter)_corners_kernelI[fd])", raw)
             src = re.search(r"_(fused\w+?|band2d)_cu_", raw)
             kn = k.group(1) if k else raw
-            if kn.startswith("phase_") and len(kn) > 7:
-                # the 3D phases that read material properties: the bool
-                # is a single material
-                kn = kn[:7] + ("<uniform>" if kn.endswith("1")
-                               else "<mixed>")
+            if kn.startswith("phase_"):
+                # the 3D phases' bools: a single material (A, C, E, G),
+                # then the facet tractions and surface process 1 (E, F,
+                # G, H)
+                bools = re.findall(r"Lb([01])E", raw)
+                tags = []
+                if kn[-1] in "aceg":
+                    tags.append("uniform" if bools.pop(0) == "1"
+                                else "mixed")
+                if bools and bools[0] == "1":
+                    tags.append("facets+sp1")
+                kn += f"<{','.join(tags)}>" if tags else ""
             if kn.startswith("step_chunk2d"):
                 # the bools: single material, facets and surface process 1
                 kn = ("step_chunk2d<"
@@ -139,7 +146,7 @@ def load():
         lib.des_dt_refresh_f32.argtypes = [_P] * 3 + [_I, _P, _P, _P, _I,
                                                       _I, _I, _P]
         lib.des_dt_refresh_f32.restype = _I
-        lib.des_fused3d_step_f32.argtypes = [_P] * 15 + [_I, _I, _I, _P]
+        lib.des_fused3d_step_f32.argtypes = [_P] * 16 + [_I, _I, _I, _P]
         lib.des_fused3d_step_f32.restype = _I
         lib.des_fused3d_finalize_f32.argtypes = [_P] * 8
         lib.des_fused3d_finalize_f32.restype = _I

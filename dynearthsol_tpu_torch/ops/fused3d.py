@@ -43,10 +43,19 @@ step mixes the properties from the weights where it uses them
 arithmetic means of the rest, and the viscosity's and the plastic
 weakening's material loops.
 
+Boundary processes (the template switch BND of csrc/fused3d.cu).  The
+Winkler and water facet tractions (apply_stress_bcs, bc.cxx:632-790;
+pallas3d.py:1221-1290) come from the canonical facet tables that
+``grav_facets`` decodes into per-parity (tet, corner-code) groups; they
+are added to the assembled force after the residual's partial.  Surface process option 1
+(surface_dh_3d, bc.cxx:920-1050; pallas3d.py:1324-1394) diffuses the top
+lane between the coordinate move and the post-move geometry; its ``dhacc``
+and per-facet ``edv`` accumulators ride three more nodal planes, placed by
+``surf_maps``.
+
 Gating is pallas3d.py's together with grid3d.grid_step_applicable, ported
-as it is so that both packages dispatch alike.  This package additionally
-lacks the Winkler/water facet tractions and surface process option 1:
-``unported_features`` names them and the simulation refuses such configs.
+as it is so that both packages dispatch alike.  ``unported_features``
+refuses only more materials than the kernel's MAXMAT.
 """
 
 from __future__ import annotations
@@ -75,12 +84,16 @@ E_SLOTS = ("volume", "volume_old", "plstrain", "delta_plstrain",
 T_SLOTS = ("stress", "strain", "strain_rate")  # 6 planes each
 NE = len(E_SLOTS) + 6 * len(T_SLOTS)            # 25
 
-# nodal pack (NN, nx, ny, nz).  pallas3d.py carries three more planes for
-# surface process option 1 (dhacc, edv_a, edv_b), not run here yet.
+# nodal pack (NN, nx, ny, nz); with surface process option 1 three more
+# planes (pallas3d.py:74-79): the height accumulator dhacc and edvacc_surf
+# of each top cell's two triangles at the cell's (x0, y0, top) node
+# (surf_maps), so NN_SURF planes
 N_SLOTS = ("coord_x", "coord_y", "coord_z", "vel_x", "vel_y", "vel_z",
            "temperature", "mass", "tmass", "hmass", "volume_n",
            "force_x", "force_y", "force_z")
 NN = len(N_SLOTS)                               # 14
+SURF_SLOTS = ("dhacc", "edv_a", "edv_b")
+NN_SURF = NN + len(SURF_SLOTS)                  # 17
 
 # const nodal pack (per chunk)
 CN_SLOTS = ("top_mask", "vbc_mask_x", "vbc_mask_y", "vbc_mask_z")
@@ -91,6 +104,8 @@ BLOCK = 256        # threads (tets, cells or nodes) per block of
 #                    csrc/fused3d.cu
 NEWORK = 24        # element scratch planes of one cell each (csrc)
 NNWORK = 2         # node scratch planes
+NFWORK = 24        # facet scratch planes of one (x, y) column each (csrc):
+#                    side (bottom, top), force component, top/bottom corner
 MAXMAT = fused2d.MAXMAT  # csrc/rheology2d.cuh MAXMAT
 
 # per-material table values the mixtures take (csrc/fused3d.cu MixConst),
@@ -115,7 +130,7 @@ def _tslot(name: str) -> int:
 
 
 def _nslot(name: str) -> int:
-    return N_SLOTS.index(name)
+    return (N_SLOTS + SURF_SLOTS).index(name)
 
 
 # ---------------------------------------------------------------- gates
@@ -151,9 +166,20 @@ def _surf_on(param: Param, ctx) -> bool:
             and int(ctx.surf.etop) > 0)
 
 
-def _surf_maps_ok(ctx) -> bool:
-    """Whether every top facet is a parity-diagonal triangle of the 5-tet
-    decomposition (the check of pallas3d._surf_maps)."""
+# the two triangles of a top cell's quad, split along the parity diagonal
+# of the 5-tet decomposition (structured.tet_tables), as the corner codes
+# a*4 + b*2 + 1 of the cell's top corners, in the order of pallas3d.py:
+# 1342-1343 (counter-clockwise seen from above, +z outward)
+TRI_EVEN = ((1, 7, 3), (1, 5, 7))
+TRI_ODD = ((1, 5, 3), (3, 5, 7))
+
+
+def surf_maps(ctx):
+    """pallas3d._surf_maps: for each top facet, its triangle slot (0 or 1,
+    the triangle of TRI_EVEN / TRI_ODD with the facet's corner set) and the
+    node that carries its edvacc_surf, the owning cell's (x0, y0, top)
+    node; (tri, nid) int32 arrays.  Raises ValueError when a top facet is
+    not such a triangle."""
     nx, ny, nz = ctx.sgrid
     nzc = nz - 1
     fn = np.asarray(ctx.surf.facet_nodes)
@@ -161,71 +187,99 @@ def _surf_maps_ok(ctx) -> bool:
     j_n = (fn // nz) % ny
     i_n = fn // (nz * ny)
     if not (k_n == nz - 1).all():
-        return False
+        raise ValueError("top facets off the top lane")
     i0 = i_n.min(axis=1)
     j0 = j_n.min(axis=1)
     a = i_n - i0[:, None]
     b = j_n - j0[:, None]
     par = (i0 + j0 + nzc - 1) % 2
-    want = {0: (frozenset({(0, 0), (0, 1), (1, 1)}),
-                frozenset({(0, 0), (1, 0), (1, 1)})),
-            1: (frozenset({(0, 0), (0, 1), (1, 0)}),
-                frozenset({(0, 1), (1, 0), (1, 1)}))}
-    for r in range(fn.shape[0]):
-        if frozenset(zip(a[r], b[r])) not in want[int(par[r])]:
-            return False
-    return True
+    # the corner set (a, b) of a facet as the bits a * 2 + b (three
+    # distinct corners set three bits), against each parity's two triangles
+    ok = ((a == 0) | (a == 1)) & ((b == 0) | (b == 1))
+    bits = (1 << (a * 2 + b)).sum(axis=1, where=ok)
+    want = np.array([[sum(1 << (q >> 1) for q in t) for t in tris]
+                     for tris in (TRI_EVEN, TRI_ODD)])[par]
+    if not (ok.all() and ((bits == want[:, 0])
+                          | (bits == want[:, 1])).all()):
+        raise ValueError("top facet is not a parity-diagonal triangle "
+                         "of the 5-tet decomposition")
+    tri = np.where(bits == want[:, 0], 0, 1).astype(np.int32)
+    nid = ((i0 * ny + j0) * nz + (nz - 1)).astype(np.int32)
+    return tri, nid
 
 
-def _grav_facets_ok(ctx) -> bool:
-    """Whether the gravity-traction facet tables are the canonical full
-    bottom/top coverage that pallas3d._grav_facets_structured_3d
-    decodes."""
+def grav_facets(ctx):
+    """pallas3d._grav_facets_structured_3d: the gravity-traction facet
+    tables (ctx.sbc) of the structured 5-tet grid decoded into
+    {"winkler", "water", "bottom", "top"}, where bottom/top map the cell
+    parity (0 where i + j + k is even) to its two (tet, (code0, code1,
+    code2)) groups, sorted, with the corner codes a*4 + b*2 + d in the
+    stored facet-node order (so that the cross product gives the outward
+    normal of the generic path).  None without gravity facets; raises
+    ValueError when the tables are not the full bottom and top rows: each
+    parity's two groups must each cover every cell of that parity in the
+    row once."""
+    if int(ctx.sbc.n_grav) == 0:
+        return None
     nx, ny, nz = ctx.sgrid
     nxc, nyc, nzc = nx - 1, ny - 1, nz - 1
     fn, fe, kind = ctx.sbc.facet_nodes, ctx.sbc.facet_elem, ctx.sbc.kind
     if not set(np.unique(kind)).issubset({0, 1}):
-        return False
-    for kval in (0, 1):
+        raise ValueError("sidewall lithostatic facets")
+    spec = {"winkler": False, "water": False, "bottom": None, "top": None}
+    for kval, name in ((0, "bottom"), (1, "top")):
         rows = np.where(kind == kval)[0]
         if rows.size == 0:
             continue
         if rows.size != 2 * nxc * nyc:
-            return False
+            raise ValueError(f"{name} facet coverage incomplete")
         f = fn[rows]
         k_n = f % nz
         j_n = (f // nz) % ny
         i_n = f // (nz * ny)
+        krow = 0 if kval == 0 else nzc - 1
         if not (k_n == (0 if kval == 0 else nz - 1)).all():
-            return False
+            raise ValueError(f"{name} facets off the boundary lane")
         e = fe[rows]
         t_id = e % 5
         cell = e // 5
         kz = cell % nzc
         jy = (cell // nzc) % nyc
         ix = cell // (nzc * nyc)
-        if not (kz == (0 if kval == 0 else nzc - 1)).all():
-            return False
+        if not (kz == krow).all():
+            raise ValueError(f"{name} facet elements off the boundary row")
         a = i_n - ix[:, None]
         b = j_n - jy[:, None]
         d = k_n - kz[:, None]
         if not (((a == 0) | (a == 1)) & ((b == 0) | (b == 1))
                 & ((d == 0) | (d == 1))).all():
-            return False
-        codes = a * 4 + b * 2 + d
+            raise ValueError(f"{name} facet nodes outside the owner cell")
+        key = np.concatenate([t_id[:, None], a * 4 + b * 2 + d], axis=1)
         parv = (ix + jy + kz) % 2
-        groups = {0: {}, 1: {}}
-        for r in range(rows.size):
-            key = (int(t_id[r]), tuple(int(c) for c in codes[r]))
-            groups[int(parv[r])].setdefault(key, set()).add(
-                (int(ix[r]), int(jy[r])))
+        col = ix * nyc + jy
+        out = {}
         for pv in (0, 1):
-            cells_pv = {(i, j) for i in range(nxc) for j in range(nyc)
-                        if (i + j + (0 if kval == 0 else nzc - 1)) % 2
-                        == pv}
-            if len(groups[pv]) != 2 or any(
-                    cs != cells_pv for cs in groups[pv].values()):
-                return False
+            n_pv = int(((np.arange(nxc)[:, None] + np.arange(nyc)
+                         + krow) % 2 == pv).sum())
+            m = parv == pv
+            keys, inv = np.unique(key[m], axis=0, return_inverse=True)
+            inv = inv.reshape(-1)
+            if keys.shape[0] != 2 or any(
+                    np.unique(col[m][inv == g]).size != n_pv
+                    or (inv == g).sum() != n_pv for g in range(2)):
+                raise ValueError(f"{name} facet groups not canonical")
+            out[pv] = [(int(k[0]), tuple(int(c) for c in k[1:]))
+                       for k in keys]
+        spec[name] = out
+        spec["winkler" if kval == 0 else "water"] = True
+    return spec
+
+
+def _decodes(fn, *args) -> bool:
+    try:
+        fn(*args)
+    except ValueError:
+        return False
     return True
 
 
@@ -248,7 +302,7 @@ def pallas3d_step_applicable(param: Param, ctx) -> bool:
     ctrl = param.control
     if ctrl.surface_process_option not in (0, 1) and ctx.surf.etop > 0:
         return False
-    if _surf_on(param, ctx) and not _surf_maps_ok(ctx):
+    if _surf_on(param, ctx) and not _decodes(surf_maps, ctx):
         return False
     if param.sim.float_dtype != "float32":
         return False
@@ -260,7 +314,7 @@ def pallas3d_step_applicable(param: Param, ctx) -> bool:
         return False
     if ctx.sbc.n_neu > 0 or param.bc.has_elastic_foundation:
         return False
-    if ctx.sbc.n_grav > 0 and not _grav_facets_ok(ctx):
+    if not _decodes(grav_facets, ctx):
         return False
     nx, ny, nz = ctx.sgrid
     nxc, nyc, nzc = nx - 1, ny - 1, nz - 1
@@ -274,30 +328,38 @@ def pallas3d_step_applicable(param: Param, ctx) -> bool:
 
 def unported_features(param: Param, ctx) -> list:
     """Features that pass the gate above but that this package's fused 3D
-    step does not compute yet."""
-    out = []
+    step does not compute."""
     if len(param.mat.rho0) > MAXMAT:
-        out.append(f"more than {MAXMAT} materials")
-    if ctx.sbc.n_grav > 0:
-        out.append("in-kernel gravity-facet tractions (Winkler / water "
-                   "loading, pallas3d.py:168, :1229-1290)")
-    if _surf_on(param, ctx):
-        out.append("surface process option 1 (pallas3d.py:255, "
-                   ":1324-1394)")
-    return out
+        return [f"more than {MAXMAT} materials"]
+    return []
 
 
 # ------------------------------------------------------ static step plan
 
-# ip slots (csrc/fused3d.cu Params3::from_host)
+# ip slots (csrc/fused3d.cu Params3::from_host), then the facet groups of
+# grav_facets (facet_table)
 IP_FIELDS = ("nx", "ny", "nz", "rheol", "nmd", "thermal", "gravity_on",
              "damping", "surf_corr", "quasi_static", "use_gvs", "jaumann",
-             "uniform", "nmat")
+             "uniform", "nmat", "winkler", "water", "surf_on")
 # fp slots, then per material its MAT_FIELDS and MIX_FIELDS
 FP_FIELDS = ("surface_T", "visc_min", "visc_max", "tension_max", "fac",
              "one_m_fac", "two_m_fac", "inertial", "log_q", "log_1e6",
              "deg2rad", "ps2", "bulkm", "shearm", "kappa", "rhoA", "rhoB",
-             "buoyA", "buoyB", "cpA", "cpB", "hmA", "g_npe")
+             "buoyA", "buoyB", "cpA", "cpB", "hmA", "g_npe", "comp_p",
+             "winkler_drho", "gravity", "zlength", "surf_base", "surf_diff")
+
+
+def facet_table(grav) -> np.ndarray:
+    """The facet groups of a grav_facets spec as the kernel reads them:
+    (side: bottom, top; cell parity; group) -> (tet, code0, code1, code2),
+    zeros for a side without facets, (2, 2, 2, 4) int32."""
+    tab = np.zeros((2, 2, 2, 4), dtype=np.int32)
+    for side, name in enumerate(("bottom", "top")):
+        if grav is not None and grav[name] is not None:
+            for pv in (0, 1):
+                for g, (t, codes) in enumerate(grav[name][pv]):
+                    tab[side, pv, g] = (t, *codes)
+    return tab
 
 
 @dataclass
@@ -309,7 +371,10 @@ class StepPlan3:
     CUDA kernel (``ip``, ``fp``) and for dt_refresh (``rip``, ``rfp``).
     ``uniform``: one material with uniform ICs, whose properties are the
     constants of ``k``; otherwise ``mix`` holds every material's table
-    values for the mixtures (MIX_FIELDS) and ``mc`` its MAT_FIELDS."""
+    values for the mixtures (MIX_FIELDS) and ``mc`` its MAT_FIELDS.
+    ``grav``: the facet groups (grav_facets) where the tractions run;
+    ``smaps``: the edvacc_surf placement (surf_maps, as tensors on the
+    plan's device) where surface process 1 runs."""
 
     nx: int
     ny: int
@@ -323,6 +388,8 @@ class StepPlan3:
     mc: list
     mix: list
     par: torch.Tensor  # (nxc, nyc, nzc) bool
+    grav: dict | None
+    smaps: tuple | None
     ip: np.ndarray
     fp: np.ndarray
     rip: np.ndarray
@@ -340,15 +407,26 @@ class StepPlan3:
     def cells(self) -> tuple:
         return (self.nx - 1, self.ny - 1, self.nz - 1)
 
+    @property
+    def nn(self) -> int:
+        """Planes of the nodal pack."""
+        return NN_SURF if self.sw["surf_on"] else NN
+
+    @property
+    def facets(self) -> bool:
+        return bool(self.sw["winkler"] or self.sw["water"])
+
     def nblocks(self) -> int:
         """Columns of the partials buffer: the larger block count of the
         launches that write them, phase G (per cell) and F (per node)."""
         return max(-(-self.ncell // BLOCK), -(-self.nnode // BLOCK))
 
 
-def make_plan(param: Param, ctx, device) -> StepPlan3:
+def make_plan(param: Param, ctx, device,
+              compensation_pressure: float = 0.0) -> StepPlan3:
     """Build the StepPlan3 (cf. the closure constants of
-    pallas3d.make_pallas_step)."""
+    pallas3d.make_pallas_step); ``compensation_pressure`` is the Winkler
+    reference pressure."""
     ctrl, mat = param.control, param.mat
     nx, ny, nz = ctx.sgrid
     dtype = torch.float32 if param.sim.float_dtype == "float32" \
@@ -381,7 +459,13 @@ def make_plan(param: Param, ctx, device) -> StepPlan3:
         "use_gvs": int(ctrl.use_global_velocity_scaling),
         "fixed_on": int(ctrl.fixed_dt != 0.0),
         "jaumann": int(bool(mat.rheol_type & RH_ELASTIC)),
+        "surf_on": int(_surf_on(param, ctx)),
     }
+    # the tractions need gravity, as apply_stress_bcs (bc.cxx:632-790) and
+    # grid3d, the oracle, apply them
+    grav = grav_facets(ctx) if ctrl.gravity != 0 else None
+    for f in ("winkler", "water"):
+        sw[f] = int(grav is not None and grav[f])
     k = {
         "surface_T": float(param.bc.surface_temperature),
         "visc_min": visc_min, "visc_max": float(tabn["visc_max"]),
@@ -408,6 +492,11 @@ def make_plan(param: Param, ctx, device) -> StepPlan3:
         # hmass coefficient: 3D bulk_comp = 1/K (geometry.cxx:1098)
         "hmA": ((ab + phi - ab * phi) / K + phi * bf) / npe,
         "g_npe": g / npe,
+        "comp_p": float(compensation_pressure),
+        "winkler_drho": float(param.bc.winkler_delta_rho),
+        "gravity": g, "zlength": float(param.mesh.zlength),
+        "surf_base": float(ctrl.surf_base_level),
+        "surf_diff": float(ctrl.surface_diffusivity),
     }
     mc = FC.mat_consts(tabn)
     # the tables in the run dtype, products and quotients formed in it as
@@ -415,22 +504,33 @@ def make_plan(param: Param, ctx, device) -> StepPlan3:
     tv = {**tabn, "rho0_alpha": tabn["rho0"] * tabn["alpha"],
           "inv_fluid_bulk_modulus": 1.0 / tabn["fluid_bulk_modulus"]}
     mix = [{f: float(tv[f][m]) for f in MIX_FIELDS} for m in range(nmat)]
-    ip = np.array([sw[f] for f in IP_FIELDS], dtype=np.int32)
+    ip = np.concatenate([np.array([sw[f] for f in IP_FIELDS],
+                                  dtype=np.int32),
+                         facet_table(grav).reshape(-1)])
     fp = np.array([k[f] for f in FP_FIELDS]
                   + [v for m in range(nmat)
                      for v in [mc[m][f] for f in FC.MAT_FIELDS]
                      + [mix[m][f] for f in MIX_FIELDS]], dtype=np.float64)
     rip, rfp = FC.refresh_params(sw, k)
     par = torch.as_tensor(parity_3d(nx, ny, nz), device=device)
+    smaps = None
+    if sw["surf_on"]:
+        tri, nid = surf_maps(ctx)
+        smaps = (torch.as_tensor(tri, device=device),
+                 torch.as_tensor(nid, device=device).long())
     return StepPlan3(nx=nx, ny=ny, nz=nz, dtype=dtype, rheol=mat.rheol_type,
                      uniform=uniform, nmat=nmat, sw=sw, k=k, mc=mc, mix=mix,
-                     par=par, ip=ip, fp=fp, rip=rip, rfp=rfp)
+                     par=par, grav=grav, smaps=smaps, ip=ip, fp=fp,
+                     rip=rip, rfp=rfp)
 
 
 # ------------------------------------------- packing (chunk boundaries)
 
-def state_to_planes(s, nx: int, ny: int, nz: int):
-    """State -> (epack (NE, 5, nxc, nyc, nzc), npack (NN, nx, ny, nz))."""
+def state_to_planes(s, nx: int, ny: int, nz: int, smaps=None):
+    """State -> (epack (NE, 5, nxc, nyc, nzc), npack (NN, nx, ny, nz));
+    with ``smaps`` (StepPlan3.smaps) the NN_SURF planes, dhacc and each
+    top facet's edvacc_surf at its node of its triangle slot's plane
+    (pallas3d.state_to_pgrid)."""
     cells = (nx - 1, ny - 1, nz - 1)
     planes = [getattr(s, f).reshape(*cells, 5).permute(3, 0, 1, 2)
               for f in E_SLOTS]
@@ -442,12 +542,21 @@ def state_to_planes(s, nx: int, ny: int, nz: int):
              s.vel[:, 1], s.vel[:, 2], s.temperature, s.mass, s.tmass,
              s.hmass, s.volume_n, s.force[:, 0], s.force[:, 1],
              s.force[:, 2]]
+    if smaps is not None:
+        tri, nid = smaps
+        edv = torch.zeros((2, nx * ny * nz), dtype=s.coord.dtype,
+                          device=s.coord.device)
+        edv[tri.long(), nid] = s.edvacc_surf
+        nodal += [s.dhacc, edv[0], edv[1]]
     npack = torch.stack([a.reshape(nx, ny, nz) for a in nodal]).contiguous()
     return epack, npack
 
 
-def planes_to_state(s, epack, npack, nx: int, ny: int, nz: int, **scalars):
-    """Packed planes (+ new scalars) -> State; other fields pass through."""
+def planes_to_state(s, epack, npack, nx: int, ny: int, nz: int,
+                    smaps=None, **scalars):
+    """Packed planes (+ new scalars) -> State; other fields pass through
+    (dhacc and edvacc_surf too, unless ``smaps`` says where they are, as
+    state_to_planes put them)."""
     nelem = (nx - 1) * (ny - 1) * (nz - 1) * 5
 
     def p2e(p):
@@ -467,6 +576,11 @@ def planes_to_state(s, epack, npack, nx: int, ny: int, nz: int, **scalars):
         upd[v] = torch.stack([p2n(n) for n in names], dim=1)
     for nm in ("temperature", "mass", "tmass", "hmass", "volume_n"):
         upd[nm] = p2n(nm)
+    if smaps is not None:
+        tri, nid = smaps
+        upd["dhacc"] = p2n("dhacc")
+        edv = npack[_nslot("edv_a"):_nslot("edv_b") + 1].reshape(2, -1)
+        upd["edvacc_surf"] = edv[tri.long(), nid]
     return s.replace(**upd, **scalars)
 
 
@@ -559,6 +673,149 @@ def shape_fn(xs, ys, zs, vol):
     dndz = (iv * (x13 * y12 - x12 * y13), iv * (x02 * y23 - x23 * y02),
             iv * (x13 * y03 - x03 * y13), iv * (x01 * y02 - x02 * y01))
     return dndx, dndy, dndz
+
+
+def _row_views(g, krow: int):
+    """Nodal plane (nx, ny, nz) -> the 8 corner views (nxc, nyc) of the
+    cells of z row ``krow``, corner code a*4 + b*2 + d."""
+    nxc, nyc = g.shape[0] - 1, g.shape[1] - 1
+    return [g[a:a + nxc, b:b + nyc, krow + d]
+            for a in (0, 1) for b in (0, 1) for d in (0, 1)]
+
+
+def _lane_sum(parts):
+    """Per-cell partials of a cell row's 4 bottom or top corners (a, b)
+    -> their node lane (nx, ny): corner by corner in order, from zero (the
+    kernel's node_sum over one lane)."""
+    nxc, nyc = parts[0].shape
+    out = torch.zeros((nxc + 1, nyc + 1), dtype=parts[0].dtype,
+                      device=parts[0].device)
+    for f, v in enumerate(parts):
+        out[f >> 1:(f >> 1) + nxc, f & 1:(f & 1) + nyc] += v
+    return out
+
+
+def facet_forces(P: StepPlan3, nin, rho_of, c):
+    """The gravity-facet tractions (apply_stress_bcs, bc.cxx:632-790;
+    pallas3d.py:1221-1290) from the pre-move coordinates: the Winkler
+    pressure compensation_pressure - (rho + delta_rho) g (z_c + zlength)
+    on the bottom facets, rho that of the owning tet from the pre-update
+    temperature (``rho_of(t, krow, TinC)``), and the water pressure
+    1030 g (base - z_c) below the base level on the top facets; each facet
+    adds -p n / 3 to its three nodes, n its area-weighted normal in the
+    stored node order.  In csrc/fused3d.cu's order: each boundary cell's
+    two facet groups in order into per-corner partials from zero, then a
+    node's up to four cells in corner-code order (_lane_sum).  Returns
+    {node lane k: (3, nx, ny) force additions}."""
+    k, g, third = P.k, P.grav, c(1.0 / 3.0)
+    gconst = c(k["gravity"])
+    out = {}
+    for side, name, flag in ((0, "bottom", "winkler"), (1, "top", "water")):
+        if not P.sw[flag]:
+            continue
+        krow = 0 if side == 0 else P.nz - 2
+        X, Y, Z, TT = (_row_views(nin[_nslot(n)], krow) for n in
+                       ("coord_x", "coord_y", "coord_z", "temperature"))
+        parts = {}
+        for pv, corners in ((0, EVEN_T), (1, ODD_T)):
+            acc = [[torch.zeros_like(X[0]) for _ in range(4)]
+                   for _ in range(3)]
+            for t, codes in g[name][pv]:
+                c0, c1, c2 = codes
+                e1 = [V[c1] - V[c0] for V in (X, Y, Z)]
+                e2 = [V[c2] - V[c0] for V in (X, Y, Z)]
+                nr = (0.5 * (e1[1] * e2[2] - e1[2] * e2[1]),
+                      0.5 * (e1[2] * e2[0] - e1[0] * e2[2]),
+                      0.5 * (e1[0] * e2[1] - e1[1] * e2[0]))
+                zc = (Z[c0] + Z[c1] + Z[c2]) * third
+                if side == 0:
+                    ts = [TT[q] for q in corners[t]]
+                    TinC = (ts[0] + ts[1] + ts[2] + ts[3]) / 4.0 - CELSIUS0
+                    pres = c(k["comp_p"]) - (
+                        rho_of(t, krow, TinC) + c(k["winkler_drho"])) \
+                        * gconst * (zc + c(k["zlength"]))
+                else:
+                    base = c(k["surf_base"])
+                    pres = torch.where(zc < base,
+                                       c(1030.0) * gconst * (base - zc),
+                                       c(0.0))
+                cf = [-pres * n * third for n in nr]
+                for f in range(4):
+                    if 2 * f + side in codes:
+                        for q in range(3):
+                            acc[q][f] = acc[q][f] + cf[q]
+            parts[pv] = acc
+        par = P.par[:, :, krow]
+        out[0 if side == 0 else -1] = torch.stack([_lane_sum(
+            [torch.where(par, parts[0][q][f], parts[1][q][f])
+             for f in range(4)]) for q in range(3)])
+    return out
+
+
+def _tri_geom(px, py, pz=None):
+    """A top triangle's area projected on the horizontal plane and, given
+    its heights, each corner's slope term (sdx_j gx + sdy_j gy) * area of
+    the facet FEM (surface_dh_3d, bc.cxx:920-1050; pallas3d.py:1355-1368)."""
+    parea = 0.5 * ((px[1] - px[0]) * (py[2] - py[0])
+                   - (py[1] - py[0]) * (px[2] - px[0]))
+    if pz is None:
+        return parea, None
+    iv = 1.0 / (2.0 * torch.where(parea != 0, parea, torch.ones_like(parea)))
+    sdx = (iv * (py[1] - py[2]), iv * (py[2] - py[0]), iv * (py[0] - py[1]))
+    sdy = (iv * (px[2] - px[1]), iv * (px[0] - px[2]), iv * (px[1] - px[0]))
+    gx = sdx[0] * pz[0] + sdx[1] * pz[1] + sdx[2] * pz[2]
+    gy = sdy[0] * pz[0] + sdy[1] * pz[1] + sdy[2] * pz[2]
+    return parea, [(sdx[j] * gx + sdy[j] * gy) * parea for j in range(3)]
+
+
+def surface_process(P: StepPlan3, coord, top_mask, dt, dhacc, edv, c):
+    """Surface process option 1 on the moved coordinates (surface_dh_3d
+    and the accumulators of bc.cxx:1745-1760; pallas3d.py:1324-1394): dh =
+    -kappa dt (sum of slope terms) / (sum of projected areas) over each top
+    node's triangles, on top-mask nodes, added to z and dhacc; each top
+    cell's triangle t adds (its corners' dh summed) * area / 3 to edv[t] at
+    the cell's (x0, y0, top) node.  The sums in csrc/fused3d.cu's order: a
+    cell's triangles in order into per-corner partials from zero, then a
+    node's up to four cells in corner-code order.  Returns (coord_z,
+    dhacc, (edv_a, edv_b))."""
+    x, y, z = (g[:, :, -1] for g in coord)
+    nxc, nyc = x.shape[0] - 1, x.shape[1] - 1
+    par = P.par[:, :, -1]
+
+    def corner(v, f):
+        return v[f >> 1:(f >> 1) + nxc, f & 1:(f & 1) + nyc]
+
+    zero = torch.zeros_like(corner(x, 0))
+    slope = {pv: [zero] * 4 for pv in (0, 1)}
+    area = {pv: [zero] * 4 for pv in (0, 1)}
+    pareas = {0: [], 1: []}
+    for pv, tris in ((0, TRI_EVEN), (1, TRI_ODD)):
+        for tri in tris:
+            fs = [q >> 1 for q in tri]
+            parea, sl = _tri_geom(*([corner(v, f) for f in fs]
+                                    for v in (x, y, z)))
+            pareas[pv].append(parea)
+            for f in range(4):
+                if f in fs:
+                    slope[pv][f] = slope[pv][f] + sl[fs.index(f)]
+                    area[pv][f] = area[pv][f] + parea
+    ts, td = (_lane_sum([torch.where(par, a[0][f], a[1][f])
+                         for f in range(4)]) for a in (slope, area))
+    conv = c(P.k["surf_diff"]) * dt * ts / torch.where(td > 0, td, c(1.0))
+    dh = torch.where(top_mask[:, :, -1] > 0, -conv, c(0.0))
+    coord_z, dhacc = coord[2].clone(), dhacc.clone()
+    coord_z[:, :, -1] = z + dh
+    dhacc[:, :, -1] = dhacc[:, :, -1] + dh
+    edv_out = []
+    for t3 in range(2):
+        dv = []
+        for pv, tris in ((0, TRI_EVEN), (1, TRI_ODD)):
+            d = [corner(dh, q >> 1) for q in tris[t3]]
+            dv.append((d[0] + d[1] + d[2]) * pareas[pv][t3] / 3.0)
+        e = edv[t3].clone()
+        e[:nxc, :nyc, -1] = e[:nxc, :nyc, -1] + torch.where(par, *dv)
+        edv_out.append(e)
+    return coord_z, dhacc, tuple(edv_out)
 
 
 def _dot4(a, b):
@@ -672,8 +929,9 @@ def step_planes_plain(P: StepPlan3, ein, nin, cnp, tgt, dt, gvs,
                       ties=None, pending=None, cep=None):
     """One time step on the packed planes, in plain PyTorch, in the chunk
     form of csrc/fused3d.cu: the physics of pallas3d.py:793-1567 on the
-    whole mesh (dynearthsol.cxx:746-956 minus the facet tractions and
-    surface processes), with the tensor epilogue (``epilogue``) left
+    whole mesh (dynearthsol.cxx:746-956 with the gravity-facet tractions
+    and surface process 1 where the plan runs them), with the tensor
+    epilogue (``epilogue``) left
     pending on the stress, strain, strain-rate and plstrain planes it
     returns.  ``cep`` is the const pack of a multi-material plan
     (const_epack), whose properties it mixes (``mixtures``).
@@ -850,6 +1108,17 @@ def step_planes_plain(P: StepPlan3, ein, nin, cnp, tgt, dt, gvs,
     force = [-asm(fc, par) for fc in (fxc, fyc, fzc)]
     r2 = (force[0] * force[0] + force[1] * force[1]
           + force[2] * force[2]).sum()
+    # the gravity-facet tractions, after the residual as in grid3d
+    if P.facets:
+        def rho_of(t, krow, TinC):
+            a, b = CE("rhoA"), CE("rhoB")
+            if not P.uniform:
+                a, b = a[t, ..., krow], b[t, ..., krow]
+            return a - b * TinC
+
+        for lane, add in facet_forces(P, nin, rho_of, c).items():
+            for q in range(3):
+                force[q][..., lane] = force[q][..., lane] + add[q]
 
     # ---- phase 3: damping, velocity, vbcs, coordinates
     # (fields.cxx:486-582,730-747; bc.cxx)
@@ -872,6 +1141,11 @@ def step_planes_plain(P: StepPlan3, ein, nin, cnp, tgt, dt, gvs,
                            / mass_n) for q in range(3)]
     coord_new = [N(n) + vel_new[q] * dt
                  for q, n in enumerate(("coord_x", "coord_y", "coord_z"))]
+    surf = {}
+    if sw["surf_on"]:
+        coord_new[2], surf["dhacc"], (surf["edv_a"], surf["edv_b"]) = \
+            surface_process(P, coord_new, cnp[0], dt, N("dhacc"),
+                            (N("edv_a"), N("edv_b")), c)
 
     # ---- phase 4: post-move geometry, CFL partials, masses, the surface
     # factors of epilogue() (pallas3d.py:1395-1534)
@@ -920,9 +1194,9 @@ def step_planes_plain(P: StepPlan3, ein, nin, cnp, tgt, dt, gvs,
              "vel_y": vel_new[1], "vel_z": vel_new[2],
              "temperature": temperature_new, "mass": mass_new,
              "tmass": tmass_new, "hmass": hmass_new, "volume_n": volume_n,
-             "force_x": fd[0], "force_y": fd[1], "force_z": fd[2]}
+             "force_x": fd[0], "force_y": fd[1], "force_z": fd[2], **surf}
     eout = torch.stack([p.expand(vol.shape) for p in eplanes])
-    nout = torch.stack([n_out[nm] for nm in N_SLOTS])
+    nout = torch.stack([n_out[nm] for nm in N_SLOTS + tuple(surf)])
     return eout, nout, red, dp_nd, sfac
 
 
@@ -991,9 +1265,12 @@ class ChunkBuffers3:
     dthist: torch.Tensor   # (n,)
     part: torch.Tensor     # (NPART, nblocks)
     ework: torch.Tensor    # (NEWORK, nxc, nyc, nzc) element scratch (CUDA)
-    nwork: torch.Tensor    # (NNWORK, nx, ny, nz) node scratch: dvoldt, and
-    #                        the NMD nodal pressure change
+    nwork: torch.Tensor    # (NNWORK, nx, ny, nz) node scratch: dvoldt (on
+    #                        the top lane, after C, surface process 1's dh),
+    #                        and the NMD nodal pressure change
     sfac: torch.Tensor     # (5, nxc, nyc) surface factors of the top layer
+    fwork: torch.Tensor    # (NFWORK, nxc, nyc) facet tractions' corner
+    #                        partials (CUDA, plans with facets)
 
     def swap(self):
         self.ein, self.eout = self.eout, self.ein
@@ -1002,7 +1279,11 @@ class ChunkBuffers3:
 
 def make_buffers(P: StepPlan3, ctx, s, n: int) -> ChunkBuffers3:
     dev, dtype = s.coord.device, P.dtype
-    ein, nin = state_to_planes(s, P.nx, P.ny, P.nz)
+    ein, nin = state_to_planes(s, P.nx, P.ny, P.nz, P.smaps)
+    # surface process 1 writes its accumulators on the top lane only, so
+    # both buffers start with the other values
+    nout = torch.empty_like(nin)
+    nout[NN:] = nin[NN:]
     ks = s.steps + 1 + torch.arange(n, device=dev)
     refresh = (ks % 10 == 0) | bool(P.sw["use_gvs"])
     flags = refresh.to(dtype).reshape(n, 1).contiguous()
@@ -1016,8 +1297,8 @@ def make_buffers(P: StepPlan3, ctx, s, n: int) -> ChunkBuffers3:
     part[:2] = P.k["big"]   # neutral elements of min, min, max, sum
     cuda = dev.type == "cuda"
     return ChunkBuffers3(
-        ein=ein, nin=nin, eout=torch.empty_like(ein),
-        nout=torch.empty_like(nin), cep=const_epack(P, s),
+        ein=ein, nin=nin, eout=torch.empty_like(ein), nout=nout,
+        cep=const_epack(P, s),
         cnp=const_npack(P, ctx, s),
         tgt=torch.zeros((3, P.nx, P.ny, P.nz), dtype=dtype, device=dev),
         scal=scal, flags=flags,
@@ -1026,7 +1307,9 @@ def make_buffers(P: StepPlan3, ctx, s, n: int) -> ChunkBuffers3:
                           dtype=dtype, device=dev),
         nwork=torch.empty((NNWORK, P.nx, P.ny, P.nz), dtype=dtype,
                           device=dev),
-        sfac=torch.empty((5, P.nx - 1, P.ny - 1), dtype=dtype, device=dev))
+        sfac=torch.empty((5, P.nx - 1, P.ny - 1), dtype=dtype, device=dev),
+        fwork=torch.empty((NFWORK, *P.cells[:2]) if cuda and P.facets
+                          else (0,), dtype=dtype, device=dev))
 
 
 def last_only_slots(P: StepPlan3):
@@ -1060,8 +1343,13 @@ def _cuda_args_ok(P: StepPlan3, b: ChunkBuffers3):
             or tuple(b.cep.shape) != (1 + P.nmat, 5, *P.cells)):
         raise TypeError("cep: need the plan's contiguous float32 const "
                         "pack on the card (const_epack)")
+    if P.facets and not (b.fwork.is_cuda and b.fwork.dtype == torch.float32
+                         and b.fwork.is_contiguous()
+                         and tuple(b.fwork.shape) == (NFWORK, *P.cells[:2])):
+        raise TypeError("fwork: need the plan's contiguous float32 facet "
+                        "scratch on the card")
     if tuple(b.ein.shape) != (NE, 5, *P.cells) \
-            or tuple(b.nin.shape) != (NN, P.nx, P.ny, P.nz) \
+            or tuple(b.nin.shape) != (P.nn, P.nx, P.ny, P.nz) \
             or tuple(b.ework.shape) != (NEWORK, *P.cells) \
             or tuple(b.nwork.shape) != (NNWORK, P.nx, P.ny, P.nz) \
             or tuple(b.sfac.shape) != (5, *P.cells[:2]) \
@@ -1082,8 +1370,8 @@ def _launch_step(P: StepPlan3, b: ChunkBuffers3, pending: bool, last: bool,
         P.ip.ctypes.data, P.fp.ctypes.data, p(b.ein), p(b.nin), p(b.eout),
         p(b.nout), p(b.cep), p(b.cnp), p(b.tgt), p(b.scal), p(b.ework),
         p(b.nwork),
-        p(b.sfac), p(dt_prev), p(b.part), b.part.shape[1], int(pending),
-        int(last), fused2d._stream())
+        p(b.sfac), p(dt_prev), p(b.part), p(b.fwork if P.facets else None),
+        b.part.shape[1], int(pending), int(last), fused2d._stream())
     if rc != 0:
         raise RuntimeError(f"fused3d step launch failed: {_build.err(rc)}")
     fused3d_step.launches += 1
@@ -1138,7 +1426,7 @@ def chunk_step_plain(P: StepPlan3, b: ChunkBuffers3, k: int, n: int):
     else:
         skip_e, skip_n = last_only_slots(P)
         ke = [i for i in range(NE) if i not in skip_e]
-        kn = [i for i in range(NN) if i not in skip_n]
+        kn = [i for i in range(P.nn) if i not in skip_n]
         b.eout[ke] = eout[ke]
         b.nout[kn] = nout[kn]
     if dp_nd is not None:
@@ -1280,7 +1568,7 @@ def run_chunk(P: StepPlan3, ctx, s, n: int, plain: bool = False):
     nnode3 = torch.full((), float(P.nnode * 3), dtype=P.dtype,
                         device=b.scal.device)
     return planes_to_state(
-        s, b.ein, b.nin, P.nx, P.ny, P.nz, time=b.scal[3].clone(),
+        s, b.ein, b.nin, P.nx, P.ny, P.nz, P.smaps, time=b.scal[3].clone(),
         dt=b.scal[0].clone(), steps=s.steps + n,
         max_global_vel_mag=b.scal[1].clone(),
         global_dt_min=b.scal[2].clone(),
@@ -1290,8 +1578,7 @@ def run_chunk(P: StepPlan3, ctx, s, n: int, plain: bool = False):
 def make_chunk_runner(param: Param, ctx, compensation_pressure: float,
                       n: int):
     """run(ctx, state) -> state after n fused 3D steps (the counterpart of
-    pallas3d.make_chunk_runner, with its arguments).  The Winkler reference
-    pressure ``compensation_pressure`` is read by the 3D facet tractions
-    only, which unported_features refuses."""
-    P = make_plan(param, ctx, ctx.conn.device)
+    pallas3d.make_chunk_runner, with its arguments): ``compensation_pressure``
+    is the Winkler reference pressure of the bottom facet tractions."""
+    P = make_plan(param, ctx, ctx.conn.device, compensation_pressure)
     return lambda c, s: run_chunk(P, c, s, n)

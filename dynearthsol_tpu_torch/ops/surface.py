@@ -2,7 +2,8 @@
 of dynearthsol_tpu/ops/surface.py).
 
 Reference: bc.cxx:877-1831.  Surface process option 1 (hillslope
-diffusion) runs in the fused 2D step only (ops/fused2d.py); the fused steps
+diffusion in 2D, facet-FEM topography diffusion in 3D) runs in the fused
+steps only (ops/fused2d.py, ops/fused3d.py); the fused steps
 apply the surface-element correction (bc.cxx:1613-1665) and the
 plastic-strain decay (bc.cxx:1591-1611) in-kernel with the constants below,
 and the column step (ops/flat2d.py) applies them with ``top_elem_mask`` and

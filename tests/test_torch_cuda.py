@@ -20,7 +20,7 @@ from dynearthsol_tpu_torch.mesh.generate import (regular_grid_3d,
                                                  renumber_mesh,
                                                  unstructured_box_2d)
 from dynearthsol_tpu_torch.ops import band2d, fused2d, fused3d
-from torch_cases import (FLAT_FIELDS, STEP3_CASES,
+from torch_cases import (BOUNDARY3, FLAT_FIELDS, STEP3_CASES,
                          assert_evp3_one_step_close,
                          assert_evp_one_step_close, assert_maxwell3_close,
                          assert_maxwell_close, assert_resident_matches_tiled,
@@ -184,7 +184,8 @@ def _run3(cfg, n, plain):
     truly, as the kernel does."""
     sim = des.Simulation(des.param_from_dict(cfg),
                          device="cpu" if plain else "cuda")
-    P = fused3d.make_plan(sim.param, sim.ctx, sim.device)
+    P = fused3d.make_plan(sim.param, sim.ctx, sim.device,
+                          sim.compensation_pressure)
     out = fused3d.run_chunk(P, sim.ctx, sim.state, n, plain)
     torch.cuda.synchronize()
     return out
@@ -245,6 +246,66 @@ def test_fused3d_multimat_vs_plain(cuda):
 
     assert_evp3_one_step_close(_run3(cfg, 1, True), _run3(cfg, 1, False),
                                away_from_ties)
+
+
+def test_fused3d_production_vs_plain(cuda):
+    """The boundary-process instances (the Winkler and water facet
+    tractions, surface process 1) against the plain version on the CPU: a
+    10-step maxwell chunk of one material at the maxwell gate, dhacc and
+    edvacc_surf within 5e-3 (test_pallas3d.py:262-276), then one EVP step
+    of the production3d feature set (two materials) at the one-step gate
+    away from what its ties of equal nonzero invariants reach
+    (fused3d.evp_tie_reach, at most 5 % of the elements).  dhacc and
+    edvacc_surf are left out of the EVP step, as test_pallas3d.py:287-303
+    leaves them out: a tie's branch moves its nodes, and the diffusion
+    carries that to the top nodes around them (0.13 of dhacc's max at
+    128 x 16 x 8 cells)."""
+    cfg = _cfg3(mat={"rheology_type": "maxwell"}, ic={"weakzone_option": 0},
+                **BOUNDARY3)
+    ref, out = _run3(cfg, 10, True), _run3(cfg, 10, False)
+    assert_maxwell3_close(ref, out, get)
+    assert float(ref.dhacc.abs().max()) > 0
+    for f in ("dhacc", "edvacc_surf"):
+        assert rel_err(get(ref, f), get(out, f)) < 5e-3, f
+    cfg = multimat3d_cfg(mesh={"ylength": 16e3}, ic={"weakzone_option": 1},
+                         **BOUNDARY3)
+    sim = des.Simulation(des.param_from_dict(cfg), device="cpu")
+    elems, nodes, gap = fused3d.evp_tie_reach(
+        fused3d.make_plan(sim.param, sim.ctx, "cpu",
+                          sim.compensation_pressure), sim.ctx, sim.state)
+    assert gap < 1 and float(elems.double().mean()) <= 0.05
+
+    def away_from_ties(s, f):
+        v = get(s, f)
+        return v[~(elems if v.shape[0] == elems.numel() else nodes).numpy()]
+
+    assert_evp3_one_step_close(_run3(cfg, 1, True), _run3(cfg, 1, False),
+                               away_from_ties)
+
+
+def test_fused3d_production_chunk_equals_complete_steps(cuda):
+    """The boundary-process instances' chunk form against 10 complete
+    kernel steps, every plane (dhacc, edv_a, edv_b included) bit for bit,
+    and one launch of the surface pass among each step's."""
+    cfg = multimat3d_cfg("maxwell", mesh={"ylength": 16e3}, **BOUNDARY3)
+    sim = des.Simulation(des.param_from_dict(cfg), device="cuda")
+    P = fused3d.make_plan(sim.param, sim.ctx, sim.device,
+                          sim.compensation_pressure)
+    assert P.facets and P.sw["surf_on"] and not P.uniform
+    out = fused3d.run_chunk(P, sim.ctx, sim.state, 10)
+    e, nd = fused3d.state_to_planes(out, P.nx, P.ny, P.nz, P.smaps)
+    b = fused3d.make_buffers(P, sim.ctx, sim.state, 10)
+    for k in range(10):
+        b.tgt = fused3d.vbc_targets(sim.ctx, b.nin, b.scal[3] + b.scal[0])
+        fused3d.fused3d_step(P, b)
+        fused2d.dt_refresh(P, b, k, tiled=True, every=True)
+        b.swap()
+    torch.cuda.synchronize()
+    for i in range(fused3d.NE):
+        assert torch.equal(e[i], b.ein[i]), i
+    for i, nm in enumerate(fused3d.N_SLOTS + fused3d.SURF_SLOTS):
+        assert torch.equal(nd[i], b.nin[i]), nm
+    assert float(out.dhacc.abs().max()) > 0
 
 
 def test_fused3d_refused_launch_raises(cuda):

@@ -2,10 +2,13 @@
 against the JAX package on the 128 x 4 x 8-cell 3D config: the grid3d step
 (the JAX package's oracle for pallas3d, tests/test_pallas3d.py) and the
 Pallas step in interpret mode, both started from the same JAX State
-(state_from_numpy); and the slice end to end through ``run_steps``.  Each
-JAX reference is computed once per file: the 10-step maxwell trajectory on
-grid3d serves the trajectory gate and the slice, the one-step EVP grid3d
-state the EVP gate and the scalars test.
+(state_from_numpy); and the slice end to end through ``run_steps``.  One
+JAX and one port Simulation serve the file (the EVP config with a weak
+zone; the maxwell gates take its mesh and state with a maxwell param,
+which reads no plastic strain), and each JAX reference is computed once:
+the 10-step maxwell trajectory on grid3d serves the trajectory gate and
+the slice, the one-step EVP grid3d state the EVP gate and the scalars
+test.
 
 The chunk form of the step (each step's tensor epilogue, the NMD stress
 correction, Jaumann rotation and surface-element scaling, pending until the
@@ -21,6 +24,7 @@ maxwell over 10 steps (ending on a dt-refresh step) and EVP on one step.
 from contextlib import contextmanager
 from dataclasses import replace
 
+import jax
 import numpy as np
 import pytest
 import torch
@@ -32,7 +36,7 @@ from dynearthsol_tpu_torch.ops import fused2d, fused3d
 from dynearthsol_tpu_torch.state import (FIELD_NAMES, state_from_numpy,
                                          state_to_numpy)
 from torch_cases import (assert_evp3_one_step_close, assert_maxwell3_close,
-                         make_sim3d_cfg, rel_err)
+                         make_sim3d_cfg, rel_err, with_param)
 
 SCALARS = ("time", "dt", "max_global_vel_mag", "global_dt_min",
            "l2_residual")
@@ -60,12 +64,21 @@ def _sims(cfg):
     return _SIMS[key]
 
 
-def _grid_run(js, n):
+def _grid_run(js, n, jit=False):
+    """n grid3d steps from the JAX Simulation's state, with its Winkler
+    reference pressure.  ``jit``: the step compiled as one program, which
+    the persistent compile cache of tests/conftest.py keeps (op by op it
+    is compiled anew in every process).  XLA then contracts products and
+    sums into FMAs, a rounding of its own: used for the maxwell
+    trajectories, whose gates allow it, not for the EVP steps, where it
+    resolves ties of rounding of the min-select its own way."""
     nx, ny, nz = js.ctx.sgrid
-    gstep = grid3d.make_grid_step(js.param, js.ctx, 0.0)
+    step = grid3d.make_grid_step(js.param, js.ctx, js.compensation_pressure)
+    gstep = jax.jit(lambda g: step(js.ctx, g)) if jit else \
+        (lambda g: step(js.ctx, g))
     g = grid3d.state_to_grid(js.state, nx, ny, nz)
     for _ in range(n):
-        g = gstep(js.ctx, g)
+        g = gstep(g)
     return grid3d.grid_to_state(g, nx, ny, nz)
 
 
@@ -79,25 +92,30 @@ def _pallas_run(js, n):
         pallas3d.INTERPRET = old
 
 
+EVP_CFG = make_sim3d_cfg(ic={"weakzone_option": 1})
 MAXWELL_CFG = make_sim3d_cfg(mat={"rheology_type": "maxwell"},
-                             ic={"weakzone_option": 0})
+                             ic={"weakzone_option": 1})
 
 
 @pytest.fixture(scope="module")
 def maxwell():
-    return _sims(MAXWELL_CFG)
+    """The EVP config's Simulations with the maxwell param (with_param),
+    and its initial state."""
+    js, ts, s0 = _sims(EVP_CFG)
+    return (with_param(js, jdes.param_from_dict(MAXWELL_CFG)),
+            with_param(ts, tdes.param_from_dict(MAXWELL_CFG)), s0)
 
 
 @pytest.fixture(scope="module")
 def maxwell_ref(maxwell):
     """10 maxwell steps of the JAX package's grid3d step from its initial
     state."""
-    return _grid_run(maxwell[0], 10)
+    return _grid_run(maxwell[0], 10, jit=True)
 
 
 @pytest.fixture(scope="module")
 def evp():
-    js, ts, s0 = _sims(make_sim3d_cfg(ic={"weakzone_option": 1}))
+    js, ts, s0 = _sims(EVP_CFG)
     port = fused3d.make_chunk_runner(ts.param, ts.ctx, 0.0, 1)(ts.ctx, s0)
     return js, ts, s0, port
 
@@ -200,10 +218,10 @@ def test_slice_matches_jax(maxwell, maxwell_ref):
     plain reference of pallas3d (which test_evp_one_step_vs_pallas3d runs
     in interpret mode): a second interpreted lowering would cost this file
     15 s."""
-    js = maxwell[0]
     ts = tdes.Simulation(tdes.param_from_dict(MAXWELL_CFG), device="cpu")
     ref = maxwell_ref
     out = state_to_numpy(ts.run_steps(10, chunk=10))
+    js = _sims(EVP_CFG)[0]   # the JAX Simulation of this mesh
     js._chunk_fn(10)
     assert ts.step_path == js.step_path == "pallas3d"
     tols = {"force": 5e-3, "dpressure": 5e-3}

@@ -99,7 +99,8 @@ def test_gate_matches_jax(over):
 
 @pytest.mark.parametrize("over,missing", [
     # two materials run (tests/test_torch_multimat3d.py); more than the
-    # kernel's MAXMAT (8) do not
+    # kernel's MAXMAT (8) do not.  The Winkler tractions and surface
+    # process 1 run too (tests/test_torch_production3d.py): None
     ({"mat": {"nmat": 9, "rho0": [2800.0 + 50 * m for m in range(9)],
               "bulk_modulus": [50e9] * 9, "shear_modulus": [30e9] * 9},
       "ic": {"num_mattype_layers": 9,
@@ -107,15 +108,21 @@ def test_gate_matches_jax(over):
              "layer_mattypes": list(range(9))}},
      "more than 8 materials"),
     ({"bc": {"has_winkler_foundation": True, "winkler_delta_rho": 100.0}},
-     "Winkler"),
+     None),
     ({"control": {"surface_process_option": 1,
                   "surface_diffusivity": 1e-6}},
-     "surface process option 1"),
+     None),
 ], ids=["multimat", "winkler", "surface1"])
 def test_unported_features_raise(over, missing):
-    """On the fused 3D gate, but not computed by this package's step."""
+    """On the fused 3D gate: what this package's step does not compute
+    raises, naming it; the rest runs on pallas3d."""
     ts = _port(make_sim3d_cfg(**over))
     assert fused3d.pallas3d_step_applicable(ts.param, ts.ctx)
+    if missing is None:
+        assert fused3d.unported_features(ts.param, ts.ctx) == []
+        ts.run_steps(1)
+        assert ts.step_path == "pallas3d"
+        return
     with pytest.raises(NotImplementedError, match=missing):
         ts.run_steps(1)
 

@@ -68,7 +68,8 @@ def test_mixed_plan(sims):
 
 def test_maxwell_10_steps_vs_grid3d(sims):
     js, ts, s0 = sims
-    ref = _grid_run(with_param(js, jdes.param_from_dict(MAXWELL)), 10)
+    ref = _grid_run(with_param(js, jdes.param_from_dict(MAXWELL)), 10,
+                    jit=True)
     out = fused3d.make_chunk_runner(tdes.param_from_dict(MAXWELL), ts.ctx,
                                     0.0, 10)(ts.ctx, s0)
     assert_maxwell3_close(ref, out, get)
@@ -134,17 +135,19 @@ def test_flagship3d_multimat_gate(sims):
 
 def test_production3d_names_only_facets_and_surface_process():
     """bench.py production3d_param's features on the small multi-material
-    mesh: the port still refuses them, naming the facet tractions and
-    surface process 1 and nothing of the materials."""
+    mesh: nothing is unported, and one step through run_steps takes the
+    pallas3d path and moves dhacc (tests/test_torch_production3d.py holds
+    the facet tractions and surface process 1 against the JAX
+    package)."""
     cfg = multimat3d_cfg(
         control={"surface_process_option": 1, "surface_diffusivity": 1e-6,
                  "has_surface_correction": True},
         bc={"has_winkler_foundation": True, "has_water_loading": True,
             "winkler_delta_rho": 100.0})
     sim = tdes.Simulation(tdes.param_from_dict(cfg), device="cpu")
-    missing = fused3d.unported_features(sim.param, sim.ctx)
-    assert len(missing) == 2
-    assert "gravity-facet" in missing[0] and "surface process" in missing[1]
-    with pytest.raises(NotImplementedError, match="pallas3d") as e:
-        sim.run_steps(1)
-    assert "material" not in str(e.value)
+    assert fused3d.unported_features(sim.param, sim.ctx) == []
+    s = sim.run_steps(1)
+    assert sim.step_path == "pallas3d"
+    assert bool(s.dhacc.abs().max() > 0)
+    assert all(bool(torch.isfinite(getattr(s, f)).all())
+               for f in ("coord", "vel", "stress", "force", "edvacc_surf"))

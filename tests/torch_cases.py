@@ -134,6 +134,17 @@ def multimat3d_cfg(rheology="elasto-visco-plastic", **over):
     return _merge(d, over)
 
 
+# bench.py production3d_param's boundary processes (surface process 1 with
+# the surface correction, the Winkler foundation, water loading), the base
+# level raised to 10 m so that the flat top takes water pressure
+# (tests/test_pallas3d.py:233)
+BOUNDARY3 = {
+    "control": {"surface_process_option": 1, "surface_diffusivity": 1e-6,
+                "has_surface_correction": True, "surf_base_level": 10.0},
+    "bc": {"has_winkler_foundation": True, "has_water_loading": True,
+           "winkler_delta_rho": 100.0}}
+
+
 def flagship3d_multimat_cfg():
     """bench.py flagship3d_param(nmat=2): 256 x 48 x 16 cells of 1 km,
     983,040 tets, EVP, crust (0-40 %) over mantle by 4 markers per
