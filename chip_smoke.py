@@ -7,8 +7,9 @@ Run from the root of the repository:  python3 chip_smoke.py
 Phases, each printed, the first failure exits non-zero:
   1. device  -- a CUDA device is required (there is no CPU path);
   2. build   -- nvcc builds csrc/ into build/torch_kernels/, one compile per
-                source, all started together; registers, stack frame and
-                spills per kernel from the -Xptxas -v report;
+                source, all started together; registers, stack frame,
+                spills and static shared memory per kernel from the
+                -Xptxas -v report;
   3. 2D kernel -- the 2D chunk kernel (one cooperative launch per chunk,
                 dt refreshed in the kernel) against its plain PyTorch
                 version on the card: maxwell over 10 steps (one launch per
@@ -97,8 +98,9 @@ Phases, each printed, the first failure exits non-zero:
                 mesh, a small tet mesh (npe = 4) and the 277k-triangle mesh
                 of phase 9, float32 and float64, at the k / kg of the flat
                 step's six call sites; their device times at that mesh with
-                the L2 cache flushed between launches, beside the plain
-                versions' and the library calls' (index_select, index_add_);
+                the L2 cache flushed between launches, L2-warm and as
+                issued from Python, beside the plain versions', the library
+                calls' (index_select, index_add_) and the bound;
   9. unstructured slice -- the flagship config on a Delaunay box mesh
                 (meshing_elem_shape 0: 277,258 triangles, 139,400 nodes,
                 EVP, f32): Simulation(param) with the default device, a
@@ -666,9 +668,10 @@ def main():
     lib = _build.build()
     _build.load()
     print(f"phase 2 build: {time.perf_counter() - t:.1f} s -> {lib}")
-    for name, (regs, stack, spill) in sorted(_build.ptxas_report().items()):
+    for name, (regs, stack, spill, smem) in sorted(
+            _build.ptxas_report().items()):
         print(f"  {name}: {regs} registers, {stack} B stack frame, "
-              f"{spill} B spilled")
+              f"{spill} B spilled, {smem} B static shared memory")
 
     # ---- 3. 2D kernels against their plain versions, on the card
     print("phase 3 2D chunk kernel vs plain (16 x 128 cells, then flagship)")
@@ -1797,8 +1800,8 @@ def main():
                 key = "dt_refresh"
             elif "gather_corners_kernel" in e.name:
                 key = "gather_corners_kernel (cgather, asm_gather)"
-            elif "scatter_corners_kernel" in e.name:
-                key = "scatter_corners_kernel (asm_pack, asm_gather)"
+            elif "asm_pack_kernel" in e.name:
+                key = "asm_pack_kernel (asm_pack, asm_gather)"
             else:
                 key = "other (PyTorch ops, copies)"
             n, t = rows.get(key, (0, 0.0))
@@ -1932,8 +1935,9 @@ def main():
             sync()
             for name in band_err:
                 band_err[name] = max(band_err[name], worst[name])
-            print(f"  {label}, {str(dtype)[6:]}: cgather k=6,2; asm_pack "
-                  f"k=2,5; asm_gather (k,kg)=(2,1),(1,1) equal bit for bit")
+            print(f"  {label} (max degree {bt.g_cols.shape[0]}), "
+                  f"{str(dtype)[6:]}: cgather k=6,2; asm_pack k=2,5; "
+                  f"asm_gather (k,kg)=(2,1),(1,1) equal bit for bit")
 
     band_check(f"Delaunay {small[1].shape[0]} triangles",
                band2d.build_tables(small[1], small[0].shape[0], "cuda"))

@@ -10,43 +10,59 @@
 //
 // The TPU kernels pack nodes into supernode rows, fetch a window of rows per
 // element block and select with one-hot matmuls, because a TPU gathers
-// slowly and multiplies fast.  Nothing of that is kept: here a thread reads
-// the node or the slot it needs.
+// slowly and multiplies fast.  Nothing of that is kept.
 //
 // What bounds them on this card: memory traffic, and within it the random
 // reads.  No arithmetic but the sums.  A gather of k fields reads the
 // (nnode, k) pack and the corner table and writes npe * k element columns;
 // an assembly reads npe * k element columns and the CSR support and writes
-// (nnode, k) sums.  What the design does about it: every streaming access
-// (table reads, output writes) is coalesced, one thread per corner slot or
-// per (node, field); the random side reads k neighbouring values of one
-// node row (gather) or, per field, slots that neighbouring nodes share
-// elements for (assembly), and the mesh generator's renumbering along the
-// longest axis keeps those within a few cache lines of each other, so they
-// are served from L1/L2 (the whole working set of the 277k-triangle mesh,
-// about 30 MB, fits the 50 MB L2).
+// (nnode, k) sums.  Every element value is read once by the assembly (each
+// slot belongs to one node): a permutation, whose cost is the random reads.
+// The mesh generator numbers nodes and elements along the longest axis, so
+// the slots of a node's neighbours lie hundreds of element ids apart and
+// most 32-byte sectors serve one value per request; what a kernel can do
+// is keep enough of those requests in flight.
+//
+// The gather (gather_corners_kernel): one thread per corner slot, coalesced
+// table reads and column writes; the k values of one node row are
+// neighbours in memory.
+//
+// The assembly (asm_pack_kernel): one thread per node, k (1-8) a template
+// parameter.  The thread loads its row's first UNROLL slot ids, then all k
+// x UNROLL values at once -- independent loads, no chain from one slot to
+// the next -- and adds each field's values in row order, from +0.0, in
+// registers: no atomics, so the result equals ops/assembly.node_sum's bit
+// for bit and is the same on every run.  UNROLL = 12 covers every node of
+// a Delaunay mesh refined to a 30-degree minimum angle (the flagship's 32
+// degrees give at most 9); a longer row (the 5-tet grid reaches 32) adds
+// the rest one slot after the other.  Index arithmetic is 32-bit
+// (ops/band2d.build_tables refuses meshes of 2^31 / KMAX slots).  128
+// threads a block, no shared memory.  A node block staging its slots'
+// values in shared memory, and one thread per (node, field), were each
+// slower at the flat step's k (tools/band2d_forms.cu; PERF.md, findings
+// on kernels 4 and 6).
 //
 // Layouts (ops/band2d.py): nodal packs (nnode, k) row-major; element packs
 // (k, npe, nelem), slot = corner * nelem + e; conn_cm (npe * nelem) the
 // node of each slot; row_ptr/slots the node -> slot support as CSR in the
-// order of ops/assembly.node_sum.
-//
-// The assembly adds each node's slots in row order, from +0.0, one thread
-// per sum: no atomics, so the result equals node_sum's bit for bit and is
-// the same on every run.  -fmad=false changes nothing here (there is no
-// multiply) but the file is built with the others.
+// order of ops/assembly.node_sum.  -fmad=false changes nothing here (there
+// is no multiply) but the file is built with the others.
 //
 // des_scatter_gather_corners needs every nodal sum complete before any
 // corner reads it, a grid-wide dependency: it is two launches on one
 // stream behind one entry point (the assembly, then a gather of the first
-// kg columns of the sums).
+// kg columns of the sums).  One cooperative launch with a grid sync
+// between the two, and one launch in which each node's thread writes its
+// sums to its own corner slots, were each slower (same place).
 
 #include <cuda_runtime.h>
 
 namespace {
 
-constexpr int BLOCK = 256;
+constexpr int BLOCK = 256;        // threads of a gather block
 constexpr int KMAX = 8;
+constexpr int ASM_THREADS = 128;  // nodes (threads) of an assembly block
+constexpr int UNROLL = 12;        // slots of a row loaded at once
 
 // out[j, s] = pack[conn_cm[s], j] for j < k; pack rows are ld apart.
 template <typename T>
@@ -59,22 +75,33 @@ __global__ void gather_corners_kernel(const T* __restrict__ pack, int ld,
   for (int j = 0; j < k; ++j) out[j * nslots + s] = row[j];
 }
 
-// out[n, j] = sum over the slots of node n, in row order, of cols[j, slot].
-template <typename T>
-__global__ void scatter_corners_kernel(const T* __restrict__ cols, int k,
-                                       const int* __restrict__ row_ptr,
-                                       const int* __restrict__ slots,
-                                       long long nnode, long long nslots,
-                                       T* __restrict__ out) {
-  const long long i = blockIdx.x * (long long)BLOCK + threadIdx.x;
-  if (i >= nnode * k) return;
-  const long long n = i / k;
-  const int j = int(i - n * k);
-  const T* col = cols + j * nslots;
-  T acc = T(0);
-  const int end = row_ptr[n + 1];
-  for (int p = row_ptr[n]; p < end; ++p) acc = acc + col[slots[p]];
-  out[i] = acc;
+// out[n, j] = the sum over the slots of node n, in row order, from +0.0,
+// of cols[j, slot], for j < K; one thread per node.
+template <typename T, int K>
+__global__ void __launch_bounds__(ASM_THREADS)
+    asm_pack_kernel(const T* __restrict__ cols,
+                    const int* __restrict__ row_ptr,
+                    const int* __restrict__ slots, int nnode, int nslots,
+                    T* __restrict__ out) {
+  const int n = blockIdx.x * ASM_THREADS + threadIdx.x;
+  if (n >= nnode) return;
+  const int b = row_ptr[n], e = row_ptr[n + 1];
+  int sid[UNROLL];
+#pragma unroll
+  for (int d = 0; d < UNROLL; ++d) sid[d] = b + d < e ? slots[b + d] : 0;
+#pragma unroll
+  for (int j = 0; j < K; ++j) {
+    const T* col = cols + j * nslots;
+    T v[UNROLL];
+#pragma unroll
+    for (int d = 0; d < UNROLL; ++d) v[d] = b + d < e ? col[sid[d]] : T(0);
+    T acc = T(0);
+#pragma unroll
+    for (int d = 0; d < UNROLL; ++d)
+      if (b + d < e) acc = acc + v[d];
+    for (int p = b + UNROLL; p < e; ++p) acc = acc + col[slots[p]];
+    out[n * K + j] = acc;
+  }
 }
 
 inline unsigned blocks_for(long long n) {
@@ -91,14 +118,19 @@ int gather(const void* pack, int ld, int k, const int* conn_cm,
   return int(cudaGetLastError());
 }
 
-template <typename T>
-int scatter(const void* cols, int k, const int* row_ptr, const int* slots,
-            long long nnode, long long nslots, void* out, cudaStream_t st) {
-  if (k < 1 || k > KMAX || nnode < 1 || nslots < 1)
-    return int(cudaErrorInvalidValue);
-  scatter_corners_kernel<T><<<blocks_for(nnode * k), BLOCK, 0, st>>>(
-      static_cast<const T*>(cols), k, row_ptr, slots, nnode, nslots,
-      static_cast<T*>(out));
+// The instance for the runtime k (1..KMAX).
+template <typename T, int K = 1>
+int scatter(int k, const void* cols, const int* row_ptr, const int* slots,
+            int nnode, int nslots, void* out, cudaStream_t st) {
+  if constexpr (K < KMAX) {
+    if (k != K)
+      return scatter<T, K + 1>(k, cols, row_ptr, slots, nnode, nslots, out,
+                               st);
+  }
+  asm_pack_kernel<T, K>
+      <<<(nnode + ASM_THREADS - 1) / ASM_THREADS, ASM_THREADS, 0, st>>>(
+          static_cast<const T*>(cols), row_ptr, slots, nnode, nslots,
+          static_cast<T*>(out));
   return int(cudaGetLastError());
 }
 
@@ -123,10 +155,12 @@ int des_scatter_corners(int is_f64, const void* cols, int k,
                         const int* row_ptr, const int* slots, int nnode,
                         int npe, int nelem, void* out, void* stream) {
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  const long long nslots = (long long)npe * nelem;
+  const int nslots = npe * nelem;
+  if (k < 1 || k > KMAX || nnode < 1 || nslots < 1)
+    return int(cudaErrorInvalidValue);
   return is_f64
-             ? scatter<double>(cols, k, row_ptr, slots, nnode, nslots, out, st)
-             : scatter<float>(cols, k, row_ptr, slots, nnode, nslots, out, st);
+             ? scatter<double>(k, cols, row_ptr, slots, nnode, nslots, out, st)
+             : scatter<float>(k, cols, row_ptr, slots, nnode, nslots, out, st);
 }
 
 int des_scatter_gather_corners(int is_f64, const void* cols, int k, int kg,

@@ -89,8 +89,8 @@ def build() -> Path:
 
 
 def ptxas_report() -> dict:
-    """{kernel: (registers, stack frame bytes, spill bytes)} from the
-    ``-Xptxas -v`` report of the last build."""
+    """{kernel: (registers, stack frame bytes, spill bytes, static shared
+    memory bytes)} from the ``-Xptxas -v`` report of the last build."""
     text = (library_path().parent / "ptxas.txt").read_text()
     out, name = {}, None
     for line in text.splitlines():
@@ -99,7 +99,8 @@ def ptxas_report() -> dict:
             raw = m.group(1)
             k = re.search(r"(phase_[a-hs]|finalize|dt_refresh|"
                           r"grid_barriers|step_chunk2dIfLb[01]ELb[01]|"
-                          r"(?:gather|scatter)_corners_kernelI[fd])", raw)
+                          r"gather_corners_kernelI[fd]|"
+                          r"asm_pack_kernelI[fd]Li\d)", raw)
             src = re.search(r"_(fused\w+?|band2d)_cu_", raw)
             kn = k.group(1) if k else raw
             if kn.startswith("phase_"):
@@ -119,15 +120,21 @@ def ptxas_report() -> dict:
                 kn = ("step_chunk2d<"
                       + ("uniform" if kn[-5] == "1" else "mixed")
                       + (",facets+sp1" if kn.endswith("1") else "") + ">")
+            if kn.startswith("asm_"):
+                # the value type and k
+                kn = f"{kn[:-5]}<{'f32' if kn[-4] == 'f' else 'f64'}," \
+                     f"{kn[-1]}>"
             name = f"{src.group(1) if src else '?'}:{kn}"
             continue
         m = re.search(r"(\d+) bytes stack frame, (\d+) bytes spill stores",
                       line)
         if m and name:
-            out[name] = [None, int(m.group(1)), int(m.group(2))]
+            out[name] = [None, int(m.group(1)), int(m.group(2)), 0]
         m = re.search(r"Used (\d+) registers", line)
         if m and name in out:
             out[name][0] = int(m.group(1))
+            m = re.search(r"(\d+) bytes smem", line)
+            out[name][3] = int(m.group(1)) if m else 0
     return {k: tuple(v) for k, v in out.items()}
 
 

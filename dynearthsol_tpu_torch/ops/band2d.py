@@ -6,8 +6,8 @@ times per step: nodal fields to the corners of every element, and element
 corner contributions into nodal sums.  The JAX package does this with three
 Pallas kernels built on supernode rows, block windows and one-hot matmuls,
 because the TPU gathers slowly and multiplies fast.  None of that is carried
-over: on the card a thread reads its node or its element directly.  The
-three kernels are CUDA C++ in csrc/band2d.cu:
+over: on the card a thread reads its corner slot's node, or sums its
+node's slots.  The three kernels are CUDA C++ in csrc/band2d.cu:
 
   cgather      <- band2d.gather_corners_tpu          (band2d.py:550)
   asm_pack     <- band2d.scatter_corners_tpu         (band2d.py:689)
@@ -40,6 +40,7 @@ import numpy as np
 import torch
 
 KMAX = 8   # fields per call (csrc/band2d.cu KMAX)
+UNROLL = 12  # slots of a row the assembly loads at once (csrc/band2d.cu)
 
 
 @dataclass(frozen=True)
@@ -234,8 +235,9 @@ asm_pack.launches = 0
 
 def asm_gather(cols, bt: GatherTables, kg: int):
     """scatter_gather_corners through ``des_scatter_gather_corners`` for a
-    CUDA tensor (one C entry point, counted once in
-    ``asm_gather.launches``), the plain version for a CPU tensor."""
+    CUDA tensor (one C entry point: asm_pack's kernel, then cgather's on
+    the first kg sums; counted once in ``asm_gather.launches``), the plain
+    version for a CPU tensor."""
     if not 1 <= kg <= cols.shape[0]:
         raise ValueError(f"kg = {kg} outside 1..{cols.shape[0]}")
     if cols.is_cuda:

@@ -191,3 +191,80 @@ def test_wrappers_refuse_what_the_kernels_do_not_take(mesh):
             tband._check_elem(bad, bt)
     with pytest.raises(TypeError, match="conn_cm"):
         tband._check_tables(bt, torch.device("meta"))
+
+
+# ------------------------------------------- the assembly kernel's order
+
+def _delaunay():
+    from dynearthsol_tpu_torch.mesh.generate import (renumber_mesh,
+                                                     unstructured_box_2d)
+    m = unstructured_box_2d(16e3, 8e3, 500.0)
+    coord, conn = renumber_mesh(m.coord, m.connectivity)
+    return np.asarray(conn, np.int32), coord.shape[0]
+
+
+def _fan(n=40):
+    """n triangles around node 0: a node of degree n."""
+    i = np.arange(1, n + 1)
+    return np.stack([np.zeros(n, int), i, i + 1], 1).astype(np.int32), n + 2
+
+
+ROW_MESHES = {**MESHES, "delaunay": _delaunay, "fan": _fan}
+
+
+def _node_twin(cols, bt):
+    """csrc/band2d.cu asm_pack_kernel in PyTorch: one thread per node, its
+    row's slots taken in row order, each value added to a sum that starts
+    from +0.0, and nothing added past the row's end (the plain version adds
+    +0.0 there instead).  The kernel loads the first UNROLL slots at once
+    and the rest of a longer row one by one; the order is the same."""
+    k = cols.shape[0]
+    flat = cols.reshape(k, -1)
+    b, e = bt.row_ptr[:-1].long(), bt.row_ptr[1:].long()
+    acc = torch.zeros((bt.nnode, k), dtype=cols.dtype)
+    for d in range(max(tband.UNROLL, int((e - b).max()))):
+        live = b + d < e
+        v = flat[:, bt.slots.long()[torch.where(live, b + d, 0)]].t()
+        acc = torch.where(live[:, None], acc + v, acc)
+    return acc
+
+
+@pytest.mark.parametrize("kind", list(ROW_MESHES))
+@pytest.mark.parametrize("dt", list(DTYPES))
+def test_node_twin_equals_plain_and_node_sum(kind, dt):
+    """The kernel's per-node order gives scatter_corners' and the port's
+    node_sum's sums bit for bit, on rows within UNROLL (triangles) and
+    beyond it (the 5-tet grid's 32, the fan's 40), for a node numbering
+    that is not local too, with signed zeros among the values."""
+    conn, nnode = ROW_MESHES[kind]()
+    npdt, tdt = DTYPES[dt]
+    bits = torch.int32 if tdt == torch.float32 else torch.int64
+    perm = np.random.default_rng(6).permutation(nnode)
+    for cn in (conn, perm[conn]):
+        bt = tband.build_tables(cn, nnode)
+        topo = finish_topology(cn.shape[1] - 1, cn,
+                               np.zeros(nnode, np.uint32))
+        for k in (1, 2, 5, 8):
+            rng = np.random.default_rng(k)
+            cols = rng.standard_normal((k, cn.shape[1], cn.shape[0]))
+            cols[rng.random(cols.shape) < 0.1] = -0.0
+            cols = cols.astype(npdt)
+            contrib = np.ascontiguousarray(cols.transpose(2, 1, 0))
+            got = _node_twin(torch.from_numpy(cols), bt)
+            for want in (tband.scatter_corners(torch.from_numpy(cols), bt),
+                         tnode_sum(torch.from_numpy(contrib),
+                                   torch.from_numpy(topo.gather_idx),
+                                   torch.from_numpy(topo.gather_mask))):
+                # bits, so that -0.0 and +0.0 differ too
+                assert torch.equal(got.view(bits), want.view(bits)), k
+
+
+def test_unroll_covers_the_delaunay_rows():
+    """UNROLL (the slots the kernel loads at once) covers every row of the
+    Delaunay meshes; the 5-tet grid's rows run past it (the kernel's
+    one-by-one tail)."""
+    for make, within in ((_mesh, True), (_delaunay, True),
+                         (_tet_mesh, False)):
+        conn, nnode = make()
+        deg = np.bincount(conn.ravel(), minlength=nnode)
+        assert (deg.max() <= tband.UNROLL) == within

@@ -12,6 +12,7 @@ Skips where there is no CUDA device; on the card run it as
 
 import dataclasses
 
+import numpy as np
 import pytest
 import torch
 
@@ -401,20 +402,33 @@ def test_dt_refresh_every_step_mode(cuda, refresh):
 
 
 def _band_mesh(kind):
+    """The Delaunay box renumbered along x ("tri"), the same with its nodes
+    numbered at random ("tri_shuffled": the kernels must not rest on
+    locality), the 5-tet grid ("tet", npe = 4)."""
     if kind == "tet":
         m = regular_grid_3d(16e3, 8e3, 4e3, 1e3)
         return m.connectivity, m.nnode
     m = unstructured_box_2d(16e3, 8e3, 250.0)
     coord, conn = renumber_mesh(m.coord, m.connectivity)
+    if kind == "tri_shuffled":
+        perm = np.random.default_rng(7).permutation(coord.shape[0])
+        conn = perm[conn].astype(np.int32)
     return conn, coord.shape[0]
+
+
+def _fan(n):
+    """n triangles around node 0: a node of degree n."""
+    i = np.arange(1, n + 1)
+    return np.stack([np.zeros(n, int), i, i + 1], 1).astype(np.int32), n + 2
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.float64],
                          ids=["f32", "f64"])
-@pytest.mark.parametrize("kind", ["tri", "tet"])
+@pytest.mark.parametrize("kind", ["tri", "tri_shuffled", "tet"])
 def test_band_kernels_equal_plain(cuda, kind, dtype):
-    """cgather, asm_pack and asm_gather at the k / kg of the flat step's six
-    call sites: torch.equal with the plain versions, launches counted."""
+    """cgather, asm_pack and asm_gather at every k from 1 to KMAX and kg in
+    {1, k} (the flat step's six call sites among them): torch.equal with
+    the plain versions, launches counted."""
     conn, nnode = _band_mesh(kind)
     bt = band2d.build_tables(conn, nnode, cuda)
     gen = torch.Generator(device="cuda").manual_seed(1)
@@ -424,22 +438,43 @@ def test_band_kernels_equal_plain(cuda, kind, dtype):
 
     before = (band2d.cgather.launches, band2d.asm_pack.launches,
               band2d.asm_gather.launches)
-    for k in (6, 2):
+    n_gather = 0
+    for k in range(1, band2d.KMAX + 1):
         pack = rnd(nnode, k)
         assert torch.equal(band2d.cgather(pack, bt),
-                           band2d.gather_corners(pack, bt))
-    for k in (2, 5):
+                           band2d.gather_corners(pack, bt)), k
         cols = rnd(k, bt.npe, bt.nelem)
         assert torch.equal(band2d.asm_pack(cols, bt),
-                           band2d.scatter_corners(cols, bt))
-    for k, kg in ((2, 1), (1, 1)):
-        cols = rnd(k, bt.npe, bt.nelem)
-        got = band2d.asm_gather(cols, bt, kg)
-        want = band2d.scatter_gather_corners(cols, bt, kg)
-        assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
+                           band2d.scatter_corners(cols, bt)), k
+        for kg in sorted({1, k}):
+            got = band2d.asm_gather(cols, bt, kg)
+            want = band2d.scatter_gather_corners(cols, bt, kg)
+            assert torch.equal(got[0], want[0]), (k, kg)
+            assert torch.equal(got[1], want[1]), (k, kg)
+            n_gather += 1
     torch.cuda.synchronize()
     assert (band2d.cgather.launches, band2d.asm_pack.launches,
-            band2d.asm_gather.launches) == tuple(b + 2 for b in before)
+            band2d.asm_gather.launches) == (before[0] + band2d.KMAX,
+                                            before[1] + band2d.KMAX,
+                                            before[2] + n_gather)
+
+
+def test_band_high_degree_node(cuda):
+    """Rows far longer than the kernel's UNROLL (a node of degree 1000, the
+    slots past UNROLL added one by one), f32 and f64: equal to the plain
+    versions."""
+    gen = torch.Generator(device="cuda").manual_seed(2)
+    conn, nnode = _fan(1000)
+    bt = band2d.build_tables(conn, nnode, cuda)
+    for dtype in (torch.float32, torch.float64):
+        for k in (1, 2, 5, 8):
+            cols = torch.randn((k, 3, bt.nelem), generator=gen, dtype=dtype,
+                               device=cuda)
+            want = band2d.scatter_corners(cols, bt)
+            assert torch.equal(band2d.asm_pack(cols, bt), want), k
+            sums, gath = band2d.asm_gather(cols, bt, k)
+            assert torch.equal(sums, want), k
+            assert torch.equal(gath, band2d.gather_corners(want, bt)), k
 
 
 def test_band_wrappers_raise_on_the_card(cuda):
