@@ -97,10 +97,11 @@ Phases, each printed, the first failure exits non-zero:
                 versions with torch.equal (tolerance 0): a small Delaunay
                 mesh, a small tet mesh (npe = 4) and the 277k-triangle mesh
                 of phase 9, float32 and float64, at the k / kg of the flat
-                step's six call sites; their device times at that mesh with
-                the L2 cache flushed between launches, L2-warm and as
-                issued from Python, beside the plain versions', the library
-                calls' (index_select, index_add_) and the bound;
+                step's six call sites; the gather's staged and unstaged
+                tiles and widest window at that mesh; their device times
+                there with the L2 cache flushed between launches, L2-warm
+                and as issued from Python, beside the plain versions', the
+                library calls' (index_select, index_add_) and the bound;
   9. unstructured slice -- the flagship config on a Delaunay box mesh
                 (meshing_elem_shape 0: 277,258 triangles, 139,400 nodes,
                 EVP, f32): Simulation(param) with the default device, a
@@ -1945,6 +1946,28 @@ def main():
                band2d.build_tables(tets.connectivity, tets.nnode, "cuda"))
     ubt = band2d.build_tables(usim.topo.connectivity, unnode, "cuda")
     band_check(f"Delaunay {unelem} triangles", ubt)
+    ustaged = int(ubt.tile_staged.sum())
+    utiles = {"tiles": ubt.tile_staged.numel(), "staged": ustaged,
+              "unstaged": ubt.tile_staged.numel() - ustaged,
+              "window_max": int(ubt.tile_w.max()),
+              "window_max_staged": ubt.win_rows}
+    print(f"  gather tiles of {band2d.TILE} elements at {unelem} "
+          f"triangles: {utiles['staged']} staged, {utiles['unstaged']} "
+          f"unstaged, widest window {utiles['window_max']} rows (staged "
+          f"{ubt.win_rows})")
+    if not ustaged:
+        fail("no gather tile of the 277k-triangle mesh is staged")
+
+    def gather_table_bytes(bt):
+        """Bytes of the tables the gather kernel reads: an int16 relative
+        id per slot of a staged tile, the int32 node id per slot of an
+        unstaged one, and the tile tables."""
+        per_tile = torch.full_like(bt.tile_w, band2d.TILE)
+        per_tile[-1] = bt.nelem - band2d.TILE * (per_tile.numel() - 1)
+        slots = bt.npe * per_tile.long()
+        st = bt.tile_staged
+        return int(2 * slots[st].sum() + 4 * slots[~st].sum()) \
+            + nbytes(bt.tile_lo, bt.tile_w, bt.tile_staged)
 
     # device times at the 277k-triangle mesh, f32, L2 flushed before each
     # call.  Library calls: index_select(0, conn) gives the gathered rows
@@ -1966,7 +1989,8 @@ def main():
                              flush),
             library_ms=cold_ms(lambda: pack.index_select(0, conn_l), 20,
                                flush),
-            bound=bound(nbytes(pack, ubt.conn_cm), k * nslots * es, 0))
+            bound=bound(nbytes(pack) + gather_table_bytes(ubt),
+                        k * nslots * es, 0))
     for k in SITES["asm_pack"]:
         cols = rnd((k, 3, unelem), torch.float32)
         rows = cols.reshape(k, nslots).t().contiguous()
@@ -1995,7 +2019,7 @@ def main():
                 lambda: torch.zeros((unnode, k), device="cuda")
                 .index_add_(0, conn_l, rows)[:, :kg]
                 .index_select(0, conn_l), 20, flush),
-            bound=bound(nbytes(cols, ubt.conn_cm) + tab_b,
+            bound=bound(nbytes(cols) + gather_table_bytes(ubt) + tab_b,
                         (unnode * k + kg * nslots) * es, nslots * k))
     for site, r in band_t.items():
         lib = (f"{r['library_ms']:.4f}" if r["library_ms"] is not None
@@ -2265,6 +2289,7 @@ def main():
             "ms_issued_from_python": r["issue_ms"],
             "timed_at": main_site + ", 277k-triangle mesh, f32, L2 flushed "
                         "before each call",
+            **({"gather_tiles": utiles} if name != "asm_pack" else {}),
             "call_sites": {
                 site: {"ms": v["ms"], "ms_l2_warm": v["warm_ms"],
                        "ms_issued_from_python": v["issue_ms"],

@@ -99,7 +99,7 @@ def ptxas_report() -> dict:
             raw = m.group(1)
             k = re.search(r"(phase_[a-hs]|finalize|dt_refresh|"
                           r"grid_barriers|step_chunk2dIfLb[01]ELb[01]|"
-                          r"gather_corners_kernelI[fd]|"
+                          r"gather_corners_kernelI[jy]Li\d|"
                           r"asm_pack_kernelI[fd]Li\d)", raw)
             src = re.search(r"_(fused\w+?|band2d)_cu_", raw)
             kn = k.group(1) if k else raw
@@ -120,9 +120,10 @@ def ptxas_report() -> dict:
                 kn = ("step_chunk2d<"
                       + ("uniform" if kn[-5] == "1" else "mixed")
                       + (",facets+sp1" if kn.endswith("1") else "") + ">")
-            if kn.startswith("asm_"):
-                # the value type and k
-                kn = f"{kn[:-5]}<{'f32' if kn[-4] == 'f' else 'f64'}," \
+            if kn.startswith(("asm_", "gather_")):
+                # the value type (the gather copies 4- or 8-byte words) and
+                # k
+                kn = f"{kn[:-5]}<{'f32' if kn[-4] in 'fj' else 'f64'}," \
                      f"{kn[-1]}>"
             name = f"{src.group(1) if src else '?'}:{kn}"
             continue
@@ -157,15 +158,18 @@ def load():
         lib.des_fused3d_step_f32.restype = _I
         lib.des_fused3d_finalize_f32.argtypes = [_P] * 8
         lib.des_fused3d_finalize_f32.restype = _I
-        lib.des_gather_corners.argtypes = [_I, _P, _I, _I, _P, _I, _I, _P,
-                                           _P]
+        # the gather tables: conn_cm, rel_cm, tile_lo, tile_w,
+        # tile_staged, win_rows (ops/band2d GatherTables.c_tiles)
+        tiles = [_P] * 5 + [_I]
+        lib.des_gather_corners.argtypes = [_I, _P, _I, _I, *tiles, _I, _I,
+                                           _P, _P]
         lib.des_gather_corners.restype = _I
         lib.des_scatter_corners.argtypes = [_I, _P, _I, _P, _P, _I, _I, _I,
                                             _P, _P]
         lib.des_scatter_corners.restype = _I
         lib.des_scatter_gather_corners.argtypes = [_I, _P, _I, _I, _P, _P,
-                                                   _P, _I, _I, _I, _P, _P,
-                                                   _P]
+                                                   *tiles, _I, _I, _I, _P,
+                                                   _P, _P]
         lib.des_scatter_gather_corners.restype = _I
         lib.des_error_string.argtypes = [_I]
         lib.des_error_string.restype = ctypes.c_char_p

@@ -6,8 +6,10 @@ times per step: nodal fields to the corners of every element, and element
 corner contributions into nodal sums.  The JAX package does this with three
 Pallas kernels built on supernode rows, block windows and one-hot matmuls,
 because the TPU gathers slowly and multiplies fast.  None of that is carried
-over: on the card a thread reads its corner slot's node, or sums its
-node's slots.  The three kernels are CUDA C++ in csrc/band2d.cu:
+over: on the card a block stages the node rows of a tile of consecutive
+elements in shared memory and its threads read their corners there, or a
+thread sums its node's slots.  The three kernels are CUDA C++ in
+csrc/band2d.cu:
 
   cgather      <- band2d.gather_corners_tpu          (band2d.py:550)
   asm_pack     <- band2d.scatter_corners_tpu         (band2d.py:689)
@@ -28,7 +30,13 @@ the slot order of ops/assembly.node_sum, with no atomics, so its result
 equals node_sum's bit for bit, in float32 and float64, and does not change
 from run to run.  The gather is an exact selection.
 
-Tables are built on the host once per mesh, for any numbering.
+Tables are built on the host once per mesh, for any numbering.  The
+gather cuts the elements into tiles of TILE consecutive ids.  A tile whose
+corners' node ids span at most W_MAX rows (its window) is staged: the
+kernel copies the window's rows into shared memory in one bulk copy and
+reads each corner through its id relative to the window's base.  A wider
+tile (a mesh numbered at random, or the few tiles that meet a node of the
+far end) reads the nodal pack directly.
 """
 
 from __future__ import annotations
@@ -41,6 +49,16 @@ import torch
 
 KMAX = 8   # fields per call (csrc/band2d.cu KMAX)
 UNROLL = 12  # slots of a row the assembly loads at once (csrc/band2d.cu)
+TILE = 1024  # elements of a gather tile (csrc/band2d.cu TILE)
+W_MAX = 2048  # rows of the widest window a tile stages (csrc/band2d.cu WMAX)
+ALIGN = 4    # window bases are multiples of ALIGN rows: lo * ld * 4 or 8
+             # bytes is a multiple of 16, as the bulk copy needs
+
+
+_TABLE_TYPES = {"conn_cm": torch.int32, "row_ptr": torch.int32,
+                "slots": torch.int32, "tile_lo": torch.int32,
+                "tile_w": torch.int32, "tile_staged": torch.bool,
+                "rel_cm": torch.int16}
 
 
 @dataclass(frozen=True)
@@ -51,7 +69,20 @@ class GatherTables:
     ``slots``: the node -> corner-slot support as CSR, each row in
     node_sum's order (ascending ``e * npe + c``), the slot ids renumbered
     corner-major.  ``g_cols`` / ``m_cols``: the same support padded to the
-    maximum degree, one row per degree, for the plain versions."""
+    maximum degree, one row per degree, for the plain versions.
+
+    The gather's tiles (TILE consecutive elements each): ``tile_lo``, the
+    base row of each tile's window (a multiple of ALIGN), ``tile_w`` its
+    height (the tile's largest node id + 1 - ``tile_lo``), ``tile_staged``
+    whether ``tile_w <= W_MAX``; ``rel_cm``, each slot's node id less its
+    tile's ``tile_lo`` for staged tiles (0 elsewhere; below W_MAX, so
+    int16 holds it), corner-major like ``conn_cm``; ``win_rows``, the
+    largest staged window (0 if none), which sets the kernel's shared
+    memory.
+
+    Construction checks every table's type, layout and device once, and
+    keeps the gather tables as the C entry points take them
+    (``c_tiles``), so that a launch checks the device alone."""
 
     nelem: int
     nnode: int
@@ -61,6 +92,39 @@ class GatherTables:
     slots: torch.Tensor      # (npe * nelem,) int32
     g_cols: torch.Tensor     # (max_degree, nnode) int64
     m_cols: torch.Tensor     # (max_degree, nnode) bool
+    tile_lo: torch.Tensor    # (ntiles,) int32
+    tile_w: torch.Tensor     # (ntiles,) int32
+    tile_staged: torch.Tensor  # (ntiles,) bool
+    rel_cm: torch.Tensor     # (npe * nelem,) int16
+    win_rows: int
+
+    def __post_init__(self):
+        dev = self.conn_cm.device
+        for name, dtype in _TABLE_TYPES.items():
+            t = getattr(self, name)
+            if not (t.device == dev and t.dtype == dtype
+                    and t.is_contiguous()):
+                raise TypeError(f"{name}: need a contiguous {dtype} tensor "
+                                f"on {dev}")
+        object.__setattr__(self, "c_tiles", (
+            _ptr(self.conn_cm), _ptr(self.rel_cm), _ptr(self.tile_lo),
+            _ptr(self.tile_w), _ptr(self.tile_staged), self.win_rows))
+
+
+def tile_windows(conn_cm: np.ndarray, tile: int = TILE, w_max: int = W_MAX):
+    """The gather's tiles of ``conn_cm`` ((npe, nelem) node ids): per tile
+    of ``tile`` consecutive elements the window base (rounded down to
+    ALIGN rows), height and whether it is staged (height <= ``w_max``),
+    and each slot's id relative to its staged tile's base (0 for the slots
+    of unstaged tiles), (npe, nelem) int16."""
+    nelem = conn_cm.shape[1]
+    starts = np.arange(0, nelem, tile)
+    lo = np.minimum.reduceat(conn_cm.min(axis=0), starts) // ALIGN * ALIGN
+    w = np.maximum.reduceat(conn_cm.max(axis=0), starts) + 1 - lo
+    staged = w <= w_max
+    t = np.arange(nelem) // tile
+    rel = np.where(staged[t], conn_cm - lo[t], 0).astype(np.int16)
+    return lo, w, staged, rel
 
 
 def build_tables(conn: np.ndarray, nnode: int, device="cpu") -> GatherTables:
@@ -85,6 +149,8 @@ def build_tables(conn: np.ndarray, nnode: int, device="cpu") -> GatherTables:
     g_cols[pos, node_of] = slots
     m_cols[pos, node_of] = True
 
+    lo, w, staged, rel = tile_windows(conn.T)
+
     def dev(a, dtype):
         return torch.as_tensor(np.ascontiguousarray(a), device=device) \
             .to(dtype).contiguous()
@@ -93,7 +159,11 @@ def build_tables(conn: np.ndarray, nnode: int, device="cpu") -> GatherTables:
         nelem=nelem, nnode=nnode, npe=npe,
         conn_cm=dev(conn.T.reshape(-1), torch.int32),
         row_ptr=dev(row_ptr, torch.int32), slots=dev(slots, torch.int32),
-        g_cols=dev(g_cols, torch.int64), m_cols=dev(m_cols, torch.bool))
+        g_cols=dev(g_cols, torch.int64), m_cols=dev(m_cols, torch.bool),
+        tile_lo=dev(lo, torch.int32), tile_w=dev(w, torch.int32),
+        tile_staged=dev(staged, torch.bool),
+        rel_cm=dev(rel.reshape(-1), torch.int16),
+        win_rows=int(w[staged].max(initial=0)))
 
 
 # ------------------------------------------------------- plain versions
@@ -150,12 +220,9 @@ def _ptr(t):
 
 
 def _check_tables(bt: GatherTables, dev):
-    for name in ("conn_cm", "row_ptr", "slots"):
-        t = getattr(bt, name)
-        if not (t.device == dev and t.dtype == torch.int32
-                and t.is_contiguous()):
-            raise TypeError(f"{name}: need a contiguous int32 tensor on "
-                            f"{dev}")
+    if bt.conn_cm.device != dev:
+        raise TypeError(f"conn_cm and the other tables: need them on {dev}, "
+                        f"not {bt.conn_cm.device}")
 
 
 def _check_nodal(pack, bt: GatherTables):
@@ -189,7 +256,7 @@ def cgather(pack, bt: GatherTables):
         out = torch.empty((k, bt.npe, bt.nelem), dtype=pack.dtype,
                           device=pack.device)
         rc = _build.load().des_gather_corners(
-            _CTYPE[pack.dtype], _ptr(pack), k, k, _ptr(bt.conn_cm),
+            _CTYPE[pack.dtype], _ptr(pack), k, k, *bt.c_tiles,
             bt.npe, bt.nelem, _ptr(out), _stream())
         if rc != 0:
             raise RuntimeError(f"gather_corners launch failed: "
@@ -236,8 +303,8 @@ asm_pack.launches = 0
 def asm_gather(cols, bt: GatherTables, kg: int):
     """scatter_gather_corners through ``des_scatter_gather_corners`` for a
     CUDA tensor (one C entry point: asm_pack's kernel, then cgather's on
-    the first kg sums; counted once in ``asm_gather.launches``), the plain
-    version for a CPU tensor."""
+    the first kg sums, staging whole rows of k; counted once in
+    ``asm_gather.launches``), the plain version for a CPU tensor."""
     if not 1 <= kg <= cols.shape[0]:
         raise ValueError(f"kg = {kg} outside 1..{cols.shape[0]}")
     if cols.is_cuda:
@@ -252,7 +319,7 @@ def asm_gather(cols, bt: GatherTables, kg: int):
                            device=cols.device)
         rc = _build.load().des_scatter_gather_corners(
             _CTYPE[cols.dtype], _ptr(cols), k, kg, _ptr(bt.row_ptr),
-            _ptr(bt.slots), _ptr(bt.conn_cm), bt.nnode, bt.npe, bt.nelem,
+            _ptr(bt.slots), *bt.c_tiles, bt.nnode, bt.npe, bt.nelem,
             _ptr(sums), _ptr(gath), _stream())
         if rc != 0:
             raise RuntimeError(f"scatter_gather_corners launch failed: "

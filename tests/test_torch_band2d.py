@@ -3,8 +3,13 @@ versions; on CPU tensors the wrappers run them) against the JAX package:
 direct indexing and the band engine for the gather, assembly.node_sum bit
 for bit and the band engine at its own tolerance for the assembly, and one
 case against the Pallas kernels in interpret mode.  Triangles and tets,
-float32 and float64, inputs from a numpy seed.
+float32 and float64, inputs from a numpy seed.  The gather kernel's tile
+tables against a recomputation, and its tile loop (stage a window, read
+through relative ids; unstaged tiles directly) as a PyTorch twin, bit
+for bit against the plain version.
 """
+
+import dataclasses
 
 import jax.numpy as jnp
 import numpy as np
@@ -268,3 +273,132 @@ def test_unroll_covers_the_delaunay_rows():
         conn, nnode = make()
         deg = np.bincount(conn.ravel(), minlength=nnode)
         assert (deg.max() <= tband.UNROLL) == within
+
+
+# ------------------------------------------------ the gather's tiles
+
+def _shuffled(make):
+    def f():
+        conn, nnode = make()
+        perm = np.random.default_rng(8).permutation(nnode)
+        return perm[conn].astype(np.int32), nnode
+    return f
+
+
+def _ends_swapped(make):
+    """The first and last two node ids swapped: the tiles that hold them
+    span the whole numbering."""
+    def f():
+        conn, nnode = make()
+        perm = np.arange(nnode)
+        perm[[0, 1, nnode - 2, nnode - 1]] = [nnode - 1, nnode - 2, 1, 0]
+        return perm[conn].astype(np.int32), nnode
+    return f
+
+
+TILE_MESHES = {"tri": _mesh, "tri_shuffled": _shuffled(_mesh),
+               "mixed": _ends_swapped(_mesh), "tet": _tet_mesh,
+               "delaunay": _delaunay}
+# (tile, w_max): the kernel's own, and small tiles whose windows a narrow
+# cap splits into staged and unstaged ones
+TILINGS = [(tband.TILE, tband.W_MAX), (64, 100)]
+
+
+def _tables(conn, nnode, tile, w_max):
+    """build_tables' tables, their tile fields for (tile, w_max)."""
+    bt = tband.build_tables(conn, nnode)
+    if (tile, w_max) == (tband.TILE, tband.W_MAX):
+        return bt
+    lo, w, staged, rel = tband.tile_windows(
+        bt.conn_cm.numpy().astype(np.int64).reshape(bt.npe, bt.nelem),
+        tile, w_max)
+    return dataclasses.replace(
+        bt, tile_lo=torch.from_numpy(lo).int(),
+        tile_w=torch.from_numpy(w).int(),
+        tile_staged=torch.from_numpy(staged),
+        rel_cm=torch.from_numpy(rel.reshape(-1)),
+        win_rows=int(w[staged].max(initial=0)))
+
+
+@pytest.mark.parametrize("tiling", TILINGS, ids=["kernel", "small"])
+@pytest.mark.parametrize("kind", list(TILE_MESHES))
+def test_tile_tables_recomputed(kind, tiling):
+    """The gather's tile fields against a recomputation tile by tile: every
+    slot's base + relative id is its node, every staged window is within
+    the cap, the bases are aligned for a bulk copy at every row length the
+    wrappers pass, and win_rows is the widest staged window."""
+    tile, w_max = tiling
+    conn, nnode = TILE_MESHES[kind]()
+    bt = _tables(conn, nnode, tile, w_max)
+    nelem, npe = conn.shape
+    ntiles = -(-nelem // tile)
+    lo, w = bt.tile_lo.numpy(), bt.tile_w.numpy()
+    staged, rel = bt.tile_staged.numpy(), bt.rel_cm.numpy()
+    assert bt.tile_lo.dtype == bt.tile_w.dtype == torch.int32
+    assert bt.rel_cm.dtype == torch.int16 and rel.size == npe * nelem
+    assert lo.shape == w.shape == staged.shape == (ntiles,)
+    rel = rel.reshape(npe, nelem).astype(np.int64)
+    for t in range(ntiles):
+        e = slice(t * tile, (t + 1) * tile)
+        nodes = conn[e].T.astype(np.int64)                # (npe, tile)
+        assert lo[t] % tband.ALIGN == 0
+        assert lo[t] <= nodes.min() < lo[t] + tband.ALIGN
+        assert lo[t] + w[t] == nodes.max() + 1 <= nnode
+        assert staged[t] == (w[t] <= w_max)
+        if staged[t]:
+            np.testing.assert_array_equal(lo[t] + rel[:, e], nodes)
+        else:
+            assert not rel[:, e].any()
+        for ld in range(1, tband.KMAX + 1):
+            for itemsize in (4, 8):
+                assert lo[t] * ld * itemsize % 16 == 0
+    assert bt.win_rows == max(w[staged], default=0) <= w_max
+    if kind == "tri_shuffled" and tile == 64:
+        assert not staged.any()
+    if kind == "mixed" and tile == 64:
+        assert 0 < staged.sum() < ntiles
+
+
+def _tile_twin(pack, bt, tile, kg):
+    """csrc/band2d.cu gather_corners_kernel's tile loop in PyTorch, the
+    first kg columns of pack: a staged tile copies its window's whole
+    rows, then reads each slot through its relative id; an unstaged tile
+    reads the pack through the node ids."""
+    k = pack.shape[1]
+    out = torch.empty((kg, bt.npe, bt.nelem), dtype=pack.dtype)
+    conn = bt.conn_cm.long().view(bt.npe, bt.nelem)
+    rel = bt.rel_cm.long().view(bt.npe, bt.nelem)
+    for t in range(bt.tile_lo.numel()):
+        e = slice(t * tile, (t + 1) * tile)
+        if bt.tile_staged[t]:
+            lo, w = int(bt.tile_lo[t]), int(bt.tile_w[t])
+            win = pack.reshape(-1)[lo * k:(lo + w) * k].clone().view(w, k)
+            rows = win[rel[:, e]]
+        else:
+            rows = pack[conn[:, e]]                       # (npe, n, k)
+        out[:, :, e] = rows[..., :kg].permute(2, 0, 1)
+    return out
+
+
+@pytest.mark.parametrize("tiling", TILINGS, ids=["kernel", "small"])
+@pytest.mark.parametrize("dt", list(DTYPES))
+@pytest.mark.parametrize("kind", list(TILE_MESHES))
+def test_tile_twin_equals_plain(kind, dt, tiling):
+    """The kernel's tile loop gives gather_corners' result bit for bit, for
+    cgather (kg = k) and asm_gather's gather (kg = 1 of k), with signed
+    zeros and NaN payloads among the values."""
+    tile, w_max = tiling
+    conn, nnode = TILE_MESHES[kind]()
+    bt = _tables(conn, nnode, tile, w_max)
+    npdt, tdt = DTYPES[dt]
+    bits = torch.int32 if tdt == torch.float32 else torch.int64
+    nan = 0x7FC00123 if tdt == torch.float32 else 0x7FF8000000000123
+    for k in (1, 2, 6, 8):
+        rng = np.random.default_rng(k)
+        pack = torch.from_numpy(rng.standard_normal((nnode, k)).astype(npdt))
+        pack[torch.from_numpy(rng.random((nnode, k)) < 0.1)] = -0.0
+        pack.view(bits)[torch.from_numpy(rng.random((nnode, k)) < 0.05)] = nan
+        for kg in sorted({1, k}):
+            want = tband.gather_corners(pack[:, :kg].contiguous(), bt)
+            got = _tile_twin(pack, bt, tile, kg)
+            assert torch.equal(got.view(bits), want.view(bits)), (k, kg)

@@ -404,16 +404,40 @@ def test_dt_refresh_every_step_mode(cuda, refresh):
 def _band_mesh(kind):
     """The Delaunay box renumbered along x ("tri"), the same with its nodes
     numbered at random ("tri_shuffled": the kernels must not rest on
-    locality), the 5-tet grid ("tet", npe = 4)."""
+    locality; every gather tile unstaged), the same with its first and
+    last two node ids swapped ("mixed": staged and unstaged tiles in one
+    launch), a 32 km square box ("wide": staged windows of more than 768
+    rows, over 48 KB of shared memory at f64 and k = 8), the 5-tet grid
+    ("tet", npe = 4)."""
     if kind == "tet":
         m = regular_grid_3d(16e3, 8e3, 4e3, 1e3)
         return m.connectivity, m.nnode
-    m = unstructured_box_2d(16e3, 8e3, 250.0)
+    m = unstructured_box_2d(*((32e3, 32e3) if kind == "wide"
+                              else (16e3, 8e3)), 250.0)
     coord, conn = renumber_mesh(m.coord, m.connectivity)
+    n = coord.shape[0]
     if kind == "tri_shuffled":
-        perm = np.random.default_rng(7).permutation(coord.shape[0])
+        perm = np.random.default_rng(7).permutation(n)
         conn = perm[conn].astype(np.int32)
-    return conn, coord.shape[0]
+    if kind == "mixed":
+        perm = np.arange(n)
+        perm[[0, 1, n - 2, n - 1]] = [n - 1, n - 2, 1, 0]
+        conn = perm[conn].astype(np.int32)
+    return conn, n
+
+
+def _tile_premise(kind, bt):
+    """The gather tiles each mesh is there for."""
+    staged = int(bt.tile_staged.sum())
+    ntiles = bt.tile_staged.numel()
+    if kind == "tri_shuffled":
+        assert staged == 0
+    elif kind == "mixed":
+        assert 0 < staged < ntiles
+    else:
+        assert staged == ntiles
+    if kind == "wide":
+        assert bt.win_rows * band2d.KMAX * 8 > 48 * 1024
 
 
 def _fan(n):
@@ -424,13 +448,15 @@ def _fan(n):
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.float64],
                          ids=["f32", "f64"])
-@pytest.mark.parametrize("kind", ["tri", "tri_shuffled", "tet"])
+@pytest.mark.parametrize("kind", ["tri", "tri_shuffled", "mixed", "wide",
+                                  "tet"])
 def test_band_kernels_equal_plain(cuda, kind, dtype):
     """cgather, asm_pack and asm_gather at every k from 1 to KMAX and kg in
     {1, k} (the flat step's six call sites among them): torch.equal with
     the plain versions, launches counted."""
     conn, nnode = _band_mesh(kind)
     bt = band2d.build_tables(conn, nnode, cuda)
+    _tile_premise(kind, bt)
     gen = torch.Generator(device="cuda").manual_seed(1)
 
     def rnd(*shape):
@@ -483,6 +509,7 @@ def test_band_wrappers_raise_on_the_card(cuda):
     conn, nnode = _band_mesh("tri")
     bt = band2d.build_tables(conn, nnode, cuda)
     calls = band2d.gather_corners.calls
+    scalls = band2d.scatter_corners.calls
     with pytest.raises(ValueError):
         band2d.cgather(torch.zeros((nnode, 4), device=cuda)[:, ::2], bt)
     with pytest.raises(TypeError):
@@ -491,7 +518,17 @@ def test_band_wrappers_raise_on_the_card(cuda):
     with pytest.raises(TypeError, match="conn_cm"):
         band2d.cgather(torch.zeros((nnode, 2), device=cuda),
                        band2d.build_tables(conn, nnode, "cpu"))
+    # a window wider than the kernel stages: the C side refuses the launch
+    wide = dataclasses.replace(bt, win_rows=band2d.W_MAX + 1)
+    launches = (band2d.cgather.launches, band2d.asm_gather.launches)
+    with pytest.raises(RuntimeError, match="gather_corners launch failed"):
+        band2d.cgather(torch.zeros((nnode, 2), device=cuda), wide)
+    with pytest.raises(RuntimeError, match="scatter_gather_corners launch"):
+        band2d.asm_gather(torch.zeros((2, bt.npe, bt.nelem), device=cuda),
+                          wide, 1)
+    assert (band2d.cgather.launches, band2d.asm_gather.launches) == launches
     assert band2d.gather_corners.calls == calls
+    assert band2d.scatter_corners.calls == scalls
 
 
 @pytest.mark.parametrize("rheology,n,dtype,tol", [
