@@ -111,7 +111,23 @@ Phases, each printed, the first failure exits non-zero:
                 the slice on the card against the port on the CPU at a
                 1,062-triangle mesh (maxwell 10 steps and EVP 1 step in f32
                 at 1e-5, maxwell 10 steps in f64 at 1e-10);
-                the profiler breakdown of 10 steps.
+                the profiler breakdown of 10 steps;
+  10. CLI, formats and goldens on the card -- (a) the maxwell-2d and
+                maxwell-2mat-2d goldens of tests/golden/runs/ through the
+                CLI's run() on the card (flat2d, float64: the double
+                instances of the band kernels) and on the CPU, every frame
+                held to the golden thresholds (1e-8 / 3e-8 accumulated,
+                1e-7 rates), the worst difference per frame printed beside
+                the card's against the CPU's; (b) the flagship written as a
+                .cfg and run by `python -m dynearthsol_tpu_torch` in a
+                subprocess, 1000 steps with a frame every 500 and a
+                checkpoint every frame, on pallas2d_res; its frames read
+                back with the port's OutputReader equal the state of the
+                same config driven in this process through run_steps
+                without output; its Compute s/step beside run_steps', the
+                Output s per frame and the host's mesh-quality check;
+                (c) the run restarted from frame 1 to step 1000 writes the
+                continuous run's last frame bit for bit.
 The last lines are a JSON record of the kernels, the card's name and power
 limit, and {"ok": true, "device": {...}}.
 """
@@ -215,6 +231,38 @@ def production_cfg(rheology="elasto-visco-plastic", small=False):
     cfg["mat"].update(nmat=2, rho0=[2800.0, 3300.0],
                       bulk_modulus=[50e9, 80e9], shear_modulus=[30e9, 48e9])
     return cfg
+
+
+def cfg_text(d: dict) -> str:
+    """A config dict as .cfg text (yes/no booleans, [ a, b ] lists)."""
+    def val(v):
+        if isinstance(v, bool):
+            return "yes" if v else "no"
+        if isinstance(v, (list, tuple)):
+            return "[ " + ", ".join(map(str, v)) + " ]"
+        return str(v)
+    return "".join(f"[{sec}]\n" + "".join(f"{k} = {val(v)}\n"
+                                           for k, v in kv.items())
+                   for sec, kv in d.items())
+
+
+def golden_cfg(rundir: Path, modelname: str) -> str:
+    """tests/test_golden_vs_reference.py _prepare_case: the golden's cfg,
+    renamed, on the reference binary's mesh with its marker stream."""
+    cfg = (rundir / "case.cfg").read_text()
+    if "modelname = ref" not in cfg:
+        fail(f"{rundir}/case.cfg does not name the model ref")
+    return (cfg.replace("modelname = ref", f"modelname = {modelname}")
+            + f"\n[mesh]\nmesh_from_run = {rundir / 'ref'}\n"
+            "mesh_from_run_frame = 0\n[markers]\n"
+            "reference_compatible_rng = yes\n")
+
+
+# the golden gates of tests/test_golden_vs_reference.py:86-133: rates and
+# instantaneous quantities at 1e-7, the rest at the case's threshold
+GOLDEN_RATES = {"X velocity", "Z velocity", "S. rate I", "S. rate II",
+                "Stress I", "Stress II", "Viscosity"}
+GOLDEN_ACCUM = {"maxwell-2d": 1e-8, "maxwell-2mat-2d": 3e-8}
 
 
 # fields the flat-step gate of tests/test_flat.py:38-42 compares
@@ -330,6 +378,253 @@ def production3d_cfg(rheology="elasto-visco-plastic", small=False, nmat=2):
 FIELDS3 = ("coord", "vel", "temperature", "stress", "strain", "plstrain",
            "volume", "volume_n", "mass", "tmass", "hmass", "force",
            "strain_rate", "edvoldt", "delta_plstrain", "volume_old")
+
+
+def cli_formats_goldens(des, wrappers, zero_counts, card):
+    """Phase 10: the CLI, the file formats and the goldens on the card
+    (see the module's docstring).  Returns the numbers for the JSON
+    record."""
+    import contextlib
+    import copy
+    import io
+    import os
+    import re
+    import tempfile
+
+    import numpy as np
+    import torch
+
+    from dynearthsol_tpu_torch import __main__ as cli
+    from dynearthsol_tpu_torch.compare import _frame_quantities, reldiff
+    from dynearthsol_tpu_torch.io.tagged import TaggedReader
+    from dynearthsol_tpu_torch.postproc import OutputReader
+    from dynearthsol_tpu_torch.remeshing import bad_mesh_quality
+
+    root = Path(__file__).resolve().parent
+    runs = root / "tests" / "golden" / "runs"
+    rec = {"goldens": {}}
+
+    def quiet_run(cfg, device):
+        """cli.run on a .cfg, its progress lines kept; returns (sim, the
+        summary lines, seconds)."""
+        buf = io.StringIO()
+        t = time.perf_counter()
+        with contextlib.redirect_stdout(buf):
+            sim = cli.run(des.load_config(cfg), device=device)
+        if device == "cuda":
+            torch.cuda.synchronize()
+        secs = time.perf_counter() - t
+        return sim, [ln for ln in buf.getvalue().splitlines()
+                     if ln.startswith(("Compute:", "Output:"))], secs
+
+    def summary(text, label):
+        m = re.search(rf"^{label}:\s+([0-9.]+) s / ([0-9]+) \w+"
+                      rf"(?: = ([0-9.e+-]+) s/\w+)?$", text, re.M)
+        if not m:
+            fail(f"the CLI printed no {label} line")
+        return (float(m.group(1)), int(m.group(2)),
+                float(m.group(3)) if m.group(3) else None)
+
+    def arrays(path):
+        """{name: raw bytes} of a tagged file."""
+        with TaggedReader(path) as r:
+            pos = sorted(r.offset.items(), key=lambda kv: kv[1])
+            r.f.seek(0, 2)
+            ends = [p for _, p in pos[1:]] + [r.f.tell()]
+            out = {}
+            for (name, p), e in zip(pos, ends):
+                r.f.seek(p)
+                out[name] = r.f.read(e - p)
+        return out
+
+    print("phase 10 CLI, formats and goldens on the card")
+    cwd = os.getcwd()
+    with tempfile.TemporaryDirectory() as tmp:
+        work = Path(tmp)
+        os.chdir(work)
+        try:
+            # (a) the goldens through the CLI, card and CPU
+            for case, accum in GOLDEN_ACCUM.items():
+                for dev in ("card", "cpu"):
+                    (work / f"{case}-{dev}.cfg").write_text(
+                        golden_cfg(runs / case, f"{case}-{dev}"))
+                zero_counts()
+                sim, lines, card_s = quiet_run(f"{case}-card.cfg", "cuda")
+                launches = {n: wrappers[n].launches
+                            for n in ("cgather", "asm_pack", "asm_gather")}
+                nsteps = int(sim.state.steps)
+                if sim.step_path != "flat2d" or \
+                        sim.dtype != torch.float64:
+                    fail(f"{case} ran on {sim.step_path!r} in {sim.dtype}, "
+                         "not flat2d in float64")
+                if any(v != 2 * nsteps for v in launches.values()):
+                    fail(f"{case}: the float64 band kernels were not "
+                         f"launched twice per step: {launches}")
+                _, _, cpu_s = quiet_run(f"{case}-cpu.cfg", "cpu")
+                ref = OutputReader(str(runs / case / "ref"))
+                our = OutputReader(f"{case}-card")
+                cpu = OutputReader(f"{case}-cpu")
+                if our.frames != ref.frames or our.steps != ref.steps:
+                    fail(f"{case}: frames {our.frames} at steps "
+                         f"{our.steps}, the golden's {ref.steps}")
+                print(f"  {case}: flat2d float64, {nsteps} steps on the "
+                      f"card in {card_s:.1f} s ({' '.join(lines)}), on the "
+                      f"CPU {cpu_s:.1f} s; launches {launches}")
+                worst = []
+                for frame in ref.frames:
+                    q = [_frame_quantities(r, frame, include_markers=False)
+                         for r in (ref, our, cpu)]
+                    w = {"accumulated": 0.0, "rates": 0.0,
+                         "card_vs_cpu": 0.0}
+                    for kind in q[0]:
+                        e = sum(reldiff(q[0][kind], q[1][kind]))
+                        cls = "rates" if kind in GOLDEN_RATES \
+                            else "accumulated"
+                        thr = 1e-7 if cls == "rates" else accum
+                        if not (np.isfinite(e) and e <= thr):
+                            fail(f"{case} frame {frame} {kind}: {e:.3e} "
+                                 f"against the reference (limit {thr:g})")
+                        w[cls] = max(w[cls], e)
+                        w["card_vs_cpu"] = max(w["card_vs_cpu"], sum(
+                            reldiff(q[2][kind], q[1][kind])))
+                    worst.append(w)
+                    print(f"    frame {frame:2d}: against the reference "
+                          f"accumulated {w['accumulated']:.3e} (limit "
+                          f"{accum:g}), rates {w['rates']:.3e} (limit "
+                          f"1e-7); card against CPU {w['card_vs_cpu']:.3e}")
+                rec["goldens"][case] = {
+                    "launches": launches, "card_s": card_s,
+                    "cpu_s": cpu_s, "worst_by_frame": worst}
+
+            # (b) the flagship through `python -m dynearthsol_tpu_torch`
+            fcfg = flagship_cfg()
+            fcfg["sim"].update(modelname="flag", max_steps=1000,
+                               output_step_interval=500,
+                               checkpoint_frame_interval=1)
+            (work / "flag.cfg").write_text(cfg_text(fcfg))
+            rcfg = copy.deepcopy(fcfg)
+            rcfg["sim"].update(modelname="rest", is_restarting=True,
+                               restarting_from_modelname="flag",
+                               restarting_from_frame=1)
+            (work / "rest.cfg").write_text(cfg_text(rcfg))
+            env = dict(os.environ, PYTHONPATH=str(root))
+
+            def cli_call(cfg):
+                t = time.perf_counter()
+                r = subprocess.run(
+                    [sys.executable, "-m", "dynearthsol_tpu_torch", cfg],
+                    cwd=work, env=env, capture_output=True, text=True,
+                    timeout=600)
+                secs = time.perf_counter() - t
+                if r.returncode:
+                    fail(f"python -m dynearthsol_tpu_torch {cfg} exited "
+                         f"{r.returncode}: {r.stderr[-2000:]}")
+                if "Path:     pallas2d_res" not in r.stdout:
+                    fail(f"{cfg} did not run on pallas2d_res")
+                launches = dict(
+                    (k, int(v)) for k, v in re.findall(
+                        r"(\w+) (\d+)", re.search(r"^Launches: (.*)$",
+                                                  r.stdout, re.M).group(1)))
+                return r.stdout, secs, launches
+
+            text, cli_s, cli_launches = cli_call("flag.cfg")
+            compute = summary(text, "Compute")
+            output = summary(text, "Output")
+            if cli_launches["fused_chunk"] != 10 or any(
+                    v for k, v in cli_launches.items() if k != "fused_chunk"):
+                fail(f"the CLI's flagship launched {cli_launches}, not 10 "
+                     "chunk kernels and nothing else")
+            print(f"  flagship through the CLI: {cli_s:.1f} s in all, "
+                  f"Compute {compute[0]:.2f} s / {compute[1]} steps = "
+                  f"{compute[2]:.3e} s/step, Output {output[0]:.2f} s / "
+                  f"{output[1]} frames = {output[2]:.3e} s/frame (with "
+                  f"their checkpoints); launches {cli_launches} on {card}")
+
+            # the same config in this process, no output: the frames
+            # written by the CLI must equal its state
+            sim = des.Simulation(des.load_config(str(work / "flag.cfg")))
+            fields = {"coordinate": "coord", "velocity": "vel",
+                      "temperature": "temperature", "force": "force",
+                      "coord0": "coord0", "pore pressure": "ppressure",
+                      "plastic strain": "plstrain",
+                      "plastic strain-rate": "delta_plstrain",
+                      "strain-rate": "strain_rate", "strain": "strain",
+                      "stress": "stress", "viscosity": "viscosity",
+                      "radiogenic source": "radiogenic_source"}
+            reader = OutputReader("flag")
+
+            def same_as_state(frame):
+                st = sim.state
+                for name, f in fields.items():
+                    a = reader.read_field(frame, name)
+                    b = getattr(st, f).cpu().double().numpy()
+                    if not np.array_equal(a.ravel(), b.ravel()):
+                        fail(f"flagship frame {frame} {name} differs from "
+                             f"the state of run_steps")
+                mk = reader.read_markers(frame)
+                if mk["size"] != sim.markers.n or not np.array_equal(
+                        mk["markerset.elem"], sim.markers.live("elem")):
+                    fail(f"flagship frame {frame}: markers differ")
+
+            same_as_state(0)
+            zero_counts()
+            run_s = 0.0
+            for frame in (1, 2):
+                t = time.perf_counter()
+                sim.run_steps(500)
+                torch.cuda.synchronize()
+                run_s += time.perf_counter() - t
+                same_as_state(frame)
+            if sim.step_path != "pallas2d_res" or \
+                    wrappers["fused2d_chunk"].launches != 10:
+                fail("run_steps of the flagship did not take pallas2d_res "
+                     "in 10 chunks")
+            t = time.perf_counter()
+            quality = bad_mesh_quality(sim)
+            quality_s = time.perf_counter() - t
+            print(f"  frames 0-2 read back with OutputReader equal the "
+                  f"state of run_steps (13 fields and the markers): ok; "
+                  f"run_steps without output {run_s:.2f} s / 1000 steps = "
+                  f"{run_s / 1000:.3e} s/step against the CLI's "
+                  f"{compute[2]:.3e}; the host's mesh-quality check "
+                  f"{quality_s:.2f} s ({sim.topo.nelem} elements, code "
+                  f"{quality[0]}, min quality {quality[1]:.4f})")
+
+            # (c) restart from frame 1
+            text, rest_s, rest_launches = cli_call("rest.cfg")
+            rcompute = summary(text, "Compute")
+            if "Restarted from frame 1 (step 500)." not in text \
+                    or rest_launches["fused_chunk"] != 5:
+                fail(f"the restart did not start at step 500 or launched "
+                     f"{rest_launches}")
+            a, b = arrays("flag.save.000002"), arrays("rest.save.000002")
+            if a.keys() != b.keys() or any(a[k] != b[k] for k in a):
+                fail("the restarted flagship's last frame differs from the "
+                     "continuous run's: " + ", ".join(
+                         k for k in a if a.get(k) != b.get(k)))
+            a, b = arrays("flag.chkpt.000002"), arrays("rest.chkpt.000002")
+            scal = [k for k in a if k.startswith("time info_display")]
+            if a.keys() != b.keys() or any(a[k] != b[k] for k in a
+                                           if k not in scal):
+                fail("the restarted flagship's last checkpoint differs")
+            sa, sb = (np.frombuffer(x[scal[0]], np.float64) for x in (a, b))
+            if not np.array_equal(sa[[0, 2, 3, 4, 5]], sb[[0, 2, 3, 4, 5]]):
+                fail("the restarted flagship's time, dt or vmax differ")
+            print(f"  restart from frame 1 (step 500) to step 1000: "
+                  f"{rest_s:.1f} s in all, Compute {rcompute[0]:.2f} s; the "
+                  f"last frame equals the continuous run's bit for bit "
+                  f"({len(a)} checkpoint arrays, the driver scalars "
+                  f"info_display_next_step and reference_frame_time aside)")
+            rec.update(
+                cli_flagship_s=cli_s, cli_compute_s_per_step=compute[2],
+                run_steps_s_per_step=run_s / 1000,
+                cli_output_s_per_frame=output[2], cli_frames=output[1],
+                cli_launches=cli_launches, quality_check_s=quality_s,
+                restart_s=rest_s, restart_compute_s=rcompute[0],
+                restart_launches=rest_launches)
+        finally:
+            os.chdir(cwd)
+    return rec
 
 
 def main():
@@ -2102,6 +2397,9 @@ def main():
                    usim.param, usim.ctx, usim.compensation_pressure, n)(
                    usim.ctx, usim.state), 10)
 
+    # ---- 10. the CLI, the file formats and the goldens on the card
+    phase10 = cli_formats_goldens(des, wrappers, zero_counts, card)
+
     src2 = "dynearthsol_tpu_torch/csrc/fused2d.cu"
     src3 = "dynearthsol_tpu_torch/csrc/fused3d.cu"
     err_metric = ("max |kernel - plain| / max |plain| over the output "
@@ -2277,7 +2575,11 @@ def main():
         kernels.append({
             "name": name, "route": "cuda", "source": srcb,
             "replaces": f"dynearthsol_tpu/ops/band2d.py:{line}",
-            "launches": launches_u[name], "max_abs_err": band_err[name],
+            "launches": launches_u[name],
+            "launches_goldens_f64": {
+                case: g["launches"][name]
+                for case, g in phase10["goldens"].items()},
+            "max_abs_err": band_err[name],
             "err_metric": "max |kernel - plain| over random inputs at a "
                           "small Delaunay mesh, a tet mesh and the "
                           "277k-triangle mesh, f32 and f64, every call "
@@ -2315,6 +2617,7 @@ def main():
                       "init_s_unstructured": uinit_s,
                       "mesh_s_unstructured": mesh_s[0],
                       "init_s_3d": init3_s,
+                      "cli": phase10,
                       "script_s": time.perf_counter() - t_start}))
     print(card)
     print(json.dumps({"ok": True, "device": {

@@ -142,8 +142,12 @@ def _masked_minmax(values, mask):
 
 
 def _set(vel, mask, comp, value):
-    """vel[mask, comp] = value (value scalar or per-node array)."""
-    value = torch.as_tensor(value, device=vel.device).to(vel.dtype)
+    """vel[mask, comp] = value (value scalar or per-node array).  A Python
+    number is taken in float64 and rounded once to vel's dtype (not
+    through torch's default float32)."""
+    if not isinstance(value, torch.Tensor):
+        value = torch.tensor(value, dtype=torch.float64, device=vel.device)
+    value = value.to(vel.device, vel.dtype)
     out = vel.clone()
     out[:, comp] = torch.where(mask, value, vel[:, comp])
     return out

@@ -686,10 +686,15 @@ def load_config(path: str) -> Param:
         if os.path.exists(cand + ".info"):
             param.mesh.mesh_from_run = cand
     if param.mesh.mesh_from_run:
-        # reading another run's save files needs the tagged-binary reader,
-        # which this package does not have yet
-        raise NotImplementedError(
-            "mesh_from_run needs io/tagged.py, not yet in this package")
+        # the save-file header is authoritative for the dimensionality
+        # (the reference selects 2D/3D by binary, not by config option:
+        # constants.hpp:12-16 -DTHREED)
+        from .io.tagged import TaggedReader
+
+        frame = param.mesh.mesh_from_run_frame
+        with TaggedReader(f"{param.mesh.mesh_from_run}.save.{frame:06d}"
+                          ) as r:
+            param.sim.ndims = r.ndims
     return validate(param)
 
 

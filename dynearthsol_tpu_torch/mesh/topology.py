@@ -49,27 +49,45 @@ class Topology:
     segment: np.ndarray  # (nseg, ndims) int32 boundary facet nodes
     segflag: np.ndarray  # (nseg,) int32 boundary bit of each segment
 
+    @property
+    def nseg(self) -> int:
+        return self.segment.shape[0]
+
+
+def _facet_keys(nodes: np.ndarray, base: int) -> np.ndarray:
+    """One int64 key per facet, its sorted node ids packed in base ``base``
+    (..., npf) -> (...), or the rows themselves where the key would
+    overflow."""
+    fac = np.sort(nodes, axis=-1).astype(np.int64)
+    if base ** fac.shape[-1] >= 2 ** 62:
+        return fac
+    key = fac[..., 0]
+    for c in range(1, fac.shape[-1]):
+        key = key * base + fac[..., c]
+    return key
+
+
+def _unique_rows(rows: np.ndarray, **kw):
+    """np.unique over the rows of a 2D array (1D when it has one column:
+    the packed keys)."""
+    if rows.shape[1] == 1:
+        u, *rest = np.unique(rows[:, 0], **kw)
+        return (u[:, None], *rest)
+    return np.unique(rows, axis=0, **kw)
+
 
 def _boundary_facets(conn: np.ndarray, npe: int) -> np.ndarray:
     """Return (nelem, facets_per_elem) bool: facet f of elem e is on the
     domain boundary (its sorted node set occurs once in the mesh).  The
-    sorted node ids of a facet are packed into one int64 key, so that the
-    count is one 1D ``np.unique`` (a few seconds at 983k tets instead of a
-    row-wise unique)."""
+    count is one 1D ``np.unique`` of the packed facet keys (a few seconds
+    at 983k tets instead of a row-wise unique)."""
     nof = dim(npe - 1).node_of_facet
-    fac = np.stack([np.sort(conn[:, list(locs)], axis=1) for locs in nof],
-                   axis=1).astype(np.int64)         # (nelem, nfacet, npf)
-    base = int(conn.max()) + 1
-    if base ** fac.shape[2] < 2 ** 62:
-        key = fac[..., 0]
-        for c in range(1, fac.shape[2]):
-            key = key * base + fac[..., c]
-        _, inv, counts = np.unique(key.ravel(), return_inverse=True,
-                                   return_counts=True)
-    else:
-        _, inv, counts = np.unique(fac.reshape(-1, fac.shape[2]), axis=0,
-                                   return_inverse=True, return_counts=True)
-    return (counts[inv.ravel()] == 1).reshape(fac.shape[:2])
+    key = _facet_keys(np.stack([conn[:, list(locs)] for locs in nof],
+                               axis=1), int(conn.max()) + 1)
+    nfac = conn.shape[0] * len(nof)
+    _, inv, counts = _unique_rows(key.reshape(nfac, -1), return_inverse=True,
+                                  return_counts=True)
+    return (counts[inv.ravel()] == 1).reshape(conn.shape[0], len(nof))
 
 
 def build_topology(mesh: MeshData, xlength: float, ylength: float,
@@ -146,11 +164,19 @@ def finish_topology(ndims: int, conn: np.ndarray,
                else np.zeros((0, ndims), dtype=np.int32))
     segflag = np.asarray(segflags, dtype=np.int32)
 
+    return Topology(ndims=ndims, nnode=nnode, nelem=nelem,
+                    connectivity=conn.astype(np.int32), bcflag=bcflag,
+                    bnodes=bnodes, bfacets=bfacets,
+                    **_support_tables(conn, nnode),
+                    segment=segment, segflag=segflag)
+
+
+def _support_tables(conn: np.ndarray, nnode: int) -> dict:
+    """The assembly permutation and the padded per-node support table
+    (gather-based assembly)."""
     flat = conn.ravel().astype(np.int32)
     asm_perm = np.argsort(flat, kind="stable").astype(np.int32)
     asm_node_ids = flat[asm_perm]
-
-    # padded per-node support table (gather-based assembly)
     counts = np.bincount(flat, minlength=nnode)
     max_deg = int(counts.max())
     gather_idx = np.zeros((nnode, max_deg), dtype=np.int32)
@@ -160,10 +186,57 @@ def finish_topology(ndims: int, conn: np.ndarray,
     pos_in_run = np.arange(flat.size) - starts[asm_node_ids]
     gather_idx[asm_node_ids, pos_in_run] = asm_perm
     gather_mask[asm_node_ids, pos_in_run] = True
+    return dict(asm_perm=asm_perm, asm_node_ids=asm_node_ids,
+                gather_idx=gather_idx, gather_mask=gather_mask)
 
+
+def build_topology_from_arrays(ndims: int, conn: np.ndarray,
+                               bcflag: np.ndarray, segment: np.ndarray,
+                               segflag: np.ndarray) -> Topology:
+    """Rebuild topology from a run's saved arrays (restart and
+    mesh_from_run, dynearthsol.cxx:284-306): node flags and segments come
+    from the files, since the mesh has deformed and coordinate tests would
+    mislabel boundaries.  The boundary facets of boundary i are the
+    (element, facet) pairs whose node set is a segment flagged 1 << i,
+    sorted, as the JAX package's dictionary lookup gives them."""
+    nnode, nelem = bcflag.shape[0], conn.shape[0]
+    nof = dim(ndims).node_of_facet
+    base = int(max(conn.max(), segment.max(initial=0))) + 1
+    fkey = _facet_keys(np.stack([conn[:, list(locs)] for locs in nof],
+                                axis=1), base).reshape(nelem * len(nof), -1)
+    skey = _facet_keys(segment, base).reshape(segment.shape[0], -1)
+    # a facet shared by two elements maps to its last (element, facet)
+    # in the JAX package's loop order (facet outer, element inner)
+    order = np.arange(nelem * len(nof)).reshape(nelem, len(nof)).T.ravel()
+    uniq, last = _unique_rows(fkey[order][::-1], return_index=True)
+    owner = order[::-1][last]
+    pos = _row_lookup(uniq, skey)
+    bnodes = [np.nonzero(bcflag & (1 << i))[0].astype(np.int32)
+              for i in range(NBDRYTYPES)]
+    bfacets: List[np.ndarray] = []
+    for i in range(NBDRYTYPES):
+        sel = (segflag == (1 << i)) & (pos >= 0)
+        slot = np.sort(owner[pos[sel]])
+        bfacets.append(np.stack([slot // len(nof), slot % len(nof)], axis=1)
+                       .astype(np.int32).reshape(-1, 2))
     return Topology(ndims=ndims, nnode=nnode, nelem=nelem,
-                    connectivity=conn.astype(np.int32), bcflag=bcflag,
+                    connectivity=conn.astype(np.int32),
+                    bcflag=bcflag.astype(np.uint32),
                     bnodes=bnodes, bfacets=bfacets,
-                    asm_perm=asm_perm, asm_node_ids=asm_node_ids,
-                    gather_idx=gather_idx, gather_mask=gather_mask,
-                    segment=segment, segflag=segflag)
+                    **_support_tables(conn, nnode),
+                    segment=segment.astype(np.int32),
+                    segflag=segflag.astype(np.int32))
+
+
+def _row_lookup(table: np.ndarray, rows: np.ndarray) -> np.ndarray:
+    """Index of each row of ``rows`` in the sorted unique rows ``table``,
+    -1 where absent."""
+    if table.shape[1] == 1:
+        t, r = table[:, 0], rows[:, 0]
+    else:
+        dt = np.dtype([("", table.dtype)] * table.shape[1])
+        t = np.ascontiguousarray(table).view(dt).ravel()
+        r = np.ascontiguousarray(rows).view(dt).ravel()
+    pos = np.searchsorted(t, r)
+    pos = np.minimum(pos, len(t) - 1)
+    return np.where(t[pos] == r, pos, -1)

@@ -33,6 +33,28 @@ def elem_min_height(coord, conn, volume):
     return 2.0 * volume / maxl
 
 
+def elem_quality(coord, conn, volume):
+    """Element quality in (0, 1], 1 for an equilateral element
+    (geometry.cxx:1157-1195): the mesh-quality output field."""
+    x = coord[conn]
+    if x.shape[2] == 2:
+        d01 = ((x[:, 0] - x[:, 1]) ** 2).sum(dim=1)
+        d12 = ((x[:, 1] - x[:, 2]) ** 2).sum(dim=1)
+        d02 = ((x[:, 0] - x[:, 2]) ** 2).sum(dim=1)
+        return 4.0 * math.sqrt(3.0) * volume / (d01 + d12 + d02)
+
+    def tri_area(a, b, c):
+        u, v = x[:, b] - x[:, a], x[:, c] - x[:, a]
+        cr = torch.stack([u[:, 1] * v[:, 2] - u[:, 2] * v[:, 1],
+                          u[:, 2] * v[:, 0] - u[:, 0] * v[:, 2],
+                          u[:, 0] * v[:, 1] - u[:, 1] * v[:, 0]], dim=1)
+        return 0.5 * torch.sqrt((cr * cr).sum(dim=1))
+
+    area_sum = (tri_area(0, 1, 2) + tri_area(0, 1, 3) + tri_area(2, 3, 0)
+                + tri_area(2, 3, 1))
+    return 216.0 * math.sqrt(3.0) * volume * volume / area_sum ** 3
+
+
 def tet_min_height(xs, ys, zs, vol):
     """3*V / largest facet area of tetrahedra given by corner coordinate
     lists (the operation order of pallas3d.py:761-774)."""

@@ -26,8 +26,8 @@ from . import ic as ic_mod
 from . import markers as mk
 from .config import (RH_ELASTIC, RH_EP, RH_EP_RSF, RH_EVP, RH_EVP_RSF,
                      RH_MAXWELL, RH_VISCOUS, Param)
-from .constants import BOUNDZ1
-from .mesh import build_topology, create_new_mesh
+from .constants import BOUNDZ1, IBOUNDZ0
+from .mesh import MeshData, build_topology, create_new_mesh
 from .ops import band2d, flat2d, fused2d, fused3d
 from .ops import geometry as G
 from .ops import matprops as M
@@ -61,9 +61,11 @@ class StepCtx:
     band: Optional[band2d.GatherTables] = None
 
 
-def make_finalize_fn(param: Param):
-    """Initialisation tail (dynearthsol.cxx:186-190): apply vbcs -> CFL dt
-    -> (pseudo-)masses -> viscosity.  Plain PyTorch: it runs once."""
+def make_finalize_fn(param: Param, *, with_dt: bool = True,
+                     with_mass: bool = True):
+    """Initialisation and restart tail (dynearthsol.cxx:186-190, 411-420):
+    apply vbcs -> [CFL dt] -> [(pseudo-)masses] -> viscosity.  Plain
+    PyTorch: it runs once."""
     ctrl = param.control
 
     def fin(ctx: StepCtx, s: State) -> State:
@@ -72,6 +74,15 @@ def make_finalize_fn(param: Param):
         bulkm = M.bulkm(ctx.mat, s.emw)
         shearm = M.shearm(ctx.mat, s.emw)
         rho_e = M.rho(ctx.mat, s.emw, s.temperature, ctx.conn)
+        if with_dt:
+            s = _with_dt(s, ctx, vel, shearm, rho_e)
+        if with_mass:
+            s = _with_mass(s, ctx, bulkm, shearm, rho_e)
+        viscosity = M.visc(ctx.mat, s.emw, s.temperature, ctx.conn,
+                           s.stress, s.strain_rate)
+        return s.replace(viscosity=viscosity)
+
+    def _with_dt(s, ctx, vel, shearm, rho_e):
         dt, vmax, gdtmin = G.compute_dt(
             s.coord, ctx.conn, s.volume, vel, shearm, rho_e,
             ctx.mat.visc_min, ctx.mat.therm_diff_max, ctx.max_vbc_val,
@@ -82,7 +93,10 @@ def make_finalize_fn(param: Param):
             use_global_velocity_scaling=ctrl.use_global_velocity_scaling,
             bulk_modulus_ref=param.mat.bulk_modulus[param.mat.mattype_ref],
             rho0_ref=param.mat.rho0[param.mat.mattype_ref])
-        s = s.replace(dt=dt, max_global_vel_mag=vmax, global_dt_min=gdtmin)
+        return s.replace(dt=dt, max_global_vel_mag=vmax,
+                         global_dt_min=gdtmin)
+
+    def _with_mass(s, ctx, bulkm, shearm, rho_e):
         volume_n, mass, tmass, hmass, ymass = G.compute_mass(
             s.volume, bulkm, shearm, rho_e, M.cp(ctx.mat, s.emw),
             M.phi_porosity(ctx.mat, s.emw), M.alpha_biot(ctx.mat, s.emw),
@@ -93,11 +107,8 @@ def make_finalize_fn(param: Param):
             is_quasi_static=ctrl.is_quasi_static,
             use_global_velocity_scaling=ctrl.use_global_velocity_scaling,
             ndims=ctx.ndims)
-        s = s.replace(volume_n=volume_n, mass=mass, tmass=tmass,
-                      hmass=hmass, ymass=ymass)
-        viscosity = M.visc(ctx.mat, s.emw, s.temperature, ctx.conn,
-                           s.stress, s.strain_rate)
-        return s.replace(viscosity=viscosity)
+        return s.replace(volume_n=volume_n, mass=mass, tmass=tmass,
+                         hmass=hmass, ymass=ymass)
 
     return fin
 
@@ -133,9 +144,11 @@ class Simulation:
     """End-to-end simulation: mesh/topology/IC on the host, stepping on
     ``device``.  The default device is the card ("cuda"); without one the
     constructor raises rather than run on the CPU, which a caller asks for
-    with ``device="cpu"``."""
+    with ``device="cpu"``.  ``_restart`` is the array dict of
+    io/restart.read_frame (io/restart.restart builds it)."""
 
-    def __init__(self, param: Param, device=None):
+    def __init__(self, param: Param, device=None,
+                 _restart: Optional[dict] = None):
         if device is None:
             if not torch.cuda.is_available():
                 raise RuntimeError(
@@ -145,18 +158,27 @@ class Simulation:
             device = "cuda"
         if param.control.has_hydraulic_diffusion \
                 or param.mat.rheol_type in (RH_EP_RSF, RH_EVP_RSF) \
-                or param.ic.temperature_option == 3 \
-                or param.mesh.mesh_from_run:
+                or param.ic.temperature_option == 3:
             raise NotImplementedError(
-                "hydraulic diffusion, rate-and-state friction, the dome "
-                "geotherm and mesh_from_run are not ported yet")
+                "hydraulic diffusion, rate-and-state friction and the dome "
+                "geotherm are not ported yet")
         self.param = param
         self.device = torch.device(device)
         self.dtype = torch.float64 if param.sim.float_dtype == "float64" \
             else torch.float32
-        mesh = create_new_mesh(param)
-        topo = build_topology(mesh, param.mesh.xlength, param.mesh.ylength,
-                              param.mesh.zlength)
+        if _restart is not None:
+            mesh = MeshData(param.sim.ndims, _restart["coord"],
+                            _restart["conn"])
+            topo = _restart["topo"]
+        elif param.mesh.mesh_from_run:
+            # the reference binary's own mesh, node for node
+            from .io.restart import load_mesh_from_run
+            mesh, topo = load_mesh_from_run(param.mesh.mesh_from_run,
+                                            param.mesh.mesh_from_run_frame)
+        else:
+            mesh = create_new_mesh(param)
+            topo = build_topology(mesh, param.mesh.xlength,
+                                  param.mesh.ylength, param.mesh.zlength)
         self.mesh = mesh
         self.topo = topo
         dev = self.device
@@ -176,9 +198,17 @@ class Simulation:
                                        device=dev),
             surf=SP.make_surf_info(topo), max_vbc_val=max_vbc_val,
             sgrid=_detect_sgrid(topo))
-        # Winkler reference pressure, set by the initial stress state
+        # driver scalars (parameters.hpp Variables), checkpointed with the
+        # state; the Winkler reference pressure is set by the initial
+        # stress state
+        self.info_display_next_step = param.sim.info_display_step_interval
+        self.reference_frame_time = 0.0
         self.compensation_pressure = 0.0
-        self.state = self._init_state()
+        self.bottom_temperature = param.bc.mantle_temperature
+        if _restart is None:
+            self.state = self._init_state()
+        else:
+            self.state = self._restart_state(_restart)
         self._chunk_fns = {}
         # name of the dispatched step implementation, set by _chunk_fn:
         # "pallas2d_res", "pallas2d", "pallas3d" or "flat2d", the JAX
@@ -213,6 +243,9 @@ class Simulation:
 
         temperature_h = ic_mod.initial_temperature(param, self.mesh.coord,
                                                    emw0=emw_h[0])
+        bot = topo.bnodes[IBOUNDZ0]
+        if len(bot):
+            self.bottom_temperature = float(temperature_h[bot[0]])
         stress, stressyy, old_mean, strain, self.compensation_pressure = \
             ic_mod.initial_stress_state(param, self.mesh.coord,
                                         topo.connectivity, emw=emw_h)
@@ -228,6 +261,80 @@ class Simulation:
                 param, self.mesh.coord, topo.connectivity)),
             emw=self._dev(emw_h), hydro_diff_max=self._dev(1e-1))
         return make_finalize_fn(param)(ctx, s)
+
+    # ---- restart (dynearthsol.cxx:227-420) ----
+    def _restart_state(self, r: dict) -> State:
+        """The state of a checkpointed frame.  With the exact-restart
+        extras of io/output.py (volume, the masses, old_mean_stress) the
+        run continues bit for bit; without them (the reference's files)
+        volume and the masses are recomputed."""
+        param, topo, ctx = self.param, self.topo, self.ctx
+        s = allocate_state(topo.nnode, topo.nelem, ctx.ndims,
+                           param.mat.nmat, netop=ctx.surf.etop,
+                           dtype=self.dtype, device=self.device)
+
+        def a(name, default):
+            return self._dev(r[name]) if name in r else default
+
+        coord = self._dev(r["coord"])
+        volume = a("volume", None)
+        if volume is None:
+            volume = compute_volume(coord, ctx.conn)
+        self.markers = r.get("markers")
+        emw = s.emw
+        if self.markers is not None:
+            emw = self._dev(mk.emw_from_markers(self.markers, topo.nelem,
+                                                param.mat.nmat))
+        scal = r["scalars"]
+        self.info_display_next_step = int(scal[1])
+        self.compensation_pressure = float(scal[2])
+        self.bottom_temperature = float(scal[3])
+        self.reference_frame_time = float(scal[6])
+        s = s.replace(
+            coord=coord, coord0=a("coord0", coord), vel=a("vel", s.vel),
+            temperature=a("temperature", s.temperature),
+            ppressure=a("ppressure", s.ppressure), volume=volume,
+            volume_old=a("volume_old", volume),
+            stress=a("stress", s.stress), stressyy=a("stressyy", s.stressyy),
+            strain=a("strain", s.strain), plstrain=a("plstrain", s.plstrain),
+            delta_plstrain=a("delta_plstrain", s.delta_plstrain),
+            old_mean_stress=a("old_mean_stress", s.old_mean_stress),
+            state_variable=a("state_variable", s.state_variable),
+            dhacc=a("dhacc", s.dhacc),
+            edvacc_surf=a("edvacc_surf", s.edvacc_surf), emw=emw,
+            time=self._dev(scal[0]), dt=self._dev(scal[4]),
+            steps=torch.tensor(r["steps"], dtype=torch.int64,
+                               device=self.device),
+            max_global_vel_mag=self._dev(scal[5]),
+            hydro_diff_max=self._dev(1e-1))
+        if param.ic.is_restarting_weakzone:
+            # the weak zone re-created on the restored geometry
+            # (dynearthsol.cxx:386-389) overwrites the saved plstrain
+            s = s.replace(plstrain=self._dev(ic_mod.initial_weak_zone(
+                param, np.asarray(r["coord"], dtype=np.float64),
+                topo.connectivity)))
+        # re-apply vbcs, recompute the masses unless saved
+        # (dynearthsol.cxx:411-420)
+        if "mass" in r:
+            s = s.replace(volume_n=self._dev(r["volume_n"]),
+                          mass=self._dev(r["mass"]),
+                          tmass=self._dev(r["tmass"]),
+                          hmass=self._dev(r["hmass"]),
+                          ymass=self._dev(r["ymass"]))
+            return make_finalize_fn(param, with_dt=False,
+                                    with_mass=False)(ctx, s)
+        return make_finalize_fn(param, with_dt=False)(ctx, s)
+
+    # ---- derived element fields for output (output.cxx:213-233) ----
+    def elem_density(self) -> np.ndarray:
+        s = self.state
+        return M.rho(self.ctx.mat, s.emw, s.temperature, self.ctx.conn
+                     ).detach().cpu().double().numpy()
+
+    def elem_quality(self) -> np.ndarray:
+        s = self.state
+        return G.elem_quality(s.coord, self.ctx.conn, s.volume
+                              ).detach().cpu().double().numpy()
 
     # ---- stepping ----
     def _chunk_fn(self, n: int):

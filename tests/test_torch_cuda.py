@@ -558,3 +558,42 @@ def test_flat_slice_card_vs_cpu(cuda, rheology, n, dtype, tol):
     for f in FLAT_FIELDS:
         err = rel_err(get(ref, f), get(out, f))
         assert err < tol, (f, err)
+
+
+def test_golden_maxwell_2d_on_the_card(cuda, tmp_path, monkeypatch):
+    """The maxwell-2d golden through the CLI on the card (flat2d, float64:
+    the double instances of the band kernels, 2 launches of each per
+    step), every frame at the golden thresholds of
+    tests/test_torch_golden.py, read with the port's compare.py."""
+    import os
+
+    from dynearthsol_tpu_torch.__main__ import main as cli_main
+    from dynearthsol_tpu_torch.compare import _frame_quantities, reldiff
+    from dynearthsol_tpu_torch.postproc import OutputReader
+
+    rundir = os.path.join(os.path.dirname(os.path.abspath(__file__)),
+                          "golden", "runs", "maxwell-2d")
+    cfg = open(os.path.join(rundir, "case.cfg")).read().replace(
+        "modelname = ref", "modelname = our")
+    cfg += (f"\n[mesh]\nmesh_from_run = {os.path.join(rundir, 'ref')}\n"
+            "mesh_from_run_frame = 0\n[markers]\n"
+            "reference_compatible_rng = yes\n")
+    (tmp_path / "case.cfg").write_text(cfg)
+    monkeypatch.chdir(tmp_path)
+    before = (band2d.cgather.launches, band2d.asm_pack.launches,
+              band2d.asm_gather.launches)
+    assert cli_main(["case.cfg"]) == 0
+    after = (band2d.cgather.launches, band2d.asm_pack.launches,
+             band2d.asm_gather.launches)
+    assert [a - b for a, b in zip(after, before)] == [2000, 2000, 2000]
+    loose = {"X velocity", "Z velocity", "S. rate I", "S. rate II",
+             "Stress I", "Stress II", "Viscosity"}
+    ref, our = OutputReader(os.path.join(rundir, "ref")), OutputReader("our")
+    assert our.frames == ref.frames and our.steps == ref.steps
+    for frame in ref.frames:
+        old = _frame_quantities(ref, frame, include_markers=False)
+        new = _frame_quantities(our, frame, include_markers=False)
+        for kind in old:
+            err = sum(reldiff(old[kind], new[kind]))
+            assert err <= (1e-7 if kind in loose else 1e-8), \
+                (frame, kind, err)

@@ -61,6 +61,34 @@ def test_eigvals3_matches_jax(dt):
     assert (np.diff(got, axis=1) >= -tol * scale[:, None]).all()
 
 
+def test_eigvals3_one_value_for_any_layout():
+    """At a double root r = det(B) / 2 is +-1 to a few ulps, and one ulp of
+    r moves an eigenvalue by up to 5e-9 of the scale (acos(1 - e) is
+    sqrt(2 e)): test_eigvals3_matches_jax[f64] holds at 1e-12 only while
+    both packages compute r bit for bit.  The port's values do not depend
+    on the layout of its inputs, where an element falls in a vectorised
+    loop or its scalar tail, or the number of threads."""
+    m = _matrices(np.float64)
+
+    def eig(a):
+        return np.stack([x.numpy() for x in TE.eigvals3_c(
+            *(torch.as_tensor(a[:, i]) for i in range(6)))], axis=1)
+
+    ref = eig(m)
+    old = torch.get_num_threads()
+    try:
+        for threads in (1, old):
+            torch.set_num_threads(threads)
+            for off in (0, 1, 3, 4097):
+                sub = np.ascontiguousarray(m[off:])
+                assert np.array_equal(eig(sub), ref[off:])
+            two = np.ascontiguousarray(m[N + 64:])
+            one = np.concatenate([eig(two[i:i + 1]) for i in range(64)])
+            assert np.array_equal(one, ref[N + 64:])
+    finally:
+        torch.set_num_threads(old)
+
+
 @pytest.mark.parametrize("dt", list(DTYPES))
 def test_eigh3_matches_jax(dt):
     """Eigenvalues as above; the eigenbasis is orthonormal everywhere, and

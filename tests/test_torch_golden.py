@@ -1,0 +1,93 @@
+"""The port against the C++ reference binary's goldens
+(tests/golden/runs/), on the CPU: maxwell-2d and maxwell-2mat-2d through
+the port's CLI (``python -m dynearthsol_tpu_torch --device cpu``, called
+in-process) on the reference's own mesh (mesh_from_run) with its glibc
+marker stream (reference_compatible_rng), prepared and gated as
+tests/test_golden_vs_reference.py gates the JAX package: every committed
+frame, 1e-8 on accumulated quantities and 1e-7 on rates for maxwell-2d,
+3e-8 and 1e-7 for maxwell-2mat-2d (test_golden_vs_reference.py:86-133).
+The frames are read and compared by the JAX package's compare.py, the
+reference's contract.  Both runs take flat2d in float64.
+
+Also the CLI itself in a subprocess: without ``--device`` it asks for the
+card, and where there is none it exits non-zero with Simulation's
+message.
+"""
+
+import os
+import shutil
+import subprocess
+import sys
+
+import numpy as np
+import pytest
+import torch
+
+from dynearthsol_tpu.compare import _frame_quantities, reldiff
+from dynearthsol_tpu.postproc import OutputReader
+from dynearthsol_tpu_torch.__main__ import main as cli_main
+
+REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+RUNS = os.path.join(REPO, "tests", "golden", "runs")
+# rate/instantaneous quantities: the golden test's cross-compiler floor
+LOOSE = {"X velocity", "Z velocity", "S. rate I", "S. rate II",
+         "Stress I", "Stress II", "Viscosity"}
+# case: (accumulated threshold, rate threshold)
+CASES = {"maxwell-2d": (1e-8, 1e-7), "maxwell-2mat-2d": (3e-8, 1e-7)}
+
+
+def _prepare_case(rundir, work):
+    """test_golden_vs_reference.py:46-65: the golden's cfg with the model
+    renamed, the reference's mesh and its marker stream."""
+    with open(os.path.join(rundir, "case.cfg")) as f:
+        cfg = f.read()
+    assert "modelname = ref" in cfg
+    cfg = cfg.replace("modelname = ref", "modelname = our")
+    cfg += ("\n[mesh]\n"
+            f"mesh_from_run = {os.path.join(rundir, 'ref')}\n"
+            "mesh_from_run_frame = 0\n"
+            "[markers]\n"
+            "reference_compatible_rng = yes\n")
+    with open(os.path.join(work, "case.cfg"), "w") as f:
+        f.write(cfg)
+    for fn in os.listdir(rundir):
+        if not fn.startswith("ref.") and fn not in ("case.cfg",
+                                                    "PROVENANCE"):
+            shutil.copy(os.path.join(rundir, fn), work)
+
+
+@pytest.mark.parametrize("case", sorted(CASES))
+def test_cli_matches_reference_golden(case, tmp_path, monkeypatch, capsys):
+    rundir = os.path.join(RUNS, case)
+    _prepare_case(rundir, str(tmp_path))
+    monkeypatch.chdir(tmp_path)
+    assert cli_main(["--device", "cpu", "case.cfg"]) == 0
+    assert "dtype: float64" in capsys.readouterr().out
+    accum_thr, rate_thr = CASES[case]
+    ref, our = OutputReader(os.path.join(rundir, "ref")), OutputReader("our")
+    assert our.frames == ref.frames and len(ref.frames) == 11
+    assert our.steps == ref.steps
+    failures = []
+    for frame in ref.frames:
+        old = _frame_quantities(ref, frame, include_markers=False)
+        new = _frame_quantities(our, frame, include_markers=False)
+        for kind in old:
+            mx, sg = reldiff(old[kind], new[kind])
+            thr = rate_thr if kind in LOOSE else accum_thr
+            if not (np.isfinite(mx + sg) and mx + sg <= thr):
+                failures.append((frame, kind, mx, sg))
+    assert not failures, f"{case}: {failures}"
+
+
+def test_cli_without_a_card_fails_with_the_message(tmp_path):
+    if torch.cuda.is_available():
+        pytest.skip("a card is present: the CLI would run on it")
+    _prepare_case(os.path.join(RUNS, "maxwell-2d"), str(tmp_path))
+    env = dict(os.environ, PYTHONPATH=REPO)
+    r = subprocess.run([sys.executable, "-m", "dynearthsol_tpu_torch",
+                        "case.cfg"], cwd=tmp_path, env=env,
+                       capture_output=True, text=True, timeout=300)
+    assert r.returncode != 0
+    assert "runs on the CUDA device by default and none is available" \
+        in r.stderr
+    assert not os.path.exists(tmp_path / "our.info")

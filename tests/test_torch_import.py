@@ -15,6 +15,10 @@ def test_imports_with_jax_blocked():
             "from dynearthsol_tpu_torch.ops import "
             "fused2d, fused3d, eig3, _build, band2d, flat2d, fields; "
             "from dynearthsol_tpu_torch.mesh import refine2d; "
+            "from dynearthsol_tpu_torch import (compare, postproc, "
+            "remeshing, runtime_info, __main__); "
+            "from dynearthsol_tpu_torch.io import output, restart, tagged; "
+            "from dynearthsol_tpu_torch.utils import glibc_rand; "
             "print(d.Simulation.__name__)")
     r = subprocess.run([sys.executable, "-c", code], cwd=ROOT,
                        capture_output=True, text=True, timeout=120)

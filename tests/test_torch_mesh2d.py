@@ -72,9 +72,10 @@ def test_initial_state_matches_jax(sims):
             assert np.array_equal(a, b), f
     assert ts.compensation_pressure == js.compensation_pressure
     if ts.markers is not None:
-        np.testing.assert_array_equal(ts.markers.elem,
-                                      js.markers.live("elem"))
-        np.testing.assert_array_equal(ts.markers.eta, js.markers.live("eta"))
+        for nm in ("elem", "eta", "mattype", "id", "z", "distance"):
+            np.testing.assert_array_equal(ts.markers.live(nm),
+                                          js.markers.live(nm))
+        assert ts.markers.cap == js.markers.cap
 
 
 def test_dispatch_matches_jax(sims):
