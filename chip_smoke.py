@@ -96,8 +96,9 @@ Phases, each printed, the first failure exits non-zero:
                 (cgather, asm_pack, asm_gather) against their plain
                 versions with torch.equal (tolerance 0): a small Delaunay
                 mesh, a small tet mesh (npe = 4) and the 277k-triangle mesh
-                of phase 9, float32 and float64, at the k / kg of the flat
-                step's six call sites; the gather's staged and unstaged
+                of phase 9, float32 and float64, at the k / kg of every
+                call site of the flat step (cgather 6, 2, 8, 4, 1;
+                asm_pack 2, 5, 3); the gather's staged and unstaged
                 tiles and widest window at that mesh; their device times
                 there with the L2 cache flushed between launches, L2-warm
                 and as issued from Python, beside the plain versions', the
@@ -127,7 +128,27 @@ Phases, each printed, the first failure exits non-zero:
                 without output; its Compute s/step beside run_steps', the
                 Output s per frame and the host's mesh-quality check;
                 (c) the run restarted from frame 1 to step 1000 writes the
-                continuous run's last frame bit for bit.
+                continuous run's last frame bit for bit;
+  11. the column step's features on the card -- (a) the evp-winkler-2d
+                golden (EVP without plane strain, Winkler, surface
+                process 1: the generic step in float64) through the CLI's
+                run() on the card and on the CPU, frames 0-2 held to the
+                golden's rule (1e-6 accumulated, 1e-5 rates), every
+                frame's difference to the reference and card against CPU
+                printed, 2 launches per step of each band kernel; (b)
+                production-unstructured (bench.py's production feature set
+                on phase 9's 277,258-triangle mesh), pt2d (the flagship
+                with the pseudo-transient loop, 5 iterations at 1e-3) and
+                flagship-hydraulic (the flagship, maxwell, Biot diffusion)
+                on flat2d: one step with the kernels equal on every field
+                to one with the plain versions on the card (the new k of
+                each band kernel: cgather 8, 4 and 1, asm_pack 3), then 2
+                timed chunks with elem*steps/s, launches per step,
+                pseudo-transient iterations and host reads per step, and
+                the profiler's device-idle share; (c) rate-and-state
+                friction, the elastic foundation, Neumann tractions with
+                the three facet kinds, and surface process 102 at the test
+                sizes, float64, card against CPU at 1e-10.
 The last lines are a JSON record of the kernels, the card's name and power
 limit, and {"ok": true, "device": {...}}.
 """
@@ -624,6 +645,292 @@ def cli_formats_goldens(des, wrappers, zero_counts, card):
                 restart_launches=rest_launches)
         finally:
             os.chdir(cwd)
+    return rec
+
+
+# tests/test_flat.py:188-203: the Biot material of flagship-hydraulic
+HYD_MAT = {"porosity": [0.1], "hydraulic_perm": [1e-15],
+           "fluid_bulk_modulus": [2.2e9], "biot_coeff": [0.8]}
+
+
+def feature_cfgs():
+    """Phase 11's full-size column-step paths: bench.py's production
+    feature set on the Delaunay flagship mesh, bench.py's pt2d (the
+    flagship with the pseudo-transient loop, 5 iterations at 1e-3) and the
+    flagship (maxwell) with Biot hydraulic diffusion.  (label, config,
+    chunk)."""
+    prod = production_cfg()
+    prod["mesh"]["meshing_elem_shape"] = 0
+    pt = flagship_cfg()
+    pt["control"].update(has_PT=True, PT_max_iter=5,
+                         PT_relative_tolerance=1e-3)
+    hyd = flagship_cfg("maxwell")
+    hyd["control"]["has_hydraulic_diffusion"] = True
+    hyd["mat"].update(HYD_MAT)
+    return (("production-unstructured", prod, 10), ("pt2d", pt, 5),
+            ("flagship-hydraulic", hyd, 10))
+
+
+def small_feature_cfgs():
+    """Phase 11's test-size paths (tests/test_torch_flat2d_features.py),
+    float64 on the 1,062-triangle box: (label, config, steps)."""
+    def box(rheology, **over):
+        cfg = unstructured_cfg(rheology, small=True)
+        cfg["sim"]["float_dtype"] = "float64"
+        for sec, kv in over.items():
+            cfg.setdefault(sec, {}).update(kv)
+        return cfg
+
+    rsf = box("elasto-visco-plastic-rate-state-friction",
+              mesh={"xlength": 1.0, "zlength": 1.0, "resolution": 1.0,
+                    "quality_check_step_interval": 10**8},
+              control={"gravity": 0.0, "fixed_dt": 1.0,
+                       "use_global_velocity_scaling": True,
+                       "has_thermal_diffusion": False},
+              bc={"vbc_x0": 1, "vbc_val_x0": 0.0, "vbc_x1": 1,
+                  "vbc_val_x1": 0.0, "vbc_z0": 1, "vbc_val_z0": 0.0,
+                  "vbc_z1": 4, "vbc_val_z1": 1e-5},
+              mat={"rho0": [1.0], "alpha": [0.0], "bulk_modulus": [2e8],
+                   "shear_modulus": [2e8], "cohesion0": [1e6],
+                   "cohesion1": [1e6], "friction_angle0": [30.0],
+                   "friction_angle1": [30.0], "direct_a": [0.2],
+                   "evolution_b": [0.1], "characteristic_distance": [1e-3],
+                   "characteristic_velocity": [1e-6], "state_var_model": 1})
+    return (
+        ("rsf", rsf, 30),
+        ("elastic-foundation", box("maxwell", bc={
+            "has_elastic_foundation": True}), 10),
+        ("neumann-side-walls", box("maxwell", control={
+            "surf_base_level": 10.0}, bc={
+            "has_winkler_foundation": True, "has_water_loading": True,
+            "winkler_delta_rho": 100.0, "vbc_x1": 0, "stress_bc_x0": 1,
+            "stress_val_x0": 2e6}), 10),
+        ("surface-process-102", box("elasto-visco-plastic", control={
+            "surface_process_option": 102, "surface_diffusivity": 1e-6,
+            "has_surface_correction": True}), 20))
+
+
+def features_on_card(des, wrappers, zero_counts, card, usim, per_kernel,
+                     prof_last):
+    """Phase 11: the column step's features on the card -- (a) the
+    evp-winkler-2d golden through the CLI on the card and on the CPU
+    (generic path, float64), frames 0-2 at the golden's rule; (b) the
+    full-size paths of feature_cfgs: one step with the kernels against
+    one with the plain versions on the card, every field equal, then
+    timed chunks with launch counts, pseudo-transient iterations and host
+    reads per step, and the profiler's idle share; (c) the test-size
+    paths of small_feature_cfgs, card against CPU.  Returns the numbers
+    for the JSON record."""
+    import contextlib
+    import io
+    import os
+    import tempfile
+
+    import numpy as np
+    import torch
+
+    from dynearthsol_tpu_torch import __main__ as cli
+    from dynearthsol_tpu_torch import simulation as sim_mod
+    from dynearthsol_tpu_torch.compare import _frame_quantities, reldiff
+    from dynearthsol_tpu_torch.ops import band2d, flat2d
+    from dynearthsol_tpu_torch.postproc import OutputReader
+    from dynearthsol_tpu_torch.state import FIELD_NAMES
+
+    t_phase = time.perf_counter()
+    root = Path(__file__).resolve().parent
+    rundir = root / "tests" / "golden" / "runs" / "evp-winkler-2d"
+    band = ("cgather", "asm_pack", "asm_gather")
+    rec = {"paths": {}, "small": {}}
+    print("phase 11 the column step's features on the card")
+
+    # (a) evp-winkler-2d: tests/test_golden_vs_reference.py:123's rule,
+    # 1e-6 accumulated and 1e-5 rates at frames 0-2
+    accum, rates, last = 1e-6, 1e-5, 2
+    cwd = os.getcwd()
+    with tempfile.TemporaryDirectory() as tmp:
+        os.chdir(tmp)
+        try:
+            secs, sims = {}, {}
+            for dev in ("cuda", "cpu"):
+                Path(f"ew-{dev}.cfg").write_text(
+                    golden_cfg(rundir, f"ew-{dev}"))
+                zero_counts()
+                t = time.perf_counter()
+                with contextlib.redirect_stdout(io.StringIO()):
+                    sims[dev] = cli.run(des.load_config(f"ew-{dev}.cfg"),
+                                        device=dev)
+                if dev == "cuda":
+                    torch.cuda.synchronize()
+                    launches = {n: wrappers[n].launches for n in band}
+                secs[dev] = time.perf_counter() - t
+            sim = sims["cuda"]
+            nsteps = int(sim.state.steps)
+            if sim.step_path != "generic" or sim.dtype != torch.float64:
+                fail(f"evp-winkler-2d ran on {sim.step_path!r} in "
+                     f"{sim.dtype}, not the generic step in float64")
+            if any(v != 2 * nsteps for v in launches.values()):
+                fail("evp-winkler-2d: the float64 band kernels were not "
+                     f"launched twice per step: {launches}")
+            ref = OutputReader(str(rundir / "ref"))
+            our, cpu = OutputReader("ew-cuda"), OutputReader("ew-cpu")
+            if our.frames != ref.frames or our.steps != ref.steps:
+                fail(f"evp-winkler-2d: frames {our.frames} at steps "
+                     f"{our.steps}, the golden's {ref.steps}")
+            print(f"  (a) evp-winkler-2d: generic float64, {nsteps} steps "
+                  f"on the card in {secs['cuda']:.1f} s, on the CPU "
+                  f"{secs['cpu']:.1f} s; launches {launches}")
+            worst = []
+            for frame in ref.frames:
+                q = [_frame_quantities(r, frame, include_markers=False)
+                     for r in (ref, our, cpu)]
+                w = {"accumulated": 0.0, "rates": 0.0, "card_vs_cpu": 0.0,
+                     "cpu_accumulated": 0.0, "cpu_rates": 0.0}
+                for kind in q[0]:
+                    cls = "rates" if kind in GOLDEN_RATES else "accumulated"
+                    e = sum(reldiff(q[0][kind], q[1][kind]))
+                    w[cls] = max(w[cls], e)
+                    w["cpu_" + cls] = max(w["cpu_" + cls],
+                                          sum(reldiff(q[0][kind],
+                                                      q[2][kind])))
+                    w["card_vs_cpu"] = max(w["card_vs_cpu"], sum(
+                        reldiff(q[2][kind], q[1][kind])))
+                    thr = rates if cls == "rates" else accum
+                    if frame <= last and not (np.isfinite(e) and e <= thr):
+                        fail(f"evp-winkler-2d frame {frame} {kind}: "
+                             f"{e:.3e} against the reference (limit {thr:g})")
+                worst.append(w)
+                gate = "gated" if frame <= last else "not gated"
+                print(f"    frame {frame}: against the reference "
+                      f"accumulated {w['accumulated']:.3e}, rates "
+                      f"{w['rates']:.3e} ({gate}; the CPU's "
+                      f"{w['cpu_accumulated']:.3e}, {w['cpu_rates']:.3e}); "
+                      f"card against CPU {w['card_vs_cpu']:.3e}")
+            rec["golden"] = {"launches": launches, "card_s": secs["cuda"],
+                             "cpu_s": secs["cpu"], "worst_by_frame": worst}
+        finally:
+            os.chdir(cwd)
+
+    # (b) the full-size paths; production-unstructured on phase 9's mesh
+    mesher = sim_mod.create_new_mesh
+    for label, cfg, chunk in feature_cfgs():
+        t = time.perf_counter()
+        if cfg["mesh"]["meshing_elem_shape"] == 0:
+            sim_mod.create_new_mesh = lambda param: usim.mesh
+        try:
+            sim = des.Simulation(des.param_from_dict(cfg))
+        finally:
+            sim_mod.create_new_mesh = mesher
+        run1 = sim._chunk_fn(1)
+        if sim.step_path != "flat2d":
+            fail(f"{label} dispatched to {sim.step_path!r}, not flat2d")
+        init_s = time.perf_counter() - t
+        nelem = sim.ctx.nelem
+        plain1 = flat2d.make_chunk_runner(sim.param, sim.ctx,
+                                          sim.compensation_pressure, 1,
+                                          plain=True)
+        a = run1(sim.ctx, sim.state)
+        b = plain1(sim.ctx, sim.state)
+        torch.cuda.synchronize()
+        diff = 0.0
+        for f in FIELD_NAMES:
+            x, y = getattr(a, f), getattr(b, f)
+            if not torch.equal(x, y):
+                diff = max(diff, float((x.double() - y.double()).abs()
+                                       .max()))
+                print(f"  {label}: {f} differs, kernels against plain "
+                      f"versions by {diff:.3e}")
+        if diff:
+            fail(f"{label}: one step with the kernels is not the step "
+                 "with the plain versions")
+        runc = sim._chunk_fn(chunk)
+        sim.run_steps(chunk, chunk=chunk)           # warm-up chunk
+        torch.cuda.synchronize()
+        zero_counts()
+        stats0 = dict(runc.stats)
+        t = time.perf_counter()
+        sim.run_steps(2 * chunk, chunk=chunk)
+        torch.cuda.synchronize()
+        secs = time.perf_counter() - t
+        n = 2 * chunk
+        launches = {k: wrappers[k].launches for k in band}
+        if band2d.gather_corners.calls or band2d.scatter_corners.calls:
+            fail(f"{label}: the main path took a plain version")
+        if any(v == 0 for v in launches.values()):
+            fail(f"{label}: a band kernel was not launched: {launches}")
+        st = sim.state
+        for f in FIELD_NAMES:
+            v = getattr(st, f)
+            if v.is_floating_point() and not bool(torch.isfinite(v).all()):
+                fail(f"{label}: non-finite values in {f}")
+        if int(st.steps) != 3 * chunk:
+            fail(f"{label}: {int(st.steps)} steps, not {3 * chunk}")
+        pt_it = (runc.stats["pt_iterations"] - stats0["pt_iterations"]) / n
+        syncs = (runc.stats["host_syncs"] - stats0["host_syncs"]) / n
+        extra = ""
+        if label == "pt2d" and not pt_it:
+            fail("pt2d ran no pseudo-transient iteration")
+        if label == "flagship-hydraulic":
+            dpp = float(st.dppressure.abs().max())
+            if not dpp > 0:
+                fail("flagship-hydraulic: the pore pressure did not move")
+            extra = f", max |dpp| {dpp:.3e} Pa"
+        if label == "production-unstructured":
+            dh = float(st.dhacc.abs().max())
+            if not dh > 0:
+                fail("production-unstructured: no surface moved")
+            extra = f", max |dhacc| {dh:.3e} m"
+        rate = nelem * n / secs
+        per_kernel(label, lambda k: flat2d.make_chunk_runner(
+            sim.param, sim.ctx, sim.compensation_pressure, k)(
+            sim.ctx, sim.state), min(chunk, 5))
+        r = {"nelem": nelem, "init_s": init_s, "steps": n, "secs": secs,
+             "elem_steps_per_s": rate, "launches": launches,
+             "launches_per_step": {k: v / n for k, v in launches.items()},
+             "pt_iterations_per_step": pt_it, "host_syncs_per_step": syncs,
+             "device_idle": prof_last["idle"],
+             "wall_us_per_step_profiled": prof_last["wall_us"],
+             "busy_us_per_step": prof_last["busy_us"],
+             "kernels_equal_plain_one_step": True}
+        rec["paths"][label] = r
+        print(f"  (b) {label}: {nelem} triangles, init {init_s:.1f} s, one "
+              f"step with the kernels equals the plain versions' on every "
+              f"field; {n} steps in {secs:.3f} s, {rate:.6e} elem*steps/s "
+              f"on {card}; launches per step "
+              f"{r['launches_per_step']}, PT iterations {pt_it:g} and host "
+              f"reads {syncs:g} per step, device idle "
+              f"{prof_last['idle']:.1%}{extra}")
+        del sim, a, b, runc, run1, plain1
+        torch.cuda.empty_cache()
+
+    # (c) the test-size paths, card against CPU, float64
+    for label, cfg, n in small_feature_cfgs():
+        par = des.param_from_dict(cfg)
+        on_card = des.Simulation(par)
+        on_card.run_steps(n, chunk=n)
+        on_cpu = des.Simulation(par, device="cpu").run_steps(n, chunk=n)
+        torch.cuda.synchronize()
+        if on_card.step_path != "flat2d":
+            fail(f"{label} ran on {on_card.step_path!r}")
+        worst = 0.0
+        for f in FLAT_FIELDS + ("dhacc", "dyn_fric_coeff",
+                                "state_variable"):
+            a = getattr(on_cpu, f).double()
+            b = getattr(on_card.state, f).cpu().double()
+            e = float((a - b).abs().max() / a.abs().max().clamp(min=1e-300))
+            if f == "stressyy" and label == "rsf":
+                e = float((a - b).abs().max()
+                          / on_cpu.stress.abs().max())
+            if f == "edvoldt" and label == "rsf":
+                e = float((a - b).abs().max()
+                          / on_cpu.strain_rate.abs().max())
+            if not e < 1e-10:
+                fail(f"{label} {f}: card against CPU {e:.3e} (tol 1e-10)")
+            worst = max(worst, e)
+        rec["small"][label] = {"steps": n, "worst_card_vs_cpu": worst}
+        print(f"  (c) {label}: {n} float64 steps, card against CPU worst "
+              f"{worst:.3e} of a field's max (tol 1e-10)")
+    rec["phase_s"] = time.perf_counter() - t_phase
+    print(f"  phase 11: {rec['phase_s']:.1f} s")
     return rec
 
 
@@ -2071,6 +2378,8 @@ def main():
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
+    prof_last = {}
+
     def per_kernel(label, run, steps):
         run(2)
         sync()
@@ -2102,6 +2411,8 @@ def main():
                 key = "other (PyTorch ops, copies)"
             n, t = rows.get(key, (0, 0.0))
             rows[key] = (n + 1, t + us)
+        prof_last.update(wall_us=wall_us, busy_us=busy,
+                         idle=max(0.0, 1 - busy / wall_us))
         print(f"phase 7 profile {label}: {steps} steps, wall "
               f"{wall_us:.1f} us/step, device busy {busy:.1f} us/step "
               f"(idle {max(0.0, 1 - busy / wall_us):.1%} of wall)")
@@ -2188,7 +2499,11 @@ def main():
     small = unstructured_box_2d(16e3, 8e3, 250.0)
     small = renumber_mesh(small.coord, small.connectivity)
     tets = regular_grid_3d(16e3, 8e3, 4e3, 1e3)
-    SITES = {"cgather": (6, 2), "asm_pack": (2, 5),
+    # every call site's k: the step's (cgather 6, 2; asm_pack 2, 5), and
+    # hydraulic diffusion's 8-column gather and 3-column force pack, the
+    # 4-column gather after surface processes and in the pseudo-transient
+    # loop and its 1-column gathers
+    SITES = {"cgather": (6, 2, 8, 4, 1), "asm_pack": (2, 5, 3),
              "asm_gather": ((2, 1), (1, 1))}
     gen = torch.Generator(device="cuda").manual_seed(12345)
 
@@ -2232,8 +2547,9 @@ def main():
             for name in band_err:
                 band_err[name] = max(band_err[name], worst[name])
             print(f"  {label} (max degree {bt.g_cols.shape[0]}), "
-                  f"{str(dtype)[6:]}: cgather k=6,2; asm_pack k=2,5; "
-                  f"asm_gather (k,kg)=(2,1),(1,1) equal bit for bit")
+                  f"{str(dtype)[6:]}: cgather k={SITES['cgather']}; "
+                  f"asm_pack k={SITES['asm_pack']}; asm_gather (k,kg)="
+                  f"{SITES['asm_gather']} equal bit for bit")
 
     band_check(f"Delaunay {small[1].shape[0]} triangles",
                band2d.build_tables(small[1], small[0].shape[0], "cuda"))
@@ -2399,6 +2715,10 @@ def main():
 
     # ---- 10. the CLI, the file formats and the goldens on the card
     phase10 = cli_formats_goldens(des, wrappers, zero_counts, card)
+
+    # ---- 11. the column step's features on the card
+    phase11 = features_on_card(des, wrappers, zero_counts, card, usim,
+                               per_kernel, prof_last)
 
     src2 = "dynearthsol_tpu_torch/csrc/fused2d.cu"
     src3 = "dynearthsol_tpu_torch/csrc/fused3d.cu"
@@ -2579,6 +2899,11 @@ def main():
             "launches_goldens_f64": {
                 case: g["launches"][name]
                 for case, g in phase10["goldens"].items()},
+            "launches_features": {
+                path: r["launches"][name]
+                for path, r in phase11["paths"].items()},
+            "launches_golden_evp_winkler_2d":
+                phase11["golden"]["launches"][name],
             "max_abs_err": band_err[name],
             "err_metric": "max |kernel - plain| over random inputs at a "
                           "small Delaunay mesh, a tet mesh and the "
@@ -2618,6 +2943,7 @@ def main():
                       "mesh_s_unstructured": mesh_s[0],
                       "init_s_3d": init3_s,
                       "cli": phase10,
+                      "features": phase11,
                       "script_s": time.perf_counter() - t_start}))
     print(card)
     print(json.dumps({"ok": True, "device": {

@@ -21,7 +21,7 @@ vbc type meanings (bc.cxx:206-214):
 
 from __future__ import annotations
 
-from dataclasses import dataclass
+from dataclasses import dataclass, replace
 from typing import Tuple
 
 import numpy as np
@@ -30,6 +30,7 @@ import torch
 from .constants import (BOUNDX0, BOUNDX1, BOUNDY0, BOUNDY1, BOUNDZ0,
                         BOUNDZ1, IBOUNDN0, IBOUNDN3, IBOUNDZ0, IBOUNDZ1,
                         YEAR2SEC, dim)
+from .ops.assembly import OrderedAdd
 
 
 @dataclass(frozen=True)
@@ -144,9 +145,11 @@ def _masked_minmax(values, mask):
 def _set(vel, mask, comp, value):
     """vel[mask, comp] = value (value scalar or per-node array).  A Python
     number is taken in float64 and rounded once to vel's dtype (not
-    through torch's default float32)."""
+    through torch's default float32); it is filled on the device, so no
+    copy from the host waits for the stream."""
     if not isinstance(value, torch.Tensor):
-        value = torch.tensor(value, dtype=torch.float64, device=vel.device)
+        value = torch.full((), value, dtype=torch.float64,
+                           device=vel.device)
     value = value.to(vel.device, vel.dtype)
     out = vel.clone()
     out[:, comp] = torch.where(mask, value, vel[:, comp])
@@ -349,12 +352,16 @@ class StressBCSpec:
     """Static facet tables for traction boundary conditions
     (apply_stress_bcs / apply_stress_bcs_neumann, bc.cxx:632-875), host
     numpy, in 2D and 3D.  The fused steps compute the gravity-facet
-    tractions (Winkler, water loading; ops/fused2d.py, ops/fused3d.py);
-    the column step refuses ``n_grav > 0``, and every step refuses
-    ``n_neu > 0``.
+    tractions (Winkler, water loading) in-kernel (ops/fused2d.py,
+    ops/fused3d.py) and refuse Neumann tractions and the elastic
+    foundation; the column step (ops/flat2d.py) computes all of them
+    through ``apply_stress_bcs`` and ``apply_stress_bcs_neumann`` on the
+    tensor form that ``on(device)`` returns.
 
     kind: 0 = Winkler foundation (bottom), 1 = hydrostatic water loading
-    (top), 2 = lithostatic sidewall.
+    (top), 2 = lithostatic sidewall.  ``grav_add`` and ``neu_add`` are the
+    fixed-order sums of the facets' corner contributions onto their nodes,
+    in the JAX package's update order (facet, then corner).
     """
 
     n_grav: int
@@ -366,6 +373,8 @@ class StressBCSpec:
     neu_dir: np.ndarray       # (n_neu,) int32 force component
     neu_val: np.ndarray       # (n_neu,) traction value
     z0_mask: np.ndarray       # (nnode,) bool, elastic-foundation nodes
+    grav_add: OrderedAdd      # over facet_nodes.reshape(-1)
+    neu_add: OrderedAdd       # over neu_facet_nodes.reshape(-1)
 
     @staticmethod
     def from_topo(param, topo) -> "StressBCSpec":
@@ -419,12 +428,104 @@ class StressBCSpec:
         if bc.has_elastic_foundation:
             z0_mask[topo.bnodes[IBOUNDZ0]] = True
 
+        facet_nodes = arr(fnodes, np.int32, (0, npf))
+        neu_facet_nodes = arr(nnodes, np.int32, (0, npf))
         return StressBCSpec(
             n_grav=len(felem), n_neu=len(ndir),
-            facet_nodes=arr(fnodes, np.int32, (0, npf)),
+            facet_nodes=facet_nodes,
             facet_elem=arr(felem, np.int32, (0,)),
             kind=arr(kind, np.int32, (0,)),
-            neu_facet_nodes=arr(nnodes, np.int32, (0, npf)),
+            neu_facet_nodes=neu_facet_nodes,
             neu_dir=arr(ndir, np.int32, (0,)),
             neu_val=arr(nval, np.float64, (0,)),
-            z0_mask=z0_mask)
+            z0_mask=z0_mask,
+            grav_add=OrderedAdd.build(facet_nodes),
+            neu_add=OrderedAdd.build(neu_facet_nodes))
+
+    def on(self, device) -> "StressBCSpec":
+        """The same spec with its tables as tensors on ``device``: the form
+        apply_stress_bcs and apply_stress_bcs_neumann take."""
+        def t(a):
+            return torch.as_tensor(a, device=device)
+
+        return replace(
+            self, facet_nodes=t(self.facet_nodes).long(),
+            facet_elem=t(self.facet_elem).long(), kind=t(self.kind),
+            neu_facet_nodes=t(self.neu_facet_nodes).long(),
+            neu_dir=t(self.neu_dir).long(), neu_val=t(self.neu_val),
+            z0_mask=t(self.z0_mask), grav_add=self.grav_add.to(device),
+            neu_add=self.neu_add.to(device))
+
+
+def _facet_normal(fc):
+    """Outward normal scaled by the facet area, and the facet's z centre
+    (normal_vector_of_facet, bc.cxx:24-54), of 2D facets (nf, 2, 2)."""
+    v01 = fc[:, 1] - fc[:, 0]
+    normal = torch.stack([v01[:, 1], -v01[:, 0]], dim=1)
+    zc = (fc[:, 0, 1] + fc[:, 1, 1]) * 0.5
+    return normal, zc
+
+
+def apply_stress_bcs(param, spec: StressBCSpec, coord, force, rho_eff,
+                     compensation_pressure: float, coord0):
+    """Gravity-induced boundary tractions of a 2D mesh: Winkler
+    foundation, water loading, lithostatic sidewalls, elastic foundation
+    (bc.cxx:632-790).  ``spec`` is the tensor form (``spec.on(device)``);
+    each facet's corner contributions are added onto the force in the JAX
+    package's order, with no atomics (``OrderedAdd``)."""
+    ctrl = param.control
+    if ctrl.gravity == 0:
+        return force
+    if coord.shape[1] != 2:
+        raise NotImplementedError("the 3D facet tractions run in the fused "
+                                  "3D step only")
+    if spec.n_grav > 0:
+        normal, zc = _facet_normal(coord[spec.facet_nodes])
+        rho_f = rho_eff[spec.facet_elem]
+        p_wink = (compensation_pressure
+                  - (rho_f + param.bc.winkler_delta_rho) * ctrl.gravity
+                  * (zc + param.mesh.zlength))
+        p_water = torch.where(
+            zc < ctrl.surf_base_level,
+            1030.0 * ctrl.gravity * (ctrl.surf_base_level - zc),
+            torch.zeros_like(zc))
+        # sidewalls: reference lithostatic pressure (matprops.cxx:148-169)
+        mat = param.mat
+        if ctrl.has_hydraulic_diffusion:
+            rho_ref = (mat.rho0[mat.mattype_ref]
+                       * (1 - mat.porosity[mat.mattype_ref])
+                       + 1000.0 * mat.porosity[mat.mattype_ref])
+        else:
+            rho_ref = mat.rho0[mat.mattype_ref]
+        p_side = rho_ref * ctrl.gravity * torch.clamp(-zc, min=0.0)
+        p = torch.where(spec.kind == 0, p_wink,
+                        torch.where(spec.kind == 1, p_water, p_side))
+        # / 2 (nodes per facet) is exactly * 0.5
+        contrib = -(p[:, None, None] * normal[:, None, :]) * 0.5
+        force = spec.grav_add.apply(
+            force, contrib.expand(-1, 2, -1).reshape(-1, 2))
+
+    if param.bc.has_elastic_foundation:
+        dz = coord[:, 1] - coord0[:, 1]
+        add = torch.where(spec.z0_mask,
+                          -param.bc.elastic_foundation_constant * dz,
+                          torch.zeros_like(dz))
+        force = torch.stack([force[:, 0], force[:, 1] + add], dim=1)
+    return force
+
+
+def apply_stress_bcs_neumann(spec: StressBCSpec, coord, force):
+    """General traction (Neumann) BCs of a 2D mesh (bc.cxx:792-875): each
+    facet adds value * normal[dir] / 2 to component ``dir`` of its two
+    nodes, in the JAX package's order.  The traction is formed in float64
+    (the table's type) and rounded once to the force's type, as the JAX
+    package's scatter rounds it."""
+    if spec.n_neu == 0:
+        return force
+    normal, _ = _facet_normal(coord[spec.neu_facet_nodes])
+    nd = normal.gather(1, spec.neu_dir[:, None])[:, 0].double()
+    add = (spec.neu_val * nd * 0.5).to(force.dtype)     # / 2, exactly
+    onehot = (spec.neu_dir[:, None]
+              == torch.arange(2, device=nd.device)).to(force.dtype)
+    contrib = (add[:, None] * onehot)[:, None, :].expand(-1, 2, -1)
+    return spec.neu_add.apply(force, contrib.reshape(-1, 2))

@@ -567,3 +567,18 @@ def initial_hydrostatic_state(param, coord: np.ndarray,
         pp[free] += skempton * loading
     return pp
 
+
+
+def initial_rsf_state(param, emw: np.ndarray):
+    """Initial RSF friction coefficient and state variable
+    (ic.cxx:659-726): marker-weighted tan(friction_angle0) and
+    characteristic_distance / characteristic_velocity.  ``emw`` is the
+    run's (nelem, nmat) weights in the run's dtype."""
+    mat = param.mat
+    w = emw / emw.sum(axis=1, keepdims=True)
+    fric = w @ np.asarray(mat.friction_angle0)
+    dfc = np.tan(np.deg2rad(fric))
+    c_avg = w @ np.asarray(mat.characteristic_velocity)
+    d_avg = w @ np.asarray(mat.characteristic_distance)
+    sv = np.where(c_avg > 0, d_avg / np.maximum(c_avg, 1e-300), 1e9)
+    return dfc, sv

@@ -12,6 +12,9 @@ restart needs sums that do not (SURVEY §2.3).
 
 from __future__ import annotations
 
+from dataclasses import dataclass
+
+import numpy as np
 import torch
 
 
@@ -32,3 +35,54 @@ def node_sum(contrib: torch.Tensor, gather_idx: torch.Tensor,
     for k in range(1, rows.shape[1]):
         out = out + rows[:, k]
     return out[:, 0] if contrib.ndim == 2 else out
+
+
+@dataclass(frozen=True)
+class OrderedAdd:
+    """Adds a list of updates onto rows of a nodal array in a fixed order,
+    with no atomics: the form of ``x.at[targets].add(vals)`` in the JAX
+    package, which XLA on the CPU applies one update at a time in the
+    order of ``targets``.
+
+    ``build`` makes the tables on the host: the touched rows, and for each
+    row the ids of its updates in that order, padded (``mask`` False).
+    ``to(device)`` moves them; ``apply`` gathers the touched rows, adds
+    their updates left to right (a padded slot keeps the row as it is) and
+    writes the rows back."""
+
+    n: int                # number of updates
+    rows: object          # (nrows,) touched rows, ascending
+    idx: object           # (depth, nrows) update ids, in update order
+    mask: object          # (depth, nrows) bool
+
+    @staticmethod
+    def build(targets) -> "OrderedAdd":
+        targets = np.asarray(targets, dtype=np.int64).reshape(-1)
+        rows, inv, counts = np.unique(targets, return_inverse=True,
+                                      return_counts=True)
+        depth = int(counts.max()) if len(counts) else 0
+        idx = np.zeros((depth, len(rows)), dtype=np.int64)
+        mask = np.zeros((depth, len(rows)), dtype=bool)
+        fill = np.zeros(len(rows), dtype=np.int64)
+        for j, r in enumerate(inv):
+            idx[fill[r], r] = j
+            mask[fill[r], r] = True
+            fill[r] += 1
+        return OrderedAdd(len(targets), rows, idx, mask)
+
+    def to(self, device) -> "OrderedAdd":
+        return OrderedAdd(self.n,
+                          *(torch.as_tensor(a, device=device)
+                            for a in (self.rows, self.idx, self.mask)))
+
+    def apply(self, base: torch.Tensor, vals: torch.Tensor) -> torch.Tensor:
+        """base (nnode, ...) plus vals (n, ...) at the targets, in order;
+        the tables must be on base's device (``to``)."""
+        if self.n == 0:
+            return base
+        acc = base.index_select(0, self.rows)
+        extra = (1,) * (base.dim() - 1)
+        for d in range(self.idx.shape[0]):
+            acc = torch.where(self.mask[d].view(-1, *extra),
+                              acc + vals.index_select(0, self.idx[d]), acc)
+        return base.index_copy(0, self.rows, acc)

@@ -1,6 +1,6 @@
 """Nodal field updates of the time step (counterpart of the part of
 dynearthsol_tpu/ops/fields.py that the column step calls): damping,
-velocity, coordinates and the force residual.
+velocity, coordinates, the force residual and the pore-pressure update.
 
 Reference: fields.cxx.  Plain PyTorch on whole nodal arrays; the fused
 structured steps do the same arithmetic in-kernel.
@@ -58,3 +58,61 @@ def residual_l2(force_residual):
     ss = torch.sum(force_residual * force_residual)
     num = torch.full_like(ss, float(force_residual.numel()))
     return torch.sqrt(ss / num)
+
+
+def update_pore_pressure(ppressure, dppressure, coord, conn, dnd, volume,
+                         stress, old_mean_stress, hmass, dt, gravity,
+                         perm_e, mu_e, alpha_b, phi_e, beta_f, bulkm,
+                         shearm, pp_bc_mask, asm):
+    """Explicit Darcy pore-pressure diffusion with the poroelastic source
+    (fields.cxx:297-406).  Hydraulic head = p / gamma_w + z; the Biot
+    source comes from the mean-stress change over the step.  ``dnd`` is
+    (nelem, npe, ndims), ``stress`` (nelem, nstr), ``asm`` maps
+    (nelem, npe) corner contributions to (nnode,) sums.
+
+    Returns (ppressure, dppressure, hydro_diff_max)."""
+    ndims = coord.shape[1]
+    npe = ndims + 1
+
+    def c(v):
+        # a divisor filled on the device (a Python divisor would be a
+        # product with its reciprocal on the card)
+        return torch.full((), float(v), dtype=volume.dtype,
+                          device=volume.device)
+
+    tr = stress[:, 0]
+    for i in range(1, ndims):
+        tr = tr + stress[:, i]
+    mean_change = tr / c(ndims) - old_mean_stress
+    matrix_comp = 1.0 / (bulkm + 4.0 * shearm / c(3.0))
+    if ndims == 2:
+        bulk_comp = 1.0 / (bulkm + shearm / c(3.0))
+    else:
+        bulk_comp = 1.0 / bulkm
+    gamma_w = c(1000.0 * gravity)  # fields.cxx:330 hard-codes water
+    hydraulic_conductivity = perm_e * gamma_w / mu_e
+    kv = hydraulic_conductivity * volume
+    diff_e = hydraulic_conductivity / (phi_e * beta_f
+                                       + alpha_b * matrix_comp) / gamma_w
+    hydro_diff_max = torch.clamp(diff_e.max(), min=1e-38)
+
+    # poroelastic volume source (fields.cxx:342)
+    pe = alpha_b * mean_change * bulk_comp * volume / c(npe) / dt
+
+    head = ppressure[conn] / gamma_w + coord[conn, ndims - 1]
+    grad = head[:, 0, None] * dnd[:, 0]
+    for j in range(1, npe):
+        grad = grad + head[:, j, None] * dnd[:, j]
+    diffusion = dnd[:, :, 0] * grad[:, None, 0]
+    for d in range(1, ndims):
+        diffusion = diffusion + dnd[:, :, d] * grad[:, None, d]
+    tdot = asm(kv[:, None] * diffusion + pe[:, None])
+
+    positive = hmass > 0.0
+    upd = torch.where(positive,
+                      tdot * dt / torch.where(positive, hmass,
+                                              torch.ones_like(hmass)),
+                      torch.zeros_like(hmass))
+    pp_new = torch.where(pp_bc_mask, ppressure, ppressure - upd)
+    dpp_new = torch.where(pp_bc_mask, dppressure, upd)
+    return pp_new, dpp_new, hydro_diff_max

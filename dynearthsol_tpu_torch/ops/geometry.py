@@ -78,11 +78,14 @@ def compute_dt(coord, conn, volume, vel, shearm_e, rho_e, visc_min,
                inertial_scaling: float, is_quasi_static: bool,
                has_thermal_diffusion: bool,
                use_global_velocity_scaling: bool,
-               bulk_modulus_ref: float, rho0_ref: float):
+               bulk_modulus_ref: float, rho0_ref: float,
+               hydro_diff_max=None):
     """CFL time step (geometry.cxx:756-923).
 
     Returns (dt, max_global_vel_mag, global_dt_min), 0-d tensors on the
-    device of ``volume``; nothing is read back to the host."""
+    device of ``volume``; nothing is read back to the host.  With
+    ``hydro_diff_max`` (a 0-d tensor; hydraulic diffusion on) the
+    hydraulic diffusion limit joins the minimum."""
     big = torch.finfo(volume.dtype).max
     v_slots = vel[conn]
     npe = v_slots.shape[1]
@@ -125,20 +128,24 @@ def compute_dt(coord, conn, volume, vel, shearm_e, rho_e, visc_min,
             dt_elastic = 0.5 * minl / swave_ref
 
     dt = torch.minimum(torch.minimum(dt_elastic, dt_maxwell),
-                       torch.minimum(dt_advection, dt_diffusion)) \
-        * dt_fraction
-    return dt, global_max_vem, global_dt_min
+                       torch.minimum(dt_advection, dt_diffusion))
+    if hydro_diff_max is not None:
+        dt = torch.minimum(dt, torch.where(
+            hydro_diff_max > 0, (0.5 * minh * minh).min() / hydro_diff_max,
+            torch.full_like(minl, big)))
+    return dt * dt_fraction, global_max_vem, global_dt_min
 
 
 def compute_mass(volume, bulkm_e, shearm_e, rho_e, cp_e, phi_e,
                  alpha_biot_e, beta_fluid_e, asm,
                  *, pseudo_speed, pseudo_speed_atp, is_quasi_static: bool,
-                 use_global_velocity_scaling: bool, ndims: int = 2):
-    """(Pseudo-)mass matrices (geometry.cxx:1020-1154), no hydraulic
-    diffusion.  Quasi-static runs use a pseudo-density bulkm/speed^2;
-    dynamic runs the true density.  Also lumps nodal volume, thermal mass,
-    hydraulic mass and a Young's-modulus mass for Rayleigh damping.
-    Returns (volume_n, mass, tmass, hmass, ymass)."""
+                 use_global_velocity_scaling: bool, ndims: int = 2,
+                 has_hydraulic_diffusion: bool = False):
+    """(Pseudo-)mass matrices (geometry.cxx:1020-1154).  Quasi-static runs
+    use a pseudo-density bulkm/speed^2; dynamic runs the true density (of
+    the fluid-filled rock with hydraulic diffusion).  Also lumps nodal
+    volume, thermal mass, hydraulic mass and a Young's-modulus mass for
+    Rayleigh damping.  Returns (volume_n, mass, tmass, hmass, ymass)."""
     npe = ndims + 1
     if use_global_velocity_scaling:
         apparent = torch.minimum(pseudo_speed_atp,
@@ -147,6 +154,8 @@ def compute_mass(volume, bulkm_e, shearm_e, rho_e, cp_e, phi_e,
     else:
         rho_q = bulkm_e / (pseudo_speed * pseudo_speed)
     rho_m = rho_q if is_quasi_static else rho_e
+    if has_hydraulic_diffusion and not is_quasi_static:
+        rho_m = rho_e * (1.0 - phi_e) + 1000.0 * phi_e
 
     if ndims == 2:
         bulk_comp = 1.0 / (bulkm_e + shearm_e / 3.0)  # lambda + G

@@ -53,8 +53,18 @@ class MatTables:
     dilation_angle0: torch.Tensor
     dilation_angle1: torch.Tensor
     porosity: torch.Tensor
+    hydraulic_perm: torch.Tensor
+    fluid_rho0: torch.Tensor
+    fluid_alpha: torch.Tensor
     fluid_bulk_modulus: torch.Tensor
+    fluid_visc: torch.Tensor
     biot_coeff: torch.Tensor
+    bulk_modulus_s: torch.Tensor
+    direct_a: torch.Tensor
+    evolution_b: torch.Tensor
+    characteristic_velocity: torch.Tensor
+    characteristic_distance: torch.Tensor
+    static_friction_coefficient: torch.Tensor
     visc_min: float
     visc_max: float
     tension_max: float
@@ -133,17 +143,6 @@ def therm_cond(tab: MatTables, emw) -> torch.Tensor:
     return arithmetic_mean(tab.therm_cond, emw)
 
 
-def phi_porosity(tab: MatTables, emw) -> torch.Tensor:
-    return arithmetic_mean(tab.porosity, emw)
-
-
-def alpha_biot(tab: MatTables, emw) -> torch.Tensor:
-    return arithmetic_mean(tab.biot_coeff, emw)
-
-
-def beta_fluid(tab: MatTables, emw) -> torch.Tensor:
-    return harmonic_mean(1.0 / tab.fluid_bulk_modulus, emw)
-
 
 def visc(tab: MatTables, emw, temperature, conn, stress, strain_rate
          ) -> torch.Tensor:
@@ -205,6 +204,13 @@ def plastic_props(tab: MatTables, emw, pls):
     amc = 2 c sqrt(anphi); anphi/anpsi from friction/dilation angles;
     ten_max = min(tension_max, c/tan(phi)) (or tension_max at phi=0)."""
     cohesion, phi, psi, hardn = plastic_weakening(tab, emw, pls)
+    amc, anphi, anpsi, ten_max = _mohr_coulomb(tab, cohesion, phi, psi)
+    return amc, anphi, anpsi, hardn, ten_max
+
+
+def _mohr_coulomb(tab: MatTables, cohesion, phi, psi):
+    """(amc, anphi, anpsi, ten_max) from cohesion and the friction and
+    dilation angles in degrees (matprops.cxx:512-530, :532-552)."""
     sphi = torch.sin(phi * DEG2RAD)
     spsi = torch.sin(psi * DEG2RAD)
     anphi = (1.0 + sphi) / (1.0 - sphi)
@@ -216,4 +222,98 @@ def plastic_props(tab: MatTables, emw, pls):
                           torch.full_like(phi, tab.tension_max),
                           torch.clamp(cohesion / safe_tan,
                                       max=tab.tension_max))
-    return amc, anphi, anpsi, hardn, ten_max
+    return amc, anphi, anpsi, ten_max
+
+# --- hydraulic property mixers (matprops.cxx:602-677) ---
+
+def perm(tab: MatTables, emw) -> torch.Tensor:
+    return harmonic_mean(tab.hydraulic_perm, emw)
+
+
+def phi_porosity(tab: MatTables, emw) -> torch.Tensor:
+    return arithmetic_mean(tab.porosity, emw)
+
+
+def alpha_biot(tab: MatTables, emw) -> torch.Tensor:
+    return arithmetic_mean(tab.biot_coeff, emw)
+
+
+def rho_fluid(tab: MatTables, emw) -> torch.Tensor:
+    return arithmetic_mean(tab.fluid_rho0, emw)
+
+
+def mu_fluid(tab: MatTables, emw) -> torch.Tensor:
+    return arithmetic_mean(tab.fluid_visc, emw)
+
+
+def beta_fluid(tab: MatTables, emw) -> torch.Tensor:
+    return harmonic_mean(1.0 / tab.fluid_bulk_modulus, emw)
+
+
+# --- rate-and-state friction (matprops.cxx:343-552) ---
+
+
+
+def update_state_variable(tab: MatTables, emw, slip_rate, state_variable,
+                          dt, state_model: int):
+    """State-variable evolution laws 0 (steady), 1 (aging), 2 (slip)
+    (matprops.cxx:439-510)."""
+    if state_model == 0:
+        return state_variable
+    theta_min, theta_max, ratio_min = 1e-12, 1e12, 1e-10
+    d = arithmetic_mean(tab.characteristic_distance, emw)
+    ok = d >= 1e-12
+    safe_d = torch.where(ok, d, torch.ones_like(d))
+    if state_model == 1:
+        dtheta = (1.0 - slip_rate * state_variable / safe_d) * dt
+        new = torch.clamp(state_variable + dtheta, theta_min, theta_max)
+        return torch.where(ok, new, state_variable)
+    # slip law (model 2)
+    theta = torch.clamp(state_variable, theta_min, theta_max)
+    ratio = torch.clamp(slip_rate * theta / safe_d, min=ratio_min)
+    dtheta = -ratio * torch.log(ratio) * dt
+    new = theta + dtheta
+    fallback = safe_d / torch.clamp(slip_rate, min=1e-30)
+    new = torch.where(new <= 0.0, fallback, new)
+    new = torch.clamp(new, theta_min, theta_max)
+    return torch.where(ok, new, state_variable)
+
+
+def rsf_friction(tab: MatTables, emw, pls, slip_rate, state_variable,
+                 state_model: int):
+    """Rate-and-state dynamic friction coefficient and angle
+    (plastic_weakening_rsf, matprops.cxx:343-437).  Returns
+    (cohesion, phi_dyn_deg, psi, hardn, mu_d)."""
+    cohesion, phi_s, psi, hardn = plastic_weakening(tab, emw, pls)
+    a = arithmetic_mean(tab.direct_a, emw)
+    b = arithmetic_mean(tab.evolution_b, emw)
+    cv = torch.clamp(arithmetic_mean(tab.characteristic_velocity, emw),
+                     min=1e-30)
+    dc = torch.clamp(arithmetic_mean(tab.characteristic_distance, emw),
+                     min=1e-30)
+    mu0 = torch.tan(DEG2RAD * phi_s)
+    v_eff = torch.clamp(slip_rate, min=1e-30)
+    theta_eff = torch.clamp(state_variable, min=1e-30)
+    if state_model == 0:
+        mu_d = mu0 + (a - b) * torch.log(v_eff / cv)
+    else:
+        mu_d = mu0 + a * torch.log(v_eff / cv) \
+            + b * torch.log(cv * theta_eff / dc)
+    mu_d = torch.clamp(mu_d, min=1e-6)
+    # a Python divisor would be a product with its reciprocal on the card
+    phi_dyn = torch.atan(mu_d) / torch.full_like(mu_d, DEG2RAD)
+    return cohesion, phi_dyn, psi, hardn, mu_d
+
+
+def plastic_props_rsf(tab: MatTables, emw, pls, slip_rate, state_variable,
+                      dt, state_model: int):
+    """RSF Mohr-Coulomb derived quantities (plastic_props_rsf,
+    matprops.cxx:532-552): the state variable first, then the dynamic
+    friction.  Returns (amc, anphi, anpsi, hardn, ten_max, dyn_fric_coeff,
+    state_variable)."""
+    state_variable = update_state_variable(tab, emw, slip_rate,
+                                           state_variable, dt, state_model)
+    cohesion, phi, psi, hardn, mu_d = rsf_friction(
+        tab, emw, pls, slip_rate, state_variable, state_model)
+    amc, anphi, anpsi, ten_max = _mohr_coulomb(tab, cohesion, phi, psi)
+    return amc, anphi, anpsi, hardn, ten_max, mu_d, state_variable

@@ -23,10 +23,12 @@ from .eig3 import eigh3_c
 _EPS = 1e-15
 
 
-def elastic2_c(bulkm, shearm, de, s):
-    """Componentwise 2D incremental elasticity (rheology.cxx:235-261)."""
+def elastic2_c(bulkm, shearm, de, s, dpp=None):
+    """Componentwise 2D incremental elasticity (rheology.cxx:235-261), with
+    the Biot pore-pressure increment ``dpp`` on the diagonal when given
+    (rheology.cxx:250-261)."""
     lam = bulkm - 2.0 / 3.0 * shearm
-    diag_inc = lam * (de[0] + de[1]) + 0.0
+    diag_inc = lam * (de[0] + de[1]) + (0.0 if dpp is None else dpp)
     return (s[0] + 2.0 * shearm * de[0] + diag_inc,
             s[1] + 2.0 * shearm * de[1] + diag_inc,
             s[2] + 2.0 * shearm * de[2])
@@ -60,9 +62,11 @@ def _full(like, v):
 
 
 def elasto_plastic2d_c(bulkm, shearm, amc, anphi, anpsi, hardn, ten_max,
-                       de, s, syy):
+                       de, s, syy, dpp=None):
     """Componentwise geoFLAC plane-strain Mohr-Coulomb return map
-    (rheology.cxx:459-674).  Returns ((sxx, szz, sxz), syy_new, depls,
+    (rheology.cxx:459-674), with the Biot pore-pressure increment ``dpp``
+    added to the three normal trial stresses when given
+    (rheology.cxx:696-755).  Returns ((sxx, szz, sxz), syy_new, depls,
     failure_mode)."""
     a1 = bulkm + 4.0 / 3.0 * shearm
     a2 = bulkm - 2.0 / 3.0 * shearm
@@ -70,6 +74,10 @@ def elasto_plastic2d_c(bulkm, shearm, amc, anphi, anpsi, hardn, ten_max,
     szz = s[1] + de[0] * a2 + de[1] * a1
     sxz = s[2] + de[2] * 2.0 * shearm
     syy_t = syy + (de[0] + de[1]) * a2
+    if dpp is not None:
+        sxx = sxx + dpp
+        syy_t = syy_t + dpp
+        szz = szz + dpp
 
     s0 = 0.5 * (sxx + szz)
     dd = sxx - szz
@@ -146,6 +154,67 @@ def elasto_plastic2d_c(bulkm, shearm, amc, anphi, anpsi, hardn, ten_max,
     syy_n = torch.where(cap, tm, torch.where(elastic_out, syy_t, syy_r))
     depls = torch.where(cap & t1, _full(depls, 0.0), depls)
     return (sxx_n, szz_n, sxz_n), syy_n, depls, fmode
+
+
+def elasto_plastic2_c(bulkm, shearm, amc, anphi, anpsi, hardn, ten_max,
+                      de, s, dpp=None):
+    """Componentwise 2D Mohr-Coulomb return map in principal axes, the
+    form of the plastic rheologies without ``is_plane_strain``
+    (rheology.cxx:298-457 on the two in-plane principal stresses; the JAX
+    package's ``elasto_plastic`` with NSTR = 3).  The out-of-plane stress
+    is not touched.  Returns (s_new 3-tuple, depls, failure_mode)."""
+    st = elastic2_c(bulkm, shearm, de, s, dpp)
+
+    a1 = bulkm + 4.0 / 3.0 * shearm
+    a2 = bulkm - 2.0 / 3.0 * shearm
+
+    # principal stresses from the Mohr circle (rheology.cxx:72-105)
+    d = st[0] - st[1]
+    s0 = 0.5 * (st[0] + st[1])
+    rad = torch.sqrt(0.25 * (d * d) + st[2] * st[2])
+    pmin = s0 - rad
+    pmax = s0 + rad
+    b = -rad
+    ok = b < -_EPS
+    one = torch.ones_like(b)
+    safe_b = torch.where(ok, b, one)
+    cos2t = torch.where(ok, 0.5 * d / safe_b, one)
+    sin2t = torch.where(ok, st[2] / safe_b, torch.zeros_like(b))
+
+    fs = pmin - pmax * anphi + amc
+    ft = pmax - ten_max
+    no_fail = (fs > 0.0) & (ft < 0.0)
+
+    pa = torch.sqrt(1.0 + anphi * anphi) + anphi
+    ps = ten_max * anphi - amc
+    h = pmax - ten_max + pa * (pmin - ps)
+    shear_fail = h < 0.0
+
+    alam_s = fs / (a1 - a2 * anpsi + a1 * anphi * anpsi - a2 * anphi
+                   + 2.0 * torch.sqrt(anphi) * hardn)
+    alam_t = ft / a1
+    alam = torch.where(shear_fail, alam_s, alam_t)
+
+    dpls_shear = torch.abs(alam) * torch.sqrt(
+        (3.0 + 2.0 * anpsi + 3.0 * anpsi * anpsi) * 0.125)   # / 8
+    dpls_tens = torch.abs(alam) * math.sqrt(3.0 / 8.0)
+    depls = torch.where(no_fail, torch.zeros_like(alam),
+                        torch.where(shear_fail, dpls_shear, dpls_tens))
+
+    d_min = torch.where(shear_fail, alam * (a1 - a2 * anpsi), alam * a2)
+    d_max = torch.where(shear_fail, alam * (a2 - a1 * anpsi), alam * a1)
+    pmin_new = pmin - d_min
+    pmax_new = pmax - d_max
+
+    dc2 = (pmin_new - pmax_new) * cos2t
+    dss = pmin_new + pmax_new
+    ret = (0.5 * (dss + dc2), 0.5 * (dss - dc2),
+           0.5 * (pmin_new - pmax_new) * sin2t)
+    s_new = tuple(torch.where(no_fail, t, r) for t, r in zip(st, ret))
+    zi = torch.zeros_like(fs, dtype=torch.int32)
+    failure_mode = torch.where(no_fail, zi,
+                               torch.where(shear_fail, zi + 10, zi + 1))
+    return s_new, depls, failure_mode
 
 
 def elastic3_c(bulkm, shearm, de, s):

@@ -8,14 +8,19 @@ for the CPU).  The time loop dispatches in the JAX package's order: in 2D
 ``pallas2d_res`` and the tiled runner where it picks ``pallas2d``; in 3D
 (ops/fused3d.py) the fused 5-tet step where it picks ``pallas3d``; then the
 column step of ops/flat2d.py (any 2D triangle mesh) where it picks
-``flat2d``.  The JAX package's ``grid2d``, ``grid3d``, ``flat3d`` and generic
-steps are not ported yet; a configuration that needs one raises
-``NotImplementedError`` naming it.
+``flat2d``, and in its generic mode where it picks ``generic`` in 2D.  The
+JAX package's ``grid2d``, ``grid3d``, ``flat3d`` and 3D generic steps are
+not ported yet; a configuration that needs one raises
+``NotImplementedError`` naming it.  The JAX package's switches
+``DES_NO_PALLAS`` (no fused step) and ``DES_NO_FLAT`` (no column step) are
+read where it reads them, when a chunk runner is built.
 """
 
 from __future__ import annotations
 
+import os
 from dataclasses import dataclass, replace
+from functools import partial
 from typing import Optional
 
 import numpy as np
@@ -50,6 +55,7 @@ class StepCtx:
     gather_idx: torch.Tensor    # (nnode, max_degree) int64
     gather_mask: torch.Tensor   # (nnode, max_degree) bool
     top_mask: torch.Tensor      # (nnode,) bool, BOUNDZ1 nodes (Dirichlet T)
+    pp_bc_mask: torch.Tensor    # (nnode,) bool, Dirichlet pore-pressure nodes
     vbc: bc_mod.VBCSpec
     sbc: bc_mod.StressBCSpec
     mat: M.MatTables
@@ -83,6 +89,7 @@ def make_finalize_fn(param: Param, *, with_dt: bool = True,
         return s.replace(viscosity=viscosity)
 
     def _with_dt(s, ctx, vel, shearm, rho_e):
+        hydro = s.hydro_diff_max if ctrl.has_hydraulic_diffusion else None
         dt, vmax, gdtmin = G.compute_dt(
             s.coord, ctx.conn, s.volume, vel, shearm, rho_e,
             ctx.mat.visc_min, ctx.mat.therm_diff_max, ctx.max_vbc_val,
@@ -92,7 +99,8 @@ def make_finalize_fn(param: Param, *, with_dt: bool = True,
             has_thermal_diffusion=ctrl.has_thermal_diffusion,
             use_global_velocity_scaling=ctrl.use_global_velocity_scaling,
             bulk_modulus_ref=param.mat.bulk_modulus[param.mat.mattype_ref],
-            rho0_ref=param.mat.rho0[param.mat.mattype_ref])
+            rho0_ref=param.mat.rho0[param.mat.mattype_ref],
+            hydro_diff_max=hydro)
         return s.replace(dt=dt, max_global_vel_mag=vmax,
                          global_dt_min=gdtmin)
 
@@ -106,7 +114,8 @@ def make_finalize_fn(param: Param, *, with_dt: bool = True,
             pseudo_speed_atp=s.max_global_vel_mag * ctrl.inertial_scaling,
             is_quasi_static=ctrl.is_quasi_static,
             use_global_velocity_scaling=ctrl.use_global_velocity_scaling,
-            ndims=ctx.ndims)
+            ndims=ctx.ndims,
+            has_hydraulic_diffusion=ctrl.has_hydraulic_diffusion)
         return s.replace(volume_n=volume_n, mass=mass, tmass=tmass,
                          hmass=hmass, ymass=ymass)
 
@@ -116,20 +125,23 @@ def make_finalize_fn(param: Param, *, with_dt: bool = True,
 def _jax_path_name(param: Param, ctx: StepCtx) -> str:
     """The JAX package's step path for a config off the fused gates
     (grid2d/grid3d.grid_step_applicable, flat3d.flat3d_step_applicable,
-    else the generic step; ``flat2d`` where the flat gate holds)."""
+    else the generic step; ``flat2d`` where the flat gate holds).  With
+    ``DES_NO_FLAT`` set the flat paths give way to the generic step, as
+    in the JAX dispatch (simulation.py:1411, :1422)."""
     ctrl, rheol = param.control, param.mat.rheol_type
     basic = (RH_ELASTIC, RH_VISCOUS, RH_MAXWELL, RH_EP, RH_EVP)
+    no_flat = bool(os.environ.get("DES_NO_FLAT"))
     if ctx.ndims == 3:
         if fused3d.grid_step_applicable(param, ctx):
             return "grid3d"
-        if rheol in basic + (RH_EP_RSF, RH_EVP_RSF):
+        if rheol in basic + (RH_EP_RSF, RH_EVP_RSF) and not no_flat:
             return "flat3d"
         return "generic"
     if (ctx.sgrid is not None and not ctrl.has_hydraulic_diffusion
             and not ctrl.has_PT and rheol in basic
             and (rheol not in (RH_EP, RH_EVP) or param.mat.is_plane_strain)):
         return "grid2d"
-    if flat2d.flat_step_applicable(param, ctx):
+    if flat2d.flat_step_applicable(param, ctx) and not no_flat:
         return "flat2d"
     return "generic"
 
@@ -156,12 +168,8 @@ class Simulation:
                     "none is available; pass device='cpu' to run the "
                     "plain PyTorch versions on the CPU")
             device = "cuda"
-        if param.control.has_hydraulic_diffusion \
-                or param.mat.rheol_type in (RH_EP_RSF, RH_EVP_RSF) \
-                or param.ic.temperature_option == 3:
-            raise NotImplementedError(
-                "hydraulic diffusion, rate-and-state friction and the dome "
-                "geotherm are not ported yet")
+        if param.ic.temperature_option == 3:
+            raise NotImplementedError("the dome geotherm is not ported yet")
         self.param = param
         self.device = torch.device(device)
         self.dtype = torch.float64 if param.sim.float_dtype == "float64" \
@@ -192,6 +200,8 @@ class Simulation:
             gather_mask=torch.as_tensor(topo.gather_mask, device=dev),
             top_mask=torch.as_tensor((topo.bcflag & BOUNDZ1) != 0,
                                      device=dev),
+            pp_bc_mask=torch.as_tensor(
+                bc_mod.pp_bc_mask(param.bc, topo.bcflag), device=dev),
             vbc=bc_mod.VBCSpec.from_param(param, topo.bcflag, device=dev),
             sbc=bc_mod.StressBCSpec.from_topo(param, topo),
             mat=M.MatTables.from_param(param.mat, dtype=self.dtype,
@@ -211,8 +221,8 @@ class Simulation:
             self.state = self._restart_state(_restart)
         self._chunk_fns = {}
         # name of the dispatched step implementation, set by _chunk_fn:
-        # "pallas2d_res", "pallas2d", "pallas3d" or "flat2d", the JAX
-        # package's names
+        # "pallas2d_res", "pallas2d", "pallas3d", "flat2d" or "generic"
+        # (2D), the JAX package's names
         self.step_path = None
 
     def _dev(self, x) -> torch.Tensor:
@@ -251,6 +261,17 @@ class Simulation:
                                         topo.connectivity, emw=emw_h)
         plstrain = ic_mod.initial_weak_zone(param, self.mesh.coord,
                                             topo.connectivity)
+        emw = self._dev(emw_h)
+        extra = {}
+        if param.control.has_hydraulic_diffusion:
+            extra["ppressure"] = self._dev(ic_mod.initial_hydrostatic_state(
+                param, self.mesh.coord, topo.bcflag))
+        if param.mat.rheol_type in (RH_EP_RSF, RH_EVP_RSF):
+            # from the weights in the run's dtype, as the JAX package
+            dfc0, sv0 = ic_mod.initial_rsf_state(param,
+                                                 emw.cpu().numpy())
+            extra.update(dyn_fric_coeff=self._dev(dfc0),
+                         state_variable=self._dev(sv0))
         s = s.replace(
             coord=coord, coord0=coord, volume=volume, volume_old=volume,
             temperature=self._dev(temperature_h),
@@ -259,7 +280,7 @@ class Simulation:
             plstrain=self._dev(plstrain),
             radiogenic_source=self._dev(ic_mod.initial_radiogenic_source(
                 param, self.mesh.coord, topo.connectivity)),
-            emw=self._dev(emw_h), hydro_diff_max=self._dev(1e-1))
+            emw=emw, hydro_diff_max=self._dev(1e-1), **extra)
         return make_finalize_fn(param)(ctx, s)
 
     # ---- restart (dynearthsol.cxx:227-420) ----
@@ -307,6 +328,13 @@ class Simulation:
                                device=self.device),
             max_global_vel_mag=self._dev(scal[5]),
             hydro_diff_max=self._dev(1e-1))
+        if "old_mean_stress" not in r and "stress" in r \
+                and param.control.has_hydraulic_diffusion:
+            # the reference's files lack it: the saved stress's mean
+            # (JAX simulation.py:914-918)
+            st = np.asarray(r["stress"])[:, :ctx.ndims]
+            s = s.replace(old_mean_stress=self._dev(
+                st.sum(axis=1) / ctx.ndims))
         if param.ic.is_restarting_weakzone:
             # the weak zone re-created on the restored geometry
             # (dynearthsol.cxx:386-389) overwrites the saved plstrain
@@ -342,18 +370,23 @@ class Simulation:
             param, ctx = self.param, self.ctx
             # the JAX package's order (simulation.py:1356-1420)
             jax_path = _jax_path_name(param, ctx)
-            if fused2d.resident_applicable(param, ctx):
+            fused = not os.environ.get("DES_NO_PALLAS")
+            if fused and fused2d.resident_applicable(param, ctx):
                 path, mod = "pallas2d_res", fused2d
                 make = fused2d.make_resident_chunk_runner
-            elif fused2d.pallas_step_applicable(param, ctx):
+            elif fused and fused2d.pallas_step_applicable(param, ctx):
                 path, mod = "pallas2d", fused2d
                 make = fused2d.make_chunk_runner
-            elif fused3d.pallas3d_step_applicable(param, ctx):
+            elif fused and fused3d.pallas3d_step_applicable(param, ctx):
                 path, mod = "pallas3d", fused3d
                 make = fused3d.make_chunk_runner
             elif jax_path == "flat2d":
                 path, mod = "flat2d", flat2d
                 make = flat2d.make_chunk_runner
+            elif jax_path == "generic" and flat2d.generic_applicable(param,
+                                                                     ctx):
+                path, mod = "generic", flat2d
+                make = partial(flat2d.make_chunk_runner, generic=True)
             else:
                 raise NotImplementedError(
                     "this config is off the fused steps' gates; the JAX "
@@ -364,7 +397,7 @@ class Simulation:
                 raise NotImplementedError(
                     f"the JAX package runs this config on {path!r}, but "
                     "this package's step lacks: " + "; ".join(missing))
-            if path == "flat2d" and ctx.band is None:
+            if mod is flat2d and ctx.band is None:
                 # built once per Simulation, for any node numbering
                 ctx = self.ctx = replace(ctx, band=band2d.build_tables(
                     self.topo.connectivity, self.topo.nnode, self.device))

@@ -45,6 +45,17 @@ def _matrices(np_dtype):
     return np.concatenate([a, iso, two]).astype(np_dtype)
 
 
+def _report(rows, m, ref, got, most=8):
+    """The failing rows' index, input matrix and both packages' values, at
+    full precision (repr of Python floats round-trips)."""
+    lines = [f"{rows.size} rows off, the first {min(most, rows.size)}:"]
+    for i in rows[:most]:
+        lines.append(f"row {i}: m = {[float(x) for x in m[i]]!r}; "
+                     f"jax = {[float(x) for x in ref[i]]!r}; "
+                     f"torch = {[float(x) for x in got[i]]!r}")
+    return "\n".join(lines)
+
+
 @pytest.mark.parametrize("dt", list(DTYPES))
 def test_eigvals3_matches_jax(dt):
     np_dtype, t_dtype = DTYPES[dt]
@@ -56,7 +67,8 @@ def test_eigvals3_matches_jax(dt):
     assert out[0].dtype == t_dtype
     scale = np.abs(ref).max(axis=1)
     tol = 1e-12 if dt == "f64" else 8 * np.finfo(np.float32).eps
-    assert (np.abs(ref - got).max(axis=1) <= tol * scale).all()
+    bad = np.flatnonzero(np.abs(ref - got).max(axis=1) > tol * scale)
+    assert bad.size == 0, _report(bad, m, ref, got)
     # ascending up to the rounding of l1 = 3q - l0 - l2
     assert (np.diff(got, axis=1) >= -tol * scale[:, None]).all()
 

@@ -16,44 +16,16 @@ Tolerances, each of a field's max:
   f32 EVP, 1 step: 1e-5.
 """
 
-import dataclasses
-
 import numpy as np
 import pytest
 
 import dynearthsol_tpu as jdes
 import dynearthsol_tpu_torch as tdes
-from dynearthsol_tpu.ops import band2d as jband
 from dynearthsol_tpu.ops import flat2d as jflat
 from dynearthsol_tpu_torch.ops import flat2d as tflat
-from dynearthsol_tpu_torch.state import (FIELD_NAMES, state_from_numpy,
-                                         state_to_numpy)
+from dynearthsol_tpu_torch.state import FIELD_NAMES, state_to_numpy
 from torch_cases import (FLAT_FIELDS, assert_maxwell_close, flat_cfg,
-                         make_sim_cfg, rel_err)
-
-
-def run_both(cfg, n, band=False):
-    """n steps of both flat chunk runners from the JAX initial state; with
-    ``band`` the JAX side runs its band engine (ctx.band set as
-    tests/test_flat.py:443-461 does).  Returns numpy dicts (jax, torch)."""
-    js = jdes.Simulation(jdes.param_from_dict(cfg))
-    ts = tdes.Simulation(tdes.param_from_dict(cfg), device="cpu")
-    assert jflat.flat_step_applicable(js.param, js.ctx)
-    jctx = js.ctx
-    if band:
-        bt = jband.build_band_tables(np.asarray(js.topo.connectivity),
-                                     js.topo.nnode)
-        assert bt is not None
-        jctx = dataclasses.replace(js.ctx, band=bt)
-    run = jflat.make_chunk_runner(js.param, js.ctx,
-                                  js.compensation_pressure, n)
-    ref = run(jctx, js.state)
-    s0 = state_from_numpy({f: np.asarray(getattr(js.state, f))
-                           for f in FIELD_NAMES}, dtype=ts.dtype)
-    out = ts._chunk_fn(n)(ts.ctx, s0)
-    assert ts.step_path == "flat2d"
-    return ({f: np.asarray(getattr(ref, f)) for f in FIELD_NAMES},
-            state_to_numpy(out))
+                         make_sim_cfg, rel_err, run_both)
 
 
 def assert_fields_close(ref, out, tol, fields=FLAT_FIELDS):
@@ -159,37 +131,6 @@ def test_gate_matches_jax(case):
     want = jflat.flat_step_applicable(js.param, js.ctx)
     assert tflat.flat_step_applicable(ts.param, ts.ctx) == want
     assert want == (case != "ep_not_plane_strain")
-
-
-REFUSED = {
-    "pseudo-transient": {"control": {"has_PT": True}},
-    "surface process option 102": {
-        "control": {"surface_process_option": 102,
-                    "surface_diffusivity": 1e-6}},
-    "gravity-facet": {"bc": {"has_winkler_foundation": True}},
-    "Neumann": {"bc": {"stress_bc_x1": 1, "stress_val_x1": 1e6,
-                       "vbc_x1": 0}},
-    "elastic foundation": {"bc": {"has_elastic_foundation": True}},
-}
-
-
-@pytest.mark.parametrize("what", list(REFUSED))
-def test_refused_features_raise(what):
-    ts = tdes.Simulation(tdes.param_from_dict(flat_cfg(**REFUSED[what])),
-                         device="cpu")
-    assert tflat.flat_step_applicable(ts.param, ts.ctx)
-    with pytest.raises(NotImplementedError, match=what):
-        ts.run_steps(1)
-    assert ts.step_path is None
-
-
-@pytest.mark.parametrize("over", [
-    {"control": {"has_hydraulic_diffusion": True}},
-    {"mat": {"rheology_type": "elasto-plastic-rsf"}}],
-    ids=["hydraulic", "rsf"])
-def test_refused_at_construction(over):
-    with pytest.raises(NotImplementedError):
-        tdes.Simulation(tdes.param_from_dict(flat_cfg(**over)), device="cpu")
 
 
 def test_flat_step_needs_tables():

@@ -1,5 +1,6 @@
 """Configs and comparison helpers shared by the tests of the PyTorch port
-(tests/test_torch_*.py).  Imports neither JAX nor the port."""
+(tests/test_torch_*.py).  Imports neither JAX nor the port at module
+level; ``run_both`` imports both when it is called."""
 
 from types import SimpleNamespace
 
@@ -214,6 +215,40 @@ def with_param(sim, param):
                            device=getattr(sim, "device", None),
                            compensation_pressure=getattr(
                                sim, "compensation_pressure", 0.0))
+
+
+def run_both(cfg, n, band=False):
+    """n steps of both packages' flat chunk runners from the JAX initial
+    state; with ``band`` the JAX side runs its band engine (ctx.band set as
+    tests/test_flat.py:443-461 does).  Returns numpy dicts (jax, torch) of
+    every State field."""
+    import dataclasses
+
+    import dynearthsol_tpu as jdes
+    import dynearthsol_tpu_torch as tdes
+    from dynearthsol_tpu.ops import band2d as jband
+    from dynearthsol_tpu.ops import flat2d as jflat
+    from dynearthsol_tpu_torch.state import (FIELD_NAMES, state_from_numpy,
+                                             state_to_numpy)
+
+    js = jdes.Simulation(jdes.param_from_dict(cfg))
+    ts = tdes.Simulation(tdes.param_from_dict(cfg), device="cpu")
+    assert jflat.flat_step_applicable(js.param, js.ctx)
+    jctx = js.ctx
+    if band:
+        bt = jband.build_band_tables(np.asarray(js.topo.connectivity),
+                                     js.topo.nnode)
+        assert bt is not None
+        jctx = dataclasses.replace(js.ctx, band=bt)
+    run = jflat.make_chunk_runner(js.param, js.ctx,
+                                  js.compensation_pressure, n)
+    ref = run(jctx, js.state)
+    s0 = state_from_numpy({f: np.asarray(getattr(js.state, f))
+                           for f in FIELD_NAMES}, dtype=ts.dtype)
+    out = ts._chunk_fn(n)(ts.ctx, s0)
+    assert ts.step_path == "flat2d"
+    return ({f: np.asarray(getattr(ref, f)) for f in FIELD_NAMES},
+            state_to_numpy(out))
 
 
 def _merge(d, over):
