@@ -103,6 +103,10 @@ Phases, each printed, the first failure exits non-zero:
                 there with the L2 cache flushed between launches, L2-warm
                 and as issued from Python, beside the plain versions', the
                 library calls' (index_select, index_add_) and the bound;
+                then the same at the flagship3d-unstructured mesh (phase
+                12, npe = 4: its host setup and mesh build timed) at the
+                call sites of the 3D column step (cgather 8, 2, 3, 6, 1;
+                asm_pack 3, 4, 5; asm_gather (2, 1), (1, 1));
   9. unstructured slice -- the flagship config on a Delaunay box mesh
                 (meshing_elem_shape 0: 277,258 triangles, 139,400 nodes,
                 EVP, f32): Simulation(param) with the default device, a
@@ -148,7 +152,26 @@ Phases, each printed, the first failure exits non-zero:
                 the profiler's device-idle share; (c) rate-and-state
                 friction, the elastic foundation, Neumann tractions with
                 the three facet kinds, and surface process 102 at the test
-                sizes, float64, card against CPU at 1e-10.
+                sizes, float64, card against CPU at 1e-10;
+  12. the 3D column step (flat3d) on the card -- (a) the ep-3d and
+                maxwell-2mat-3d goldens (flat3d, float64, the reference's
+                TetGen meshes) through the CLI's run() on the card and on
+                the CPU, every frame at 1e-8 accumulated and 1e-7 rates,
+                each frame's difference to the reference and card against
+                CPU printed, the band kernels' launches per step as the
+                step makes them; (b) flagship3d-unstructured (flagship3d's
+                physics on a Delaunay box cut to 128 x 48 x 16 km, 680,794
+                tets, phase 8's Simulation) and flagship3d-hydraulic
+                (flagship3d's mesh, maxwell, Biot diffusion, the 8 + 2
+                gather): one step with the kernels equal on every field to
+                one with the plain versions on the card, then two timed
+                chunks with elem*steps/s, launches per step, plain-version
+                calls (0), the profiler's device-idle share and the
+                gather's staged tiles; (c) rate-and-state friction, the
+                pseudo-transient loop with hydraulic diffusion, Neumann
+                tractions with the elastic foundation, and surface process
+                1 with the Winkler foundation at the test sizes, float64,
+                card against CPU at 1e-10.
 The last lines are a JSON record of the kernels, the card's name and power
 limit, and {"ok": true, "device": {...}}.
 """
@@ -931,6 +954,324 @@ def features_on_card(des, wrappers, zero_counts, card, usim, per_kernel,
               f"{worst:.3e} of a field's max (tol 1e-10)")
     rec["phase_s"] = time.perf_counter() - t_phase
     print(f"  phase 11: {rec['phase_s']:.1f} s")
+    return rec
+
+
+def flagship3d_unstructured_cfg(rheology="elasto-visco-plastic"):
+    """flagship3d's physics (EVP, f32, thermal diffusion, damping 1) on a
+    Delaunay box (meshing_elem_shape 0), the 3D run's mesh after a remesh,
+    cut from 256 km to 128 km in x (680,794 tets, 107,457 nodes): the
+    mesher's host time grows about 2.9x per doubling of x, so the whole
+    box would take some minutes on the host before the first step."""
+    cfg = flagship3d_cfg(rheology)
+    cfg["mesh"].update(meshing_elem_shape=0, xlength=128e3)
+    return cfg
+
+
+def flat3d_launches(param):
+    """Band-kernel launches of one flat3d step without the
+    pseudo-transient loop (ops/flat3d.py): the packed gather (two calls of
+    8 + 2 fields with hydraulic diffusion) and the post-move gather; the
+    thermal + dvoldt hop and the mixed-stress hop; the force and the mass
+    assemblies."""
+    ctrl = param.control
+    return {"cgather": 1 + ctrl.has_hydraulic_diffusion + 1,
+            "asm_gather": 1 + ctrl.is_using_mixed_stress,
+            "asm_pack": 1 + ctrl.has_moving_mesh}
+
+
+def small_flat3d_cfgs():
+    """Phase 12's test-size paths (tests/test_torch_flat3d.py), float64 on
+    the 8 km x 4 km x 4 km Delaunay box (886 tets): (label, config,
+    steps)."""
+    def box(rheology, **over):
+        cfg = {
+            "sim": {"ndims": 3, "float_dtype": "float64",
+                    "is_outputting_averaged_fields": False},
+            "mesh": {"meshing_option": 1, "meshing_elem_shape": 0,
+                     "xlength": 8e3, "ylength": 4e3, "zlength": 4e3,
+                     "resolution": 1e3,
+                     "quality_check_step_interval": 10**8},
+            "control": {"gravity": 10.0, "inertial_scaling": 1e5,
+                        "has_thermal_diffusion": True, "damping_option": 1,
+                        "has_surface_correction": True},
+            "bc": {"vbc_x0": 1, "vbc_val_x0": -1e-9, "vbc_x1": 1,
+                   "vbc_val_x1": 1e-9, "vbc_y0": 1, "vbc_val_y0": 0.0,
+                   "vbc_y1": 1, "vbc_val_y1": 0.0, "vbc_z0": 0, "vbc_z1": 0,
+                   "has_winkler_foundation": False,
+                   "has_water_loading": False},
+            "ic": {"weakzone_option": 0},
+            "mat": {"rheology_type": rheology, "is_plane_strain": False,
+                    "rho0": [2800.0], "bulk_modulus": [50e9],
+                    "shear_modulus": [30e9], "visc_max": 1e24,
+                    "visc_min": 1e19}}
+        for sec, kv in over.items():
+            cfg.setdefault(sec, {}).update(kv)
+        return cfg
+
+    rsf = box("elasto-plastic-rate-state-friction",
+              mesh={"xlength": 1.0, "ylength": 1.0, "zlength": 1.0,
+                    "resolution": 1.0},
+              control={"gravity": 0.0, "fixed_dt": 1.0,
+                       "use_global_velocity_scaling": True,
+                       "has_thermal_diffusion": False},
+              bc={"vbc_x0": 1, "vbc_val_x0": 0.0, "vbc_x1": 1,
+                  "vbc_val_x1": 0.0, "vbc_z0": 1, "vbc_val_z0": 0.0,
+                  "vbc_z1": 4, "vbc_val_z1": 1e-5},
+              mat={"rho0": [1.0], "alpha": [0.0], "bulk_modulus": [2e8],
+                   "shear_modulus": [2e8], "cohesion0": [1e6],
+                   "cohesion1": [1e6], "friction_angle0": [30.0],
+                   "friction_angle1": [30.0], "direct_a": [0.2],
+                   "evolution_b": [0.1], "characteristic_distance": [1e-3],
+                   "characteristic_velocity": [1e-6], "state_var_model": 0})
+    return (
+        ("rsf", rsf, 20),
+        ("pseudo-transient-hydraulic", box("maxwell", control={
+            "has_PT": True, "PT_max_iter": 6, "PT_relative_tolerance": 1e-12,
+            "has_hydraulic_diffusion": True}, mat=dict(HYD_MAT)), 4),
+        ("neumann-elastic-foundation", box("maxwell", bc={
+            "has_elastic_foundation": True, "vbc_y1": 0,
+            "stress_bc_z1": 3, "stress_val_z1": -1e5}), 10),
+        ("surface-process-1-winkler", box("maxwell", control={
+            "surface_process_option": 1, "surface_diffusivity": 1e-6,
+            "surf_base_level": 10.0}, bc={
+            "has_winkler_foundation": True, "has_water_loading": True,
+            "winkler_delta_rho": 100.0}), 10))
+
+
+def flat3d_on_card(des, wrappers, zero_counts, card, u3sim, per_kernel,
+                   prof_last):
+    """Phase 12: the 3D column step (flat3d) on the card -- (a) the ep-3d
+    and maxwell-2mat-3d goldens through the CLI on the card and on the
+    CPU (float64), every frame at the golden rule (1e-8 accumulated, 1e-7
+    rates); (b) flagship3d-unstructured (``u3sim``, phase 8's) and
+    flagship3d-hydraulic: one step with the kernels against one with the
+    plain versions on the card, every field equal, then two timed chunks
+    with launches per step, the staged tile share and the profiler's idle
+    share; (c) the test-size paths of small_flat3d_cfgs, card against CPU
+    at 1e-10.  Returns the numbers for the JSON record."""
+    import contextlib
+    import io
+    import os
+    import tempfile
+
+    import numpy as np
+    import torch
+
+    from dynearthsol_tpu_torch import __main__ as cli
+    from dynearthsol_tpu_torch.compare import _frame_quantities, reldiff
+    from dynearthsol_tpu_torch.ops import band2d, flat3d
+    from dynearthsol_tpu_torch.postproc import OutputReader
+    from dynearthsol_tpu_torch.state import FIELD_NAMES
+
+    t_phase = time.perf_counter()
+    runs = Path(__file__).resolve().parent / "tests" / "golden" / "runs"
+    band = ("cgather", "asm_pack", "asm_gather")
+    rec = {"goldens": {}, "paths": {}, "small": {}}
+    print("phase 12 the 3D column step (flat3d) on the card")
+
+    # (a) the 3D goldens; test_golden_vs_reference.py:122-133 gives them
+    # no rule of their own: 1e-8 accumulated and 1e-7 rates at every frame
+    cwd = os.getcwd()
+    with tempfile.TemporaryDirectory() as tmp:
+        os.chdir(tmp)
+        try:
+            for case in ("ep-3d", "maxwell-2mat-3d"):
+                secs, sims = {}, {}
+                for dev in ("cuda", "cpu"):
+                    Path(f"{case}-{dev}.cfg").write_text(
+                        golden_cfg(runs / case, f"{case}-{dev}"))
+                    zero_counts()
+                    t = time.perf_counter()
+                    with contextlib.redirect_stdout(io.StringIO()):
+                        sims[dev] = cli.run(
+                            des.load_config(f"{case}-{dev}.cfg"), device=dev)
+                    if dev == "cuda":
+                        torch.cuda.synchronize()
+                        launches = {n: wrappers[n].launches for n in band}
+                        plain = (band2d.gather_corners.calls,
+                                 band2d.scatter_corners.calls)
+                    secs[dev] = time.perf_counter() - t
+                sim = sims["cuda"]
+                nsteps = int(sim.state.steps)
+                if sim.step_path != "flat3d" or sim.dtype != torch.float64:
+                    fail(f"{case} ran on {sim.step_path!r} in {sim.dtype}, "
+                         "not flat3d in float64")
+                want = {n: v * nsteps
+                        for n, v in flat3d_launches(sim.param).items()}
+                if launches != want:
+                    fail(f"{case}: band-kernel launches {launches}, not "
+                         f"{want}")
+                if any(plain):
+                    fail(f"{case}: the card took a plain version")
+                ref = OutputReader(str(runs / case / "ref"))
+                our, cpu = (OutputReader(f"{case}-cuda"),
+                            OutputReader(f"{case}-cpu"))
+                if our.frames != ref.frames or our.steps != ref.steps:
+                    fail(f"{case}: frames {our.frames} at steps "
+                         f"{our.steps}, the golden's {ref.steps}")
+                print(f"  (a) {case}: flat3d float64, {sim.ctx.nelem} tets, "
+                      f"{nsteps} steps on the card in {secs['cuda']:.1f} s, "
+                      f"on the CPU {secs['cpu']:.1f} s; launches {launches}")
+                worst = []
+                for frame in ref.frames:
+                    q = [_frame_quantities(r, frame, include_markers=False)
+                         for r in (ref, our, cpu)]
+                    w = {"accumulated": 0.0, "rates": 0.0,
+                         "cpu_accumulated": 0.0, "cpu_rates": 0.0,
+                         "card_vs_cpu": 0.0}
+                    for kind in q[0]:
+                        cls = ("rates" if kind in GOLDEN_RATES
+                               else "accumulated")
+                        e = sum(reldiff(q[0][kind], q[1][kind]))
+                        thr = 1e-7 if cls == "rates" else 1e-8
+                        if not (np.isfinite(e) and e <= thr):
+                            fail(f"{case} frame {frame} {kind}: {e:.3e} "
+                                 f"against the reference (limit {thr:g})")
+                        w[cls] = max(w[cls], e)
+                        w["cpu_" + cls] = max(w["cpu_" + cls], sum(
+                            reldiff(q[0][kind], q[2][kind])))
+                        w["card_vs_cpu"] = max(w["card_vs_cpu"], sum(
+                            reldiff(q[2][kind], q[1][kind])))
+                    worst.append(w)
+                    print(f"    frame {frame}: against the reference "
+                          f"accumulated {w['accumulated']:.3e} (limit "
+                          f"1e-8), rates {w['rates']:.3e} (limit 1e-7; "
+                          f"the CPU's {w['cpu_accumulated']:.3e}, "
+                          f"{w['cpu_rates']:.3e}); card against CPU "
+                          f"{w['card_vs_cpu']:.3e}")
+                rec["goldens"][case] = {
+                    "nelem": sim.ctx.nelem, "steps": nsteps,
+                    "launches": launches, "card_s": secs["cuda"],
+                    "cpu_s": secs["cpu"], "worst_by_frame": worst}
+                del sims, sim
+        finally:
+            os.chdir(cwd)
+
+    # (b) the full-size paths
+    hyd = flagship3d_cfg("maxwell")
+    hyd["control"]["has_hydraulic_diffusion"] = True
+    hyd["mat"].update(HYD_MAT)
+    for label, cfg, chunk in (("flagship3d-unstructured", None, 10),
+                              ("flagship3d-hydraulic", hyd, 10)):
+        t = time.perf_counter()
+        sim = u3sim if cfg is None else des.Simulation(
+            des.param_from_dict(cfg))
+        run1 = sim._chunk_fn(1)
+        torch.cuda.synchronize()
+        init_s = time.perf_counter() - t
+        if sim.step_path != "flat3d":
+            fail(f"{label} dispatched to {sim.step_path!r}, not flat3d")
+        nelem, bt = sim.ctx.nelem, sim.ctx.band
+        plain1 = flat3d.make_chunk_runner(sim.param, sim.ctx,
+                                          sim.compensation_pressure, 1,
+                                          plain=True)
+        a = run1(sim.ctx, sim.state)
+        b = plain1(sim.ctx, sim.state)
+        torch.cuda.synchronize()
+        diff = 0.0
+        for f in FIELD_NAMES:
+            x, y = getattr(a, f), getattr(b, f)
+            if not torch.equal(x, y):
+                diff = max(diff, float((x.double() - y.double()).abs()
+                                       .max()))
+                print(f"  {label}: {f} differs, kernels against plain "
+                      f"versions by {diff:.3e}")
+        if diff:
+            fail(f"{label}: one step with the kernels is not the step "
+                 "with the plain versions")
+        del a, b
+        sim.run_steps(chunk, chunk=chunk)           # warm-up chunk
+        torch.cuda.synchronize()
+        zero_counts()
+        chunk_s = []
+        for _ in range(2):
+            t = time.perf_counter()
+            sim.run_steps(chunk, chunk=chunk)
+            torch.cuda.synchronize()
+            chunk_s.append(time.perf_counter() - t)
+        n = 2 * chunk
+        launches = {k: wrappers[k].launches for k in band}
+        if band2d.gather_corners.calls or band2d.scatter_corners.calls:
+            fail(f"{label}: the main path took a plain version")
+        want = {k: v * n for k, v in flat3d_launches(sim.param).items()}
+        if launches != want:
+            fail(f"{label}: band-kernel launches {launches}, not {want}")
+        st = sim.state
+        for f in FIELD_NAMES:
+            v = getattr(st, f)
+            if v.is_floating_point() and not bool(torch.isfinite(v).all()):
+                fail(f"{label}: non-finite values in {f}")
+        if int(st.steps) != 3 * chunk:
+            fail(f"{label}: {int(st.steps)} steps, not {3 * chunk}")
+        extra = ""
+        if label == "flagship3d-hydraulic":
+            dpp = float(st.dppressure.abs().max())
+            if not dpp > 0:
+                fail("flagship3d-hydraulic: the pore pressure did not move")
+            extra = f", max |dpp| {dpp:.3e} Pa"
+        rates = [nelem * chunk / c for c in chunk_s]
+        per_kernel(label, lambda k: flat3d.make_chunk_runner(
+            sim.param, sim.ctx, sim.compensation_pressure, k)(
+            sim.ctx, sim.state), 5)
+        staged = int(bt.tile_staged.sum())
+        tiles = {"tiles": bt.tile_staged.numel(), "staged": staged,
+                 "staged_share": staged / bt.tile_staged.numel(),
+                 "window_max": int(bt.tile_w.max()),
+                 "window_max_staged": bt.win_rows,
+                 "max_degree": bt.g_cols.shape[0]}
+        r = {"nelem": nelem, "nnode": sim.ctx.nnode, "init_s": init_s,
+             "steps": n, "chunk_s": chunk_s, "elem_steps_per_s": rates,
+             "launches": launches,
+             "launches_per_step": {k: v / n for k, v in launches.items()},
+             "device_idle": prof_last["idle"],
+             "wall_us_per_step_profiled": prof_last["wall_us"],
+             "busy_us_per_step": prof_last["busy_us"],
+             "gather_tiles": tiles, "kernels_equal_plain_one_step": True}
+        rec["paths"][label] = r
+        print(f"  (b) {label}: {nelem} tets, {sim.ctx.nnode} nodes, setup "
+              f"{init_s:.1f} s; one step with the kernels equals the plain "
+              f"versions' on every field; two chunks of {chunk} steps in "
+              f"{chunk_s[0]:.3f} s and {chunk_s[1]:.3f} s, "
+              f"{rates[0]:.6e} and {rates[1]:.6e} elem*steps/s on {card}; "
+              f"launches per step {r['launches_per_step']}, plain versions "
+              f"called 0 times, device idle {prof_last['idle']:.1%}; gather "
+              f"tiles {staged} of {tiles['tiles']} staged "
+              f"({tiles['staged_share']:.1%}), widest window "
+              f"{tiles['window_max']} rows, max degree "
+              f"{tiles['max_degree']}{extra}")
+        del sim, run1, plain1
+        torch.cuda.empty_cache()
+
+    # (c) the test-size paths, card against CPU, float64
+    for label, cfg, n in small_flat3d_cfgs():
+        par = des.param_from_dict(cfg)
+        on_card = des.Simulation(par)
+        on_card.run_steps(n, chunk=n)
+        on_cpu = des.Simulation(par, device="cpu").run_steps(n, chunk=n)
+        torch.cuda.synchronize()
+        if on_card.step_path != "flat3d":
+            fail(f"{label} ran on {on_card.step_path!r}")
+        # zero but for roundoff: judged at the scale of their field
+        scale_of = {"dppressure": "ppressure", "dpressure": "stress",
+                    **({"edvoldt": "strain_rate"} if label == "rsf"
+                       else {})}
+        worst = 0.0
+        for f in FLAT_FIELDS + ("dhacc", "edvacc_surf", "dyn_fric_coeff",
+                                "state_variable", "ppressure",
+                                "dppressure", "dpressure"):
+            a = getattr(on_cpu, f).double()
+            b = getattr(on_card.state, f).cpu().double()
+            sc = getattr(on_cpu, scale_of.get(f, f)).double().abs().max()
+            e = float((a - b).abs().max() / sc.clamp(min=1e-300))
+            if not e < 1e-10:
+                fail(f"{label} {f}: card against CPU {e:.3e} (tol 1e-10)")
+            worst = max(worst, e)
+        rec["small"][label] = {"steps": n, "worst_card_vs_cpu": worst}
+        print(f"  (c) {label}: {n} float64 steps, card against CPU worst "
+              f"{worst:.3e} of a field's max (tol 1e-10)")
+    rec["phase_s"] = time.perf_counter() - t_phase
+    print(f"  phase 12: {rec['phase_s']:.1f} s")
     return rec
 
 
@@ -2512,10 +2853,10 @@ def main():
 
     band_err = {"cgather": 0.0, "asm_pack": 0.0, "asm_gather": 0.0}
 
-    def band_check(label, bt):
+    def band_check(label, bt, sites=SITES):
         for dtype in (torch.float32, torch.float64):
             worst = dict.fromkeys(band_err, 0.0)
-            for k in SITES["cgather"]:
+            for k in sites["cgather"]:
                 pack = rnd((bt.nnode, k), dtype)
                 a, b = band2d.cgather(pack, bt), \
                     band2d.gather_corners(pack, bt)
@@ -2524,7 +2865,7 @@ def main():
                 if not torch.equal(a, b):
                     fail(f"{label} {dtype} cgather k={k} differs from "
                          "its plain version")
-            for k in SITES["asm_pack"]:
+            for k in sites["asm_pack"]:
                 cols = rnd((k, bt.npe, bt.nelem), dtype)
                 a, b = band2d.asm_pack(cols, bt), \
                     band2d.scatter_corners(cols, bt)
@@ -2533,7 +2874,7 @@ def main():
                 if not torch.equal(a, b):
                     fail(f"{label} {dtype} asm_pack k={k} differs from "
                          "its plain version")
-            for k, kg in SITES["asm_gather"]:
+            for k, kg in sites["asm_gather"]:
                 cols = rnd((k, bt.npe, bt.nelem), dtype)
                 a, b = band2d.asm_gather(cols, bt, kg), \
                     band2d.scatter_gather_corners(cols, bt, kg)
@@ -2547,9 +2888,9 @@ def main():
             for name in band_err:
                 band_err[name] = max(band_err[name], worst[name])
             print(f"  {label} (max degree {bt.g_cols.shape[0]}), "
-                  f"{str(dtype)[6:]}: cgather k={SITES['cgather']}; "
-                  f"asm_pack k={SITES['asm_pack']}; asm_gather (k,kg)="
-                  f"{SITES['asm_gather']} equal bit for bit")
+                  f"{str(dtype)[6:]}: cgather k={sites['cgather']}; "
+                  f"asm_pack k={sites['asm_pack']}; asm_gather (k,kg)="
+                  f"{sites['asm_gather']} equal bit for bit")
 
     band_check(f"Delaunay {small[1].shape[0]} triangles",
                band2d.build_tables(small[1], small[0].shape[0], "cuda"))
@@ -2632,6 +2973,70 @@ def main():
                 .index_select(0, conn_l), 20, flush),
             bound=bound(nbytes(cols) + gather_table_bytes(ubt) + tab_b,
                         (unnode * k + kg * nslots) * es, nslots * k))
+    def band_times(label, bt, sites, nslots):
+        """Device times of the band kernels at ``sites`` on the tables
+        ``bt``, f32, L2 flushed before each call, beside the plain
+        versions', the library calls' and the bound."""
+        nn, npe, ne = bt.nnode, bt.npe, bt.nelem
+        conn_l = bt.conn_cm.long()
+        tab_b = nbytes(bt.row_ptr, bt.slots)
+        out = {}
+        for k in sites["cgather"]:
+            pack = rnd((nn, k), torch.float32)
+            out[f"cgather k={k}"] = dict(
+                ms=cold_ms(lambda: band2d.cgather(pack, bt), 20, flush),
+                warm_ms=device_ms(lambda: band2d.cgather(pack, bt), 50),
+                issue_ms=issue_ms(lambda: band2d.cgather(pack, bt), 50),
+                plain_ms=cold_ms(lambda: band2d.gather_corners(pack, bt),
+                                 10, flush),
+                library_ms=cold_ms(lambda: pack.index_select(0, conn_l), 20,
+                                   flush),
+                bound=bound(nbytes(pack) + gather_table_bytes(bt),
+                            k * nslots * es, 0))
+        for k in sites["asm_pack"]:
+            cols = rnd((k, npe, ne), torch.float32)
+            rows = cols.reshape(k, nslots).t().contiguous()
+            out[f"asm_pack k={k}"] = dict(
+                ms=cold_ms(lambda: band2d.asm_pack(cols, bt), 20, flush),
+                warm_ms=device_ms(lambda: band2d.asm_pack(cols, bt), 50),
+                issue_ms=issue_ms(lambda: band2d.asm_pack(cols, bt), 50),
+                plain_ms=cold_ms(lambda: band2d.scatter_corners(cols, bt), 5,
+                                 flush),
+                library_ms=cold_ms(
+                    lambda: torch.zeros((nn, k), device="cuda")
+                    .index_add_(0, conn_l, rows), 20, flush),
+                bound=bound(nbytes(cols) + tab_b, nn * k * es, nslots * k))
+        for k, kg in sites["asm_gather"]:
+            cols = rnd((k, npe, ne), torch.float32)
+            rows = cols.reshape(k, nslots).t().contiguous()
+            out[f"asm_gather k={k} kg={kg}"] = dict(
+                ms=cold_ms(lambda: band2d.asm_gather(cols, bt, kg), 20,
+                           flush),
+                warm_ms=device_ms(lambda: band2d.asm_gather(cols, bt, kg),
+                                  50),
+                issue_ms=issue_ms(lambda: band2d.asm_gather(cols, bt, kg),
+                                  50),
+                plain_ms=cold_ms(
+                    lambda: band2d.scatter_gather_corners(cols, bt, kg), 5,
+                    flush),
+                library_ms=None,
+                library_two_calls_ms=cold_ms(
+                    lambda: torch.zeros((nn, k), device="cuda")
+                    .index_add_(0, conn_l, rows)[:, :kg]
+                    .index_select(0, conn_l), 20, flush),
+                bound=bound(nbytes(cols) + gather_table_bytes(bt) + tab_b,
+                            (nn * k + kg * nslots) * es, nslots * k))
+        for site, r in out.items():
+            lib = (f"{r['library_ms']:.4f}" if r["library_ms"] is not None
+                   else f"none as one call (index_add_ + index_select "
+                        f"{r['library_two_calls_ms']:.4f})")
+            print(f"  {label} {site}: {r['ms']:.4f} ms (L2 warm "
+                  f"{r['warm_ms']:.4f}, issued from Python "
+                  f"{r['issue_ms']:.4f}), plain {r['plain_ms']:.4f} ms, "
+                  f"library {lib} ms, bound {r['bound'][0]:.4f} ms by "
+                  f"{r['bound'][1]} ({r['bound'][2]} bytes)")
+        return out
+
     for site, r in band_t.items():
         lib = (f"{r['library_ms']:.4f}" if r["library_ms"] is not None
                else f"none as one call (index_add_ + index_select "
@@ -2641,7 +3046,45 @@ def main():
               f"{r['plain_ms']:.4f} ms, library {lib} ms, bound "
               f"{r['bound'][0]:.4f} ms by {r['bound'][1]} "
               f"({r['bound'][2]} bytes)")
-    del flush, conn_l
+    del conn_l
+
+    # the tet call sites of the 3D column step (ops/flat3d.py) at the
+    # flagship3d-unstructured mesh: the packed gather (8, or 8 + 2 with
+    # hydraulic diffusion), the post-move gathers (3, or 6 after surface
+    # processes), the force (3, 4 with hydraulic diffusion) and mass (5)
+    # assemblies and the thermal + dvoldt hop (2, 1)
+    SITES3 = {"cgather": (8, 2, 3, 6, 1), "asm_pack": (3, 4, 5),
+              "asm_gather": ((2, 1), (1, 1))}
+    sim_mod.create_new_mesh = timed_mesher
+    try:
+        t = time.perf_counter()
+        u3sim = des.Simulation(des.param_from_dict(
+            flagship3d_unstructured_cfg()))
+        u3sim._chunk_fn(1)                  # builds the gather tables
+        sync()
+        u3init_s = time.perf_counter() - t
+    finally:
+        sim_mod.create_new_mesh = mesher
+    u3bt = u3sim.ctx.band
+    u3nelem, u3nnode = u3sim.ctx.nelem, u3sim.ctx.nnode
+    if u3sim.step_path != "flat3d" or u3bt.npe != 4:
+        fail(f"flagship3d-unstructured dispatched to {u3sim.step_path!r}")
+    print(f"  flagship3d-unstructured (x cut to 128 km) host setup: "
+          f"{u3init_s:.1f} s, of which the mesh build {mesh_s[1]:.1f} s "
+          f"({u3nelem} tets, {u3nnode} nodes)")
+    band_check(f"Delaunay {u3nelem} tets", u3bt, SITES3)
+    u3staged = int(u3bt.tile_staged.sum())
+    u3tiles = {"tiles": u3bt.tile_staged.numel(), "staged": u3staged,
+               "unstaged": u3bt.tile_staged.numel() - u3staged,
+               "window_max": int(u3bt.tile_w.max()),
+               "window_max_staged": u3bt.win_rows,
+               "max_degree": u3bt.g_cols.shape[0]}
+    print(f"  gather tiles of {band2d.TILE} elements at {u3nelem} tets: "
+          f"{u3staged} staged, {u3tiles['unstaged']} unstaged, widest "
+          f"window {u3tiles['window_max']} rows (staged {u3bt.win_rows}), "
+          f"max degree {u3tiles['max_degree']}")
+    band_t3 = band_times("tets", u3bt, SITES3, 4 * u3nelem)
+    del flush
 
     # ---- 9. the unstructured slice through the main path
     t = time.perf_counter()
@@ -2719,6 +3162,13 @@ def main():
     # ---- 11. the column step's features on the card
     phase11 = features_on_card(des, wrappers, zero_counts, card, usim,
                                per_kernel, prof_last)
+    del usim
+    torch.cuda.empty_cache()
+
+    # ---- 12. the 3D column step on the card
+    phase12 = flat3d_on_card(des, wrappers, zero_counts, card, u3sim,
+                             per_kernel, prof_last)
+    del u3sim
 
     src2 = "dynearthsol_tpu_torch/csrc/fused2d.cu"
     src3 = "dynearthsol_tpu_torch/csrc/fused3d.cu"
@@ -2904,11 +3354,18 @@ def main():
                 for path, r in phase11["paths"].items()},
             "launches_golden_evp_winkler_2d":
                 phase11["golden"]["launches"][name],
+            "launches_flat3d": {
+                path: r["launches"][name]
+                for path, r in phase12["paths"].items()},
+            "launches_goldens_3d": {
+                case: g["launches"][name]
+                for case, g in phase12["goldens"].items()},
             "max_abs_err": band_err[name],
             "err_metric": "max |kernel - plain| over random inputs at a "
-                          "small Delaunay mesh, a tet mesh and the "
-                          "277k-triangle mesh, f32 and f64, every call "
-                          "site's k (torch.equal required)",
+                          "small Delaunay mesh, a tet mesh, the "
+                          "277k-triangle mesh and the 680,794-tet "
+                          "flagship3d-unstructured mesh, f32 and f64, every "
+                          "call site's k (torch.equal required)",
             "ms": r["ms"], "plain_ms": r["plain_ms"],
             "bound_ms": r["bound"][0], "bound_by": r["bound"][1],
             "bound_bytes": r["bound"][2], "bound_ops": r["bound"][3],
@@ -2926,7 +3383,20 @@ def main():
                            v.get("library_two_calls_ms"),
                        "bound_ms": v["bound"][0],
                        "bound_bytes": v["bound"][2]}
-                for site, v in band_t.items() if site.startswith(name)}})
+                for site, v in band_t.items() if site.startswith(name)},
+            **({"gather_tiles_flat3d": u3tiles} if name != "asm_pack"
+               else {}),
+            "call_sites_flat3d": {
+                site: {"ms": v["ms"], "ms_l2_warm": v["warm_ms"],
+                       "ms_issued_from_python": v["issue_ms"],
+                       "plain_ms": v["plain_ms"],
+                       "library_ms": v["library_ms"],
+                       "library_two_calls_ms":
+                           v.get("library_two_calls_ms"),
+                       "bound_ms": v["bound"][0],
+                       "bound_by": v["bound"][1],
+                       "bound_bytes": v["bound"][2]}
+                for site, v in band_t3.items() if site.startswith(name)}})
     print(json.dumps({"kernels": kernels,
                       "elem_steps_per_s": rate,
                       "plain_elem_steps_per_s": plain_rate,
@@ -2944,6 +3414,9 @@ def main():
                       "init_s_3d": init3_s,
                       "cli": phase10,
                       "features": phase11,
+                      "flat3d": phase12,
+                      "init_s_flagship3d_unstructured": u3init_s,
+                      "mesh_s_flagship3d_unstructured": mesh_s[1],
                       "script_s": time.perf_counter() - t_start}))
     print(card)
     print(json.dumps({"ok": True, "device": {

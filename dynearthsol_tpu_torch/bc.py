@@ -31,6 +31,7 @@ from .constants import (BOUNDX0, BOUNDX1, BOUNDY0, BOUNDY1, BOUNDZ0,
                         BOUNDZ1, IBOUNDN0, IBOUNDN3, IBOUNDZ0, IBOUNDZ1,
                         YEAR2SEC, dim)
 from .ops.assembly import OrderedAdd
+from .ops.surface import _div
 
 
 @dataclass(frozen=True)
@@ -354,9 +355,10 @@ class StressBCSpec:
     numpy, in 2D and 3D.  The fused steps compute the gravity-facet
     tractions (Winkler, water loading) in-kernel (ops/fused2d.py,
     ops/fused3d.py) and refuse Neumann tractions and the elastic
-    foundation; the column step (ops/flat2d.py) computes all of them
-    through ``apply_stress_bcs`` and ``apply_stress_bcs_neumann`` on the
-    tensor form that ``on(device)`` returns.
+    foundation; the column steps (ops/flat2d.py, ops/flat3d.py) compute
+    all of them through ``apply_stress_bcs`` and
+    ``apply_stress_bcs_neumann`` on the tensor form that ``on(device)``
+    returns.
 
     kind: 0 = Winkler foundation (bottom), 1 = hydrostatic water loading
     (top), 2 = lithostatic sidewall.  ``grav_add`` and ``neu_add`` are the
@@ -459,26 +461,34 @@ class StressBCSpec:
 
 def _facet_normal(fc):
     """Outward normal scaled by the facet area, and the facet's z centre
-    (normal_vector_of_facet, bc.cxx:24-54), of 2D facets (nf, 2, 2)."""
+    (normal_vector_of_facet, bc.cxx:24-54), of 2D facets (nf, 2, 2) or
+    3D facets (nf, 3, 3)."""
     v01 = fc[:, 1] - fc[:, 0]
-    normal = torch.stack([v01[:, 1], -v01[:, 0]], dim=1)
-    zc = (fc[:, 0, 1] + fc[:, 1, 1]) * 0.5
+    if fc.shape[-1] == 2:
+        normal = torch.stack([v01[:, 1], -v01[:, 0]], dim=1)
+        zc = (fc[:, 0, 1] + fc[:, 1, 1]) * 0.5
+        return normal, zc
+    v02 = fc[:, 2] - fc[:, 0]
+    normal = 0.5 * torch.stack([v01[:, 1] * v02[:, 2] - v01[:, 2] * v02[:, 1],
+                                v01[:, 2] * v02[:, 0] - v01[:, 0] * v02[:, 2],
+                                v01[:, 0] * v02[:, 1] - v01[:, 1] * v02[:, 0]],
+                               dim=1)
+    zc = _div(fc[:, 0, 2] + fc[:, 1, 2] + fc[:, 2, 2], 3.0)
     return normal, zc
 
 
 def apply_stress_bcs(param, spec: StressBCSpec, coord, force, rho_eff,
                      compensation_pressure: float, coord0):
-    """Gravity-induced boundary tractions of a 2D mesh: Winkler
+    """Gravity-induced boundary tractions of a 2D or 3D mesh: Winkler
     foundation, water loading, lithostatic sidewalls, elastic foundation
     (bc.cxx:632-790).  ``spec`` is the tensor form (``spec.on(device)``);
-    each facet's corner contributions are added onto the force in the JAX
-    package's order, with no atomics (``OrderedAdd``)."""
+    each facet's corner contributions, its traction over its ndims nodes,
+    are added onto the force in the JAX package's order, with no atomics
+    (``OrderedAdd``)."""
     ctrl = param.control
     if ctrl.gravity == 0:
         return force
-    if coord.shape[1] != 2:
-        raise NotImplementedError("the 3D facet tractions run in the fused "
-                                  "3D step only")
+    ndims = coord.shape[1]
     if spec.n_grav > 0:
         normal, zc = _facet_normal(coord[spec.facet_nodes])
         rho_f = rho_eff[spec.facet_elem]
@@ -500,32 +510,34 @@ def apply_stress_bcs(param, spec: StressBCSpec, coord, force, rho_eff,
         p_side = rho_ref * ctrl.gravity * torch.clamp(-zc, min=0.0)
         p = torch.where(spec.kind == 0, p_wink,
                         torch.where(spec.kind == 1, p_water, p_side))
-        # / 2 (nodes per facet) is exactly * 0.5
-        contrib = -(p[:, None, None] * normal[:, None, :]) * 0.5
+        contrib = _div(-(p[:, None, None] * normal[:, None, :]),
+                       float(ndims))
         force = spec.grav_add.apply(
-            force, contrib.expand(-1, 2, -1).reshape(-1, 2))
+            force, contrib.expand(-1, ndims, -1).reshape(-1, ndims))
 
     if param.bc.has_elastic_foundation:
-        dz = coord[:, 1] - coord0[:, 1]
+        dz = coord[:, -1] - coord0[:, -1]
         add = torch.where(spec.z0_mask,
                           -param.bc.elastic_foundation_constant * dz,
                           torch.zeros_like(dz))
-        force = torch.stack([force[:, 0], force[:, 1] + add], dim=1)
+        force = torch.cat([force[:, :-1], (force[:, -1] + add)[:, None]],
+                          dim=1)
     return force
 
 
 def apply_stress_bcs_neumann(spec: StressBCSpec, coord, force):
-    """General traction (Neumann) BCs of a 2D mesh (bc.cxx:792-875): each
-    facet adds value * normal[dir] / 2 to component ``dir`` of its two
-    nodes, in the JAX package's order.  The traction is formed in float64
-    (the table's type) and rounded once to the force's type, as the JAX
-    package's scatter rounds it."""
+    """General traction (Neumann) BCs of a 2D or 3D mesh (bc.cxx:792-875):
+    each facet adds value * normal[dir] / ndims to component ``dir`` of
+    its ndims nodes, in the JAX package's order.  The traction is formed
+    in float64 (the table's type) and rounded once to the force's type, as
+    the JAX package's scatter rounds it."""
     if spec.n_neu == 0:
         return force
+    ndims = coord.shape[1]
     normal, _ = _facet_normal(coord[spec.neu_facet_nodes])
     nd = normal.gather(1, spec.neu_dir[:, None])[:, 0].double()
-    add = (spec.neu_val * nd * 0.5).to(force.dtype)     # / 2, exactly
+    add = _div(spec.neu_val * nd, float(ndims)).to(force.dtype)
     onehot = (spec.neu_dir[:, None]
-              == torch.arange(2, device=nd.device)).to(force.dtype)
-    contrib = (add[:, None] * onehot)[:, None, :].expand(-1, 2, -1)
-    return spec.neu_add.apply(force, contrib.reshape(-1, 2))
+              == torch.arange(ndims, device=nd.device)).to(force.dtype)
+    contrib = (add[:, None] * onehot)[:, None, :].expand(-1, ndims, -1)
+    return spec.neu_add.apply(force, contrib.reshape(-1, ndims))

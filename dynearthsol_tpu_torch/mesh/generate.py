@@ -4,9 +4,10 @@ dynearthsol_tpu/mesh/generate.py).
 The reference dispatches on ``meshing_option`` (mesh.cxx:3407-3453) and
 ``meshing_elem_shape``.  This package generates, for ``meshing_option`` 1,
 the structured regular grids (``meshing_elem_shape`` 1) in 2D and 3D and the
-unstructured 2D box (``meshing_elem_shape`` 0): a Delaunay triangulation
-(scipy.spatial, Qhull) of boundary points plus deterministically jittered
-interior points, refined to the minimum angle and renumbered along the
+unstructured boxes (``meshing_elem_shape`` 0) in 2D and 3D: a Delaunay
+triangulation or tetrahedralization (scipy.spatial, Qhull) of boundary
+points plus deterministically jittered interior points, refined to the
+minimum angle (2D) or the radius-edge ratio (3D) and renumbered along the
 longest axis, point for point as the JAX package builds it.  The other
 meshers are not ported yet.  Domain convention matches the reference: x in
 [0, xlength], y in [0, ylength] (3D), z in [-zlength, 0] with the free
@@ -205,6 +206,65 @@ def regular_grid_3d(xlength: float, ylength: float, zlength: float,
     return MeshData(3, coord, _orient_3d(coord, conn))
 
 
+def _refine_box_3d(coord: np.ndarray, xlength: float, ylength: float,
+                   zlength: float, max_ratio: float,
+                   vol_floor: float = 0.0) -> np.ndarray:
+    """Radius-edge Delaunay refinement of a 3D box point set: the quality
+    guarantee TetGen's `q` switch gives the reference (set_3d_quality_str,
+    mesh.cxx:745-757; mesh.max_ratio, default 2).  Returns the (possibly
+    extended) coordinate array."""
+    if max_ratio <= 0:
+        return coord
+    from .refine3d import (box_inside_fn_3d, box_project_fn_3d,
+                           refine_radius_edge)
+
+    surf = lambda x, y: np.zeros_like(np.asarray(x, dtype=float))
+    bot = lambda x, y: np.full_like(np.asarray(x, dtype=float), -zlength)
+    coord, _ = refine_radius_edge(
+        coord, box_inside_fn_3d(xlength, ylength, surf, bot),
+        max_ratio=max_ratio, vol_floor=vol_floor,
+        project_fn=box_project_fn_3d(xlength, ylength, surf, bot))
+    return coord
+
+
+def unstructured_box_3d(xlength: float, ylength: float, zlength: float,
+                        resolution: float, jitter: float = 0.25,
+                        seed: int = 12345, max_ratio: float = 2.0,
+                        smallest_size: float = 0.01) -> MeshData:
+    """Unstructured 3D box (replaces the TetGen path, mesh.cxx:2586): a
+    Delaunay tetrahedralization of the grid points at ``resolution``, the
+    interior ones jittered by a seeded generator, refined to ``max_ratio``
+    (TetGen's q), with the near-degenerate hull slivers dropped."""
+    rng = np.random.default_rng(seed)
+    nx = max(2, int(round(xlength / resolution)) + 1)
+    ny = max(2, int(round(ylength / resolution)) + 1)
+    nz = max(2, int(round(zlength / resolution)) + 1)
+    xs = np.linspace(0.0, xlength, nx)
+    ys = np.linspace(0.0, ylength, ny)
+    zs = np.linspace(-zlength, 0.0, nz)
+    X, Y, Z = np.meshgrid(xs, ys, zs, indexing="ij")
+    coord = np.stack([X.ravel(), Y.ravel(), Z.ravel()], axis=1)
+    interior = ((X > xs[0]) & (X < xs[-1]) & (Y > ys[0]) & (Y < ys[-1]) &
+                (Z > zs[0]) & (Z < zs[-1])).ravel()
+    d = np.array([xs[1] - xs[0], ys[1] - ys[0], zs[1] - zs[0]])
+    coord[interior] += jitter * d * (rng.random((interior.sum(), 3)) - 0.5)
+    coord = _refine_box_3d(
+        coord, xlength, ylength, zlength, max_ratio,
+        vol_floor=smallest_size * (np.sqrt(2.0) / 12.0) * resolution**3)
+
+    from scipy.spatial import Delaunay
+
+    tet = Delaunay(coord, qhull_options="Qbb Qc Qz")
+    conn = tet.simplices.astype(np.int32)
+    # drop near-degenerate slivers on the hull
+    a = coord[conn[:, 0]]
+    vol6 = np.abs(np.einsum(
+        "ij,ij->i", coord[conn[:, 1]] - a,
+        np.cross(coord[conn[:, 2]] - a, coord[conn[:, 3]] - a)))
+    conn = conn[vol6 > 1e-12 * vol6.max()]
+    return MeshData(3, coord, _orient_3d(coord, conn))
+
+
 def renumber_mesh(coord: np.ndarray, conn: np.ndarray):
     """Sort nodes, and elements by centroid, along the mesh's longest axis
     for memory locality (renumbering_mesh, mesh.cxx:2675-2795): neighbouring
@@ -227,18 +287,22 @@ def create_new_mesh(param) -> MeshData:
     meshers this package has."""
     m = param.mesh
     ndims = param.sim.ndims
-    if m.meshing_option == 1 and m.meshing_elem_shape == 0 and ndims == 2:
-        md = unstructured_box_2d(m.xlength, m.zlength, m.resolution,
-                                 min_angle=m.min_angle,
-                                 smallest_size=m.smallest_size)
-        return MeshData(2, *renumber_mesh(md.coord, md.connectivity))
+    if m.meshing_option == 1 and m.meshing_elem_shape == 0:
+        if ndims == 2:
+            md = unstructured_box_2d(m.xlength, m.zlength, m.resolution,
+                                     min_angle=m.min_angle,
+                                     smallest_size=m.smallest_size)
+        else:
+            md = unstructured_box_3d(m.xlength, m.ylength, m.zlength,
+                                     m.resolution, max_ratio=m.max_ratio,
+                                     smallest_size=m.smallest_size)
+        return MeshData(ndims, *renumber_mesh(md.coord, md.connectivity))
     if not (m.meshing_option == 1 and m.meshing_elem_shape == 1):
         raise NotImplementedError(
             f"ndims {ndims}, meshing_option {m.meshing_option}, "
-            f"meshing_elem_shape {m.meshing_elem_shape}: only the "
-            "structured box (meshing_option 1, meshing_elem_shape 1) and "
-            "the unstructured 2D box (meshing_option 1, meshing_elem_shape "
-            "0) are ported")
+            f"meshing_elem_shape {m.meshing_elem_shape}: only the box "
+            "(meshing_option 1), structured (meshing_elem_shape 1) or "
+            "unstructured (meshing_elem_shape 0), is ported")
     if ndims == 3:
         return regular_grid_3d(m.xlength, m.ylength, m.zlength,
                                m.resolution)

@@ -11,6 +11,14 @@ an ulp, and that flips the Mohr-Coulomb branch of an element near the
 yield surface.  The same functions exist as ``__device__`` code in
 csrc/eig3.cuh for the fused 3D CUDA step.
 
+On the CPU, ``cos`` and ``sqrt`` run in the calling thread (``_serial``).
+PyTorch splits a vectorised unary op over more than 2,048 elements among
+its intra-op worker threads, and in one long test process a worker's
+``torch.cos`` gave values off by up to 1.4e-11 of the scale on the rows of
+its chunk, while the calling thread and a fresh process gave the JAX
+package's values to the bit.  Cut into pieces below that grain, the op
+runs where the caller runs, whatever the worker threads' state.
+
 All functions are componentwise: inputs are the six unique components
 (xx, yy, zz, xy, xz, yz) as same-shape tensors.
 """
@@ -30,6 +38,22 @@ _ACOS_C = (1.5707963050, -0.2145988016, 0.0889789874, -0.0501743046,
 # 2*pi/3 formed in float64, as the JAX package's Python constant
 _TWO_PI_3 = 2.0 * math.pi / 3.0
 
+# the intra-op grain of PyTorch's vectorised unary ops on the CPU
+# (aten/src/ATen/native/cpu/UnaryOpsKernel.cpp): an op over fewer
+# elements runs in the calling thread
+_UNARY_GRAIN = 2048
+
+
+def _serial(fn, x):
+    """fn(x) for a unary torch op ``fn``, computed in the calling thread
+    when x is a CPU tensor (in pieces below the intra-op grain); on the
+    card fn(x) as it is."""
+    if x.device.type != "cpu" or x.numel() < _UNARY_GRAIN:
+        return fn(x)
+    flat = x.reshape(-1)
+    return torch.cat([fn(c) for c in flat.split(_UNARY_GRAIN - 1)]) \
+        .view(x.shape)
+
 
 def _acos(x):
     """acos(x) for x in [-1, 1] via sqrt(1-x)*poly(x) (A&S 4.4.46)."""
@@ -37,7 +61,7 @@ def _acos(x):
     p = torch.full_like(x, _ACOS_C[-1])
     for c in _ACOS_C[-2::-1]:
         p = p * ax + c
-    y = torch.sqrt(torch.clamp(1.0 - ax, min=0.0)) * p
+    y = _serial(torch.sqrt, torch.clamp(1.0 - ax, min=0.0)) * p
     return torch.where(x < 0, math.pi - y, y)
 
 
@@ -48,7 +72,7 @@ def eigvals3_c(axx, ayy, azz, axy, axz, ayz):
     bxx, byy, bzz = axx - q, ayy - q, azz - q
     p2 = (bxx * bxx + byy * byy + bzz * bzz
           + 2.0 * (axy * axy + axz * axz + ayz * ayz)) / 6.0
-    p = torch.sqrt(torch.clamp(p2, min=_TINY))
+    p = _serial(torch.sqrt, torch.clamp(p2, min=_TINY))
     # det(B)/2 with B = (A - qI)/p
     ip = 1.0 / p
     cxx, cyy, czz = bxx * ip, byy * ip, bzz * ip
@@ -59,8 +83,8 @@ def eigvals3_c(axx, ayy, azz, axy, axz, ayz):
     r = torch.clamp(half_det, -1.0, 1.0)
     phi = _acos(r) / 3.0
     # l2 >= l1 >= l0 by the cosine ordering
-    l2 = q + 2.0 * p * torch.cos(phi)
-    l0 = q + 2.0 * p * torch.cos(phi + _TWO_PI_3)
+    l2 = q + 2.0 * p * _serial(torch.cos, phi)
+    l0 = q + 2.0 * p * _serial(torch.cos, phi + _TWO_PI_3)
     l1 = 3.0 * q - l0 - l2
     iso = p2 <= (1e-28 * torch.clamp(q * q, min=1.0))  # (near-)isotropic
     return (torch.where(iso, q, l0), torch.where(iso, q, l1),
@@ -73,7 +97,7 @@ def _cross(ax, ay, az, bx, by, bz):
 
 def _normalize(x, y, z):
     n2 = x * x + y * y + z * z
-    inv = 1.0 / torch.sqrt(torch.clamp(n2, min=_TINY))
+    inv = 1.0 / _serial(torch.sqrt, torch.clamp(n2, min=_TINY))
     return x * inv, y * inv, z * inv, n2
 
 
@@ -143,7 +167,7 @@ def eigh3_c(axx, ayy, azz, axy, axz, ayz):
     row0 = (muu * muu + muv * muv) >= (mvv * mvv + muv * muv)
     ct = torch.where(row0, -muv, -mvv)
     st = torch.where(row0, muu, muv)
-    nrm = torch.sqrt(torch.clamp(ct * ct + st * st, min=_TINY))
+    nrm = _serial(torch.sqrt, torch.clamp(ct * ct + st * st, min=_TINY))
     degenerate = (ct * ct + st * st) <= _TINY
     ct = torch.where(degenerate, 1.0, ct / nrm)
     st = torch.where(degenerate, 0.0, st / nrm)

@@ -217,10 +217,13 @@ def elasto_plastic2_c(bulkm, shearm, amc, anphi, anpsi, hardn, ten_max,
     return s_new, depls, failure_mode
 
 
-def elastic3_c(bulkm, shearm, de, s):
-    """Componentwise 3D incremental elasticity (rheology.cxx:235-261)."""
+def elastic3_c(bulkm, shearm, de, s, dpp=None):
+    """Componentwise 3D incremental elasticity (rheology.cxx:235-261), with
+    the Biot pore-pressure increment ``dpp`` on the diagonal when given
+    (rheology.cxx:250-261)."""
     lam = bulkm - 2.0 / 3.0 * shearm
-    diag_inc = lam * (de[0] + de[1] + de[2]) + 0.0
+    diag_inc = lam * (de[0] + de[1] + de[2]) \
+        + (0.0 if dpp is None else dpp)
     return (s[0] + 2.0 * shearm * de[0] + diag_inc,
             s[1] + 2.0 * shearm * de[1] + diag_inc,
             s[2] + 2.0 * shearm * de[2] + diag_inc,
@@ -253,12 +256,12 @@ def viscous3_c(bulkm, viscosity, total_dv, edot):
 
 
 def elasto_plastic3_c(bulkm, shearm, amc, anphi, anpsi, hardn, ten_max,
-                      de, s):
+                      de, s, dpp=None):
     """Componentwise 3D Mohr-Coulomb return map in principal axes
     (rheology.cxx:298-457) with the analytic eigensolver of ops/eig3.py
     (the reference uses dsyevh3).  Returns (s_new 6-tuple, depls,
-    failure_mode)."""
-    st = elastic3_c(bulkm, shearm, de, s)
+    failure_mode); ``dpp`` as in elastic3_c."""
+    st = elastic3_c(bulkm, shearm, de, s, dpp)
     (pmin, pmid, pmax), (v0, v1, v2) = eigh3_c(*st)
 
     a1 = bulkm + 4.0 / 3.0 * shearm
@@ -303,3 +306,28 @@ def elasto_plastic3_c(bulkm, shearm, amc, anphi, anpsi, hardn, ten_max,
     failure_mode = torch.where(no_fail, zi,
                                torch.where(shear_fail, zi + 10, zi + 1))
     return s_new, depls, failure_mode
+
+
+def slip_rate3_c(s, vmean):
+    """Slip rate of rate-and-state friction in 3D (rheology.cxx:151-194,
+    the JAX package's ``slip_rate3``): the element-mean velocity
+    ``vmean`` (3 columns) projected onto the two principal directions
+    other than the one across the plane of maximum shear, from the
+    principal frame of the stress ``s`` (6 columns)."""
+    (p0, p1, p2), vs = eigh3_c(*s)
+    tau1 = 0.5 * torch.abs(p2 - p1)
+    tau2 = 0.5 * torch.abs(p2 - p0)
+    tau3 = 0.5 * torch.abs(p1 - p0)
+    # the JAX package's index of the largest tau (0, 1, 2 for tau1-3),
+    # then its eigenvectors idx + 1 and idx + 2 (mod 3)
+    pick1 = (tau2 >= tau1) & (tau2 >= tau3)
+    pick2 = (~pick1) & (tau3 >= tau1) & (tau3 >= tau2)
+
+    def sel(a, b, c):
+        return torch.where(pick1, a, torch.where(pick2, b, c))
+
+    d1 = tuple(sel(vs[2][k], vs[0][k], vs[1][k]) for k in range(3))
+    d2 = tuple(sel(vs[0][k], vs[1][k], vs[2][k]) for k in range(3))
+    m1 = vmean[0] * d1[0] + vmean[1] * d1[1] + vmean[2] * d1[2]
+    m2 = vmean[0] * d2[0] + vmean[1] * d2[1] + vmean[2] * d2[2]
+    return torch.sqrt(m1 * m1 + m2 * m2)

@@ -1,22 +1,25 @@
-"""Surface topology, the surface-plstrain decay and the 2D surface
-processes (counterpart of dynearthsol_tpu/ops/surface.py).
+"""Surface topology, the surface-plstrain decay and the surface processes
+(counterpart of dynearthsol_tpu/ops/surface.py).
 
 Reference: bc.cxx:877-1831.  Surface process option 1 (hillslope
 diffusion in 2D, facet-FEM topography diffusion in 3D) runs in the fused
 steps (ops/fused2d.py, ops/fused3d.py), which also apply the surface-element
 correction (bc.cxx:1613-1665) and the plastic-strain decay
-(bc.cxx:1591-1611) in-kernel with the constants below.  The column step
-(ops/flat2d.py) applies those two with ``top_elem_mask`` and
-``surface_plstrain_decay``, and the 2D surface processes 1 and 102
-(diffusion, terrigenous basin fill, hemipelagic rain) with
-``apply_surface_processes`` on the tensor tables of ``surf_tables``.  The
-edge sums of the diffusion add in the JAX package's order (every facet's
-left node, then every facet's right node) with no atomics.
+(bc.cxx:1591-1611) in-kernel with the constants below.  The column steps
+(ops/flat2d.py, ops/flat3d.py) apply the correction with
+``top_elem_mask`` (and in 2D the decay with ``surface_plstrain_decay``),
+and the surface processes with ``apply_surface_processes`` on the tensor
+tables of ``surf_tables``: in 2D options 1 and 102 (diffusion,
+terrigenous basin fill, hemipelagic rain), in 3D the facet diffusion of
+option 1.  The nodal sums of the diffusion add in the JAX package's order
+(every facet's first node, then every facet's second, then in 3D every
+facet's third) with no atomics.
 """
 
 from __future__ import annotations
 
 from dataclasses import dataclass
+from typing import Optional
 
 import numpy as np
 import torch
@@ -77,14 +80,15 @@ def surface_plstrain_decay(top, plstrain, emw, dt,
 
 @dataclass(frozen=True)
 class SurfTables:
-    """The 2D surface-process tables of a SurfInfo as tensors on the run's
+    """The surface-process tables of a SurfInfo as tensors on the run's
     device."""
 
     top_nodes: torch.Tensor    # (ntop,) int64, as SurfInfo.top_nodes
     top_mask_f: torch.Tensor   # (nnode,) 1.0 on top nodes, else 0.0
     n0: torch.Tensor           # (etop,) each top facet's first node
     n1: torch.Tensor           # (etop,) and its second
-    edge_add: OrderedAdd       # over concat(n0, n1), in that order
+    n2: Optional[torch.Tensor]  # (etop,) and its third (3D), else None
+    edge_add: OrderedAdd       # over concat(n0, n1[, n2]), in that order
 
 
 def surf_tables(surf: SurfInfo, nnode: int, dtype, device) -> SurfTables:
@@ -98,8 +102,8 @@ def surf_tables(surf: SurfInfo, nnode: int, dtype, device) -> SurfTables:
     return SurfTables(
         top_nodes=t(surf.top_nodes.astype(np.int64)),
         top_mask_f=t(mask).to(dtype), n0=t(fn[:, 0]), n1=t(fn[:, 1]),
-        edge_add=OrderedAdd.build(
-            np.concatenate([fn[:, 0], fn[:, 1]])).to(device))
+        n2=t(fn[:, 2]) if fn.shape[1] == 3 else None,
+        edge_add=OrderedAdd.build(fn.T.reshape(-1)).to(device))
 
 
 def _div(x, v):
@@ -132,6 +136,36 @@ def surface_dh_2d(coord, st: SurfTables, surf_diff, dt, base_level,
                      torch.where((z <= base_level) & (conv < 0),
                                  -ratio_marine * conv, -conv))
     return dh * st.top_mask_f
+
+
+def surface_dh_3d(coord, st: SurfTables, surf_diff, dt):
+    """Facet-FEM topography diffusion (bc.cxx:920-1050, 3D): each top
+    facet's linear-triangle slope terms on its horizontal projection,
+    summed onto its three nodes.  Returns dh as a full (nnode,) tensor,
+    zero off the surface."""
+    p0, p1, p2 = coord[st.n0], coord[st.n1], coord[st.n2]
+    d01 = p1 - p0
+    d02 = p2 - p0
+    parea = 0.5 * (d01[:, 0] * d02[:, 1] - d01[:, 1] * d02[:, 0])
+    iv = 1.0 / (2.0 * torch.where(parea != 0, parea,
+                                  torch.ones_like(parea)))
+    sx = (iv * (p1[:, 1] - p2[:, 1]), iv * (p2[:, 1] - p0[:, 1]),
+          iv * (p0[:, 1] - p1[:, 1]))
+    sy = (iv * (p2[:, 0] - p1[:, 0]), iv * (p0[:, 0] - p2[:, 0]),
+          iv * (p1[:, 0] - p0[:, 0]))
+    zf = (p0[:, 2], p1[:, 2], p2[:, 2])
+    gx = sx[0] * zf[0] + sx[1] * zf[1] + sx[2] * zf[2]
+    gy = sy[0] * zf[0] + sy[1] * zf[1] + sy[2] * zf[2]
+    # slope_j = sum_k (dx_j dx_k + dy_j dy_k) z_k * parea
+    slope = [(sx[j] * gx + sy[j] * gy) * parea for j in range(3)]
+    tot = st.edge_add.apply(
+        torch.zeros((coord.shape[0], 2), dtype=coord.dtype,
+                    device=coord.device),
+        torch.stack([torch.cat(slope), parea.repeat(3)], dim=1))
+    total_slope, total_dx = tot[:, 0], tot[:, 1]
+    safe_dx = torch.where(total_dx > 0, total_dx, torch.ones_like(total_dx))
+    conv = surf_diff * dt * total_slope / safe_dx
+    return -conv * st.top_mask_f
 
 
 def _argmax(mask):
@@ -240,19 +274,23 @@ def hemipelagic_dh(param, z_top, dt):
 
 def apply_surface_processes(param, st: SurfTables, coord, dt, dhacc,
                             edvacc_surf):
-    """One step of 2D surface processes (surface_processes,
-    bc.cxx:1667-1831) on post-advection coordinates: options 1 and 102
-    (other options move nothing here, as in the JAX package).  Returns
+    """One step of surface processes (surface_processes,
+    bc.cxx:1667-1831) on post-advection coordinates: options 1 and 102 in
+    2D, the diffusion of options 1 and 102 in 3D (other options move
+    nothing here, as in the JAX package).  Returns
     (coord, dhacc, edvacc_surf, dh)."""
     ctrl = param.control
     opt = ctrl.surface_process_option
-    if opt in (1, 102):
+    ndims = coord.shape[1]
+    if opt in (1, 102) and ndims == 3:
+        dh = surface_dh_3d(coord, st, ctrl.surface_diffusivity, dt)
+    elif opt in (1, 102):
         dh = surface_dh_2d(coord, st, ctrl.surface_diffusivity, dt,
                            ctrl.surf_base_level, ctrl.surf_diff_ratio_terrig,
                            ctrl.surf_diff_ratio_marine)
     else:
         dh = torch.zeros_like(coord[:, 0])
-    if opt == 102:
+    if opt == 102 and ndims == 2:
         # diffusion + terrigenous basin fill + hemi/pelagic rain
         # (bc.cxx:1810-1822), both from the pre-diffusion coordinates
         top = st.top_nodes
@@ -263,9 +301,16 @@ def apply_surface_processes(param, st: SurfTables, coord, dt, dhacc,
             dh_top = dh_top + hemipelagic_dh(param, z_top, dt)
         dh = dh.index_copy(0, top, dh[top] + dh_top)   # top nodes unique
 
-    coord2 = torch.stack([coord[:, 0], coord[:, 1] + dh], dim=1)
+    coord2 = torch.cat([coord[:, :-1], (coord[:, -1] + dh)[:, None]], dim=1)
     # per-facet deposited volume (bc.cxx:1745-1760)
-    dh_e = dh[st.n0] + dh[st.n1]
-    base = torch.abs(coord2[st.n1, 0] - coord2[st.n0, 0])
-    dv = dh_e * base * 0.5           # / ndims, exactly
+    if ndims == 2:
+        dh_e = dh[st.n0] + dh[st.n1]
+        base = torch.abs(coord2[st.n1, 0] - coord2[st.n0, 0])
+        dv = dh_e * base * 0.5           # / ndims, exactly
+    else:
+        dh_e = dh[st.n0] + dh[st.n1] + dh[st.n2]
+        d01 = coord2[st.n1] - coord2[st.n0]
+        d02 = coord2[st.n2] - coord2[st.n0]
+        base = 0.5 * (d01[:, 0] * d02[:, 1] - d01[:, 1] * d02[:, 0])
+        dv = _div(dh_e * base, 3.0)
     return coord2, dhacc + dh, edvacc_surf + dv, dh

@@ -8,9 +8,10 @@ for the CPU).  The time loop dispatches in the JAX package's order: in 2D
 ``pallas2d_res`` and the tiled runner where it picks ``pallas2d``; in 3D
 (ops/fused3d.py) the fused 5-tet step where it picks ``pallas3d``; then the
 column step of ops/flat2d.py (any 2D triangle mesh) where it picks
-``flat2d``, and in its generic mode where it picks ``generic`` in 2D.  The
-JAX package's ``grid2d``, ``grid3d``, ``flat3d`` and 3D generic steps are
-not ported yet; a configuration that needs one raises
+``flat2d``, and in its generic mode where it picks ``generic`` in 2D; and
+the column step of ops/flat3d.py (any tetrahedral mesh) where it picks
+``flat3d``.  The JAX package's ``grid2d``, ``grid3d`` and 3D generic steps
+are not ported yet; a configuration that needs one raises
 ``NotImplementedError`` naming it.  The JAX package's switches
 ``DES_NO_PALLAS`` (no fused step) and ``DES_NO_FLAT`` (no column step) are
 read where it reads them, when a chunk runner is built.
@@ -33,7 +34,7 @@ from .config import (RH_ELASTIC, RH_EP, RH_EP_RSF, RH_EVP, RH_EVP_RSF,
                      RH_MAXWELL, RH_VISCOUS, Param)
 from .constants import BOUNDZ1, IBOUNDZ0
 from .mesh import MeshData, build_topology, create_new_mesh
-from .ops import band2d, flat2d, fused2d, fused3d
+from .ops import band2d, flat2d, flat3d, fused2d, fused3d
 from .ops import geometry as G
 from .ops import matprops as M
 from .ops import surface as SP
@@ -221,8 +222,8 @@ class Simulation:
             self.state = self._restart_state(_restart)
         self._chunk_fns = {}
         # name of the dispatched step implementation, set by _chunk_fn:
-        # "pallas2d_res", "pallas2d", "pallas3d", "flat2d" or "generic"
-        # (2D), the JAX package's names
+        # "pallas2d_res", "pallas2d", "pallas3d", "flat2d", "generic" (2D)
+        # or "flat3d", the JAX package's names
         self.step_path = None
 
     def _dev(self, x) -> torch.Tensor:
@@ -387,6 +388,9 @@ class Simulation:
                                                                      ctx):
                 path, mod = "generic", flat2d
                 make = partial(flat2d.make_chunk_runner, generic=True)
+            elif jax_path == "flat3d":
+                path, mod = "flat3d", flat3d
+                make = flat3d.make_chunk_runner
             else:
                 raise NotImplementedError(
                     "this config is off the fused steps' gates; the JAX "
@@ -397,7 +401,7 @@ class Simulation:
                 raise NotImplementedError(
                     f"the JAX package runs this config on {path!r}, but "
                     "this package's step lacks: " + "; ".join(missing))
-            if mod is flat2d and ctx.band is None:
+            if mod in (flat2d, flat3d) and ctx.band is None:
                 # built once per Simulation, for any node numbering
                 ctx = self.ctx = replace(ctx, band=band2d.build_tables(
                     self.topo.connectivity, self.topo.nnode, self.device))

@@ -1,8 +1,8 @@
 """The CUDA kernels of the PyTorch port (csrc/fused2d.cu, csrc/fused3d.cu,
 csrc/band2d.cu) against their plain PyTorch versions, on the card (the
-checks of chip_smoke.py phases 3, 4 and 8-9 at the 16 x 128-cell 2D,
-128 x 16 x 8-cell 3D and small unstructured sizes), with the CPU tests'
-tolerances; the 3D kernel against the plain version run on the CPU (see
+checks of chip_smoke.py phases 3, 4, 8-9 and 12 at the 16 x 128-cell
+2D, 128 x 16 x 8-cell 3D and small unstructured sizes), with the CPU
+tests' tolerances; the 3D kernel against the plain version run on the CPU (see
 _run3); the gather and assembly kernels with tolerance 0; the 2D chunk
 kernel against its own one-step launches bit for bit.  Imports no JAX.
 Skips where there is no CUDA device; on the card run it as
@@ -20,12 +20,13 @@ import dynearthsol_tpu_torch as des
 from dynearthsol_tpu_torch.mesh.generate import (regular_grid_3d,
                                                  renumber_mesh,
                                                  unstructured_box_2d)
-from dynearthsol_tpu_torch.ops import band2d, fused2d, fused3d
+from dynearthsol_tpu_torch.ops import band2d, flat3d, fused2d, fused3d
+from dynearthsol_tpu_torch.state import FIELD_NAMES
 from torch_cases import (BOUNDARY3, FLAT_FIELDS, STEP3_CASES,
                          assert_evp3_one_step_close,
                          assert_evp_one_step_close, assert_maxwell3_close,
                          assert_maxwell_close, assert_resident_matches_tiled,
-                         flat_cfg, make_sim3d_cfg, make_sim_cfg,
+                         flat3d_cfg, flat_cfg, make_sim3d_cfg, make_sim_cfg,
                          multimat3d_cfg, production_cfg, rel_err)
 
 pytestmark = pytest.mark.cuda
@@ -558,6 +559,45 @@ def test_flat_slice_card_vs_cpu(cuda, rheology, n, dtype, tol):
     for f in FLAT_FIELDS:
         err = rel_err(get(ref, f), get(out, f))
         assert err < tol, (f, err)
+
+
+@pytest.mark.parametrize("hydraulic", [False, True],
+                         ids=["maxwell", "hydraulic"])
+def test_flat3d_card_vs_cpu(cuda, hydraulic):
+    """The 3D column step (flat3d, npe = 4) on the card: one step with the
+    kernels equal on every field to one with the plain versions on the
+    card, then 10 float64 maxwell steps against the port on the CPU at
+    1e-10 of each field's max, with the launches the step makes (the
+    packed gather in two calls, 8 + 2 fields, under hydraulic diffusion)
+    and no plain version."""
+    over = ({"control": {"has_hydraulic_diffusion": True},
+             "mat": {"porosity": [0.1], "hydraulic_perm": [1e-15],
+                     "fluid_bulk_modulus": [2.2e9], "biot_coeff": [0.8]}}
+            if hydraulic else {})
+    par = des.param_from_dict(flat3d_cfg(**over))
+    on_card = des.Simulation(par)
+    one = on_card._chunk_fn(1)(on_card.ctx, on_card.state)
+    plain = flat3d.make_chunk_runner(par, on_card.ctx,
+                                     on_card.compensation_pressure, 1,
+                                     plain=True)(on_card.ctx, on_card.state)
+    for f in FIELD_NAMES:
+        assert torch.equal(getattr(one, f), getattr(plain, f)), f
+    n = 10
+    before = (band2d.cgather.launches, band2d.asm_pack.launches,
+              band2d.asm_gather.launches, band2d.gather_corners.calls,
+              band2d.scatter_corners.calls)
+    out = on_card.run_steps(n, chunk=n)
+    torch.cuda.synchronize()
+    assert on_card.step_path == "flat3d"
+    assert (band2d.cgather.launches, band2d.asm_pack.launches,
+            band2d.asm_gather.launches, band2d.gather_corners.calls,
+            band2d.scatter_corners.calls) == (
+        before[0] + (2 + hydraulic) * n, before[1] + 2 * n,
+        before[2] + 2 * n, before[3], before[4])
+    ref = des.Simulation(par, device="cpu").run_steps(n, chunk=n)
+    for f in FLAT_FIELDS + ("ppressure",):
+        err = rel_err(get(ref, f), get(out, f))
+        assert err < 1e-10, (f, err)
 
 
 def test_golden_maxwell_2d_on_the_card(cuda, tmp_path, monkeypatch):

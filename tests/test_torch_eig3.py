@@ -101,6 +101,27 @@ def test_eigvals3_one_value_for_any_layout():
         torch.set_num_threads(old)
 
 
+def test_eigvals3_same_bits_in_any_number_of_threads():
+    """The eigenvalues of three copies of the sample (12,672 rows, more
+    than one intra-op chunk of torch.cos and torch.sqrt would hold) under
+    four intra-op threads and under one, bit for bit: the eigensolver's
+    cos and sqrt run in the calling thread (ops/eig3.py ``_serial``),
+    where a worker thread once gave values 1.4e-11 of the scale off."""
+    m = np.tile(_matrices(np.float64), (3, 1))
+    cols = [torch.as_tensor(m[:, i]) for i in range(6)]
+    old = torch.get_num_threads()
+    out = []
+    try:
+        for threads in (4, 1):
+            torch.set_num_threads(threads)
+            out.append(np.stack([x.numpy() for x in TE.eigvals3_c(*cols)],
+                                axis=1))
+    finally:
+        torch.set_num_threads(old)
+    assert np.array_equal(out[0], out[1])
+    assert np.array_equal(out[1][:N + 128], out[1][N + 128:2 * (N + 128)])
+
+
 @pytest.mark.parametrize("dt", list(DTYPES))
 def test_eigh3_matches_jax(dt):
     """Eigenvalues as above; the eigenbasis is orthonormal everywhere, and

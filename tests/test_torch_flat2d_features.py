@@ -208,16 +208,17 @@ def test_f32_production_maxwell_20_steps_vs_band_engine():
 
 
 def test_3d_hydraulic_names_flat3d():
-    """What stays refused: a 3D config off the fused gate (hydraulic
-    diffusion) needs flat3d, which the port lacks."""
+    """A 3D config off the fused gate (hydraulic diffusion on the
+    structured box) takes flat3d in both packages, with the gather tables
+    at npe = 4."""
     cfg = make_sim3d_cfg(control={"has_hydraulic_diffusion": True},
                          mat={"is_plane_strain": False, **HYD})
     js = jdes.Simulation(jdes.param_from_dict(cfg))
     js._chunk_fn(1)
     ts = tdes.Simulation(tdes.param_from_dict(cfg), device="cpu")
-    with pytest.raises(NotImplementedError, match="'flat3d'"):
-        ts.run_steps(1)
-    assert js.step_path == "flat3d" and ts.step_path is None
+    ts._chunk_fn(1)
+    assert js.step_path == ts.step_path == "flat3d"
+    assert ts.ctx.band.npe == 4 and ts.ctx.sgrid is not None
 
 
 @pytest.mark.parametrize("switch,cfg,path", [

@@ -1,6 +1,6 @@
 """The port against the C++ reference binary's goldens
-(tests/golden/runs/), on the CPU: maxwell-2d, maxwell-2mat-2d and
-evp-winkler-2d through the port's CLI (``python -m dynearthsol_tpu_torch
+(tests/golden/runs/), on the CPU: maxwell-2d, maxwell-2mat-2d,
+evp-winkler-2d, ep-3d and maxwell-2mat-3d through the port's CLI (``python -m dynearthsol_tpu_torch
 --device cpu``, called in-process) on the reference's own mesh
 (mesh_from_run) with its glibc marker stream (reference_compatible_rng),
 prepared and gated as tests/test_golden_vs_reference.py gates the JAX
@@ -8,10 +8,13 @@ package (:86-133): 1e-8 on accumulated quantities and 1e-7 on rates at
 every frame for maxwell-2d, 3e-8 and 1e-7 for maxwell-2mat-2d, and 1e-6
 and 1e-5 at frames 0-2 of the 600-step run for evp-winkler-2d (EVP with
 gravity amplifies an ulp about tenfold per frame; the JAX package reaches
-9.1e-6 of the rate bound at frame 2).  The frames are read and compared by
-the JAX package's compare.py, the reference's contract.  The maxwell
-cases take flat2d in float64; evp-winkler-2d (plasticity without
-is_plane_strain) takes the generic step in both packages.
+9.1e-6 of the rate bound at frame 2), and 1e-8 and 1e-7 at every frame
+for the 3D cases, which test_golden_vs_reference.py:122-133 gives no rule
+of their own.  The frames are read and compared by the JAX package's
+compare.py, the reference's contract.  The 2D maxwell cases take flat2d
+in float64; evp-winkler-2d (plasticity without is_plane_strain) takes the
+generic step in both packages; the 3D cases, on the reference's TetGen
+meshes, take flat3d.
 
 Also the CLI itself in a subprocess: without ``--device`` it asks for the
 card, and where there is none it exits non-zero with Simulation's
@@ -40,7 +43,9 @@ LOOSE = {"X velocity", "Z velocity", "S. rate I", "S. rate II",
 # frames written, step path)
 CASES = {"maxwell-2d": (1e-8, 1e-7, None, 11, "flat2d"),
          "maxwell-2mat-2d": (3e-8, 1e-7, None, 11, "flat2d"),
-         "evp-winkler-2d": (1e-6, 1e-5, 2, 7, "generic")}
+         "evp-winkler-2d": (1e-6, 1e-5, 2, 7, "generic"),
+         "ep-3d": (1e-8, 1e-7, None, 5, "flat3d"),
+         "maxwell-2mat-3d": (1e-8, 1e-7, None, 5, "flat3d")}
 
 
 def _prepare_case(rundir, work):

@@ -132,7 +132,7 @@ def test_refine_min_angle_equals_jax():
 
 
 @pytest.mark.parametrize("over", [
-    {"sim": {"ndims": 3}, "mesh": {"ylength": 4e3}},
+    {"sim": {"ndims": 3}, "mesh": {"ylength": 4e3, "meshing_option": 2}},
     {"mesh": {"meshing_option": 2}},
     {"mesh": {"meshing_elem_shape": 2}}],
     ids=["3d", "refined_zone", "equilateral"])
