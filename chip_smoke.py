@@ -191,7 +191,29 @@ Phases, each printed, the first failure exits non-zero:
                 markers, finalize), one maxwell step of the resident
                 kernel against the plain version on the card on every
                 field (phase 3's flagship rule, 2e-6), 200 timed steps on
-                pallas2d_res with their launches and elem*steps/s.
+                pallas2d_res with their launches and elem*steps/s;
+  14. the plane steps and the 3D remeshing on the card -- (a) the
+                evp-remesh-3d golden (3D EVP, two materials, water
+                loading, surface process 1, remeshing option 13 about
+                every 5-7 steps, 400 float64 steps on flat3d) through the
+                CLI's run() on the card, held to the gates of
+                tests/test_golden_vs_reference.py:339-392: the step paths,
+                the number of remeshes, the host seconds per remesh by
+                part, the band kernels' launches per step and the wall
+                seconds; (b) grid3d (8 x 2 x 4 cells) and grid2d (the
+                flagship at 32 x 16 cells), float64, 20 steps card against
+                CPU on every field, then the float64 flagship on grid2d
+                and float64 flagship3d on grid3d: elem*steps/s, launches
+                per step and the device's idle share, and each against its
+                column step (flat2d, flat3d) on the same mesh from the same
+                state; (c) a metric-driven 3D remesh (use_mesh_optimizer,
+                its spacing clipped flat, before the first step) and option
+                100's 3D fallback at test size, card against CPU from one
+                state: the regeneration through its quality loop at the
+                first try, the same mesh and markers, every volume
+                positive, the finalize at 1e-12, then 10 flat3d steps with
+                the kernels against the plain versions on the CPU at
+                1e-10.
 The last lines are a JSON record of the kernels, the card's name and power
 limit, and {"ok": true, "device": {...}}.
 """
@@ -1000,35 +1022,39 @@ def flat3d_launches(param):
             "asm_pack": 1 + ctrl.has_moving_mesh}
 
 
+def flat3d_box_cfg(rheology, **over):
+    """tests/test_torch_flat3d.py's box: 8 km x 4 km x 4 km Delaunay at 1
+    km (886 tets), float64, thermal diffusion, damping 1, the surface
+    correction; ``over`` updates its sections."""
+    cfg = {
+        "sim": {"ndims": 3, "float_dtype": "float64",
+                "is_outputting_averaged_fields": False},
+        "mesh": {"meshing_option": 1, "meshing_elem_shape": 0,
+                 "xlength": 8e3, "ylength": 4e3, "zlength": 4e3,
+                 "resolution": 1e3, "quality_check_step_interval": 10**8},
+        "control": {"gravity": 10.0, "inertial_scaling": 1e5,
+                    "has_thermal_diffusion": True, "damping_option": 1,
+                    "has_surface_correction": True},
+        "bc": {"vbc_x0": 1, "vbc_val_x0": -1e-9, "vbc_x1": 1,
+               "vbc_val_x1": 1e-9, "vbc_y0": 1, "vbc_val_y0": 0.0,
+               "vbc_y1": 1, "vbc_val_y1": 0.0, "vbc_z0": 0, "vbc_z1": 0,
+               "has_winkler_foundation": False,
+               "has_water_loading": False},
+        "ic": {"weakzone_option": 0},
+        "mat": {"rheology_type": rheology, "is_plane_strain": False,
+                "rho0": [2800.0], "bulk_modulus": [50e9],
+                "shear_modulus": [30e9], "visc_max": 1e24,
+                "visc_min": 1e19}}
+    for sec, kv in over.items():
+        cfg.setdefault(sec, {}).update(kv)
+    return cfg
+
+
 def small_flat3d_cfgs():
     """Phase 12's test-size paths (tests/test_torch_flat3d.py), float64 on
     the 8 km x 4 km x 4 km Delaunay box (886 tets): (label, config,
     steps)."""
-    def box(rheology, **over):
-        cfg = {
-            "sim": {"ndims": 3, "float_dtype": "float64",
-                    "is_outputting_averaged_fields": False},
-            "mesh": {"meshing_option": 1, "meshing_elem_shape": 0,
-                     "xlength": 8e3, "ylength": 4e3, "zlength": 4e3,
-                     "resolution": 1e3,
-                     "quality_check_step_interval": 10**8},
-            "control": {"gravity": 10.0, "inertial_scaling": 1e5,
-                        "has_thermal_diffusion": True, "damping_option": 1,
-                        "has_surface_correction": True},
-            "bc": {"vbc_x0": 1, "vbc_val_x0": -1e-9, "vbc_x1": 1,
-                   "vbc_val_x1": 1e-9, "vbc_y0": 1, "vbc_val_y0": 0.0,
-                   "vbc_y1": 1, "vbc_val_y1": 0.0, "vbc_z0": 0, "vbc_z1": 0,
-                   "has_winkler_foundation": False,
-                   "has_water_loading": False},
-            "ic": {"weakzone_option": 0},
-            "mat": {"rheology_type": rheology, "is_plane_strain": False,
-                    "rho0": [2800.0], "bulk_modulus": [50e9],
-                    "shear_modulus": [30e9], "visc_max": 1e24,
-                    "visc_min": 1e19}}
-        for sec, kv in over.items():
-            cfg.setdefault(sec, {}).update(kv)
-        return cfg
-
+    box = flat3d_box_cfg
     rsf = box("elasto-plastic-rate-state-friction",
               mesh={"xlength": 1.0, "ylength": 1.0, "zlength": 1.0,
                     "resolution": 1.0},
@@ -1550,6 +1576,444 @@ def remesh_on_card(des, wrappers, zero_counts, card, usim, check, rel):
     torch.cuda.empty_cache()
     rec["phase_s"] = time.perf_counter() - t_phase
     print(f"  phase 13: {rec['phase_s']:.1f} s")
+    return rec
+
+
+# phase 14's test-size cases
+GRID3D_SMALL = "grid3d, f64 maxwell, 8 x 2 x 4 cells"
+GRID2D_SMALL = "grid2d, f64 maxwell, the flagship at 32 x 16 cells"
+METRIC_3D = ("metric-driven 3D remesh (use_mesh_optimizer, mmg_hmin_factor = "
+             "mmg_hmax_factor = 2), f64 maxwell, 8 x 4 x 4 km Delaunay at 1 "
+             "km with a weak zone, before the first step")
+FALLBACK_3D = ("option 100's 3D fallback, f64 maxwell, 8 x 2 x 4 cells with "
+               "the x0 wall moved")
+
+
+def grid3d_small_cfg():
+    """tests/torch_cases.py grid3d_cfg("maxwell", winkler=False): 8 x 2 x
+    4 cells of 1 km, float64, water loading (base level 10 m), surface
+    process 1 with the surface correction, thermal diffusion, damping 1."""
+    cfg = sim3d_cfg("maxwell", weakzone=0)
+    cfg["sim"]["float_dtype"] = "float64"
+    cfg["mesh"].update(xlength=8e3, ylength=2e3, zlength=4e3)
+    cfg["control"].update(surface_process_option=1, surface_diffusivity=1e-6,
+                          has_surface_correction=True, surf_base_level=10.0)
+    cfg["bc"]["has_water_loading"] = True
+    return cfg
+
+
+def grid2d_small_cfg():
+    """tests/test_torch_grid2d.py flagship64(): the flagship's physics at
+    32 x 16 cells of 3.125 km, maxwell, float64."""
+    cfg = flagship_cfg("maxwell")
+    cfg["sim"]["float_dtype"] = "float64"
+    cfg["mesh"].update(xlength=100e3, zlength=50e3, resolution=50e3 / 16)
+    return cfg
+
+
+def metric3d_cfg():
+    """tests/test_torch_remesh3d.py METRIC_3D_OVER: phase 12's 8 km x 4 km
+    x 4 km Delaunay box (886 tets), maxwell, float64, a weak zone of
+    plastic strain 0.5, remeshing option 11 with the metric-driven
+    regeneration and its spacing field clipped flat at 2 km, where the
+    regeneration passes its own quality loop at the first try (a graded
+    field or a top that has moved leaves slivers, in the JAX package
+    too)."""
+    return flat3d_box_cfg(
+        "maxwell", mesh={"remeshing_option": 11, "use_mesh_optimizer": True,
+                         "mmg_hmin_factor": 2.0, "mmg_hmax_factor": 2.0},
+        ic={"weakzone_option": 2, "weakzone_plstrain": 0.5,
+            "weakzone_xcenter": 0.5, "weakzone_ycenter": 0.5,
+            "weakzone_zcenter": 0.5, "weakzone_xsemi_axis": 1.5e3,
+            "weakzone_ysemi_axis": 1.5e3, "weakzone_zsemi_axis": 1.5e3})
+
+
+def remesh3d_on_card(des, wrappers, zero_counts, card, check, rel,
+                     per_kernel, prof_last):
+    """Phase 14: the structured plane steps and the 3D remeshing on the
+    card -- (a) the evp-remesh-3d golden through the CLI's run() on the
+    card (float64, remeshing option 13 about every 5-7 steps, flat3d
+    between the remeshes), held to the gates of
+    tests/test_golden_vs_reference.py:339-392 (compare.remesh_golden_3d):
+    the step paths, the remeshes, the host seconds per remesh by part, the
+    band kernels' launches per step and the wall seconds; (b) grid3d and
+    grid2d at test size, float64, 20 steps card against CPU on every
+    field, then the float64 flagship on grid2d and flagship3d on grid3d:
+    elem*steps/s, launches per step and the device's idle share, and each
+    against its column step (flat2d, flat3d) on the same mesh; (c) a
+    metric-driven 3D remesh and option 100's 3D fallback at test size,
+    card against CPU from one state: the regeneration through its quality
+    loop at the first try, the same mesh and markers, every volume
+    positive, the finalize at 1e-12, then 10 flat3d steps with the kernels
+    on the card against the plain versions on the CPU at phase 12's 1e-10.
+    Returns the numbers for the JSON record."""
+    import contextlib
+    import io
+    import os
+    import tempfile
+    from dataclasses import replace
+
+    import numpy as np
+    import torch
+
+    from dynearthsol_tpu_torch import __main__ as cli
+    from dynearthsol_tpu_torch import remesh_impl
+    from dynearthsol_tpu_torch import simulation as sim_mod
+    from dynearthsol_tpu_torch.compare import remesh_golden_3d
+    from dynearthsol_tpu_torch.markers import MarkerSet
+    from dynearthsol_tpu_torch.ops import (band2d, flat2d, flat3d, fused2d,
+                                           fused3d, grid2d, grid3d)
+    from dynearthsol_tpu_torch.postproc import OutputReader
+    from dynearthsol_tpu_torch.remeshing import remesh
+    from dynearthsol_tpu_torch.state import FIELD_NAMES, State
+
+    t_phase = time.perf_counter()
+    runs = Path(__file__).resolve().parent / "tests" / "golden" / "runs"
+    band = ("cgather", "asm_pack", "asm_gather")
+    plain_calls = (band2d.gather_corners, band2d.scatter_corners,
+                   fused2d.fused_step_plain, fused2d.dt_refresh_plain,
+                   fused3d.chunk_step_plain, fused3d.finalize_plain)
+    rec = {"golden": {}, "grids": {}, "remesh": {}}
+    print("phase 14 the plane steps and the 3D remeshing on the card")
+
+    def launches(names):
+        return {n: wrappers[n].launches for n in names}
+
+    def no_plain(label):
+        called = [f.__name__ for f in plain_calls if f.calls]
+        if called:
+            fail(f"{label}: the main path on the card called the plain "
+                 f"versions {called}")
+
+    def cpu_twin(sim):
+        """A CPU Simulation of sim's config with a copy of its state and
+        markers."""
+        cpu = des.Simulation(sim.param, device="cpu")
+        if not np.array_equal(cpu.topo.connectivity, sim.topo.connectivity):
+            fail("the CPU twin built another mesh")
+        cpu.state = State(**{f: getattr(sim.state, f).cpu()
+                             for f in FIELD_NAMES})
+        if sim.markers is not None:
+            m = sim.markers
+            cpu.markers = MarkerSet.from_arrays(
+                sim.param.sim.ndims, m.save_arrays(), m.chkpt_arrays())
+        return cpu
+
+    def card_vs_cpu(cpu, sim):
+        """Every floating State field's max difference over its max; the
+        pressure change, a difference of traces, at the stress's."""
+        errs = {}
+        for f in FIELD_NAMES:
+            a, b = getattr(cpu.state, f), getattr(sim.state, f).cpu()
+            if not a.is_floating_point():
+                if not torch.equal(a, b):
+                    fail(f"{f} differs card against CPU")
+                continue
+            if f == "dpressure":
+                errs[f] = float((a.double() - b.double()).abs().max()
+                                / cpu.state.stress.double().abs().max()
+                                .clamp(min=1e-300))
+            else:
+                errs[f] = rel(a, b)
+        return errs
+
+    # (a) the evp-remesh-3d golden through the CLI on the card
+    case = "evp-remesh-3d"
+    paths, secs = [], []
+    chunk_fn, remesh_fn = sim_mod.Simulation._chunk_fn, \
+        remesh_impl.remesh_simulation
+
+    def traced_chunk_fn(self, n):
+        f = chunk_fn(self, n)
+        if not paths or paths[-1] != self.step_path:
+            paths.append(self.step_path)
+        return f
+
+    def timed_remesh(sim, bad_quality):
+        remesh_fn(sim, bad_quality)
+        secs.append(dict(sim.remesh_seconds))
+
+    cwd = os.getcwd()
+    with tempfile.TemporaryDirectory() as tmp:
+        os.chdir(tmp)
+        sim_mod.Simulation._chunk_fn = traced_chunk_fn
+        remesh_impl.remesh_simulation = timed_remesh
+        try:
+            Path(f"{case}.cfg").write_text(golden_cfg(runs / case, case))
+            zero_counts()
+            buf = io.StringIO()
+            t = time.perf_counter()
+            with contextlib.redirect_stdout(buf):
+                sim = cli.run(des.load_config(f"{case}.cfg"), device="cuda")
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t
+            got = launches(band)
+            no_plain(case)
+            nsteps = int(sim.state.steps)
+            nremesh = buf.getvalue().count("remeshing (trigger")
+            ref = OutputReader(str(runs / case / "ref"))
+            our = OutputReader(case)
+            nums, bad = remesh_golden_3d(ref, our, sim.param.mesh.xlength)
+        finally:
+            sim_mod.Simulation._chunk_fn = chunk_fn
+            remesh_impl.remesh_simulation = remesh_fn
+            os.chdir(cwd)
+    want = {n: v * nsteps for n, v in flat3d_launches(sim.param).items()}
+    if sim.dtype != torch.float64 or paths != ["flat3d"] or got != want:
+        fail(f"{case}: paths {paths} in {sim.dtype}, launches {got}, not "
+             f"flat3d in float64 with {want}")
+    if len(secs) != nremesh or nremesh < 40:
+        fail(f"{case}: {nremesh} remeshes ({len(secs)} timed), fewer than "
+             "the reference's about one in 5-7 steps")
+    if bad:
+        fail(f"{case} on the card: " + "; ".join(bad))
+    parts = {k: sum(s[k] for s in secs) / len(secs) for k in secs[0]}
+    per_step = {n: v / nsteps for n, v in got.items()}
+    print(f"  (a) {case}: float64, step paths {paths}, {nsteps} steps, "
+          f"{nremesh} remeshes, {wall:.1f} s wall on {card}; host s per "
+          f"remesh " + ", ".join(f"{k} {v:.3f}" for k, v in parts.items())
+          + f" (total {sum(parts.values()):.3f}); band launches per step "
+          f"{per_step}")
+    for k in sorted(nums["frame0"]):
+        print(f"    frame 0 {k}: {nums['frame0'][k]:.3e}")
+    for f, m in nums["frames"].items():
+        print(f"    frame {f}: nelem {m['run']['nelem']} (reference "
+              f"{m['reference']['nelem']}), rel. volume "
+              f"{m['rel']['vol']:.3e} (1e-3), plastic strain "
+              f"{m['rel']['plsv']:.3e} (5e-2), mean stress II "
+              f"{m['rel']['sII_mean']:.3e} (1.5e-1)")
+    print(f"    frame 8 relief {nums['relief_run']:.1f} m against the "
+          f"reference's {nums['relief_reference']:.1f} m, max |dz| "
+          f"{nums['dz_max']:.1f} m; every gate passed")
+    rec["golden"] = {"steps": nsteps, "remeshes": nremesh, "paths": paths,
+                     "wall_s": wall, "remesh_s_by_part": parts,
+                     "launches": got, "launches_per_step": per_step,
+                     "gates": nums}
+    del sim
+
+    # (b) the plane steps, test size card against CPU, then the flagship
+    for label, cfg, path in ((GRID3D_SMALL, grid3d_small_cfg(), "grid3d"),
+                             (GRID2D_SMALL, grid2d_small_cfg(), "grid2d")):
+        sim = des.Simulation(des.param_from_dict(cfg))
+        cpu = cpu_twin(sim)
+        zero_counts()
+        sim.run_steps(20, chunk=20)
+        torch.cuda.synchronize()
+        got = launches(tuple(wrappers))
+        no_plain(label)
+        cpu.run_steps(20, chunk=20)
+        if not sim.step_path == cpu.step_path == path or any(got.values()):
+            fail(f"{label}: paths {sim.step_path!r} / {cpu.step_path!r}, "
+                 f"launches {got}")
+        errs = card_vs_cpu(cpu, sim)
+        worst = max(errs, key=errs.get)
+        check(f"{label}: 20 steps card vs CPU, worst field ({worst})",
+              errs[worst], 1e-12)
+        rec["grids"][label] = {"errors": errs, "path": path}
+        del sim, cpu
+    def flagship_on_grid(label, cfg, path, mod, warm, steps, chunk, nprof):
+        """cfg (a flagship at float64, off both fused gates) on its plane
+        step: a warm-up chunk, then ``steps`` timed with the counts set to
+        0 just before: no hand-written kernel, no plain version, finite
+        fields; elem*steps/s, launches per step and the device's idle share
+        from ``nprof`` profiled steps.  Returns (sim, record)."""
+        cfg["sim"]["float_dtype"] = "float64"
+        t = time.perf_counter()
+        sim = des.Simulation(des.param_from_dict(cfg))
+        torch.cuda.synchronize()
+        init_s = time.perf_counter() - t
+        sim.run_steps(warm, chunk=warm)
+        torch.cuda.synchronize()
+        zero_counts()
+        t = time.perf_counter()
+        sim.run_steps(steps, chunk=chunk)
+        torch.cuda.synchronize()
+        run_s = time.perf_counter() - t
+        got = launches(tuple(wrappers))
+        no_plain(label)
+        if sim.step_path != path or any(got.values()):
+            fail(f"{label} took {sim.step_path!r}, launches {got}, not "
+                 f"{path} with no hand-written kernel")
+        for f in FIELD_NAMES:
+            v = getattr(sim.state, f)
+            if v.is_floating_point() and not bool(torch.isfinite(v).all()):
+                fail(f"{label}: non-finite values in {f}")
+        nelem = sim.topo.nelem
+        rate = nelem * steps / run_s
+        rows = per_kernel(f"{label} ({path})",
+                          lambda k: mod.make_chunk_runner(
+                              sim.param, sim.ctx, sim.compensation_pressure,
+                              k)(sim.ctx, sim.state), nprof)
+        per_step = sum(n for n, _ in rows.values()) / nprof
+        print(f"  (b) {label} on {path}: {nelem} elements, init "
+              f"{init_s:.1f} s, {steps} steps in {run_s:.3f} s, {rate:.6e} "
+              f"elem*steps/s on {card}; {per_step:g} launches per step "
+              f"(PyTorch ops; the hand-written kernels launched {got}), "
+              f"device idle {prof_last['idle']:.1%}")
+        return sim, {
+            "nelem": nelem, "init_s": init_s, "steps": steps, "secs": run_s,
+            "elem_steps_per_s": rate, "launches_per_step": per_step,
+            "device_idle": prof_last["idle"],
+            "wall_us_per_step_profiled": prof_last["wall_us"],
+            "busy_us_per_step": prof_last["busy_us"]}
+
+    def grid_vs_flat(label, sim, gmod, fmod, gate, n):
+        """The plane step against the column step on one mesh: n steps of
+        each runner from copies of sim's state (the column step's band
+        tables built for this mesh), run grid, flat, flat, grid after a
+        warm-up call of each.  Prints and returns the seconds of each run
+        and the largest difference of the two end states over each
+        field's max."""
+        param, comp = sim.param, sim.compensation_pressure
+        if not gate(param, sim.ctx):
+            fail(f"{label}: the column step's gate refuses the config")
+        ctxs = {"grid": sim.ctx, "flat": replace(sim.ctx, band=(
+            band2d.build_tables(sim.topo.connectivity, sim.topo.nnode,
+                                sim.device)))}
+        run = {"grid": gmod.make_chunk_runner(param, ctxs["grid"], comp, n),
+               "flat": fmod.make_chunk_runner(param, ctxs["flat"], comp, n)}
+
+        def copy():
+            return State(**{f: getattr(sim.state, f).clone()
+                            for f in FIELD_NAMES})
+
+        for k in run:
+            run[k](ctxs[k], copy())
+        secs, out = {"grid": [], "flat": []}, {}
+        for k in ("grid", "flat", "flat", "grid"):
+            s0 = copy()
+            torch.cuda.synchronize()
+            t = time.perf_counter()
+            out[k] = run[k](ctxs[k], s0)
+            torch.cuda.synchronize()
+            secs[k].append(time.perf_counter() - t)
+        diff = {}
+        for f in FIELD_NAMES:
+            a, b = getattr(out["grid"], f), getattr(out["flat"], f)
+            if a.is_floating_point():
+                if not bool(torch.isfinite(b).all()):
+                    fail(f"{label}: the column step gave non-finite {f}")
+                diff[f] = rel(a, b)
+        worst = max(diff, key=diff.get)
+        nelem = sim.topo.nelem
+        print(f"  (b) {label}, one mesh ({nelem} elements), {n} steps from "
+              f"one state on {card}: grid s {secs['grid']}, flat s "
+              f"{secs['flat']} (grid, flat, flat, grid); best "
+              f"{nelem * n / min(secs['grid']):.6e} / "
+              f"{nelem * n / min(secs['flat']):.6e} elem*steps/s; end "
+              f"states apart by {diff[worst]:.3e} ({worst})")
+        return {"steps": n, "grid_s": secs["grid"], "flat_s": secs["flat"],
+                "grid_elem_steps_per_s": nelem * n / min(secs["grid"]),
+                "flat_elem_steps_per_s": nelem * n / min(secs["flat"]),
+                "max_rel_diff": diff[worst], "worst_field": worst}
+
+    # the flagships at float64: both fused gates refuse float64, so the
+    # flagship takes grid2d and flagship3d (983,040 tets) grid3d; each
+    # then against its column step on the same mesh
+    sim, rec["grids"]["flagship_f64"] = flagship_on_grid(
+        "flagship f64", flagship_cfg(), "grid2d", grid2d, 10, 100, 50, 5)
+    rec["grids"]["flagship_f64"]["vs_flat2d"] = grid_vs_flat(
+        "flagship f64 grid2d vs flat2d", sim, grid2d, flat2d,
+        flat2d.flat_step_applicable, 50)
+    del sim
+    torch.cuda.empty_cache()
+    sim, rec["grids"]["flagship3d_f64"] = flagship_on_grid(
+        "flagship3d f64", flagship3d_cfg(), "grid3d", grid3d, 5, 20, 10, 3)
+    rec["grids"]["flagship3d_f64"]["vs_flat3d"] = grid_vs_flat(
+        "flagship3d f64 grid3d vs flat3d", sim, grid3d, flat3d,
+        flat3d.flat3d_step_applicable, 10)
+    del sim
+    torch.cuda.empty_cache()
+
+    # (c) the metric-driven remesh and option 100's 3D fallback
+    def move_x0(sim):
+        """The x0 wall moved by up to 30 m at random: no longer a plane,
+        so the structured regeneration refuses the box."""
+        x0 = torch.as_tensor((sim.topo.bcflag & 1) != 0, device=sim.device)
+        rng = np.random.default_rng(4)
+        dx = torch.as_tensor(rng.uniform(0.0, 30.0, sim.topo.nnode),
+                             device=sim.device, dtype=sim.dtype)
+        c = sim.state.coord.clone()
+        c[:, 0] = torch.where(x0, c[:, 0] + dx, c[:, 0])
+        sim.state = sim.state.replace(coord=c)
+
+    def positive_volumes(label, when, *sims):
+        for s in sims:
+            v = float(s.state.volume.min())
+            if not v > 0.0:
+                fail(f"{label}: a tet of volume {v:.6e} m^3 {when} on "
+                     f"{s.device}")
+
+    fallback = grid3d_small_cfg()
+    fallback["mesh"]["remeshing_option"] = 100
+    for label, cfg, before, path0, move in (
+            (METRIC_3D, metric3d_cfg(), 0, None, None),
+            (FALLBACK_3D, fallback, 5, "grid3d", move_x0)):
+        after = 10
+        sim = des.Simulation(des.param_from_dict(cfg))
+        if before:
+            sim.run_steps(before, chunk=before)
+            if sim.step_path != path0:
+                fail(f"{label}: the run took {sim.step_path!r}, not {path0}")
+        if move is not None:
+            move(sim)
+        cpu = cpu_twin(sim)
+        buf = io.StringIO()
+        with contextlib.redirect_stdout(buf):
+            remesh(sim, 1)
+            remesh(cpu, 1)
+        torch.cuda.synchronize()
+        log = buf.getvalue()
+        print("    " + log.strip().replace("\n", "\n    "))
+        if "retrying" in log or "risks" in log:
+            fail(f"{label}: the regeneration failed its quality loop")
+        positive_volumes(label, "after the remesh", sim, cpu)
+        for f in ("connectivity", "bcflag", "segment", "segflag"):
+            if not np.array_equal(getattr(sim.topo, f), getattr(cpu.topo, f)):
+                fail(f"{label}: card and CPU remeshed to another {f}")
+        for nm in ("eta", "elem", "mattype", "id"):
+            if not np.array_equal(sim.markers.live(nm), cpu.markers.live(nm)):
+                fail(f"{label}: card and CPU markers differ in {nm}")
+        if sim.ctx.sgrid is not None or sim._struct_regen_dims is not None:
+            fail(f"{label}: the remesh left a structured grid")
+        fin = card_vs_cpu(cpu, sim)
+        check(f"{label}: after the remesh, card vs CPU, every field",
+              max(fin.values()), 1e-12)
+        zero_counts()
+        sim.run_steps(after, chunk=after)
+        torch.cuda.synchronize()
+        got = launches(band)
+        no_plain(label)
+        cpu.run_steps(after, chunk=after)
+        want = {n: v * after
+                for n, v in flat3d_launches(sim.param).items()}
+        if sim.step_path != "flat3d" or got != want:
+            fail(f"{label}: after the remesh {sim.step_path!r} with "
+                 f"launches {got}, not flat3d with {want}")
+        for f in FIELD_NAMES:
+            v = getattr(sim.state, f)
+            if v.is_floating_point() and not bool(torch.isfinite(v).all()):
+                fail(f"{label}: non-finite values in {f}")
+        positive_volumes(label, f"after {after} steps", sim, cpu)
+        errs = card_vs_cpu(cpu, sim)
+        worst = max(errs, key=errs.get)
+        check(f"{label}: {after} flat3d steps, kernels on the card vs "
+              f"plain versions on the CPU, worst field ({worst})",
+              errs[worst], 1e-10)
+        print(f"  (c) {label}: {sim.topo.nelem} tets after the remesh (host "
+              f"s " + ", ".join(f"{k} {v:.3f}" for k, v in
+                                sim.remesh_seconds.items())
+              + f"), launches {got}")
+        rec["remesh"][label] = {
+            "nelem": sim.topo.nelem, "steps_after": after,
+            "finalize_card_vs_cpu": max(fin.values()),
+            "max_err": errs[worst], "launches": got,
+            "remesh_s": sim.remesh_seconds,
+            "min_volume": float(cpu.state.volume.min())}
+        del sim, cpu
+    torch.cuda.empty_cache()
+    rec["phase_s"] = time.perf_counter() - t_phase
+    print(f"  phase 14: {rec['phase_s']:.1f} s")
     return rec
 
 
@@ -3461,6 +3925,10 @@ def main():
     del usim
     torch.cuda.empty_cache()
 
+    # ---- 14. the plane steps and the 3D remeshing on the card
+    phase14 = remesh3d_on_card(des, wrappers, zero_counts, card, check, rel,
+                               per_kernel, prof_last)
+
     src2 = "dynearthsol_tpu_torch/csrc/fused2d.cu"
     src3 = "dynearthsol_tpu_torch/csrc/fused3d.cu"
     err_metric = ("max |kernel - plain| / max |plain| over the output "
@@ -3663,6 +4131,12 @@ def main():
                 phase13["postremesh"]["launches_before"][name],
             "launches_after_option_11_remesh": phase13["test_size"][
                 REMESH_11]["launches"][name],
+            "launches_golden_evp_remesh_3d":
+                phase14["golden"]["launches"][name],
+            "launches_after_metric_remesh_3d": phase14["remesh"][
+                METRIC_3D]["launches"][name],
+            "launches_after_option_100_3d_fallback": phase14["remesh"][
+                FALLBACK_3D]["launches"][name],
             "max_abs_err": band_err[name],
             "err_metric": "max |kernel - plain| over random inputs at a "
                           "small Delaunay mesh, a tet mesh, the "
@@ -3719,6 +4193,7 @@ def main():
                       "features": phase11,
                       "flat3d": phase12,
                       "remesh": phase13,
+                      "grids_remesh3d": phase14,
                       "init_s_flagship3d_unstructured": u3init_s,
                       "mesh_s_flagship3d_unstructured": mesh_s[1],
                       "script_s": time.perf_counter() - t_start}))

@@ -15,9 +15,7 @@ it fails as ``Simulation`` does.  Not ported yet, and refused with
 (``DES_N_DEVICES``), profiling (``DES_PROFILE_DIR``), GoSPL and the
 custom surface hook (surface_process_option 11 and 101), phase changes,
 earthquake tracking and adaptive output (use_global_velocity_scaling),
-the monitor, the isostasy and body-force pre-relaxations, and, in a run
-that checks its mesh, 3D remeshing other than the structured option 100
-and the metric-driven remeshing (use_mesh_optimizer).
+the monitor, and the isostasy and body-force pre-relaxations.
 """
 
 from __future__ import annotations
@@ -66,13 +64,6 @@ def unported_driver_features(p) -> list:
             and not p.sim.is_restarting:
         out.append("the body-force pre-relaxation "
                    "(has_body_force_adjustment)")
-    may_remesh = (p.control.has_moving_mesh
-                  and p.mesh.quality_check_step_interval <= p.sim.max_steps)
-    if may_remesh and p.sim.ndims == 3 and p.mesh.remeshing_option != 100:
-        out.append("3D remeshing other than the structured option 100 "
-                   "(remesh_impl.generate_new_mesh_3d)")
-    if may_remesh and p.mesh.use_mesh_optimizer:
-        out.append("the metric-driven remeshing (use_mesh_optimizer)")
     return out
 
 

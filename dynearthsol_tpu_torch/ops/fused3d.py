@@ -53,8 +53,8 @@ lane between the coordinate move and the post-move geometry; its ``dhacc``
 and per-facet ``edv`` accumulators ride three more nodal planes, placed by
 ``surf_maps``.
 
-Gating is pallas3d.py's together with grid3d.grid_step_applicable, ported
-as it is so that both packages dispatch alike.  ``unported_features``
+Gating is pallas3d.py's on top of ops/grid3d.py's ``grid_step_applicable``,
+ported as it is so that both packages dispatch alike.  ``unported_features``
 refuses only more materials than the kernel's MAXMAT.
 """
 
@@ -72,6 +72,7 @@ from . import fused2d
 from . import fused_common as FC
 from . import rheology as R
 from .geometry import tet_min_height
+from .grid3d import grid_step_applicable
 from .matprops import CELSIUS0, MIN_STRAIN_RATE
 from .shapefn import tet_volume
 from .structured import parity_3d, tet_tables
@@ -281,17 +282,6 @@ def _decodes(fn, *args) -> bool:
     except ValueError:
         return False
     return True
-
-
-def grid_step_applicable(param: Param, ctx) -> bool:
-    """grid3d.grid_step_applicable (this package has no sharded axis)."""
-    ctrl = param.control
-    return (ctx.sgrid is not None and len(ctx.sgrid) == 3
-            and ctx.ndims == 3
-            and not ctrl.has_hydraulic_diffusion
-            and not ctrl.has_PT
-            and param.mat.rheol_type in (RH_ELASTIC, RH_VISCOUS, RH_MAXWELL,
-                                         RH_EP, RH_EVP))
 
 
 def pallas3d_step_applicable(param: Param, ctx) -> bool:

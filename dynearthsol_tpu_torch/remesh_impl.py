@@ -13,14 +13,13 @@ Reference: remesh() (remeshing.cxx:2855-3135) with
 All host-side numpy/scipy, as in the JAX package, from the same float64
 host arrays, so both packages regenerate the same mesh and move the same
 markers; the finalize (velocity BCs, masses, viscosity) runs on the run's
-device.  Ported: the 2D regenerations (the unstructured re-triangulation
-of the kept points, the structured columns) and remeshing_option 100's
-structured regeneration in 2D and 3D.  Not ported, each raising
-``NotImplementedError`` where a run needs it: the 3D unstructured
-regenerations (``generate_new_mesh_3d``, ``generate_optimized_mesh_3d``,
-so 3D options other than 100 and option 100's 3D fallback), the
-metric-driven path (``use_mesh_optimizer``) and the hydrous markers of
-phase changes.
+device.  Every regeneration of the JAX package is ported: in 2D the
+unstructured re-triangulation of the kept points, the metric-driven point
+sets and the structured columns, in 3D the surface-following 5-tet
+columns (``generate_new_mesh_3d``) and the metric-driven Delaunay
+(``generate_optimized_mesh_3d``), and remeshing_option 100's structured
+regeneration in 2D and 3D.  Not ported, raising ``NotImplementedError``
+where a run needs it: the remap of the hydrous markers of phase changes.
 """
 
 from __future__ import annotations
@@ -33,7 +32,7 @@ from .barycentric import bary_to_coord, random_barycentric
 from .constants import (BOUNDX0, BOUNDX1, BOUNDY0, BOUNDY1, BOUNDZ0, BOUNDZ1,
                         IBOUNDZ1, dim)
 from .ic import ref_pressure
-from .mesh.generate import _orient_2d
+from .mesh.generate import _orient_2d, _orient_3d
 from .mesh.locate import ElementLocator
 from .mesh.topology import finish_topology
 
@@ -64,6 +63,22 @@ def _surface_interp_2d(top_pts):
 
     def f(x):
         return np.interp(x, xs, zs)
+
+    return f
+
+
+def _surface_interp_3d(top_pts):
+    from scipy.interpolate import LinearNDInterpolator, NearestNDInterpolator
+
+    lin = LinearNDInterpolator(top_pts[:, :2], top_pts[:, 2])
+    near = NearestNDInterpolator(top_pts[:, :2], top_pts[:, 2])
+
+    def f(xy):
+        z = lin(xy)
+        bad = np.isnan(z)
+        if bad.any():
+            z[bad] = near(xy[bad])
+        return z
 
     return f
 
@@ -152,8 +167,8 @@ def sediment_refine_points(param, surf, markers, nelem, old_coord,
     midpoints between each surface node of the facet and the element's
     sub-surface node, so freshly deposited layers keep resolution
     through a remesh.  The reference only wires this in 2D (its 3D
-    branch is 'todo', remeshing.cxx:1250); the JAX package also feeds
-    it to its 3D metric path, which is not ported here."""
+    branch is 'todo', remeshing.cxx:1250); the same construction is
+    dimension-generic, so 3D gets it too via the metric-path seeds."""
     ndims = old_coord.shape[1]
     if int(surf.etop) == 0 or markers is None:
         return np.zeros((0, ndims))
@@ -180,13 +195,16 @@ def sediment_refine_points(param, surf, markers, nelem, old_coord,
     return np.asarray(pts) if pts else np.zeros((0, ndims))
 
 
-def generate_new_mesh_2d(param, old_coord, old_topo, extra_interior=None,
-                         reuse_pts=None, min_angle=None):
+def generate_new_mesh_2d(param, old_coord, old_topo, seed: int, h=None,
+                         extra_interior=None, reuse_pts=None,
+                         min_angle=None):
     """New 2D mesh under the current topography.  Returns
-    (coord, conn, bcflag): structured columns for ``meshing_elem_shape``
-    1 and 2, else the re-triangulated ``reuse_pts``.  The JAX package's
-    synthesized point sets (``h``, the metric-driven path) are not ported.
+    (coord, conn, bcflag).
 
+    ``h`` (optional): callable mapping points (N,2) -> target node
+    spacing, used by the metric-driven mesh-optimization path (the
+    MMG-analog, remeshing.cxx:2181-2434); None = uniform resolution.
+    ``seed`` seeds the jitter of the synthesized points.
     ``extra_interior``: additional interior seed points (the
     refine_surface_elem sediment refinement).
     ``reuse_pts``: (coord, bcflag) point set to re-triangulate instead
@@ -236,16 +254,107 @@ def generate_new_mesh_2d(param, old_coord, old_topo, extra_interior=None,
         bcflag[np.arange(nx) * nz + nz - 1] |= BOUNDZ1
         return coord, conn, bcflag
 
-    if reuse_pts is None:
-        _unported("generate_new_mesh_2d(h=...)", "the metric-driven "
-                  "regeneration (use_mesh_optimizer)")
-    coord, bcflag = reuse_pts
-    coord = np.asarray(coord, dtype=np.float64)
-    bcflag = np.asarray(bcflag, dtype=np.uint32)
+    # unstructured: keep exact top nodes, regenerate everything else
+    order = np.argsort(top[:, 0])
+    top_pts = top[order]
+    rng = np.random.default_rng(seed)
+
+    if reuse_pts is not None:
+        coord, bcflag = reuse_pts
+        coord = np.asarray(coord, dtype=np.float64)
+        bcflag = np.asarray(bcflag, dtype=np.uint32)
+        if extra_interior is not None and len(extra_interior):
+            coord = np.concatenate([coord, np.asarray(extra_interior)])
+            bcflag = np.concatenate(
+                [bcflag, np.zeros(len(extra_interior), dtype=np.uint32)])
+        return _finish_unstructured_2d(param, coord, bcflag, surf, bot,
+                                       min_angle=min_angle)
+
+    if h is None:
+        bot_x = xs
+        bot_pts = np.stack([bot_x, bot(bot_x)], axis=1)
+        zl0 = surf(0.0) - bot(0.0)
+        zl1 = surf(m.xlength) - bot(m.xlength)
+        n0 = max(2, int(round(zl0 / res)) + 1)
+        n1 = max(2, int(round(zl1 / res)) + 1)
+        left_z = np.linspace(float(bot(0.0)), float(surf(0.0)), n0)[1:-1]
+        right_z = np.linspace(float(bot(m.xlength)), float(surf(m.xlength)),
+                              n1)[1:-1]
+        left_pts = np.stack([np.zeros_like(left_z), left_z], axis=1)
+        right_pts = np.stack([np.full_like(right_z, m.xlength), right_z],
+                             axis=1)
+        ipts = []
+        for x in xs[1:-1]:
+            zt, zb = float(surf(x)), float(bot(x))
+            nz_i = max(2, int(round((zt - zb) / res)) + 1)
+            for z in np.linspace(zb, zt, nz_i)[1:-1]:
+                jx = 0.3 * res * (rng.random() - 0.5)
+                jz = 0.3 * res * (rng.random() - 0.5)
+                ipts.append((x + jx, z + jz))
+        interior = np.asarray(ipts) if ipts else np.zeros((0, 2))
+    else:
+        # metric-driven point placement (the MMG-analog optimize_mesh_2d,
+        # remeshing.cxx:2436-2694): graded boundary walks + a fine
+        # lattice thinned with keep-probability (h_min/h)^2
+        def _walk(p0, p1):
+            pts_w = [0.0]
+            d = p1 - p0
+            L = float(np.hypot(*d))
+            u = d / L
+            while pts_w[-1] < L:
+                p = p0 + pts_w[-1] * u
+                pts_w.append(pts_w[-1] + float(h(p[None, :])[0]))
+            t = np.asarray(pts_w)
+            t *= L / t[-1]
+            return p0[None, :] + t[:, None] * u[None, :]
+
+        bl = np.array([0.0, float(bot(0.0))])
+        br = np.array([m.xlength, float(bot(m.xlength))])
+        tl = np.array([0.0, float(surf(0.0))])
+        tr = np.array([m.xlength, float(surf(m.xlength))])
+        bot_w = _walk(bl, br)
+        # follow the (possibly non-flat) bottom
+        bot_pts = np.stack([bot_w[:, 0], bot(bot_w[:, 0])], axis=1)
+        left_pts = _walk(bl, tl)[1:-1]
+        right_pts = _walk(br, tr)[1:-1]
+
+        h_min = max(float(res) * m.mmg_hmin_factor, 1e-30)
+        nxf = int(round(m.xlength / h_min)) + 1
+        nzf = int(round(m.zlength / h_min)) + 1
+        xf = np.linspace(0.0, m.xlength, nxf)[1:-1]
+        zf = np.linspace(-m.zlength * 1.05, float(top_pts[:, 1].max()),
+                         nzf)
+        X, Z = np.meshgrid(xf, zf, indexing="ij")
+        P = np.stack([X.ravel(), Z.ravel()], axis=1)
+        hP = h(P)
+        keep = rng.random(P.shape[0]) < (h_min / hP) ** 2
+        P, hP = P[keep], hP[keep]
+        P = P + 0.35 * hP[:, None] * (rng.random(P.shape) - 0.5)
+        margin = 0.55 * hP
+        ok = ((P[:, 0] > margin) & (P[:, 0] < m.xlength - margin)
+              & (P[:, 1] > bot(P[:, 0]) + margin)
+              & (P[:, 1] < surf(P[:, 0]) - margin))
+        interior = P[ok]
+
     if extra_interior is not None and len(extra_interior):
-        coord = np.concatenate([coord, np.asarray(extra_interior)])
-        bcflag = np.concatenate(
-            [bcflag, np.zeros(len(extra_interior), dtype=np.uint32)])
+        interior = np.concatenate([np.asarray(interior).reshape(-1, 2),
+                                   np.asarray(extra_interior)])
+    sizes = [len(top_pts), len(bot_pts), len(left_pts), len(right_pts),
+             len(interior)]
+    coord = np.concatenate([top_pts, bot_pts, left_pts, right_pts, interior])
+    bcflag = np.zeros(coord.shape[0], dtype=np.uint32)
+    o = 0
+    bcflag[o:o + sizes[0]] |= BOUNDZ1
+    o += sizes[0]
+    bcflag[o:o + sizes[1]] |= BOUNDZ0
+    o += sizes[1]
+    bcflag[o:o + sizes[2]] |= BOUNDX0
+    o += sizes[2]
+    bcflag[o:o + sizes[3]] |= BOUNDX1
+    # corners carry two bits
+    tol = 1e-6 * m.xlength
+    bcflag[np.abs(coord[:, 0]) < tol] |= BOUNDX0
+    bcflag[np.abs(coord[:, 0] - m.xlength) < tol] |= BOUNDX1
     return _finish_unstructured_2d(param, coord, bcflag, surf, bot,
                                    min_angle=min_angle)
 
@@ -360,6 +469,238 @@ def _finish_unstructured_2d(param, coord, bcflag, surf, bot,
         conn = _triangulate(coord, bcflag)
     coord, conn, bcflag = _drop_unused_nodes(coord, conn, bcflag)
     return coord, _orient_2d(coord, conn), bcflag
+
+def generate_optimized_mesh_3d(param, old_coord, old_topo, seed: int, h,
+                               extra_interior=None):
+    """Metric-driven unstructured 3D regeneration (the MMG3D-analog
+    optimize_mesh, remeshing.cxx:2181-2434): graded edge walks + thinned
+    face lattices + thinned interior lattice with keep-probability
+    (h_min/h)^3, Delaunay-tetrahedralized.  ``extra_interior``: sediment
+    surface-refinement seeds (3D refine_surface_elem analog — the
+    reference's own 3D branch is 'todo', remeshing.cxx:1250)."""
+    m = param.mesh
+    res = m.resolution
+    top = old_coord[(old_topo.bcflag & BOUNDZ1) != 0]
+    surf = _surface_interp_3d(top)
+    if _flatten_bottom(param):
+        def botf(xy):
+            return np.full(len(xy), -m.zlength)
+    else:
+        from scipy.interpolate import NearestNDInterpolator
+        bpts = old_coord[(old_topo.bcflag & BOUNDZ0) != 0]
+        botf = NearestNDInterpolator(bpts[:, :2], bpts[:, 2])
+
+    rng = np.random.default_rng(seed)
+    h_min = max(float(res) * m.mmg_hmin_factor, 1e-30)
+
+    def thin(P, hP, frac_pow):
+        keep = rng.random(P.shape[0]) < (h_min / hP) ** frac_pow
+        return P[keep], hP[keep]
+
+    # top face: keep the exact surface nodes (preserves topography)
+    pts = [top]
+    # bottom + side faces: fine 2D lattices thinned by (h_min/h)^2,
+    # then projected onto the face
+    nxf = int(round(m.xlength / h_min)) + 1
+    nyf = int(round(m.ylength / h_min)) + 1
+    nzf = int(round(m.zlength / h_min)) + 1
+    xf = np.linspace(0.0, m.xlength, nxf)
+    yf = np.linspace(0.0, m.ylength, nyf)
+    zf = np.linspace(-m.zlength * 1.05, 0.0, nzf)
+
+    def face_points(axes_vals, fixed_axis, fixed_val):
+        A, B = np.meshgrid(*axes_vals, indexing="ij")
+        P = np.empty((A.size, 3))
+        free = [a for a in range(3) if a != fixed_axis]
+        P[:, free[0]] = A.ravel()
+        P[:, free[1]] = B.ravel()
+        P[:, fixed_axis] = fixed_val
+        return P
+
+    bottomP = face_points((xf, yf), 2, 0.0)
+    bottomP[:, 2] = botf(bottomP[:, :2])
+    for P in (bottomP,
+              face_points((yf, zf), 0, 0.0),
+              face_points((yf, zf), 0, m.xlength),
+              face_points((xf, zf), 1, 0.0),
+              face_points((xf, zf), 1, m.ylength)):
+        # clamp side faces under the local surface / above local bottom
+        zt_f = surf(P[:, :2])
+        zb_f = botf(P[:, :2])
+        ok = (P[:, 2] >= zb_f - 1e-9 * m.zlength) \
+            & (P[:, 2] <= zt_f + 1e-9 * m.zlength)
+        P = P[ok]
+        P2, _ = thin(P, h(P), 2)
+        pts.append(P2)
+
+    # interior: thinned 3D lattice
+    X, Y, Z = np.meshgrid(xf[1:-1], yf[1:-1], zf, indexing="ij")
+    P = np.stack([X.ravel(), Y.ravel(), Z.ravel()], axis=1)
+    P, hP = thin(P, h(P), 3)
+    P = P + 0.3 * hP[:, None] * (rng.random(P.shape) - 0.5)
+    margin = 0.55 * hP
+    ok = ((P[:, 0] > margin) & (P[:, 0] < m.xlength - margin)
+          & (P[:, 1] > margin) & (P[:, 1] < m.ylength - margin)
+          & (P[:, 2] > botf(P[:, :2]) + margin)
+          & (P[:, 2] < surf(P[:, :2]) - margin))
+    pts.append(P[ok])
+    if extra_interior is not None and len(extra_interior):
+        # sediment refinement seeds (old-element edge midpoints —
+        # interior by construction, but clamp just under the surface)
+        E = np.asarray(extra_interior, dtype=np.float64)
+        zcap = surf(E[:, :2]) - 1e-6 * m.zlength
+        E[:, 2] = np.minimum(E[:, 2], zcap)
+        pts.append(E)
+
+    coord = np.concatenate(pts, axis=0)
+    # dedup near-coincident points (face/edge overlaps)
+    key = np.round(coord / (0.25 * h_min)).astype(np.int64)
+    _, uniq = np.unique(key, axis=0, return_index=True)
+    coord = coord[np.sort(uniq)]
+
+    tet = Delaunay(coord, qhull_options="Qbb Qc Qz")
+    conn = tet.simplices.astype(np.int32)
+    cen = coord[conn].mean(axis=1)
+    keep = (cen[:, 2] <= surf(cen[:, :2]) + 1e-9 * m.zlength) \
+        & (cen[:, 2] >= botf(cen[:, :2]) - 1e-9 * m.zlength)
+    # sliver removal by volume
+    a = coord[conn[:, 0]]
+    v = np.abs(np.einsum(
+        "ij,ij->i", np.cross(coord[conn[:, 1]] - a, coord[conn[:, 2]] - a),
+        coord[conn[:, 3]] - a))
+    keep &= v > 1e-9 * np.median(v)
+    conn = conn[keep]
+    coord, conn, _ = _drop_unused_nodes(
+        coord, conn, np.zeros(coord.shape[0], dtype=np.uint32))
+
+    tol = 1e-6 * min(m.xlength, m.zlength)
+    bcflag = np.zeros(coord.shape[0], dtype=np.uint32)
+    bcflag[np.abs(coord[:, 0]) < tol] |= BOUNDX0
+    bcflag[np.abs(coord[:, 0] - m.xlength) < tol] |= BOUNDX1
+    bcflag[np.abs(coord[:, 1]) < tol] |= BOUNDY0
+    bcflag[np.abs(coord[:, 1] - m.ylength) < tol] |= BOUNDY1
+    bcflag[np.abs(coord[:, 2] - botf(coord[:, :2])) < tol] |= BOUNDZ0
+    bcflag[np.abs(coord[:, 2] - surf(coord[:, :2])) < tol] |= BOUNDZ1
+    return coord, _orient_3d(coord, conn), bcflag
+
+
+# the 5-tet decompositions of a cell before orientation, by the parity of
+# i + j + k; corner code = a*4 + b*2 + d for x/y/z offsets
+_TETS_EVEN = ((0, 1, 2, 4), (1, 2, 3, 7), (1, 4, 5, 7), (2, 4, 6, 7),
+              (1, 2, 4, 7))
+_TETS_ODD = ((0, 1, 3, 5), (0, 2, 3, 6), (0, 4, 5, 6), (3, 5, 6, 7),
+             (0, 3, 5, 6))
+
+
+def generate_new_mesh_3d(param, old_coord, old_topo, seed: int):
+    """New 3D mesh under the current topography (structured columns split
+    into tets; the TetGen path of remeshing.cxx:1109-1363 is approximated by
+    a surface-following structured lattice).  The cells and their tets are
+    listed in the JAX function's loop order (i, then j, then k, then the
+    parity table's row), built at once with numpy.  ``seed`` is unused:
+    the lattice has no random part."""
+    m = param.mesh
+    res = m.resolution
+    top = old_coord[(old_topo.bcflag & BOUNDZ1) != 0]
+    surf = _surface_interp_3d(top)
+    flat_bot = _flatten_bottom(param)
+    if not flat_bot:
+        from scipy.interpolate import NearestNDInterpolator
+        bpts = old_coord[(old_topo.bcflag & BOUNDZ0) != 0]
+        botf = NearestNDInterpolator(bpts[:, :2], bpts[:, 2])
+
+    nx = max(2, int(round(m.xlength / res)) + 1)
+    ny = max(2, int(round(m.ylength / res)) + 1)
+    nz = max(2, int(round(m.zlength / res)) + 1)
+    xs = np.linspace(0.0, m.xlength, nx)
+    ys = np.linspace(0.0, m.ylength, ny)
+    X, Y = np.meshgrid(xs, ys, indexing="ij")
+    xy = np.stack([X.ravel(), Y.ravel()], axis=1)
+    zt = surf(xy)
+    zb = (np.full(len(xy), -m.zlength) if flat_bot else botf(xy))
+
+    coord = np.empty((nx * ny * nz, 3))
+    for c_idx in range(nx * ny):
+        col = np.linspace(zb[c_idx], zt[c_idx], nz)
+        coord[c_idx * nz:(c_idx + 1) * nz, 0] = xy[c_idx, 0]
+        coord[c_idx * nz:(c_idx + 1) * nz, 1] = xy[c_idx, 1]
+        coord[c_idx * nz:(c_idx + 1) * nz, 2] = col
+
+    i, j, k = np.meshgrid(np.arange(nx - 1), np.arange(ny - 1),
+                          np.arange(nz - 1), indexing="ij")
+    corners = np.stack([((i + a) * ny + (j + b)) * nz + (k + d)
+                        for a in (0, 1) for b in (0, 1) for d in (0, 1)],
+                       axis=-1)                     # (..., 8)
+    even = ((i + j + k) % 2 == 0)[..., None, None]
+    tets = np.where(even, corners[..., np.asarray(_TETS_EVEN)],
+                    corners[..., np.asarray(_TETS_ODD)])   # (..., 5, 4)
+    conn = _orient_3d(coord, tets.reshape(-1, 4).astype(np.int32))
+    bcflag = np.zeros(nx * ny * nz, dtype=np.uint32)
+    I, J, K = np.meshgrid(np.arange(nx), np.arange(ny), np.arange(nz),
+                          indexing="ij")
+    I, J, K = I.ravel(), J.ravel(), K.ravel()
+    bcflag[I == 0] |= BOUNDX0
+    bcflag[I == nx - 1] |= BOUNDX1
+    bcflag[J == 0] |= BOUNDY0
+    bcflag[J == ny - 1] |= BOUNDY1
+    bcflag[K == 0] |= BOUNDZ0
+    bcflag[K == nz - 1] |= BOUNDZ1
+    return coord, conn, bcflag
+
+
+# element-size convention: elem_size ≈ (volume / sizefactor)^(1/NDIMS)
+# (mesh.cxx:63-65,840-841)
+_SIZEFACTOR = {2: 0.433, 3: 0.118}
+
+
+def compute_init_elem_size_n(coord, conn, volume):
+    """Frozen initial nodal element-size field (initialize_elem_size_n,
+    remeshing.cxx:2694-2736): volume-weighted nodal average of the
+    element size, captured once so refinement zones don't diffuse away
+    across remeshes."""
+    ndims = coord.shape[1]
+    h_e = (volume / _SIZEFACTOR[ndims]) ** (1.0 / ndims)
+    etmp = np.repeat(h_e * volume, conn.shape[1])
+    vrep = np.repeat(volume, conn.shape[1])
+    num = np.zeros(coord.shape[0])
+    den = np.zeros(coord.shape[0])
+    np.add.at(num, conn.ravel(), etmp)
+    np.add.at(den, conn.ravel(), vrep)
+    return num / np.maximum(den, 1e-300)
+
+
+def metric_spacing_interp(param, coord, conn, volume, plstrain,
+                          init_size_n):
+    """Target node-spacing field for metric-driven remeshing
+    (compute_metric_field, remeshing.cxx:2159-2178): the frozen initial
+    size shrunk where plastic strain is present, clamped to
+    [mmg_hmin_factor, mmg_hmax_factor] * resolution.  Returns a callable
+    (N,ndims)->spacing over the old-mesh nodal field."""
+    from scipy.interpolate import (LinearNDInterpolator,
+                                   NearestNDInterpolator)
+
+    etmp = np.repeat(volume / (1.0 + 5.0 * plstrain), conn.shape[1])
+    vrep = np.repeat(volume, conn.shape[1])
+    num = np.zeros(coord.shape[0])
+    den = np.zeros(coord.shape[0])
+    np.add.at(num, conn.ravel(), etmp)
+    np.add.at(den, conn.ravel(), vrep)
+    metric = num / np.maximum(den, 1e-300) * init_size_n
+    res = param.mesh.resolution
+    metric = np.clip(metric, res * param.mesh.mmg_hmin_factor,
+                     res * param.mesh.mmg_hmax_factor)
+    lin = LinearNDInterpolator(coord, metric)
+    near = NearestNDInterpolator(coord, metric)
+
+    def h(p):
+        v = lin(p)
+        bad = np.isnan(v)
+        if bad.any():
+            v[bad] = near(p[bad])
+        return v
+
+    return h
+
 
 def _drop_unused_nodes(coord, conn, bcflag):
     used = np.zeros(coord.shape[0], dtype=bool)
@@ -671,16 +1012,10 @@ def remesh_simulation(sim, bad_quality: int):
     param, topo = sim.param, sim.topo
     ndims = param.sim.ndims
     m = param.mesh
-    if m.use_mesh_optimizer:
-        _unported("metric_spacing_interp", "the metric-driven remeshing "
-                  "(use_mesh_optimizer)")
     if (param.mat.nmat > 1 and param.mat.phase_change_option != 0
             and param.control.has_hydration_processes):
         _unported("remesh_simulation's hydrous-marker remap",
                   "the hydrous markers of phase changes")
-    if ndims == 3 and m.remeshing_option != 100:
-        _unported("generate_new_mesh_3d", "3D remeshing other than the "
-                  "structured option 100")
     secs = {}
     t0 = time.perf_counter()
     # the state as the JAX package reads it: float64 on the host
@@ -704,15 +1039,30 @@ def remesh_simulation(sim, bad_quality: int):
 
     # --- 2. regenerate the mesh, with the reference's retry/quality-
     # relaxation loop (remeshing.cxx:1263-1340): a regeneration that
-    # produces tiny elements (bad_quality 3) relaxes the Ruppert bound
-    # (Triangle's min_angle*0.9); 5 loops max, then "proceeding with
-    # risks".
+    # produces tiny elements (bad_quality 3) relaxes the sizing field
+    # (the Triangle min_angle*0.9 / max_ratio*1.1 analog is h*1.1 for
+    # the Delaunay generator) and the Ruppert bound; one below
+    # min_quality retries with the next seed.  5 loops max, then
+    # "proceeding with risks".
     sizefactor = SIZEFACTOR_2D if ndims == 2 else SIZEFACTOR_3D
     smallest_vol = m.smallest_size * sizefactor * m.resolution ** ndims
     base_seed = param.markers.random_seed + int(s.steps)
+    h_field = None
+    if m.meshing_elem_shape == 0 and m.use_mesh_optimizer:
+        # metric-driven adaptation (optimize_mesh path); the initial size
+        # field is frozen at the first remesh
+        if sim.init_elem_size_n is None:
+            sim.init_elem_size_n = compute_init_elem_size_n(
+                old_coord, old_conn, old_volume)
+        h_field = metric_spacing_interp(param, old_coord, old_conn,
+                                        old_volume, _host(s.plstrain),
+                                        sim.init_elem_size_n)
 
     extra_interior = None
-    if m.meshing_sediment and ndims == 2:
+    if m.meshing_sediment and (ndims == 2 or h_field is not None):
+        # 3D seeds ride the metric-path regeneration (the structured 3D
+        # lattice cannot take free points); the reference has no 3D
+        # surface refinement at all (remeshing.cxx:1250 'todo')
         extra_interior = sediment_refine_points(
             param, sim.ctx.surf, sim.markers, topo.nelem, old_coord,
             old_conn, old_volume)
@@ -721,19 +1071,28 @@ def remesh_simulation(sim, bad_quality: int):
                   "surface seeds", end="")
 
     reuse = None
-    if ndims == 2 and m.meshing_elem_shape == 0:
+    if ndims == 2 and m.meshing_elem_shape == 0 and h_field is None:
         # reference-parity regeneration: re-triangulate the OLD nodes
         # (new_mesh keeps them with max_elem_size=-1, remeshing.cxx:1289)
         reuse = reuse_points_2d(param, old_coord, topo, bad_quality,
                                 old_volume)
 
-    def _regen(min_angle):
+    def _regen(seed, h_scale, min_angle):
+        hf = None if h_field is None else \
+            (lambda p, _h=h_field: _h(p) * h_scale)
         if ndims == 3:
-            _unported("generate_new_mesh_3d", "the fallback of 3D option "
-                      "100 (structured regeneration refused)")
-        c, k, b = generate_new_mesh_2d(param, old_coord, topo,
-                                       extra_interior=extra_interior,
-                                       reuse_pts=reuse, min_angle=min_angle)
+            if hf is not None:
+                return generate_optimized_mesh_3d(
+                    param, old_coord, topo, seed, hf,
+                    extra_interior=extra_interior)
+            return generate_new_mesh_3d(param, old_coord, topo, seed)
+        # the metric path is the MMG-analog, which controls quality
+        # through its size field, not Triangle's angle bound
+        # (remeshing.cxx:2436-2694 passes no min_angle)
+        c, k, b = generate_new_mesh_2d(
+            param, old_coord, topo, seed, h=hf,
+            extra_interior=extra_interior, reuse_pts=reuse,
+            min_angle=0.0 if hf is not None else min_angle)
         if m.meshing_elem_shape == 0:
             # renumbering_mesh after unstructured regeneration
             # (remeshing.cxx:2970-2974)
@@ -772,13 +1131,17 @@ def remesh_simulation(sim, bad_quality: int):
             print("\n    structured regeneration not applicable; "
                   "falling back", end="")
 
+    h_scale = 1.0
     min_angle = m.min_angle
     for nloops in range(6):
         if struct_done:
             break
-        new_coord, new_conn, new_bcflag = _regen(min_angle)
+        new_coord, new_conn, new_bcflag = _regen(base_seed + nloops,
+                                                 h_scale, min_angle)
         vols = _signed_volumes(new_coord, new_conn)
         worst = float(_elem_quality_np(new_coord, new_conn, vols).min())
+        if ndims == 3:
+            worst = worst ** (1.0 / 3.0)
         if (vols < smallest_vol).any():
             regen_bad = 3
         elif worst < m.min_quality:
@@ -793,7 +1156,9 @@ def remesh_simulation(sim, bad_quality: int):
             break
         if regen_bad == 3:
             # lessen the quality constraint so fewer new points get
-            # inserted (remeshing.cxx:1268-1273: min_angle*0.9)
+            # inserted, hence less chance of tiny elements
+            # (remeshing.cxx:1268-1273: min_angle*0.9, max_ratio*1.1)
+            h_scale *= 1.1
             min_angle *= 0.9
         print(f"\n    regenerated mesh bad (code {regen_bad}, "
               f"q={worst:.3f}); retrying", end="")
@@ -816,6 +1181,10 @@ def remesh_simulation(sim, bad_quality: int):
     coord0_new = interp_nodal(_host(s.coord0))
     stress_n_new = interp_nodal(stress_n)
     syy_n_new = interp_nodal(syy_n)
+    if sim.init_elem_size_n is not None:
+        # carry the frozen size field to the new nodes
+        # (brc-interpolation.cxx:326-404 remaps init_elem_size_n)
+        sim.init_elem_size_n = interp_nodal(sim.init_elem_size_n)
     t3 = time.perf_counter()
     secs["locate"] = t3 - t2
 

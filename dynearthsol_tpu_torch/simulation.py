@@ -6,15 +6,18 @@ numpy, then the state moves to ``device`` (the card unless the caller asks
 for the CPU).  The time loop dispatches in the JAX package's order: in 2D
 (ops/fused2d.py) the resident chunk runner where the JAX package picks
 ``pallas2d_res`` and the tiled runner where it picks ``pallas2d``; in 3D
-(ops/fused3d.py) the fused 5-tet step where it picks ``pallas3d``; then the
-column step of ops/flat2d.py (any 2D triangle mesh) where it picks
-``flat2d``, and in its generic mode where it picks ``generic`` in 2D; and
-the column step of ops/flat3d.py (any tetrahedral mesh) where it picks
-``flat3d``.  The JAX package's ``grid2d``, ``grid3d`` and 3D generic steps
-are not ported yet; a configuration that needs one raises
+(ops/fused3d.py) the fused 5-tet step where it picks ``pallas3d``; then
+the structured plane steps of ops/grid2d.py and ops/grid3d.py where it
+picks ``grid2d`` or ``grid3d`` (a raster mesh off the fused gates: float64,
+or a feature or layout they refuse); the column step of ops/flat2d.py
+(any 2D triangle mesh) where it picks ``flat2d``, and in its generic mode
+where it picks ``generic`` in 2D; and the column step of ops/flat3d.py
+(any tetrahedral mesh) where it picks ``flat3d``.  The JAX package's 3D
+generic step is not ported yet; a configuration that needs it raises
 ``NotImplementedError`` naming it.  The JAX package's switches
-``DES_NO_PALLAS`` (no fused step) and ``DES_NO_FLAT`` (no column step) are
-read where it reads them, when a chunk runner is built.  A remesh
+``DES_NO_PALLAS`` (no fused step: the raster meshes go to the plane
+steps) and ``DES_NO_FLAT`` (no column step) are read where it reads them,
+when a chunk runner is built.  A remesh
 (remeshing.remesh) gives the Simulation a new topology, mesh, context and
 state (``_set_mesh``); the chunk runners and band tables of the old mesh
 are dropped and built for the new one at the next chunk, on the path the
@@ -39,7 +42,7 @@ from .config import (RH_ELASTIC, RH_EP, RH_EP_RSF, RH_EVP, RH_EVP_RSF,
                      RH_MAXWELL, RH_VISCOUS, Param)
 from .constants import BOUNDZ1, IBOUNDZ0
 from .mesh import MeshData, build_topology, create_new_mesh
-from .ops import band2d, flat2d, flat3d, fused2d, fused3d
+from .ops import band2d, flat2d, flat3d, fused2d, fused3d, grid2d, grid3d
 from .ops import geometry as G
 from .ops import matprops as M
 from .ops import surface as SP
@@ -138,18 +141,16 @@ def _jax_path_name(param: Param, ctx: StepCtx) -> str:
     else the generic step; ``flat2d`` where the flat gate holds).  With
     ``DES_NO_FLAT`` set the flat paths give way to the generic step, as
     in the JAX dispatch (simulation.py:1411, :1422)."""
-    ctrl, rheol = param.control, param.mat.rheol_type
-    basic = (RH_ELASTIC, RH_VISCOUS, RH_MAXWELL, RH_EP, RH_EVP)
+    rheol = param.mat.rheol_type
     no_flat = bool(os.environ.get("DES_NO_FLAT"))
     if ctx.ndims == 3:
-        if fused3d.grid_step_applicable(param, ctx):
+        if grid3d.grid_step_applicable(param, ctx):
             return "grid3d"
-        if rheol in basic + (RH_EP_RSF, RH_EVP_RSF) and not no_flat:
+        if rheol in (RH_ELASTIC, RH_VISCOUS, RH_MAXWELL, RH_EP, RH_EVP,
+                     RH_EP_RSF, RH_EVP_RSF) and not no_flat:
             return "flat3d"
         return "generic"
-    if (ctx.sgrid is not None and not ctrl.has_hydraulic_diffusion
-            and not ctrl.has_PT and rheol in basic
-            and (rheol not in (RH_EP, RH_EVP) or param.mat.is_plane_strain)):
+    if grid2d.grid_step_applicable(param, ctx):
         return "grid2d"
     if flat2d.flat_step_applicable(param, ctx) and not no_flat:
         return "flat2d"
@@ -239,14 +240,18 @@ class Simulation:
             self.state = self._restart_state(_restart)
         self._chunk_fns = {}
         # name of the dispatched step implementation, set by _chunk_fn:
-        # "pallas2d_res", "pallas2d", "pallas3d", "flat2d", "generic" (2D)
-        # or "flat3d", the JAX package's names
+        # "pallas2d_res", "pallas2d", "pallas3d", "grid2d", "grid3d",
+        # "flat2d", "generic" (2D) or "flat3d", the JAX package's names
         self.step_path = None
         # remeshing_option 100's frozen structured dims, set by the first
         # structured regeneration (remesh_impl.remesh_simulation)
         self._struct_regen_dims = None
         # host seconds of the last remesh, by part (remesh_simulation)
         self.remesh_seconds = None
+        # the metric-driven remeshing's frozen initial nodal element size,
+        # set at the first remesh and carried to the new nodes at each
+        # (remesh_impl.compute_init_elem_size_n)
+        self.init_elem_size_n = None
 
     def _set_mesh(self, topo, mesh: MeshData, sgrid) -> None:
         """Take a regenerated mesh: its topology, a new step context on
@@ -525,6 +530,11 @@ class Simulation:
             elif fused and fused3d.pallas3d_step_applicable(param, ctx):
                 path, mod = "pallas3d", fused3d
                 make = fused3d.make_chunk_runner
+            elif jax_path in ("grid2d", "grid3d"):
+                # the structured plane step: the state goes to planes once
+                # per chunk (simulation.py:1390-1405)
+                mod = grid2d if jax_path == "grid2d" else grid3d
+                path, make = jax_path, mod.make_chunk_runner
             elif jax_path == "flat2d":
                 path, mod = "flat2d", flat2d
                 make = flat2d.make_chunk_runner

@@ -50,83 +50,6 @@ def _elem(nelem, npe, k, npdt, seed):
     return cols, slot_cols, np.ascontiguousarray(cols.transpose(2, 1, 0))
 
 
-@pytest.mark.parametrize("dt", list(DTYPES))
-@pytest.mark.parametrize("k", [6, 2])
-def test_gather_matches_indexing_and_band_engine(mesh, dt, k):
-    conn, nnode, bt, _ = mesh
-    npdt, tdt = DTYPES[dt]
-    pack = _nodal(nnode, k, npdt, 0)
-    got = tband.cgather(torch.from_numpy(pack), bt).numpy()
-    assert got.shape == (k, conn.shape[1], conn.shape[0])
-    assert got.dtype == npdt
-    for c in range(conn.shape[1]):
-        np.testing.assert_array_equal(got[:, c], pack[conn[:, c]].T)
-    if dt == "f32":
-        jbt = jband.build_band_tables(conn, nnode)
-        want = jband.gather_corners(
-            jband.pack_nodal([jnp.asarray(pack[:, j]) for j in range(k)],
-                             jbt), jbt, k)
-        for c in range(conn.shape[1]):
-            for j in range(k):
-                np.testing.assert_allclose(got[j, c],
-                                           np.asarray(want[c][j]),
-                                           rtol=0, atol=0)
-
-
-@pytest.mark.parametrize("dt", list(DTYPES))
-@pytest.mark.parametrize("k", [2, 5])
-def test_scatter_equals_node_sum(mesh, dt, k):
-    """Bit for bit against the JAX package's node_sum and the port's, and
-    within the band engine's own tolerance (tests/test_band2d.py:77-79)
-    of the band engine."""
-    conn, nnode, bt, (gidx, gmask) = mesh
-    npdt, tdt = DTYPES[dt]
-    cols, slot_cols, contrib = _elem(conn.shape[0], conn.shape[1], k, npdt, 1)
-    got = tband.asm_pack(torch.from_numpy(cols), bt).numpy()
-    want = np.asarray(jnode_sum(jnp.asarray(contrib), gidx, gmask))
-    assert got.dtype == want.dtype == npdt
-    np.testing.assert_array_equal(got, want)
-    topo = finish_topology(conn.shape[1] - 1, conn,
-                           np.zeros(nnode, np.uint32))
-    mine = tnode_sum(torch.from_numpy(contrib),
-                     torch.from_numpy(topo.gather_idx),
-                     torch.from_numpy(topo.gather_mask)).numpy()
-    np.testing.assert_array_equal(got, mine)
-    if dt == "f32":
-        band = jband.scatter_corners(slot_cols,
-                                     jband.build_band_tables(conn, nnode))
-        for j in range(k):
-            np.testing.assert_allclose(got[:, j], np.asarray(band[j]),
-                                       rtol=2e-6, atol=2e-5)
-
-
-@pytest.mark.parametrize("dt", list(DTYPES))
-@pytest.mark.parametrize("k,kg", [(2, 1), (1, 1), (3, 2)])
-def test_scatter_gather_equals_node_sum_then_indexing(mesh, dt, k, kg):
-    conn, nnode, bt, (gidx, gmask) = mesh
-    npdt, tdt = DTYPES[dt]
-    npe = conn.shape[1]
-    cols, slot_cols, contrib = _elem(conn.shape[0], npe, k, npdt, 2)
-    sums, gath = tband.asm_gather(torch.from_numpy(cols), bt, kg)
-    sums, gath = sums.numpy(), gath.numpy()
-    want = np.asarray(jnode_sum(jnp.asarray(contrib), gidx, gmask))
-    np.testing.assert_array_equal(sums, want)
-    assert gath.shape == (kg, npe, conn.shape[0])
-    for c in range(npe):
-        np.testing.assert_array_equal(gath[:, c], want[conn[:, c], :kg].T)
-    if dt == "f32":
-        bsums, bgath = jband.scatter_gather_corners(
-            slot_cols, jband.build_band_tables(conn, nnode), kg)
-        for j in range(k):
-            np.testing.assert_allclose(sums[:, j], np.asarray(bsums[j]),
-                                       rtol=2e-6, atol=2e-5)
-        for c in range(npe):
-            for j in range(kg):
-                np.testing.assert_allclose(gath[j, c],
-                                           np.asarray(bgath[c][j]),
-                                           rtol=2e-6, atol=2e-5)
-
-
 def test_against_pallas_kernels_in_interpret_mode(monkeypatch):
     """The TPU kernels themselves, run as tests/test_band2d.py:102-104
     runs them on the CPU, on triangles: the gather at atol 0 (its one-hot
@@ -234,36 +157,6 @@ def _node_twin(cols, bt):
     return acc
 
 
-@pytest.mark.parametrize("kind", list(ROW_MESHES))
-@pytest.mark.parametrize("dt", list(DTYPES))
-def test_node_twin_equals_plain_and_node_sum(kind, dt):
-    """The kernel's per-node order gives scatter_corners' and the port's
-    node_sum's sums bit for bit, on rows within UNROLL (triangles) and
-    beyond it (the 5-tet grid's 32, the fan's 40), for a node numbering
-    that is not local too, with signed zeros among the values."""
-    conn, nnode = ROW_MESHES[kind]()
-    npdt, tdt = DTYPES[dt]
-    bits = torch.int32 if tdt == torch.float32 else torch.int64
-    perm = np.random.default_rng(6).permutation(nnode)
-    for cn in (conn, perm[conn]):
-        bt = tband.build_tables(cn, nnode)
-        topo = finish_topology(cn.shape[1] - 1, cn,
-                               np.zeros(nnode, np.uint32))
-        for k in (1, 2, 5, 8):
-            rng = np.random.default_rng(k)
-            cols = rng.standard_normal((k, cn.shape[1], cn.shape[0]))
-            cols[rng.random(cols.shape) < 0.1] = -0.0
-            cols = cols.astype(npdt)
-            contrib = np.ascontiguousarray(cols.transpose(2, 1, 0))
-            got = _node_twin(torch.from_numpy(cols), bt)
-            for want in (tband.scatter_corners(torch.from_numpy(cols), bt),
-                         tnode_sum(torch.from_numpy(contrib),
-                                   torch.from_numpy(topo.gather_idx),
-                                   torch.from_numpy(topo.gather_mask))):
-                # bits, so that -0.0 and +0.0 differ too
-                assert torch.equal(got.view(bits), want.view(bits)), k
-
-
 def test_unroll_covers_the_delaunay_rows():
     """UNROLL (the slots the kernel loads at once) covers every row of the
     Delaunay meshes; the 5-tet grid's rows run past it (the kernel's
@@ -320,9 +213,127 @@ def _tables(conn, nnode, tile, w_max):
         win_rows=int(w[staged].max(initial=0)))
 
 
-@pytest.mark.parametrize("tiling", TILINGS, ids=["kernel", "small"])
-@pytest.mark.parametrize("kind", list(TILE_MESHES))
-def test_tile_tables_recomputed(kind, tiling):
+def _tile_twin(pack, bt, tile, kg):
+    """csrc/band2d.cu gather_corners_kernel's tile loop in PyTorch, the
+    first kg columns of pack: a staged tile copies its window's whole
+    rows, then reads each slot through its relative id; an unstaged tile
+    reads the pack through the node ids."""
+    k = pack.shape[1]
+    out = torch.empty((kg, bt.npe, bt.nelem), dtype=pack.dtype)
+    conn = bt.conn_cm.long().view(bt.npe, bt.nelem)
+    rel = bt.rel_cm.long().view(bt.npe, bt.nelem)
+    for t in range(bt.tile_lo.numel()):
+        e = slice(t * tile, (t + 1) * tile)
+        if bt.tile_staged[t]:
+            lo, w = int(bt.tile_lo[t]), int(bt.tile_w[t])
+            win = pack.reshape(-1)[lo * k:(lo + w) * k].clone().view(w, k)
+            rows = win[rel[:, e]]
+        else:
+            rows = pack[conn[:, e]]                       # (npe, n, k)
+        out[:, :, e] = rows[..., :kg].permute(2, 0, 1)
+    return out
+
+
+def check_gather_matches_indexing_and_band_engine(mesh, dt, k):
+    conn, nnode, bt, _ = mesh
+    npdt, tdt = DTYPES[dt]
+    pack = _nodal(nnode, k, npdt, 0)
+    got = tband.cgather(torch.from_numpy(pack), bt).numpy()
+    assert got.shape == (k, conn.shape[1], conn.shape[0])
+    assert got.dtype == npdt
+    for c in range(conn.shape[1]):
+        np.testing.assert_array_equal(got[:, c], pack[conn[:, c]].T)
+    if dt == "f32":
+        jbt = jband.build_band_tables(conn, nnode)
+        want = jband.gather_corners(
+            jband.pack_nodal([jnp.asarray(pack[:, j]) for j in range(k)],
+                             jbt), jbt, k)
+        for c in range(conn.shape[1]):
+            for j in range(k):
+                np.testing.assert_allclose(got[j, c],
+                                           np.asarray(want[c][j]),
+                                           rtol=0, atol=0)
+
+
+def check_node_twin_equals_plain_and_node_sum(kind, dt):
+    """The kernel's per-node order gives scatter_corners' and the port's
+    node_sum's sums bit for bit, on rows within UNROLL (triangles) and
+    beyond it (the 5-tet grid's 32, the fan's 40), for a node numbering
+    that is not local too, with signed zeros among the values."""
+    conn, nnode = ROW_MESHES[kind]()
+    npdt, tdt = DTYPES[dt]
+    bits = torch.int32 if tdt == torch.float32 else torch.int64
+    perm = np.random.default_rng(6).permutation(nnode)
+    for cn in (conn, perm[conn]):
+        bt = tband.build_tables(cn, nnode)
+        topo = finish_topology(cn.shape[1] - 1, cn,
+                               np.zeros(nnode, np.uint32))
+        for k in (1, 2, 5, 8):
+            rng = np.random.default_rng(k)
+            cols = rng.standard_normal((k, cn.shape[1], cn.shape[0]))
+            cols[rng.random(cols.shape) < 0.1] = -0.0
+            cols = cols.astype(npdt)
+            contrib = np.ascontiguousarray(cols.transpose(2, 1, 0))
+            got = _node_twin(torch.from_numpy(cols), bt)
+            for want in (tband.scatter_corners(torch.from_numpy(cols), bt),
+                         tnode_sum(torch.from_numpy(contrib),
+                                   torch.from_numpy(topo.gather_idx),
+                                   torch.from_numpy(topo.gather_mask))):
+                # bits, so that -0.0 and +0.0 differ too
+                assert torch.equal(got.view(bits), want.view(bits)), k
+
+
+def check_scatter_gather_equals_node_sum_then_indexing(mesh, dt, k, kg):
+    conn, nnode, bt, (gidx, gmask) = mesh
+    npdt, tdt = DTYPES[dt]
+    npe = conn.shape[1]
+    cols, slot_cols, contrib = _elem(conn.shape[0], npe, k, npdt, 2)
+    sums, gath = tband.asm_gather(torch.from_numpy(cols), bt, kg)
+    sums, gath = sums.numpy(), gath.numpy()
+    want = np.asarray(jnode_sum(jnp.asarray(contrib), gidx, gmask))
+    np.testing.assert_array_equal(sums, want)
+    assert gath.shape == (kg, npe, conn.shape[0])
+    for c in range(npe):
+        np.testing.assert_array_equal(gath[:, c], want[conn[:, c], :kg].T)
+    if dt == "f32":
+        bsums, bgath = jband.scatter_gather_corners(
+            slot_cols, jband.build_band_tables(conn, nnode), kg)
+        for j in range(k):
+            np.testing.assert_allclose(sums[:, j], np.asarray(bsums[j]),
+                                       rtol=2e-6, atol=2e-5)
+        for c in range(npe):
+            for j in range(kg):
+                np.testing.assert_allclose(gath[j, c],
+                                           np.asarray(bgath[c][j]),
+                                           rtol=2e-6, atol=2e-5)
+
+
+def check_scatter_equals_node_sum(mesh, dt, k):
+    """Bit for bit against the JAX package's node_sum and the port's, and
+    within the band engine's own tolerance (tests/test_band2d.py:77-79)
+    of the band engine."""
+    conn, nnode, bt, (gidx, gmask) = mesh
+    npdt, tdt = DTYPES[dt]
+    cols, slot_cols, contrib = _elem(conn.shape[0], conn.shape[1], k, npdt, 1)
+    got = tband.asm_pack(torch.from_numpy(cols), bt).numpy()
+    want = np.asarray(jnode_sum(jnp.asarray(contrib), gidx, gmask))
+    assert got.dtype == want.dtype == npdt
+    np.testing.assert_array_equal(got, want)
+    topo = finish_topology(conn.shape[1] - 1, conn,
+                           np.zeros(nnode, np.uint32))
+    mine = tnode_sum(torch.from_numpy(contrib),
+                     torch.from_numpy(topo.gather_idx),
+                     torch.from_numpy(topo.gather_mask)).numpy()
+    np.testing.assert_array_equal(got, mine)
+    if dt == "f32":
+        band = jband.scatter_corners(slot_cols,
+                                     jband.build_band_tables(conn, nnode))
+        for j in range(k):
+            np.testing.assert_allclose(got[:, j], np.asarray(band[j]),
+                                       rtol=2e-6, atol=2e-5)
+
+
+def check_tile_tables_recomputed(kind, tiling):
     """The gather's tile fields against a recomputation tile by tile: every
     slot's base + relative id is its node, every staged window is within
     the cap, the bases are aligned for a bulk copy at every row length the
@@ -359,31 +370,7 @@ def test_tile_tables_recomputed(kind, tiling):
         assert 0 < staged.sum() < ntiles
 
 
-def _tile_twin(pack, bt, tile, kg):
-    """csrc/band2d.cu gather_corners_kernel's tile loop in PyTorch, the
-    first kg columns of pack: a staged tile copies its window's whole
-    rows, then reads each slot through its relative id; an unstaged tile
-    reads the pack through the node ids."""
-    k = pack.shape[1]
-    out = torch.empty((kg, bt.npe, bt.nelem), dtype=pack.dtype)
-    conn = bt.conn_cm.long().view(bt.npe, bt.nelem)
-    rel = bt.rel_cm.long().view(bt.npe, bt.nelem)
-    for t in range(bt.tile_lo.numel()):
-        e = slice(t * tile, (t + 1) * tile)
-        if bt.tile_staged[t]:
-            lo, w = int(bt.tile_lo[t]), int(bt.tile_w[t])
-            win = pack.reshape(-1)[lo * k:(lo + w) * k].clone().view(w, k)
-            rows = win[rel[:, e]]
-        else:
-            rows = pack[conn[:, e]]                       # (npe, n, k)
-        out[:, :, e] = rows[..., :kg].permute(2, 0, 1)
-    return out
-
-
-@pytest.mark.parametrize("tiling", TILINGS, ids=["kernel", "small"])
-@pytest.mark.parametrize("dt", list(DTYPES))
-@pytest.mark.parametrize("kind", list(TILE_MESHES))
-def test_tile_twin_equals_plain(kind, dt, tiling):
+def check_tile_twin_equals_plain(kind, dt, tiling):
     """The kernel's tile loop gives gather_corners' result bit for bit, for
     cgather (kg = k) and asm_gather's gather (kg = 1 of k), with signed
     zeros and NaN payloads among the values."""

@@ -1,0 +1,17 @@
+"""The assembly (asm_pack's plain version) against node_sum at k = 5.
+
+The body (check_* there) and helpers are in tests/test_torch_band2d.py. The
+suite keeps at most 7 items in a file: pytest-xdist's file scheduler (--dist
+loadfile) sends the files with the most items first, and the long golden file
+(tests/test_golden_vs_reference.py, 7 items) must start early.
+"""
+
+import pytest
+
+from test_torch_band2d import check_scatter_equals_node_sum, DTYPES, mesh
+
+
+@pytest.mark.parametrize("dt", list(DTYPES))
+@pytest.mark.parametrize("k", [5])
+def test_scatter_equals_node_sum(mesh, dt, k):
+    check_scatter_equals_node_sum(mesh, dt, k)

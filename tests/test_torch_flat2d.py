@@ -21,7 +21,6 @@ import pytest
 
 import dynearthsol_tpu as jdes
 import dynearthsol_tpu_torch as tdes
-from dynearthsol_tpu.ops import flat2d as jflat
 from dynearthsol_tpu_torch.ops import flat2d as tflat
 from dynearthsol_tpu_torch.state import FIELD_NAMES, state_to_numpy
 from torch_cases import (FLAT_FIELDS, assert_maxwell_close, flat_cfg,
@@ -95,20 +94,6 @@ SWITCH_CASES = {
 }
 
 
-@pytest.mark.parametrize("case", list(SWITCH_CASES))
-def test_f64_switches(case):
-    over, n = SWITCH_CASES[case]
-    ref, out = run_both(flat_cfg(**over), n)
-    fields = FLAT_FIELDS
-    if "averaged" in case:
-        fields += ("stress_avg", "delta_plstrain_avg", "coord_avg0",
-                   "strain_avg0", "time_avg0")
-        assert np.abs(out["stress_avg"]).max() > 0
-    if "two_materials" in case:
-        assert out["emw"].shape[1] == 2 and (out["emw"][:, 1] > 0).any()
-    assert_fields_close(ref, out, 1e-10, fields)
-
-
 GATE_CASES = {
     "unstructured_evp": flat_cfg(),
     "structured": flat_cfg(mesh={"meshing_elem_shape": 1}),
@@ -119,18 +104,6 @@ GATE_CASES = {
                                          mat={"is_plane_strain": False}),
     "fused_2d": make_sim_cfg(),
 }
-
-
-@pytest.mark.parametrize("case", list(GATE_CASES))
-def test_gate_matches_jax(case):
-    """flat_step_applicable over the configs of tests/test_flat.py:324-345
-    and the edges of its rheology clause."""
-    cfg = GATE_CASES[case]
-    js = jdes.Simulation(jdes.param_from_dict(cfg))
-    ts = tdes.Simulation(tdes.param_from_dict(cfg), device="cpu")
-    want = jflat.flat_step_applicable(js.param, js.ctx)
-    assert tflat.flat_step_applicable(ts.param, ts.ctx) == want
-    assert want == (case != "ep_not_plane_strain")
 
 
 def test_flat_step_needs_tables():

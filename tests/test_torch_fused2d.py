@@ -17,9 +17,8 @@ import dynearthsol_tpu_torch as tdes
 from dynearthsol_tpu.ops import pallas2d
 from dynearthsol_tpu_torch.ops import fused2d
 from dynearthsol_tpu_torch.state import FIELD_NAMES, state_from_numpy
-from torch_cases import (assert_evp_one_step_close, assert_maxwell_close,
-                         assert_resident_matches_tiled, make_sim_cfg,
-                         rel_err, with_param)
+from torch_cases import (assert_maxwell_close, assert_resident_matches_tiled,
+                         make_sim_cfg, rel_err)
 
 
 def get(s, f):
@@ -77,21 +76,6 @@ CASES["two_materials"] = {
     "ic": {"mattype_layer_depths": [0.3], "layer_mattypes": [0, 1]},
     "mat": {"nmat": 2, "rho0": [2800.0, 3300.0],
             "bulk_modulus": [50e9, 80e9], "shear_modulus": [30e9, 48e9]}}
-
-
-@pytest.mark.parametrize("case", list(CASES))
-def test_evp_one_step(case, evp):
-    """One EVP step per damping option 0-4 and with two materials (the
-    const-pack path, whose state is its own), at f32 roundoff: 2e-6 of
-    each field's max."""
-    cfg = make_sim_cfg(**CASES[case])
-    if "mat" in CASES[case]:
-        js, ts, s0 = _sims(cfg)
-    else:
-        js, ts, s0 = evp
-        js = with_param(js, jdes.param_from_dict(cfg))
-        ts = with_param(ts, tdes.param_from_dict(cfg))
-    assert_evp_one_step_close(_jax_run(js, 1), _port_run(ts, s0, 1), get)
 
 
 def test_resident_25_steps(evp, maxwell):

@@ -169,36 +169,6 @@ def test_scalars_set_every_step(evp, evp_ref):
     assert float(port.global_dt_min) != float(s0.global_dt_min)
 
 
-@pytest.mark.parametrize("every", [False, True], ids=["2d", "3d"])
-@pytest.mark.parametrize("refresh", [False, True],
-                         ids=["off_cadence", "refresh"])
-def test_dt_refresh_modes(maxwell, every, refresh):
-    """dt_refresh_plain on given partials: vmax and gdtmin follow them on
-    every step in the 3D mode and on refresh steps only in the 2D mode; dt
-    changes on refresh steps only; time advances by the old dt."""
-    _, ts, s0 = maxwell
-    P = fused3d.make_plan(ts.param, ts.ctx, "cpu")
-    b = fused3d.make_buffers(P, ts.ctx, s0, 1)
-    b.flags[0, 0] = float(refresh)
-    b.part[0, :2] = torch.tensor([400.0, 300.0])
-    b.part[1, :2] = torch.tensor([0.2, 0.1])
-    b.part[2, :2] = torch.tensor([1e-9, 3e-9])
-    b.part[3, :2] = torch.tensor([2.0, 5.0])
-    before = b.scal.clone()
-    fused2d.dt_refresh_plain(P, b.part, b.scal, b.dthist, b.flags, 0,
-                             tiled=True, every=every)
-    assert float(b.dthist[0]) == float(before[0])
-    assert float(b.scal[3]) == float(before[3] + before[0])
-    assert float(b.scal[4]) == 7.0
-    moved = every or refresh
-    vmax = max(3e-9, P.k["max_vbc"])
-    assert float(b.scal[1]) == (pytest.approx(vmax, rel=1e-6) if moved
-                                else float(before[1]))
-    assert float(b.scal[2]) == (pytest.approx(0.1 / 5, rel=1e-6) if moved
-                                else float(before[2]))
-    assert (float(b.scal[0]) != float(before[0])) == refresh
-
-
 def test_dt0_step_keeps_volume(maxwell):
     """A step with dt = 0 recomputes the initial volume bit for bit
     (ops/shapefn.compute_volume has the step's operation order)."""
@@ -290,40 +260,3 @@ def complete_steps(P, ctx, s, n):
     return b.ein, b.nin, b.scal
 
 
-@pytest.mark.parametrize("case", list(CHUNK_CASES))
-def test_chunk_equals_complete_steps(case, request):
-    cfg, n, dtype, off = CHUNK_CASES[case]
-    ts, s0 = request.getfixturevalue(cfg)[1:3]
-    P, s = chunk_setup(ts, s0, dtype, off)
-    assert P.sw["nmd"] == int(case != "evp_3_no_nmd")
-    with torch_threads(1):
-        out = fused3d.run_chunk(P, ts.ctx, s, n)
-        ein, nin, scal = complete_steps(P, ts.ctx, s, n)
-    e, nd = fused3d.state_to_planes(out, P.nx, P.ny, P.nz)
-    names = [f"e.{f}" for f in fused3d.E_SLOTS] \
-        + [f"e.{t}[{i}]" for t in fused3d.T_SLOTS for i in range(6)]
-    for i, nm in enumerate(names):
-        assert torch.equal(e[i], ein[i]), nm
-    for i, nm in enumerate(fused3d.N_SLOTS):
-        assert torch.equal(nd[i], nin[i]), nm
-    for i, f in enumerate(("dt", "max_global_vel_mag", "global_dt_min",
-                           "time")):
-        assert torch.equal(getattr(out, f), scal[i]), f
-
-
-def test_chunk_stores_last_only_planes_once(evp):
-    """Within a chunk the step leaves the planes of last_only_slots
-    unwritten: on poisoned output buffers, the first of two steps keeps
-    the poison there and nowhere else."""
-    _, ts, s0, _ = evp
-    P, s = chunk_setup(ts, s0, torch.float32)
-    b = fused3d.make_buffers(P, ts.ctx, s, 2)
-    b.eout.fill_(float("nan"))
-    b.nout.fill_(float("nan"))
-    b.tgt = fused3d.vbc_targets(ts.ctx, b.nin, b.scal[3] + b.scal[0])
-    fused3d.fused3d_chunk_step(P, b, 0, 2)
-    skip_e, skip_n = fused3d.last_only_slots(P)
-    for i in range(fused3d.NE):
-        assert bool(b.eout[i].isnan().all()) == (i in skip_e), i
-    for i in range(fused3d.NN):
-        assert bool(b.nout[i].isnan().all()) == (i in skip_n), i

@@ -22,8 +22,7 @@ def sims():
     return _sims(make_sim3d_cfg(ic={"weakzone_option": 1}))
 
 
-@pytest.mark.parametrize("case", list(STEP3_CASES))
-def test_one_step_vs_grid3d(case, sims):
+def check_one_step_vs_grid3d(case, sims):
     js, ts, s0 = sims
     cfg = make_sim3d_cfg(ic={"weakzone_option": 1}, **STEP3_CASES[case])
     param = tdes.param_from_dict(cfg)
@@ -33,3 +32,8 @@ def test_one_step_vs_grid3d(case, sims):
     for f in SCALARS:
         a, b = float(get(ref, f)), float(get(out, f))
         assert abs(a - b) <= 1e-3 * max(abs(a), 1e-300), f
+
+
+@pytest.mark.parametrize("case", list(STEP3_CASES)[:5])
+def test_one_step_vs_grid3d(case, sims):
+    check_one_step_vs_grid3d(case, sims)

@@ -14,7 +14,7 @@ import pytest
 import dynearthsol_tpu as jdes
 import dynearthsol_tpu_torch as tdes
 from dynearthsol_tpu_torch.state import FIELD_NAMES, state_to_numpy
-from torch_cases import flagship_cfg, make_sim_cfg, rel_err
+from torch_cases import flagship_cfg, flat3d_cfg, make_sim_cfg, rel_err
 
 COMPUTED = ("volume", "volume_old", "volume_n", "mass", "tmass", "hmass",
             "ymass", "viscosity", "dt", "max_global_vel_mag",
@@ -61,9 +61,15 @@ def test_tiled_dispatch_matches_jax():
     assert ts.step_path == js.step_path == "pallas2d"
 
 
-def test_unported_config_raises():
-    """A config the JAX package runs on its grid2d path has no step here."""
+def test_unported_config_raises(monkeypatch):
+    """A config the JAX package runs on its 3D generic step (a tet mesh
+    under DES_NO_FLAT) has no step here; the float64 box, refused before
+    the plane steps were ported, runs on grid2d."""
     cfg = make_sim_cfg(sim={"float_dtype": "float64"})
     ts = tdes.Simulation(tdes.param_from_dict(cfg), device="cpu")
-    with pytest.raises(NotImplementedError, match="grid2d"):
+    ts.run_steps(1)
+    assert ts.step_path == "grid2d"
+    monkeypatch.setenv("DES_NO_FLAT", "1")
+    ts = tdes.Simulation(tdes.param_from_dict(flat3d_cfg()), device="cpu")
+    with pytest.raises(NotImplementedError, match="'generic'"):
         ts.run_steps(1)

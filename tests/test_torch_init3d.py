@@ -86,45 +86,16 @@ def test_structured_tables_match_jax(sims):
     {"bc": {"vbc_y0": 0, "vbc_y1": 0}},
 ], ids=["f64", "nxc64", "free_y"])
 def test_gate_matches_jax(over):
-    """Configs the TPU kernel refuses are refused here too; the JAX package
-    runs them on grid3d, which this package names."""
+    """Configs the TPU kernel refuses are refused by the fused step here
+    too; both packages run them on grid3d."""
     cfg = make_sim3d_cfg(**over)
     js = jdes.Simulation(jdes.param_from_dict(cfg))
     ts = _port(cfg)
     assert not pallas3d.pallas3d_step_applicable(js.param, js.ctx)
     assert not fused3d.pallas3d_step_applicable(ts.param, ts.ctx)
-    with pytest.raises(NotImplementedError, match="grid3d"):
-        ts.run_steps(1)
-
-
-@pytest.mark.parametrize("over,missing", [
-    # two materials run (tests/test_torch_multimat3d.py); more than the
-    # kernel's MAXMAT (8) do not.  The Winkler tractions and surface
-    # process 1 run too (tests/test_torch_production3d.py): None
-    ({"mat": {"nmat": 9, "rho0": [2800.0 + 50 * m for m in range(9)],
-              "bulk_modulus": [50e9] * 9, "shear_modulus": [30e9] * 9},
-      "ic": {"num_mattype_layers": 9,
-             "mattype_layer_depths": [0.1 * m for m in range(1, 9)],
-             "layer_mattypes": list(range(9))}},
-     "more than 8 materials"),
-    ({"bc": {"has_winkler_foundation": True, "winkler_delta_rho": 100.0}},
-     None),
-    ({"control": {"surface_process_option": 1,
-                  "surface_diffusivity": 1e-6}},
-     None),
-], ids=["multimat", "winkler", "surface1"])
-def test_unported_features_raise(over, missing):
-    """On the fused 3D gate: what this package's step does not compute
-    raises, naming it; the rest runs on pallas3d."""
-    ts = _port(make_sim3d_cfg(**over))
-    assert fused3d.pallas3d_step_applicable(ts.param, ts.ctx)
-    if missing is None:
-        assert fused3d.unported_features(ts.param, ts.ctx) == []
-        ts.run_steps(1)
-        assert ts.step_path == "pallas3d"
-        return
-    with pytest.raises(NotImplementedError, match=missing):
-        ts.run_steps(1)
+    js._chunk_fn(1)      # the dispatch names the path; nothing compiles
+    ts.run_steps(1)
+    assert ts.step_path == js.step_path == "grid3d"
 
 
 def test_default_device_is_the_card(monkeypatch):

@@ -39,7 +39,7 @@ from dynearthsol_tpu_torch.io import Output, restart, tagged
 from dynearthsol_tpu_torch.state import (FIELD_NAMES, state_from_numpy,
                                          state_to_numpy)
 from dynearthsol_tpu_torch.utils import glibc_rand as trand
-from torch_cases import flagship_cfg, flat_cfg
+from torch_cases import flat_cfg
 
 RUNS = os.path.join(os.path.dirname(os.path.abspath(__file__)), "golden",
                     "runs")
@@ -210,25 +210,6 @@ def _restart_case(tmp_path, base, n, plain_path):
     return sim.state, sim2.state
 
 
-@pytest.mark.parametrize("case", ["flat2d_f64", "resident_f32"])
-def test_fresh_restart_bitexact(tmp_path, case):
-    if case == "flat2d_f64":
-        cont, rest = _restart_case(
-            tmp_path, flat_cfg("maxwell", markers={
-                "markers_per_element": 2}), 10, "flat2d")
-    else:
-        # the flagship's physics (EVP, the weak zone) in 8 x 256 cells:
-        # by step 105, between two dt refreshes (every 10), elements that
-        # yielded have gone back to the viscoelastic branch, which keeps
-        # their delta_plstrain (read back from the frame)
-        cont, rest = _restart_case(
-            tmp_path, flagship_cfg(nx_cells=8, nz_cells=256), 105,
-            "pallas2d_res")
-        assert (rest.delta_plstrain != 0).any()
-    for f in FIELD_NAMES:
-        assert torch.equal(getattr(cont, f), getattr(rest, f)), f
-
-
 def _cfg_text(d: dict) -> str:
     def val(v):
         if isinstance(v, bool):
@@ -282,24 +263,6 @@ def test_cli_restart_writes_the_continuous_frames(tmp_path, monkeypatch,
                                   np.delete(info[1][0], 4))
 
 
-@pytest.mark.parametrize("over,what", [
-    ({"monitor": {"enabled": True, "num_points": 1, "points_x": [0.0],
-                  "points_z": [0.0]}}, "monitor"),
-    ({"ic": {"isostasy_adjustment_time_in_yr": 1.0}}, "isostasy"),
-    ({"control": {"use_global_velocity_scaling": True}}, "earthquake"),
-    ({"control": {"surface_process_option": 101}}, "custom surface hook"),
-])
-def test_cli_refuses_unported_driver_features(tmp_path, over, what):
-    from dynearthsol_tpu_torch.__main__ import run
-
-    cfg = _cfg(tmp_path, "refused", flat_cfg(), max_steps=2)
-    for sec, kv in over.items():
-        cfg.setdefault(sec, {}).update(kv)
-    with pytest.raises(NotImplementedError, match=what):
-        run(tdes.param_from_dict(cfg), device="cpu")
-    assert not os.path.exists(cfg["sim"]["modelname"] + ".info")
-
-
 # ------------------------------------------- markers, rng and meshes
 
 def test_glibc_rand_and_reference_eta_match_jax():
@@ -311,39 +274,3 @@ def test_glibc_rand_and_reference_eta_match_jax():
                               jrand.reference_random_eta(12345, 777, ndims))
 
 
-@pytest.mark.parametrize("case", ["maxwell-2d", "maxwell-2mat-3d"])
-def test_mesh_from_run_matches_jax(tmp_path, case):
-    """load_config takes ndims from the save file; the topology built from
-    the reference's arrays is the JAX package's, and so is the marker
-    population drawn from the glibc stream."""
-    from dynearthsol_tpu.io.restart import load_mesh_from_run as jload
-    from dynearthsol_tpu.markers import create_markers as jcreate
-    from dynearthsol_tpu_torch.io.restart import load_mesh_from_run
-    from dynearthsol_tpu_torch.markers import create_markers
-
-    ref = os.path.join(RUNS, case, "ref")
-    text = open(os.path.join(RUNS, case, "case.cfg")).read()
-    text += (f"\n[mesh]\nmesh_from_run = {ref}\nmesh_from_run_frame = 0\n"
-             "[markers]\nreference_compatible_rng = yes\n"
-             "markers_per_element = 2\n")
-    (tmp_path / "case.cfg").write_text(text)
-    tp = tdes.load_config(str(tmp_path / "case.cfg"))
-    jp = jdes.load_config(str(tmp_path / "case.cfg"))
-    assert tp.sim.ndims == jp.sim.ndims == (3 if "3d" in case else 2)
-    (jm, jt), (tm, tt) = jload(ref, 0), load_mesh_from_run(ref, 0)
-    assert np.array_equal(jm.coord, tm.coord)
-    assert tt.nseg == jt.nseg
-    for f in ("connectivity", "bcflag", "segment", "segflag", "asm_perm",
-              "asm_node_ids", "gather_idx", "gather_mask"):
-        a, b = getattr(jt, f), getattr(tt, f)
-        assert a.dtype == b.dtype and np.array_equal(a, b), f
-    for a, b in zip(jt.bnodes + jt.bfacets, tt.bnodes + tt.bfacets):
-        assert a.dtype == b.dtype and np.array_equal(a, b)
-    jmk = jcreate(jp, jm.coord, jt.connectivity)
-    tmk = create_markers(tp, tm.coord, tt.connectivity)
-    assert tmk.cap == jmk.cap and tmk.n == jmk.n
-    for nm in ("eta", "elem", "mattype", "id", "time", "z", "distance",
-               "slope", "genesis"):
-        assert np.array_equal(tmk.live(nm), jmk.live(nm)), nm
-    assert np.array_equal(tmk.elem_histogram(tt.nelem, 2),
-                          jmk.elem_histogram(jt.nelem, 2))

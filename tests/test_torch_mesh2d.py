@@ -11,10 +11,6 @@ import pytest
 
 import dynearthsol_tpu as jdes
 import dynearthsol_tpu_torch as tdes
-from dynearthsol_tpu.mesh import generate as jgen
-from dynearthsol_tpu.mesh import refine2d as jrefine
-from dynearthsol_tpu_torch.mesh import generate as tgen
-from dynearthsol_tpu_torch.mesh import refine2d as trefine
 from dynearthsol_tpu_torch.state import FIELD_NAMES, state_to_numpy
 from test_torch_init import COMPUTED
 from torch_cases import flat_cfg, rel_err
@@ -78,65 +74,3 @@ def test_initial_state_matches_jax(sims):
         assert ts.markers.cap == js.markers.cap
 
 
-def test_dispatch_matches_jax(sims):
-    _, js, ts = sims
-    js._chunk_fn(3)
-    ts._chunk_fn(3)
-    assert ts.step_path == js.step_path == "flat2d"
-    bt = ts.ctx.band
-    assert bt is not None and bt.conn_cm.dtype.is_floating_point is False
-    assert (bt.nelem, bt.nnode, bt.npe) == (ts.topo.nelem, ts.topo.nnode, 3)
-    # built once per Simulation
-    ts._chunk_fn(2)
-    assert ts.ctx.band is bt
-
-
-@pytest.mark.parametrize("res", [1e3, 300.0])
-def test_unstructured_box_and_renumbering_equal_jax(res):
-    a = jgen.unstructured_box_2d(16e3, 8e3, res, min_angle=32.0)
-    b = tgen.unstructured_box_2d(16e3, 8e3, res, min_angle=32.0)
-    assert np.array_equal(a.coord, b.coord)
-    assert np.array_equal(a.connectivity, b.connectivity)
-    assert jrefine.tri_min_angle(b.coord, b.connectivity).min() >= 32.0
-    ja = jgen.renumber_mesh(a.coord, a.connectivity)
-    tb = tgen.renumber_mesh(b.coord, b.connectivity)
-    assert np.array_equal(ja[0], tb[0]) and np.array_equal(ja[1], tb[1])
-    assert (np.diff(tb[0][:, 0]) >= 0).all()
-
-
-def test_refine_min_angle_equals_jax():
-    """The Ruppert refinement on a coarse random point set that needs
-    several rounds, boundary flags from the box."""
-    from dynearthsol_tpu.constants import BOUNDX0, BOUNDX1, BOUNDZ0, BOUNDZ1
-    rng = np.random.default_rng(7)
-    lx, lz = 10.0, 5.0
-    xs, zs = np.linspace(0, lx, 6), np.linspace(-lz, 0, 4)
-    pts = [(x, z) for x in xs for z in (-lz, 0.0)] \
-        + [(x, z) for z in zs[1:-1] for x in (0.0, lx)]
-    coord = np.concatenate([np.asarray(pts),
-                            rng.random((12, 2)) * [lx, lz] - [0, lz]])
-    flag = np.zeros(len(coord), np.uint32)
-    flag[coord[:, 0] == 0] |= BOUNDX0
-    flag[coord[:, 0] == lx] |= BOUNDX1
-    flag[coord[:, 1] == -lz] |= BOUNDZ0
-    flag[coord[:, 1] == 0] |= BOUNDZ1
-    surf = lambda x: np.zeros_like(np.asarray(x, dtype=float))
-    bot = lambda x: np.full_like(np.asarray(x, dtype=float), -lz)
-    jc, jf, _, jconv = jrefine.refine_min_angle(
-        coord, flag, jrefine.box_inside_fn(lx, surf, bot), min_angle=30.0)
-    tc, tf, tconv = trefine.refine_min_angle(
-        coord, flag, trefine.box_inside_fn(lx, surf, bot), min_angle=30.0)
-    assert len(tc) > len(coord)
-    assert np.array_equal(jc, tc) and np.array_equal(jf, tf)
-    assert jconv == tconv
-
-
-@pytest.mark.parametrize("over", [
-    {"sim": {"ndims": 3}, "mesh": {"ylength": 4e3, "meshing_option": 2}},
-    {"mesh": {"meshing_option": 2}},
-    {"mesh": {"meshing_elem_shape": 2}}],
-    ids=["3d", "refined_zone", "equilateral"])
-def test_other_meshers_stay_refused(over):
-    cfg = flat_cfg(**over)
-    with pytest.raises(NotImplementedError, match="meshing_option"):
-        tgen.create_new_mesh(tdes.param_from_dict(cfg))

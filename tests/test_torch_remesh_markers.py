@@ -75,12 +75,12 @@ def test_generate_new_mesh_2d_equals_jax(shape):
         c, k, bf = jrm.generate_new_mesh_2d(jp, coord, jt, 7, reuse_pts=jru)
         a = jrenumber(c, k, bcflag=bf)
         a = (a[0], a[1], a[3])
-        b = trm.generate_new_mesh_2d(tp, coord, topo, reuse_pts=ru)
+        b = trm.generate_new_mesh_2d(tp, coord, topo, 7, reuse_pts=ru)
         b = renumber_mesh(*b)
         assert len(b[1]) > 200
     else:
         a = jrm.generate_new_mesh_2d(jp, coord, jt, 7)
-        b = trm.generate_new_mesh_2d(tp, coord, topo)
+        b = trm.generate_new_mesh_2d(tp, coord, topo, 7)
     for x, y in zip(a, b):
         assert x.dtype == y.dtype and np.array_equal(x, y)
 

@@ -12,11 +12,10 @@ through MarkerSet.from_arrays):
   tests/test_torch_fused2d.py runs it), held to the maxwell trajectory
   gate over 10 steps; a second remesh with the same dims, whose next
   chunk equals that of a runner built fresh on the new context;
-- option 100 in 3D, float64, the remesh only (the port has no float64
-  structured 3D step);
+- option 100 in 3D, float64, the remesh only;
 - the CLI through remeshes (options 11), frames written around each,
-  against the JAX CLI's last frame; and the 3D remeshing and metric-driven
-  configs it refuses before the first step."""
+  against the JAX CLI's last frame; and the refusal of the hydrous-marker
+  remap on the 3D and metric-driven remeshing paths."""
 
 import dataclasses
 import os
@@ -226,18 +225,35 @@ def test_cli_goes_on_through_remeshes(tmp_path, monkeypatch, capsys):
             assert mx + sg <= 1e-10, (frame, kind, mx, sg)
 
 
-@pytest.mark.parametrize("over,what", [
-    ({"sim": {"ndims": 3}, "mesh": {"remeshing_option": 13,
-                                    "ylength": 4e3}}, "generate_new_mesh_3d"),
-    ({"mesh": {"use_mesh_optimizer": True}}, "use_mesh_optimizer")])
-def test_cli_refuses_unported_remeshing(tmp_path, monkeypatch, over, what):
+# each case is a remeshing path (the 3D columns of generate_new_mesh_3d,
+# the metric-driven path of use_mesh_optimizer) with the hydrous markers
+# of phase changes, whose remap is not ported
+@pytest.mark.parametrize("over", [
+    {"sim": {"ndims": 3}, "mesh": {"remeshing_option": 13,
+                                   "ylength": 4e3}},
+    {"mesh": {"use_mesh_optimizer": True}}],
+    ids=["over0-generate_new_mesh_3d", "over1-use_mesh_optimizer"])
+def test_cli_refuses_unported_remeshing(tmp_path, monkeypatch, over):
+    """The CLI refuses the phase changes before the first step; a
+    Simulation driven without it runs, and its remesh refuses the
+    hydrous-marker remap naming the JAX function."""
     from dynearthsol_tpu_torch.__main__ import run
+    from dynearthsol_tpu_torch.remeshing import remesh
 
     monkeypatch.chdir(tmp_path)
     cfg = flat_cfg(mesh={"quality_check_step_interval": 5})
     cfg["sim"].update(max_steps=10, modelname="refused")
     for sec, kv in over.items():
         cfg[sec].update(kv)
-    with pytest.raises(NotImplementedError, match=what):
-        run(tdes.param_from_dict(cfg), device="cpu")
+    cfg["mat"].update(nmat=2, rho0=[2800.0, 3300.0],
+                      bulk_modulus=[50e9, 80e9], shear_modulus=[30e9, 48e9],
+                      phase_change_option=1)
+    cfg["control"]["has_hydration_processes"] = True
+    param = tdes.param_from_dict(cfg)
+    with pytest.raises(NotImplementedError, match="phase changes"):
+        run(param, device="cpu")
     assert not os.path.exists("refused.info")
+    sim = tdes.Simulation(param, device="cpu")
+    with pytest.raises(NotImplementedError,
+                       match="remesh_simulation's hydrous-marker remap"):
+        remesh(sim, 1)

@@ -400,3 +400,58 @@ def assert_evp3_one_step_close(ref, out, get):
     vb = np.log(np.asarray(get(out, "viscosity"), dtype=np.float64))
     assert np.median(np.abs(va - vb)) < 0.02
     assert np.isfinite(vb).all()
+
+
+def run_path_both(cfg, n, path):
+    """n steps of both packages' chunk runners on the path their
+    dispatches pick for ``cfg`` (asserted to be ``path``), from the JAX
+    initial state.  Returns numpy dicts (jax, torch) of every State
+    field."""
+    import dynearthsol_tpu as jdes
+    import dynearthsol_tpu_torch as tdes
+    from dynearthsol_tpu_torch.state import (FIELD_NAMES, state_from_numpy,
+                                             state_to_numpy)
+
+    js = jdes.Simulation(jdes.param_from_dict(cfg))
+    ts = tdes.Simulation(tdes.param_from_dict(cfg), device="cpu")
+    ref = js._chunk_fn(n)(js.ctx, js.state)
+    assert js.step_path == path
+    s0 = state_from_numpy({f: np.asarray(getattr(js.state, f))
+                           for f in FIELD_NAMES}, dtype=ts.dtype)
+    out = ts._chunk_fn(n)(ts.ctx, s0)
+    assert ts.step_path == path
+    return ({f: np.asarray(getattr(ref, f)) for f in FIELD_NAMES},
+            state_to_numpy(out))
+
+
+def grid3d_cfg(rheology="maxwell", dtype="float64", winkler=True):
+    """tests/test_structured.py:254-305's inputs (Winkler foundation,
+    water loading, surface process 1 with the surface correction, thermal
+    diffusion, damping 1) on 8 x 2 x 4 cells of 1 km, the base level
+    raised to 10 m as in BOUNDARY3: at 0 m the flat top's water pressure
+    switches on the sign of its rounding.  Without ``winkler`` the bottom
+    is free of the foundation, whose balance with the column's weight
+    leaves the bottom nodes a velocity of rounding that grows to 1e-10 of
+    the strain rate's scale in 20 float64 steps."""
+    return {
+        "sim": {"ndims": 3, "float_dtype": dtype,
+                "is_outputting_averaged_fields": False},
+        "mesh": {"meshing_option": 1, "meshing_elem_shape": 1,
+                 "xlength": 8e3, "ylength": 2e3, "zlength": 4e3,
+                 "resolution": 1e3, "quality_check_step_interval": 10**8},
+        "control": {"gravity": 10.0, "inertial_scaling": 1e5,
+                    "has_thermal_diffusion": True, "damping_option": 1,
+                    "surface_process_option": 1,
+                    "surface_diffusivity": 1e-6,
+                    "has_surface_correction": True,
+                    "surf_base_level": 10.0},
+        "bc": {"vbc_x0": 1, "vbc_val_x0": -1e-9, "vbc_x1": 1,
+               "vbc_val_x1": 1e-9, "vbc_y0": 1, "vbc_val_y0": 0.0,
+               "vbc_y1": 1, "vbc_val_y1": 0.0,
+               "has_winkler_foundation": winkler,
+               "has_water_loading": True, "winkler_delta_rho": 100.0},
+        "mat": {"rheology_type": rheology, "is_plane_strain": False,
+                "rho0": [2800.0], "bulk_modulus": [50e9],
+                "shear_modulus": [30e9], "visc_max": 1e24,
+                "visc_min": 1e19},
+    }
