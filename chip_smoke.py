@@ -213,7 +213,47 @@ Phases, each printed, the first failure exits non-zero:
                 first try, the same mesh and markers, every volume
                 positive, the finalize at 1e-12, then 10 flat3d steps with
                 the kernels against the plain versions on the CPU at
-                1e-10.
+                1e-10;
+  15. the CLI's host features on the card -- (a) subduction-2d: bench.py
+                production's box and mesh (512 x 256 cells, 4 markers per
+                element) with the flagship's physics, 8 materials,
+                sediment over oceanic crust over mantle, a 30 Myr plate's
+                geotherm and phase_change_option 1 with the hydration
+                processes, 100 steps through the CLI's run() on the card
+                (the resident 2D kernel in 10-step chunks between the
+                phase-change wakes) and with phase_change_option 0, twice
+                each: the step path, the kernels' launches per step, the
+                transitions, released and hydrous markers and the host ms
+                of phase_changes, the emw upload and the hydrous advection
+                at each wake, Compute s/step, and the s/step of 10-step
+                chunks after the first with and without the phase changes;
+                from the state of the first wake that changed the weights,
+                the chunk kernel's 8-material instance against its plain
+                version with a maxwell plan, as phase 13 holds a run's
+                state (one step at 2e-6, a 10-step chunk at phase 3's
+                10-step gates, and against the weights before the wake),
+                and one step of the run's EVP plan (its stress apart only
+                in the cold cells at visc_max, where the min-select ties); at
+                test size (tests/test_phasechanges.py's 40 x 40 km box,
+                float32, 50 steps) card against CPU, every marker's
+                material and release wake by wake (one that differs must
+                lie within 1e-5 of its phase boundary, or, for the
+                mantle's serpentinization, in an element whose hydrous
+                markers differ because they lie within 1e-5 of an element
+                side) and the fields at the maxwell gate; (b)
+                rsf-cycle-2d: tests/test_monitor.py's rate-and-state
+                simple shear on the flagship mesh, float32, with
+                earthquake tracking, adaptive output and a monitor of 4
+                points, 200 steps on flat2d through run(): the band
+                kernels' launches per step, the events, the frame steps,
+                the monitor rows, the host ms of tracking and of the
+                monitor per wake, Compute s/step; at test size (float64)
+                card against CPU, the event log, frames and monitor CSVs
+                at 1e-10; (c) surface process 101 with a registered hook
+                and option 11 with a GoSPL stand-in over 5 steps, card
+                against CPU frame for frame at 1e-10, and DES_PROFILE_DIR's
+                trace of a run on the resident 2D kernel naming
+                step_chunk2d.
 The last lines are a JSON record of the kernels, the card's name and power
 limit, and {"ok": true, "device": {...}}.
 """
@@ -317,19 +357,6 @@ def production_cfg(rheology="elasto-visco-plastic", small=False):
     cfg["mat"].update(nmat=2, rho0=[2800.0, 3300.0],
                       bulk_modulus=[50e9, 80e9], shear_modulus=[30e9, 48e9])
     return cfg
-
-
-def cfg_text(d: dict) -> str:
-    """A config dict as .cfg text (yes/no booleans, [ a, b ] lists)."""
-    def val(v):
-        if isinstance(v, bool):
-            return "yes" if v else "no"
-        if isinstance(v, (list, tuple)):
-            return "[ " + ", ".join(map(str, v)) + " ]"
-        return str(v)
-    return "".join(f"[{sec}]\n" + "".join(f"{k} = {val(v)}\n"
-                                           for k, v in kv.items())
-                   for sec, kv in d.items())
 
 
 def golden_cfg(rundir: Path, modelname: str) -> str:
@@ -482,9 +509,9 @@ def cli_formats_goldens(des, wrappers, zero_counts, card):
 
     from dynearthsol_tpu_torch import __main__ as cli
     from dynearthsol_tpu_torch.compare import _frame_quantities, reldiff
-    from dynearthsol_tpu_torch.io.tagged import TaggedReader
     from dynearthsol_tpu_torch.postproc import OutputReader
     from dynearthsol_tpu_torch.remeshing import bad_mesh_quality
+    from torch_cases import tagged_arrays, write_cfg
 
     root = Path(__file__).resolve().parent
     runs = root / "tests" / "golden" / "runs"
@@ -510,18 +537,6 @@ def cli_formats_goldens(des, wrappers, zero_counts, card):
             fail(f"the CLI printed no {label} line")
         return (float(m.group(1)), int(m.group(2)),
                 float(m.group(3)) if m.group(3) else None)
-
-    def arrays(path):
-        """{name: raw bytes} of a tagged file."""
-        with TaggedReader(path) as r:
-            pos = sorted(r.offset.items(), key=lambda kv: kv[1])
-            r.f.seek(0, 2)
-            ends = [p for _, p in pos[1:]] + [r.f.tell()]
-            out = {}
-            for (name, p), e in zip(pos, ends):
-                r.f.seek(p)
-                out[name] = r.f.read(e - p)
-        return out
 
     print("phase 10 CLI, formats and goldens on the card")
     cwd = os.getcwd()
@@ -587,12 +602,12 @@ def cli_formats_goldens(des, wrappers, zero_counts, card):
             fcfg["sim"].update(modelname="flag", max_steps=1000,
                                output_step_interval=500,
                                checkpoint_frame_interval=1)
-            (work / "flag.cfg").write_text(cfg_text(fcfg))
+            write_cfg(work / "flag.cfg", fcfg)
             rcfg = copy.deepcopy(fcfg)
             rcfg["sim"].update(modelname="rest", is_restarting=True,
                                restarting_from_modelname="flag",
                                restarting_from_frame=1)
-            (work / "rest.cfg").write_text(cfg_text(rcfg))
+            write_cfg(work / "rest.cfg", rcfg)
             env = dict(os.environ, PYTHONPATH=str(root))
 
             def cli_call(cfg):
@@ -683,12 +698,14 @@ def cli_formats_goldens(des, wrappers, zero_counts, card):
                     or rest_launches["fused_chunk"] != 5:
                 fail(f"the restart did not start at step 500 or launched "
                      f"{rest_launches}")
-            a, b = arrays("flag.save.000002"), arrays("rest.save.000002")
+            a, b = (tagged_arrays(f"{m}.save.000002")
+                    for m in ("flag", "rest"))
             if a.keys() != b.keys() or any(a[k] != b[k] for k in a):
                 fail("the restarted flagship's last frame differs from the "
                      "continuous run's: " + ", ".join(
                          k for k in a if a.get(k) != b.get(k)))
-            a, b = arrays("flag.chkpt.000002"), arrays("rest.chkpt.000002")
+            a, b = (tagged_arrays(f"{m}.chkpt.000002")
+                    for m in ("flag", "rest"))
             scal = [k for k in a if k.startswith("time info_display")]
             if a.keys() != b.keys() or any(a[k] != b[k] for k in a
                                            if k not in scal):
@@ -2017,6 +2034,727 @@ def remesh3d_on_card(des, wrappers, zero_counts, card, check, rel,
     return rec
 
 
+# the materials of the simple-subduction set (phasechanges.cxx:13-20):
+# mantle, serpentinized mantle, oceanic crust, eclogite, sediment, schist,
+# upper and lower continental crust
+SUBDUCTION_MAT = {
+    "nmat": 8, "phase_change_option": 1,
+    "rho0": [3300.0, 3000.0, 2900.0, 3500.0, 2400.0, 2700.0, 2700.0,
+             2900.0],
+    "bulk_modulus": [122e9, 60e9, 70e9, 130e9, 40e9, 55e9, 50e9, 63e9],
+    "shear_modulus": [74e9, 30e9, 40e9, 80e9, 20e9, 33e9, 30e9, 38e9]}
+
+
+def subduction_cfg(small=False):
+    """Phase 15a.  Full: bench.py production's box and mesh (100 km x 50
+    km, 512 x 256 cells, 262,144 triangles, 4 markers per element) with
+    the flagship's physics (EVP, plane strain, float32), the 8 materials
+    of the simple-subduction set, sediment (4) over oceanic crust (2) over
+    mantle (0) by depth (0-2 km, 2-8 km), the half-space geotherm of a 30
+    Myr plate (423 K at about 5 km, 773 K at about 21 km) and
+    phase_change_option 1 with the hydration processes.  ``small``:
+    tests/test_phasechanges.py's 40 km x 40 km box at 5 km, elastic, with
+    the same layers (0-4, 4-12 km) and geotherm."""
+    cfg = flagship_cfg()
+    if small:
+        cfg["mesh"].update(xlength=40e3, zlength=40e3, resolution=5e3)
+        cfg["mat"]["rheology_type"] = "elastic"
+        del cfg["ic"]
+        depths = [0.1, 0.3]
+    else:
+        depths = [0.04, 0.16]
+    cfg["markers"] = {"markers_per_element": 4, "random_seed": 2}
+    cfg["control"].update(has_hydration_processes=True,
+                          hydration_migration_speed=3e-9)
+    cfg.setdefault("ic", {}).update(
+        num_mattype_layers=3, layer_mattypes=[4, 2, 0],
+        mattype_layer_depths=depths, temperature_option=1,
+        oceanic_plate_age_in_yr=3e7)
+    cfg["mat"].update(SUBDUCTION_MAT)
+    return cfg
+
+
+def rsf_cycle_cfg(small=False):
+    """Phase 15b.  tests/torch_cases.py rsf_events_cfg:
+    tests/test_monitor.py's rate-and-state simple shear
+    (elasto-plastic-rate-state-friction, the top dragged at 1e-5 m/s over
+    a fixed bottom, use_global_velocity_scaling)
+    with seismic_moment_calculate_output and an event threshold of half the
+    drag speed.  ``small``: as it is, its 1 m box (2 triangles) in float64
+    and the monitor's 2 points (tests/test_torch_monitor.py).  Full: on the
+    flagship mesh (100 km x 50 km, 512 x 256 cells), float32, the cohesion
+    at 100 Pa so that it yields from the first steps,
+    earthquake_output_step_interval 10, an end threshold of twice the drag
+    speed, 200 steps with a frame every 100, a monitor of 4 points every 10
+    steps."""
+    from torch_cases import rsf_events_cfg
+
+    if small:
+        return rsf_events_cfg()
+    return rsf_events_cfg(
+        200, sim={"float_dtype": "float32", "output_step_interval": 100,
+                  "checkpoint_frame_interval": 10,
+                  "earthquake_output_step_interval": 10,
+                  "earthquake_end_factor": 2.0},
+        mesh={"xlength": 100e3, "zlength": 50e3, "resolution": 100e3 / 512,
+              "quality_check_step_interval": 10**8},
+        control={"fixed_dt": 0.0},
+        mat={"cohesion0": [1e2], "cohesion1": [1e2]},
+        monitor={"num_points": 4, "points_unit": "km",
+                 "points_x": [20.0, 40.0, 60.0, 80.0],
+                 "points_y": [-10.0, -20.0, -30.0, -40.0],
+                 "output_velocity": True,
+                 "output_plastic_strain_rate": True})
+
+
+def surface_hook_cfg(opt):
+    """Phase 15c: tests/test_gospl_wiring.py's 10 km x 5 km box at 1 km,
+    elastic, float64, 5 steps with a frame every step, surface process
+    ``opt`` (101, the custom hook; 11, GoSPL every 2 steps)."""
+    return {
+        "sim": {"max_steps": 5, "ndims": 2, "float_dtype": "float64",
+                "output_step_interval": 1,
+                "is_outputting_averaged_fields": False},
+        "mesh": {"meshing_option": 1, "meshing_elem_shape": 1,
+                 "xlength": 10e3, "ylength": 0.0, "zlength": 5e3,
+                 "resolution": 1e3, "quality_check_step_interval": 10**6},
+        "markers": {"markers_per_element": 0},
+        "control": {"gravity": 0.0, "inertial_scaling": 1e5,
+                    "damping_option": 1, "surface_process_option": opt,
+                    "gospl_coupling_frequency": 2,
+                    "gospl_coupling_mode": "steps"},
+        "bc": {"vbc_x0": 1, "vbc_val_x0": 0.0, "vbc_x1": 1,
+               "vbc_val_x1": 0.0, "vbc_z0": 1, "vbc_val_z0": 0.0,
+               "vbc_z1": 0, "has_winkler_foundation": False},
+        "mat": {"rheology_type": "elastic", "is_plane_strain": True,
+                "rho0": [2800.0], "bulk_modulus": [50e9],
+                "shear_modulus": [30e9]}}
+
+
+class GoSPLStandIn:
+    """Stands in for GoSPLDriver (gospl is not installed): 1 m of erosion
+    at each coupling, every ``gospl_coupling_frequency`` steps (the
+    stand-in of tests/test_gospl_wiring.py)."""
+
+    def __init__(self, param):
+        self.freq = param.control.gospl_coupling_frequency
+        self.step_counter = 0
+        self.couplings = 0
+
+    def initialize(self, yml, xy, elev):
+        pass
+
+    def should_couple_elapsed(self, n_steps, dt_elapsed):
+        self.step_counter += n_steps
+        return self.step_counter >= self.freq
+
+    def steps_to_next_coupling(self):
+        return max(1, self.freq - self.step_counter)
+
+    def run_and_get_erosion(self, xy, elev, vel):
+        import numpy as np
+        self.couplings += 1
+        self.step_counter = 0
+        return np.full(len(elev), -1.0)
+
+    def on_remesh(self):
+        pass
+
+
+def driver_features_on_card(des, wrappers, zero_counts, card, check, rel):
+    """Phase 15: the CLI's host features on the card -- (a) subduction-2d:
+    at test size card against CPU over 50 float32 steps, the material
+    history wake by wake over every marker (a material or a release that
+    differs must lie within float32 rounding of its phase boundary, or, for
+    the mantle's serpentinization, in an element whose hydrous-marker count
+    differs because hydrous markers lie within rounding of an element side)
+    and the fields at the maxwell trajectory gate; at full width 100 steps
+    through the CLI's run() with the phase changes and without, twice
+    each: the step path, the hand-written kernels' launches per step, the
+    transitions, released and hydrous markers and the host ms of each wake
+    by part, Compute s/step and the s/step of the 10-step chunks after the
+    first; from the state of the first wake that changed the weights, the
+    chunk kernel's 8-material instance against its plain version (see
+    _chunk_after_wake); (b)
+    rsf-cycle-2d: the monitor's test-size config card against CPU (the
+    same event log and frame steps, the monitor CSVs at 1e-10 in float64);
+    at full width 200 steps on flat2d through run(): the band kernels'
+    launches per step, the events, the frame steps, the monitor rows, the
+    host ms per wake, Compute s/step; (c) the option-101 hook and a GoSPL
+    stand-in over 5 steps, card against CPU frame for frame, and
+    DES_PROFILE_DIR's trace naming a hand-written kernel the run launched.
+    Returns the numbers for the JSON record."""
+    import contextlib
+    import io
+    import json as _json
+    import os
+    import re
+    import tempfile
+
+    import numpy as np
+    import torch
+
+    from dynearthsol_tpu_torch import __main__ as cli
+    from dynearthsol_tpu_torch import gospl_driver, hooks, phasechanges
+    from dynearthsol_tpu_torch.ops import band2d, fused2d, fused3d
+    from torch_cases import assert_frames_close, write_cfg
+
+    t_phase = time.perf_counter()
+    plain_calls = (band2d.gather_corners, band2d.scatter_corners,
+                   fused2d.fused_step_plain, fused2d.dt_refresh_plain,
+                   fused3d.chunk_step_plain, fused3d.finalize_plain)
+    rec = {}
+    print("phase 15 the CLI's host features on the card")
+
+    def launches():
+        return {n: w.launches for n, w in wrappers.items() if w.launches}
+
+    def run_cli(cfg, name, device, wake_log=None):
+        """cli.run on cfg written as name.cfg, its wakes into wake_log;
+        returns (sim, the printed summary lines, seconds).  The card's run
+        starts with every count at 0 and must call no plain version."""
+        write_cfg(f"{name}.cfg",
+                  {**cfg, "sim": {**cfg["sim"], "modelname": name}})
+        buf = io.StringIO()
+        if device == "cuda":
+            zero_counts()
+        t = time.perf_counter()
+        with contextlib.redirect_stdout(buf):
+            sim = cli.run(des.load_config(f"{name}.cfg"), device=device,
+                          wake_log=wake_log)
+        if device == "cuda":
+            torch.cuda.synchronize()
+            called = [f.__name__ for f in plain_calls if f.calls]
+            if called:
+                fail(f"{name}: the run on the card called the plain "
+                     f"versions {called}")
+        secs = time.perf_counter() - t
+        keep = ("Compute:", "Output:", "Wakes:", "Markers:", "Path:")
+        return sim, [ln for ln in buf.getvalue().splitlines()
+                     if ln.startswith(keep)], secs
+
+    def compute_s_per_step(lines):
+        for ln in lines:
+            m = re.match(r"Compute:.* = ([0-9.e+-]+) s/step", ln)
+            if m:
+                return float(m.group(1))
+        fail("the CLI printed no Compute line")
+
+    def frames_close(a, b, tol):
+        """torch_cases.assert_frames_close on two frames of a float64 run;
+        returns the worst difference."""
+        try:
+            return assert_frames_close(a, b, tol)
+        except AssertionError as e:
+            fail(f"{a} against {b}: {e}")
+
+    cwd = os.getcwd()
+    with tempfile.TemporaryDirectory() as tmp:
+        os.chdir(tmp)
+        try:
+            rec["subduction"] = _subduction(
+                des, cli, phasechanges, run_cli, compute_s_per_step,
+                launches, rel, check)
+            rec["rsf_cycle"] = _rsf_cycle(run_cli, compute_s_per_step,
+                                          launches, frames_close)
+            # (c) the option-101 hook and the GoSPL stand-in, card vs CPU
+            print(" (c) surface processes 101 and 11 at test size, card "
+                  "against CPU")
+            rec["surface_hooks"] = {}
+            real_driver = gospl_driver.GoSPLDriver
+            gospl_driver.GoSPLDriver = GoSPLStandIn
+            hooks.set_custom_surface_process(
+                lambda sim, dt: -0.5 * (1.0 + np.arange(
+                    int(sim.ctx.surf.ntop)) / int(sim.ctx.surf.ntop)))
+            try:
+                for opt in (101, 11):
+                    out, wakes = {}, []
+                    for dev in ("cuda", "cpu"):
+                        out[dev] = run_cli(
+                            surface_hook_cfg(opt), f"sp{opt}-{dev}", dev,
+                            wakes if dev == "cuda" else None)[0]
+                    worst = max(frames_close(
+                        f"sp{opt}-cpu.save.{f:06d}",
+                        f"sp{opt}-cuda.save.{f:06d}", 1e-10)
+                        for f in range(6))
+                    applied = sum("surface_dh_ms" in w for w in wakes)
+                    if applied != (5 if opt == 101 else 2):
+                        fail(f"option {opt}: {applied} increments applied")
+                    print(f"  option {opt}: {applied} increments applied, "
+                          f"6 frames card against CPU, worst {worst:.3e} "
+                          f"(tol 1e-10) on {out['cuda'].step_path}")
+                    rec["surface_hooks"][opt] = {
+                        "applied": applied, "worst_frame_err": worst}
+            finally:
+                gospl_driver.GoSPLDriver = real_driver
+                hooks.set_custom_surface_process(None)
+            # the profiler trace of a run on the resident 2D kernel
+            os.environ["DES_PROFILE_DIR"] = str(Path(tmp) / "prof")
+            try:
+                cfg = make_sim_cfg()
+                cfg["sim"].update(max_steps=20)
+                sim, _, _ = run_cli(cfg, "prof", "cuda")
+            finally:
+                del os.environ["DES_PROFILE_DIR"]
+            with open(Path(tmp) / "prof" / "trace.json") as f:
+                names = {e.get("name", "") for e in
+                         _json.load(f)["traceEvents"]}
+            named = sorted(n for n in names if "step_chunk2d" in n)
+            if sim.step_path != "pallas2d_res" or not named \
+                    or not wrappers["fused2d_chunk"].launches:
+                fail(f"DES_PROFILE_DIR: the trace names no launched "
+                     f"kernel ({sim.step_path}, {len(names)} names)")
+            print(f"  DES_PROFILE_DIR: trace.json with {len(names)} event "
+                  f"names, the launched kernel among them: {named[0][:60]}")
+            rec["profile_trace_kernel"] = named[0]
+        finally:
+            os.chdir(cwd)
+    rec["phase_s"] = time.perf_counter() - t_phase
+    print(f"  phase 15: {rec['phase_s']:.1f} s")
+    return rec
+
+
+def _subduction(des, cli, phasechanges, run_cli, compute_s_per_step,
+                launches, rel, check):
+    """Phase 15a (see driver_features_on_card)."""
+    import numpy as np
+    import torch
+
+    from dynearthsol_tpu_torch.ops import fused2d
+    from dynearthsol_tpu_torch.state import FIELD_NAMES
+
+    print(" (a) subduction-2d")
+    rec = {}
+    # the material history of each run, wake by wake: the markers'
+    # material before and after, their release mask, depth, pressure and
+    # temperature, and the hydrous markers' count per element and their
+    # placement, all as the wake found them
+    history = {}
+    real = cli.phase_changes
+
+    def recording(sim):
+        ms = sim.markers
+        Z, P, T = phasechanges.marker_ZPT(
+            sim.param, ms, sim._host(sim.state.coord), sim.topo.connectivity,
+            sim._host(sim.state.temperature))
+        hyd = sim.hydrous_markers
+        count = np.zeros(sim.topo.nelem)
+        if hyd is not None:
+            np.add.at(count, hyd.live("elem"), 1.0)
+        release = phasechanges.simple_subduction(sim.param, ms, Z, P, T,
+                                                 count)[1]
+        h = dict(step=int(sim.state.steps), before=ms.live("mattype").copy(),
+                 release=release, Z=Z, P=P, T=T,
+                 count=count[ms.live("elem")],
+                 hyd_elem=None if hyd is None else hyd.live("elem").copy(),
+                 hyd_eta=None if hyd is None else hyd.live("eta").copy())
+        st = real(sim)
+        history[run_dev[0]].append(dict(
+            h, after=ms.live("mattype").copy(), released=st["released"]))
+        return st
+
+    cli.phase_changes = recording
+    run_dev, out = [None], {}
+    try:
+        small = subduction_cfg(small=True)
+        small["sim"].update(max_steps=50)
+        for dev in ("cuda", "cpu"):
+            run_dev[0] = dev
+            history[dev] = []
+            out[dev] = run_cli(small, f"sub-{dev}", dev)[0]
+    finally:
+        cli.phase_changes = real
+    if not len(history["cuda"]) == len(history["cpu"]) == 5:
+        fail("subduction-2d test size: not 5 wakes on each device")
+
+    def boundaries(h, i):
+        """Relative distance of marker i to each boundary of the phase
+        diagram (phasechanges.cxx:10-104), from the CPU's inputs."""
+        T, P, Z = h["T"][i], h["P"][i], h["Z"][i]
+        trans_p = 2.1e9 + 5.4e9 * (T - 1003.0) / -230.0
+        return {"T 423": abs(T - 423) / 423, "T 773": abs(T - 773) / 773,
+                "T 923": abs(T - 923) / 923, "T 823": abs(T - 823) / 823,
+                "P eclogite": abs(P - (-0.3e9 + 2.2e6 * T)) / abs(P),
+                "P serpentinite": abs(P - trans_p) / abs(P),
+                "Z -20 km": abs(Z + 20e3) / 20e3}
+
+    # every marker at every wake: a material or a release that differs card
+    # against CPU must lie within float32 rounding (1e-5) of a boundary, or
+    # (mantle -> serpentinite, which reads the hydrous markers) in an
+    # element whose hydrous-marker count differs because hydrous markers lie
+    # within rounding of an element side (the same index on both devices in
+    # another element, the smallest barycentric coordinate 1e-5 or less on
+    # each).  A divergence, once accepted, is carried to the next wakes
+    # only while both devices keep its materials.
+    TOL = 1e-5
+    carried, new_diff, release_diff, side = {}, [], 0, 0
+    for w, (a, b) in enumerate(zip(history["cuda"], history["cpu"])):
+        na = 0 if a["hyd_elem"] is None else a["hyd_elem"].size
+        nb = 0 if b["hyd_elem"] is None else b["hyd_elem"].size
+        if na != nb and abs(na - nb) > release_diff:
+            fail(f"subduction-2d wake {w}: {na} hydrous markers on the card, "
+                 f"{nb} on the CPU, {release_diff} releases apart")
+        placed = na == nb
+        if placed and na:
+            moved = np.flatnonzero(a["hyd_elem"] != b["hyd_elem"])
+            for j in moved:
+                ea, eb = a["hyd_eta"][j].min(), b["hyd_eta"][j].min()
+                print(f"    wake {w}: hydrous marker {j} in element "
+                      f"{a['hyd_elem'][j]} on the card, {b['hyd_elem'][j]} "
+                      f"on the CPU; least barycentric {ea:.2e}, {eb:.2e}")
+                if max(ea, eb) > TOL:
+                    fail(f"subduction-2d wake {w}: hydrous marker {j} lies "
+                         f"in another element on the card, off its sides")
+            side += moved.size
+        for i in np.flatnonzero(a["release"] != b["release"]):
+            d = boundaries(b, i)
+            print(f"    wake {w}: marker {i} releases on the card "
+                  f"{a['release'][i]}, on the CPU {b['release'][i]}; nearest "
+                  f"boundary {min(d, key=d.get)} at {min(d.values()):.2e}")
+            if i not in carried and min(d.values()) > TOL:
+                fail(f"subduction-2d wake {w}: marker {i} released "
+                     f"differently on the card, off its boundaries")
+            release_diff += 1
+        for i in list(carried):
+            if a["after"][i] == b["after"][i]:
+                del carried[i]
+        for i in np.flatnonzero(a["after"] != b["after"]):
+            pair = (a["after"][i], b["after"][i])
+            if carried.get(i) == pair and a["before"][i] == pair[0] \
+                    and b["before"][i] == pair[1]:
+                continue
+            d = boundaries(b, i)
+            near = min(d.values())
+            hyd = (placed and a["count"][i] != b["count"][i]
+                   and phasechanges.MT_MANTLE in (a["before"][i],
+                                                  b["before"][i]))
+            print(f"    wake {w}: marker {i} {a['before'][i]}/"
+                  f"{b['before'][i]} -> card {pair[0]}, CPU {pair[1]}; "
+                  f"nearest boundary {min(d, key=d.get)} at {near:.2e}; "
+                  f"hydrous markers in its element card {a['count'][i]:.0f}, "
+                  f"CPU {b['count'][i]:.0f}")
+            if near > TOL and not hyd:
+                fail(f"subduction-2d wake {w}: marker {i}'s material differs "
+                     f"on the card, {near:.2e} from its boundary")
+            carried[i] = pair
+            new_diff.append(int(i))
+    n_moved = {dev: [int((h["before"] != h["after"]).sum()) for h in hs]
+               for dev, hs in history.items()}
+    released = {dev: [h["released"] for h in hs]
+                for dev, hs in history.items()}
+    print(f"  test size (40 x 40 km, float32, 50 steps, "
+          f"{out['cuda'].step_path}): {len(history['cuda'])} wakes, "
+          f"transitions card {n_moved['cuda']}, CPU {n_moved['cpu']}; "
+          f"released card {released['cuda']}, CPU {released['cpu']}; over "
+          f"all markers at all wakes, materials that differ "
+          f"{len(new_diff)}, releases {release_diff}, hydrous markers in "
+          f"another element {side}")
+    worst = 0.0
+    for f in ("coord", "vel", "stress", "strain", "temperature"):
+        worst = max(worst, rel(getattr(out["cpu"].state, f),
+                               getattr(out["cuda"].state, f).cpu()))
+    check("subduction-2d test size, 50 steps card vs CPU, worst field",
+          worst, 2e-4)
+    rec["test_size"] = {"wakes": len(history["cuda"]),
+                        "differing_markers": len(new_diff),
+                        "differing_releases": release_diff,
+                        "hydrous_in_another_element": side,
+                        "worst_field_err": worst}
+
+    # full width, with the phase changes and without, twice each.  The
+    # first run keeps the state of the first wake that changed the weights,
+    # for the kernel-against-plain check after it.
+    snap = {}
+
+    def snapping(sim):
+        emw0 = sim.state.emw
+        st = real(sim)
+        if not snap and not torch.equal(emw0, sim.state.emw):
+            s = sim.state
+            snap.update(step=int(s.steps), ctx=sim.ctx, emw0=emw0.clone(),
+                        state=s.replace(**{
+                            f: getattr(s, f).clone() for f in FIELD_NAMES
+                            if torch.is_tensor(getattr(s, f))}))
+        return st
+
+    chunk_rates = {1: [], 0: []}
+    for k, phases in enumerate((1, 0, 1, 0)):
+        cfg = subduction_cfg()
+        cfg["sim"].update(max_steps=100, output_step_interval=10**9)
+        cfg["mat"]["phase_change_option"] = phases
+        wakes = []
+        cli.phase_changes = snapping if k == 0 else real
+        try:
+            sim, lines, secs = run_cli(cfg, f"subduction-{phases}", "cuda",
+                                       wakes)
+        finally:
+            cli.phase_changes = real
+        n = int(sim.state.steps)
+        per_step = {nm: v / n for nm, v in launches().items()}
+        if not per_step or sim.step_path not in ("pallas2d_res",
+                                                 "pallas2d"):
+            fail(f"subduction-2d ran on {sim.step_path} with launches "
+                 f"{per_step}")
+        if not all(np.isfinite(sim._host(getattr(sim.state, f))).all()
+                   for f in ("coord", "vel", "stress", "temperature")):
+            fail("subduction-2d: non-finite fields")
+        cs = compute_s_per_step(lines)
+        if phases:
+            # the 10-step chunks between the wakes, the first (which builds
+            # the runner) aside
+            rates = [w["chunk_s"] / w["chunk_steps"] for w in wakes[1:]]
+        else:
+            # the same 10-step chunks on the run without phase changes,
+            # after one to warm the 10-step runner
+            rates = []
+            for j in range(6):
+                t = time.perf_counter()
+                sim.run_steps(10)
+                torch.cuda.synchronize()
+                if j:
+                    rates.append((time.perf_counter() - t) / 10)
+        chunk_rates[phases] += rates
+        r = {"step_path": sim.step_path, "launches_per_step": per_step,
+             "compute_s_per_step": cs, "wall_s": secs,
+             "chunk10_s_per_step": rates}
+        print(f"  full width, phase_change_option {phases}, run {k // 2 + 1}:"
+              f" {sim.topo.nelem} triangles, {sim.markers.n} markers, "
+              f"{sim.step_path}, launches per step {per_step}, Compute "
+              f"{cs:.3e} s/step, wall {secs:.1f} s; 10-step chunks "
+              f"{min(rates):.3e}-{max(rates):.3e} s/step (median "
+              f"{float(np.median(rates)):.3e}, {len(rates)} chunks)")
+        if k == 0:
+            for w in wakes:
+                print(f"    step {w['step']}: transitions "
+                      f"{w['transitions']}, released {w['released']}, "
+                      f"hydrous {w['hydrous']}; host ms phase_changes "
+                      f"{w['phase_changes_ms']:.1f} (reads of coord and "
+                      f"temperature {w['read_ms']:.2f}, emw upload "
+                      f"{w['emw_ms']:.2f}), advect {w['advect_ms']:.1f}")
+            r["wakes"] = [{key: w[key] for key in (
+                "step", "transitions", "released", "hydrous",
+                "phase_changes_ms", "read_ms", "emw_ms", "advect_ms",
+                "chunk_s", "chunk_steps")} for w in wakes]
+            if not sim.hydrous_markers or not sim.hydrous_markers.n:
+                fail("subduction-2d released no hydrous markers")
+            if not snap:
+                fail("subduction-2d: no wake changed the material weights")
+            r["after_wake"] = _chunk_after_wake(des, sim, snap, fused2d,
+                                                rel, check)
+        rec.setdefault(f"phase_change_option_{phases}", r)
+        rec.setdefault(f"runs_phase_change_option_{phases}", []).append(
+            {"compute_s_per_step": cs, "chunk10_s_per_step": rates})
+        del sim
+        torch.cuda.empty_cache()
+    med = {p: float(np.median(v)) for p, v in chunk_rates.items()}
+    print(f"  10-step chunks at full width, 2 runs each: with the phase "
+          f"changes {min(chunk_rates[1]):.3e}-{max(chunk_rates[1]):.3e} "
+          f"s/step (median {med[1]:.3e}, {len(chunk_rates[1])} chunks), "
+          f"without {min(chunk_rates[0]):.3e}-{max(chunk_rates[0]):.3e} "
+          f"(median {med[0]:.3e}, {len(chunk_rates[0])}); ratio of the "
+          f"medians {med[1] / med[0]:.3f}")
+    rec["chunk10_median_s_per_step"] = med
+    return rec
+
+
+def _chunk_after_wake(des, sim, snap, fused2d, rel, check):
+    """Phase 15a's kernel against its plain version at full width after a
+    phase-change wake, from the state the first weight-changing wake left
+    (8 materials in the const pack, the new emw), on the runner the run
+    took.  With a maxwell plan of the same model, as phase 13 holds a run's
+    state (on EVP the min-select of rheology.cxx:869-879 ties at float32
+    rounding in the cold cells at visc_max, where the viscoelastic and
+    elastic-plastic deviators are equal and one-ulp differences of expf
+    pick either branch, phase 3): one step on every field at phase 3's
+    rule (2e-6 of each field's max, the log-viscosity 1e-5, dpressure at
+    the stress's scale) and one 10-step chunk at its 10-step rule (2e-4,
+    the force 1e-3, the log-viscosity's median 0.02, dt and time 1e-5);
+    the same chunk with the weights before the wake must move the force by
+    more than the kernel's rounding does.  Then one step of the run's own
+    EVP plan: coord, temperature, strain and plstrain at 2e-6, and every
+    element whose stress differs by more than 2e-6 of the max must be such
+    a cold cell, at visc_max on both sides."""
+    import torch
+
+    from dynearthsol_tpu_torch.state import FIELD_NAMES
+
+    s, ctx = snap["state"], snap["ctx"]
+    resident = sim.step_path == "pallas2d_res"
+    cfg = subduction_cfg()
+    cfg["mat"]["rheology_type"] = "maxwell"
+    MP, EP = (fused2d.make_plan(p, ctx, sim.device,
+                                sim.compensation_pressure)
+              for p in (des.param_from_dict(cfg), sim.param))
+
+    def chunk(P, state, n, plain):
+        out = fused2d.run_chunk(P, ctx, state, n, resident, plain)
+        torch.cuda.synchronize()
+        return out
+
+    lab = f"subduction-2d after the wake at step {snap['step']}"
+    errs = {}
+    ker, ref = chunk(MP, s, 1, False), chunk(MP, s, 1, True)
+    for f in FIELD_NAMES:
+        x, y = getattr(ref, f), getattr(ker, f)
+        if not torch.is_tensor(x):
+            continue
+        if not x.is_floating_point():
+            if not torch.equal(x, y):
+                fail(f"{lab}: 1 maxwell step, {f} differs")
+            continue
+        if f == "viscosity":
+            e, tol = float((x.double().log() - y.double().log()).abs()
+                           .max()), 1e-5
+        elif f == "dpressure":
+            e, tol = float((x.double() - y.double()).abs().max()
+                           / ref.stress.double().abs().max()), 2e-6
+        else:
+            e, tol = rel(x, y), 1e-5 if f == "l2_residual" else 2e-6
+        errs[f"maxwell 1 step {f}"] = e
+        check(f"{lab}, 1 maxwell step, kernel vs plain, {f}", e, tol)
+    ker, ref = chunk(MP, s, 10, False), chunk(MP, s, 10, True)
+    for f in ("coord", "vel", "temperature", "stress", "strain", "volume",
+              "volume_n", "mass", "tmass", "hmass", "strain_rate", "edvoldt",
+              "force"):
+        errs[f"maxwell 10 steps {f}"] = rel(getattr(ref, f), getattr(ker, f))
+        check(f"{lab}, maxwell 10 steps kernel vs plain, {f}",
+              errs[f"maxwell 10 steps {f}"], 1e-3 if f == "force" else 2e-4)
+    dlog = ref.viscosity.double().log() - ker.viscosity.double().log()
+    errs["maxwell 10 steps log-viscosity median"] = float(dlog.abs().median())
+    check(f"{lab}, maxwell 10 steps log-viscosity median",
+          errs["maxwell 10 steps log-viscosity median"], 0.02)
+    for f in ("dt", "time", "max_global_vel_mag"):
+        errs[f"maxwell 10 steps {f}"] = rel(getattr(ref, f), getattr(ker, f))
+        check(f"{lab}, maxwell 10 steps {f}", errs[f"maxwell 10 steps {f}"],
+              1e-5)
+    old = chunk(MP, s.replace(emw=snap["emw0"]), 10, False)
+    moved = {f: rel(getattr(ker, f), getattr(old, f))
+             for f in ("force", "stress", "vel")}
+    kv = {f: errs[f"maxwell 10 steps {f}"] for f in moved}
+    print(f"  {lab}: the maxwell chunk with the weights before the wake "
+          f"differs by " + ", ".join(f"{f} {moved[f]:.3e}" for f in moved)
+          + "; kernel against plain by "
+          + ", ".join(f"{f} {kv[f]:.3e}" for f in kv))
+    if not moved["force"] > kv["force"]:
+        fail(f"{lab}: the new weights move the force no more than the "
+             f"kernel's rounding does")
+    # one step of the run's own EVP plan
+    ker, ref = chunk(EP, s, 1, False), chunk(EP, s, 1, True)
+    for f in ("coord", "temperature", "strain", "plstrain"):
+        errs[f"EVP 1 step {f}"] = rel(getattr(ref, f), getattr(ker, f))
+        check(f"{lab}, 1 EVP step, kernel vs plain, {f}",
+              errs[f"EVP 1 step {f}"], 2e-6)
+    d = ((ker.stress.double() - ref.stress.double()).abs().max(1).values
+         / ref.stress.double().abs().max())
+    over = d > 2e-6
+    vmax = sim.param.mat.visc_max
+    cold = (ker.viscosity == vmax) & (ref.viscosity == vmax)
+    errs["EVP 1 step stress"] = float(d.max())
+    errs["EVP 1 step stress, elements over 2e-6"] = int(over.sum())
+    print(f"  {lab}, 1 EVP step, kernel vs plain: stress "
+          f"{float(d.max()):.3e} of its max, {int(over.sum())} of "
+          f"{d.numel()} elements over 2e-6, {int((over & cold).sum())} of "
+          f"them at visc_max on both sides (the min-select's ties), force "
+          f"{rel(ref.force, ker.force):.3e}")
+    if bool((over & ~cold).any()):
+        fail(f"{lab}: 1 EVP step, {int((over & ~cold).sum())} elements "
+             f"below visc_max differ by more than 2e-6 in stress")
+    return {"step": snap["step"], "kernel_vs_plain": errs,
+            "old_weights_moved": moved}
+
+
+def _rsf_cycle(run_cli, compute_s_per_step, launches, frames_close):
+    """Phase 15b (see driver_features_on_card)."""
+    import os
+    import re
+
+    import numpy as np
+
+    from dynearthsol_tpu_torch.postproc import OutputReader
+
+    print(" (b) rsf-cycle-2d")
+    rec = {}
+    small = rsf_cycle_cfg(small=True)
+    logs, frames = {}, {}
+    for dev in ("cuda", "cpu"):
+        d = Path(f"rsf-{dev}")
+        d.mkdir()
+        cwd = Path.cwd()
+        os.chdir(d)
+        try:
+            run_cli(small, "rsf", dev)
+            logs[dev] = Path("seismic_moment_magnitude.txt").read_text()
+            frames[dev] = OutputReader("rsf").steps
+        finally:
+            os.chdir(cwd)
+    if logs["cuda"].count("ended") < 2 or frames["cuda"] != frames["cpu"]:
+        fail(f"rsf-cycle-2d test size: events {logs['cuda'].count('ended')}"
+             f", frames card {frames['cuda']} CPU {frames['cpu']}")
+    num = r"[-+]?\d+\.?\d*(?:e[-+]?\d+)?"
+    if re.sub(num, "#", logs["cuda"]) != re.sub(num, "#", logs["cpu"]):
+        fail("rsf-cycle-2d test size: the event logs differ in text")
+    a = np.array([float(x) for x in re.findall(num, logs["cpu"])])
+    b = np.array([float(x) for x in re.findall(num, logs["cuda"])])
+    log_err = float((np.abs(a - b) / np.maximum(np.abs(a), 1e-300)).max())
+    csv_err = 0.0
+    for i in range(2):
+        ra, rb = (np.loadtxt(f"rsf-{dev}/mon_point_{i}.csv", delimiter=",",
+                             skiprows=1) for dev in ("cpu", "cuda"))
+        if ra.shape != rb.shape:
+            fail("rsf-cycle-2d test size: monitor rows differ")
+        csv_err = max(csv_err, float((np.abs(ra - rb) / np.maximum(
+            np.abs(ra), 1e-300)).max()))
+    frame_err = max(frames_close(f"rsf-cpu/rsf.save.{f:06d}",
+                                 f"rsf-cuda/rsf.save.{f:06d}", 1e-10)
+                    for f in range(len(frames["cpu"])))
+    for label, err in (("event log", log_err), ("monitor CSV", csv_err)):
+        if err > 1e-10:
+            fail(f"rsf-cycle-2d test size: {label} {err:.3e} over 1e-10")
+    print(f"  test size (float64): {logs['cuda'].count('ended')} events, "
+          f"frames at steps {frames['cuda']} on both; card against CPU: "
+          f"event log {log_err:.3e}, monitor CSV {csv_err:.3e}, frames "
+          f"{frame_err:.3e} (tol 1e-10)")
+    rec["test_size"] = {"events": logs["cuda"].count("ended"),
+                        "frame_steps": frames["cuda"], "log_err": log_err,
+                        "csv_err": csv_err, "frame_err": frame_err}
+
+    wakes = []
+    sim, lines, secs = run_cli(rsf_cycle_cfg(), "rsf-full", "cuda", wakes)
+    n = int(sim.state.steps)
+    per_step = {k: v / n for k, v in launches().items()}
+    band = {k: per_step.get(k, 0) for k in ("cgather", "asm_pack",
+                                            "asm_gather")}
+    if sim.step_path != "flat2d" or not all(band.values()):
+        fail(f"rsf-cycle-2d ran on {sim.step_path}, launches {per_step}")
+    if not all(np.isfinite(sim._host(getattr(sim.state, f))).all()
+               for f in ("coord", "vel", "stress", "state_variable")):
+        fail("rsf-cycle-2d: non-finite fields")
+    events = Path("seismic_moment_magnitude.txt").read_text() \
+        if Path("seismic_moment_magnitude.txt").exists() else ""
+    steps = OutputReader("rsf-full").steps
+    rows = [len(Path(f"mon_point_{i}.csv").read_text().splitlines()) - 1
+            for i in range(4)]
+    # mean host ms per wake by part
+    host = {k: sum(w.get(k, 0.0) for w in wakes) / max(len(wakes), 1)
+            for k in ("tracking_ms", "tracking_read_ms", "monitor_ms")}
+    cs = compute_s_per_step(lines)
+    print(f"  full width (float32, {sim.topo.nelem} triangles, 200 steps): "
+          f"{sim.step_path}, band launches per step {band}, "
+          f"{events.count('started')} events started and "
+          f"{events.count('ended')} ended, frames at steps {steps}, "
+          f"monitor rows {rows}, host ms per wake {host}, Compute {cs:.3e} "
+          f"s/step, wall {secs:.1f} s")
+    for ln in events.splitlines()[:8]:
+        print(f"    {ln}")
+    rec["full"] = {"step_path": sim.step_path, "launches_per_step":
+                   per_step, "events_started": events.count("started"),
+                   "events_ended": events.count("ended"),
+                   "frame_steps": steps, "monitor_rows": rows,
+                   "host_ms_per_wake": host, "compute_s_per_step": cs,
+                   "wall_s": secs}
+    return rec
+
+
 def flat2d_plain_step(sim):
     """One step of sim's flat2d runner with the plain versions."""
     from dynearthsol_tpu_torch.ops import flat2d
@@ -2034,8 +2772,11 @@ def main():
     if not torch.cuda.is_available():
         fail("torch.cuda.is_available() is false: this script needs an "
              "NVIDIA GPU")
-    sys.path.insert(0, str(Path(__file__).resolve().parent))
+    root = Path(__file__).resolve().parent
+    sys.path[:0] = [str(root), str(root / "tests")]
     try:
+        import torch_cases  # noqa: F401  (the shared cfg and file helpers)
+
         import dynearthsol_tpu_torch as des
         from dynearthsol_tpu_torch.mesh.generate import (
             regular_grid_3d, renumber_mesh, unstructured_box_2d)
@@ -3929,6 +4670,10 @@ def main():
     phase14 = remesh3d_on_card(des, wrappers, zero_counts, card, check, rel,
                                per_kernel, prof_last)
 
+    # ---- 15. the CLI's host features on the card
+    phase15 = driver_features_on_card(des, wrappers, zero_counts, card,
+                                      check, rel)
+
     src2 = "dynearthsol_tpu_torch/csrc/fused2d.cu"
     src3 = "dynearthsol_tpu_torch/csrc/fused3d.cu"
     err_metric = ("max |kernel - plain| / max |plain| over the output "
@@ -4103,6 +4848,18 @@ def main():
          "bound_ms_one_step_form": pbound_one[0],
          "bytes_by_phase": phases3p, "library_ms": None},
     ]
+    # phase 15a's subduction-2d runs on the resident runner, or on the
+    # tiled one where the 8-material instance misses the resident gate
+    sub = phase15["subduction"]["phase_change_option_1"]
+    sub_name = ("fused2d_chunk" if sub["step_path"] == "pallas2d_res"
+                else "fused2d_step")
+    for k in kernels:
+        if k["name"] == sub_name:
+            k["launches_by_path"][
+                f"subduction-2d, 8 materials, phase changes "
+                f"({sub['step_path']}, phase 15a), per step"] = \
+                sub["launches_per_step"].get("fused2d_chunk", 0)
+    rsf = phase15["rsf_cycle"]["full"]["launches_per_step"]
     srcb = "dynearthsol_tpu_torch/csrc/band2d.cu"
     for name, main_site, line in (
             ("asm_gather", "asm_gather k=2 kg=1", 519),
@@ -4137,6 +4894,7 @@ def main():
                 METRIC_3D]["launches"][name],
             "launches_after_option_100_3d_fallback": phase14["remesh"][
                 FALLBACK_3D]["launches"][name],
+            "launches_per_step_rsf_cycle_2d": rsf.get(name, 0),
             "max_abs_err": band_err[name],
             "err_metric": "max |kernel - plain| over random inputs at a "
                           "small Delaunay mesh, a tet mesh, the "
@@ -4194,6 +4952,7 @@ def main():
                       "flat3d": phase12,
                       "remesh": phase13,
                       "grids_remesh3d": phase14,
+                      "driver_features": phase15,
                       "init_s_flagship3d_unstructured": u3init_s,
                       "mesh_s_flagship3d_unstructured": mesh_s[1],
                       "script_s": time.perf_counter() - t_start}))

@@ -131,9 +131,13 @@ class Output:
         w.write_array(_np(s.coord0), "coord0")
         w.write_array(topo.bcflag.astype(np.uint32), "bcflag")
         if self.has_marker_output and sim.markers is not None:
-            for name, arr in sim.markers.save_arrays(
-                    coord, topo.connectivity).items():
-                w.write_array(arr, name)
+            # the hydrous markers of phase changes after the markers
+            # (JAX io/output.py:145-149)
+            for ms in (sim.markers, sim.hydrous_markers):
+                if ms is not None:
+                    for name, arr in ms.save_arrays(
+                            coord, topo.connectivity).items():
+                        w.write_array(arr, name)
         w.close()
 
         self.write_info(sim, dt)
@@ -186,8 +190,10 @@ class Output:
         if param.mat.rheol_type & RH_RSF:
             w.write_array(_np(s.state_variable), "friction state variable")
         if sim.markers is not None:
-            for name, arr in sim.markers.chkpt_arrays().items():
-                w.write_array(arr, name)
+            for ms in (sim.markers, sim.hydrous_markers):
+                if ms is not None:
+                    for name, arr in ms.chkpt_arrays().items():
+                        w.write_array(arr, name)
         w.close()
         return fname
 

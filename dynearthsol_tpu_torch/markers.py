@@ -7,10 +7,10 @@ all element material properties are marker-count-weighted mixtures
 histogram ``emw`` (nelem, nmat); the marker population lives on the host in
 the JAX package's layout, so that frames and checkpoints carry the same
 arrays.  This package places the initial population (``init_marker_option
-1``, with numpy's generator or the reference's glibc stream), builds the
-histogram, and appends and removes markers as remeshing
-(remesh_impl.remap_markers) and the surface-marker bookkeeping
-(Simulation.sync_surface_markers) need.
+1``, random, with numpy's generator or the reference's glibc stream, and
+``init_marker_option 2``, on a regular grid), builds the histogram, and
+appends and removes markers as remeshing (remesh_impl.remap_markers) and
+the surface-marker bookkeeping (Simulation.sync_surface_markers) need.
 """
 
 from __future__ import annotations
@@ -173,16 +173,22 @@ def _mattype_from_depth(param, pts: np.ndarray) -> np.ndarray:
 
 
 def create_markers(param, coord: np.ndarray, conn: np.ndarray) -> MarkerSet:
-    """Initial marker population (markerset.cxx:510-538, init_marker_option
-    1): ``markers_per_element`` random markers per element, placed exactly
-    as the JAX package places them: from a ``np.random.Generator`` seeded
-    with ``markers.random_seed``, or with ``reference_compatible_rng`` from
-    the reference's own glibc rand() stream (utils/glibc_rand.py)."""
-    if param.markers.init_marker_option != 1:
-        raise NotImplementedError(
-            "only init_marker_option 1 (random markers) is ported")
+    """Initial marker population (markerset.cxx:510-649), placed exactly as
+    the JAX package places it.
+
+    init_marker_option 1: ``markers_per_element`` random markers per
+    element, from a ``np.random.Generator`` seeded with
+    ``markers.random_seed``, or with ``reference_compatible_rng`` from the
+    reference's own glibc rand() stream (utils/glibc_rand.py).
+    init_marker_option 2: regularly spaced markers on a centred grid of
+    spacing ``init_marker_spacing * resolution``, located into their
+    enclosing elements (regularly_spaced_markers, markerset.cxx:542-649);
+    grid points outside the mesh are skipped as the reference skips its
+    markers that are not found."""
     ndims = coord.shape[1]
     nelem = conn.shape[0]
+    if param.markers.init_marker_option == 2:
+        return _regular_markers(param, coord, conn)
     mpe = param.markers.markers_per_element
     n = nelem * mpe
     ms = MarkerSet.empty(ndims, cap=n + 64)
@@ -200,6 +206,38 @@ def create_markers(param, coord: np.ndarray, conn: np.ndarray) -> MarkerSet:
     ms.id[:n] = np.arange(n)
     ms.z[:n], ms.distance[:n] = pts[:, ndims - 1], pts[:, 0]
     ms.n = ms.last_id = n
+    return ms
+
+
+def _regular_markers(param, coord: np.ndarray, conn: np.ndarray
+                     ) -> MarkerSet:
+    """init_marker_option 2 (JAX markers.py:226-256)."""
+    from .mesh.locate import ElementLocator
+
+    ndims = coord.shape[1]
+    # integer spacing, as the reference's `const int d` truncates it
+    # (markerset.cxx:544)
+    d = int(param.markers.init_marker_spacing * param.mesh.resolution)
+    d = max(d, 1)
+    lo, hi = coord.min(axis=0), coord.max(axis=0)
+    axes = []
+    for a in (0,) + ((1,) if ndims == 3 else ()) + (ndims - 1,):
+        length = hi[a] - lo[a]
+        n = int(length / d) + 1
+        a0 = lo[a] + 0.5 * (length - (n - 1) * d)
+        axes.append(a0 + d * np.arange(n))
+    # marker n -> (ix, iy, iz) with x fastest (markerset.cxx:600-603)
+    grids = np.meshgrid(*axes, indexing="ij")
+    pts = np.stack([g.reshape(-1, order="F") for g in grids], axis=1)
+    elems, eta, found = ElementLocator(
+        np.asarray(coord, np.float64), conn).locate(pts, k=20)
+    elems = elems[found].astype(np.int32)
+    eta = np.clip(eta[found], 0.0, None)
+    eta /= eta.sum(axis=1, keepdims=True)
+    pts = pts[found]
+    ms = MarkerSet.empty(ndims, cap=len(elems) + 64)
+    ms.append(eta, elems, _mattype_from_depth(param, pts), time=0.0,
+              z=pts[:, ndims - 1], distance=pts[:, 0], slope=0.0)
     return ms
 
 

@@ -18,8 +18,8 @@ unstructured re-triangulation of the kept points, the metric-driven point
 sets and the structured columns, in 3D the surface-following 5-tet
 columns (``generate_new_mesh_3d``) and the metric-driven Delaunay
 (``generate_optimized_mesh_3d``), and remeshing_option 100's structured
-regeneration in 2D and 3D.  Not ported, raising ``NotImplementedError``
-where a run needs it: the remap of the hydrous markers of phase changes.
+regeneration in 2D and 3D; the markers and the hydrous markers of phase
+changes are relocated on the new mesh.
 """
 
 from __future__ import annotations
@@ -39,12 +39,6 @@ from .mesh.topology import finish_topology
 # ---------------------------------------------------------------------------
 # mesh regeneration on the deformed boundary
 # ---------------------------------------------------------------------------
-
-def _unported(jax_fn: str, what: str):
-    raise NotImplementedError(
-        f"{what} needs the JAX package's remesh_impl.{jax_fn}, which is not "
-        "ported yet")
-
 
 def _facet_area(coord, facets):
     """Facet measure: segment length (2D) / triangle area (3D)
@@ -1012,10 +1006,6 @@ def remesh_simulation(sim, bad_quality: int):
     param, topo = sim.param, sim.topo
     ndims = param.sim.ndims
     m = param.mesh
-    if (param.mat.nmat > 1 and param.mat.phase_change_option != 0
-            and param.control.has_hydration_processes):
-        _unported("remesh_simulation's hydrous-marker remap",
-                  "the hydrous markers of phase changes")
     secs = {}
     t0 = time.perf_counter()
     # the state as the JAX package reads it: float64 on the host
@@ -1240,6 +1230,18 @@ def remesh_simulation(sim, bad_quality: int):
         emw = mk.emw_from_markers(sim.markers, topo2.nelem, param.mat.nmat)
     else:
         emw = np.ones((topo2.nelem, param.mat.nmat))
+    hyd = sim.hydrous_markers
+    if hyd is not None and hyd.n:
+        # the hydrous markers of phase changes, located on the new mesh;
+        # those outside it are deleted (JAX remesh_impl.py:1246-1257)
+        pts_h = bary_to_coord(old_coord, old_conn, hyd.live("elem"),
+                              hyd.live("eta"))
+        eh, etah, fh = ElementLocator(new_coord, new_conn).locate(pts_h)
+        hyd.elem[: hyd.n] = eh
+        hyd.eta[: hyd.n] = etah
+        lost_h = np.nonzero(~fh)[0]
+        if lost_h.size:
+            hyd.remove(lost_h)
     t5 = time.perf_counter()
     secs["markers"] = t5 - t4
 

@@ -22,7 +22,11 @@ when a chunk runner is built.  A remesh
 state (``_set_mesh``); the chunk runners and band tables of the old mesh
 are dropped and built for the new one at the next chunk, on the path the
 new mesh takes.  The surface-marker bookkeeping (``sync_surface_markers``)
-runs on the host at the CLI's quality-check cadence.
+runs on the host at the CLI's quality-check cadence, and the surface
+increments of GoSPL and the custom hook (``apply_host_surface_dh``) and
+the phase changes (phasechanges.py, on ``markers`` and
+``hydrous_markers``) at its wakes; the dome geotherm (temperature_option
+3) turns the markers in its adiabatic region into asthenosphere.
 """
 
 from __future__ import annotations
@@ -96,7 +100,7 @@ def make_finalize_fn(param: Param, *, with_dt: bool = True,
         if with_dt:
             s = _with_dt(s, ctx, vel, shearm, rho_e)
         if with_mass:
-            s = _with_mass(s, ctx, bulkm, shearm, rho_e)
+            s = with_mass_fields(param, ctx, s, bulkm, shearm, rho_e)
         viscosity = M.visc(ctx.mat, s.emw, s.temperature, ctx.conn,
                            s.stress, s.strain_rate)
         return s.replace(viscosity=viscosity)
@@ -117,22 +121,32 @@ def make_finalize_fn(param: Param, *, with_dt: bool = True,
         return s.replace(dt=dt, max_global_vel_mag=vmax,
                          global_dt_min=gdtmin)
 
-    def _with_mass(s, ctx, bulkm, shearm, rho_e):
-        volume_n, mass, tmass, hmass, ymass = G.compute_mass(
-            s.volume, bulkm, shearm, rho_e, M.cp(ctx.mat, s.emw),
-            M.phi_porosity(ctx.mat, s.emw), M.alpha_biot(ctx.mat, s.emw),
-            M.beta_fluid(ctx.mat, s.emw),
-            lambda c: node_sum(c, ctx.gather_idx, ctx.gather_mask),
-            pseudo_speed=ctx.max_vbc_val * ctrl.inertial_scaling,
-            pseudo_speed_atp=s.max_global_vel_mag * ctrl.inertial_scaling,
-            is_quasi_static=ctrl.is_quasi_static,
-            use_global_velocity_scaling=ctrl.use_global_velocity_scaling,
-            ndims=ctx.ndims,
-            has_hydraulic_diffusion=ctrl.has_hydraulic_diffusion)
-        return s.replace(volume_n=volume_n, mass=mass, tmass=tmass,
-                         hmass=hmass, ymass=ymass)
-
     return fin
+
+
+def with_mass_fields(param: Param, ctx: StepCtx, s: State, bulkm=None,
+                     shearm=None, rho_e=None) -> State:
+    """``s`` with its nodal volume and (pseudo-)masses recomputed from its
+    volume and weights (geometry.cxx:1020-1154): the finalize's mass part,
+    and the mass tail of a host-applied surface increment."""
+    ctrl = param.control
+    if bulkm is None:
+        bulkm = M.bulkm(ctx.mat, s.emw)
+        shearm = M.shearm(ctx.mat, s.emw)
+        rho_e = M.rho(ctx.mat, s.emw, s.temperature, ctx.conn)
+    volume_n, mass, tmass, hmass, ymass = G.compute_mass(
+        s.volume, bulkm, shearm, rho_e, M.cp(ctx.mat, s.emw),
+        M.phi_porosity(ctx.mat, s.emw), M.alpha_biot(ctx.mat, s.emw),
+        M.beta_fluid(ctx.mat, s.emw),
+        lambda c: node_sum(c, ctx.gather_idx, ctx.gather_mask),
+        pseudo_speed=ctx.max_vbc_val * ctrl.inertial_scaling,
+        pseudo_speed_atp=s.max_global_vel_mag * ctrl.inertial_scaling,
+        is_quasi_static=ctrl.is_quasi_static,
+        use_global_velocity_scaling=ctrl.use_global_velocity_scaling,
+        ndims=ctx.ndims,
+        has_hydraulic_diffusion=ctrl.has_hydraulic_diffusion)
+    return s.replace(volume_n=volume_n, mass=mass, tmass=tmass,
+                     hmass=hmass, ymass=ymass)
 
 
 def _jax_path_name(param: Param, ctx: StepCtx) -> str:
@@ -198,8 +212,6 @@ class Simulation:
                     "none is available; pass device='cpu' to run the "
                     "plain PyTorch versions on the CPU")
             device = "cuda"
-        if param.ic.temperature_option == 3:
-            raise NotImplementedError("the dome geotherm is not ported yet")
         self.param = param
         self.device = torch.device(device)
         self.dtype = torch.float64 if param.sim.float_dtype == "float64" \
@@ -234,6 +246,9 @@ class Simulation:
         self.reference_frame_time = 0.0
         self.compensation_pressure = 0.0
         self.bottom_temperature = param.bc.mantle_temperature
+        # the hydrous markers of phase changes (phasechanges.py); a restart
+        # starts without them, as the JAX package's does
+        self.hydrous_markers = None
         if _restart is None:
             self.state = self._init_state()
         else:
@@ -289,6 +304,19 @@ class Simulation:
         if param.markers.markers_per_element > 0:
             self.markers = mk.create_markers(param, self.mesh.coord,
                                              topo.connectivity)
+            if param.ic.temperature_option == 3:
+                # markers inside the adiabatic region become asthenosphere
+                # (ic.cxx:820-830: the eta-weighted nodal in_asth >= 0.5
+                # flips the marker's mattype)
+                in_asth = ic_mod.dome_geotherm(
+                    param, self.mesh.coord)[1].astype(float)
+                ms = self.markers
+                n = ms.n
+                w = (in_asth[topo.connectivity[ms.elem[:n]]]
+                     * ms.eta[:n]).sum(axis=1)
+                ms.mattype[:n] = np.where(
+                    w >= 0.5, param.mat.mattype_asthenosphere,
+                    ms.mattype[:n])
             emw_h = mk.emw_from_markers(self.markers, topo.nelem,
                                         param.mat.nmat)
         else:
@@ -397,6 +425,39 @@ class Simulation:
             return make_finalize_fn(param, with_dt=False,
                                     with_mass=False)(ctx, s)
         return make_finalize_fn(param, with_dt=False)(ctx, s)
+
+    # ---- host-applied surface increments (options 11 and 101) ----
+    def apply_host_surface_dh(self, dh_top):
+        """Apply a surface increment computed on the host (GoSPL coupling,
+        surface_process_option 11, and the custom hook, option 101) at a
+        wake of the CLI, as the in-step dh is applied (bc.cxx:1727-1760;
+        JAX simulation.py:1137-1203): the coordinates, dhacc and each top
+        facet's edvacc in float64 on the host, then the volume and the
+        masses recomputed on the run's device."""
+        surf = self.ctx.surf
+        if surf.etop == 0:
+            return
+        ndims = self.ctx.ndims
+        coord = self._host(self.state.coord).copy()
+        dh = np.zeros(self.topo.nnode)
+        dh[np.asarray(surf.top_nodes)] = np.asarray(dh_top,
+                                                    dtype=np.float64)
+        coord[:, ndims - 1] += dh
+        dhacc = self._host(self.state.dhacc) + dh
+        f = np.asarray(surf.facet_nodes)
+        dh_e = dh[f].sum(axis=1)
+        if ndims == 2:
+            base = np.abs(coord[f[:, 1], 0] - coord[f[:, 0], 0])
+        else:
+            d01 = coord[f[:, 1]] - coord[f[:, 0]]
+            d02 = coord[f[:, 2]] - coord[f[:, 0]]
+            base = 0.5 * (d01[:, 0] * d02[:, 1] - d01[:, 1] * d02[:, 0])
+        edv = self._host(self.state.edvacc_surf) + dh_e * base / ndims
+        c = self._dev(coord)
+        s = self.state.replace(
+            coord=c, volume=compute_volume(c, self.ctx.conn),
+            dhacc=self._dev(dhacc), edvacc_surf=self._dev(edv))
+        self.state = with_mass_fields(self.param, self.ctx, s)
 
     # ---- surface marker bookkeeping (host, quality-check cadence) ----
     def _set_emw_from_markers(self):

@@ -39,7 +39,7 @@ from dynearthsol_tpu_torch.io import Output, restart, tagged
 from dynearthsol_tpu_torch.state import (FIELD_NAMES, state_from_numpy,
                                          state_to_numpy)
 from dynearthsol_tpu_torch.utils import glibc_rand as trand
-from torch_cases import flat_cfg
+from torch_cases import flat_cfg, write_cfg
 
 RUNS = os.path.join(os.path.dirname(os.path.abspath(__file__)), "golden",
                     "runs")
@@ -210,18 +210,6 @@ def _restart_case(tmp_path, base, n, plain_path):
     return sim.state, sim2.state
 
 
-def _cfg_text(d: dict) -> str:
-    def val(v):
-        if isinstance(v, bool):
-            return "yes" if v else "no"
-        if isinstance(v, (list, tuple)):
-            return "[ " + ", ".join(map(str, v)) + " ]"
-        return str(v)
-    return "".join(f"[{sec}]\n" + "".join(f"{k} = {val(v)}\n"
-                                           for k, v in kv.items())
-                   for sec, kv in d.items())
-
-
 def test_cli_restart_writes_the_continuous_frames(tmp_path, monkeypatch,
                                                   capsys):
     """Through the CLI: a run restarted from frame 1 into a new model name
@@ -236,12 +224,12 @@ def test_cli_restart_writes_the_continuous_frames(tmp_path, monkeypatch,
     cfg["sim"].update(modelname="cont", max_steps=20,
                       output_step_interval=10, checkpoint_frame_interval=1)
     cfg["mesh"]["quality_check_step_interval"] = 5
-    (tmp_path / "cont.cfg").write_text(_cfg_text(cfg))
+    write_cfg(tmp_path / "cont.cfg", cfg)
     assert cli_main(["--device", "cpu", "cont.cfg"]) == 0
     cfg["sim"].update(modelname="rest", is_restarting=True,
                       restarting_from_modelname="cont",
                       restarting_from_frame=1)
-    (tmp_path / "rest.cfg").write_text(_cfg_text(cfg))
+    write_cfg(tmp_path / "rest.cfg", cfg)
     assert cli_main(["--device", "cpu", "rest.cfg"]) == 0
     printed = capsys.readouterr().out
     assert "Restarted from frame 1 (step 10)." in printed

@@ -14,8 +14,8 @@ through MarkerSet.from_arrays):
   chunk equals that of a runner built fresh on the new context;
 - option 100 in 3D, float64, the remesh only;
 - the CLI through remeshes (options 11), frames written around each,
-  against the JAX CLI's last frame; and the refusal of the hydrous-marker
-  remap on the 3D and metric-driven remeshing paths."""
+  against the JAX CLI's last frame; and the hydrous-marker remap on the 3D
+  and metric-driven remeshing paths, bit for bit."""
 
 import dataclasses
 import os
@@ -34,7 +34,7 @@ from dynearthsol_tpu_torch.remeshing import remesh as tremesh
 from dynearthsol_tpu_torch.state import (FIELD_NAMES, state_from_numpy,
                                          state_to_numpy)
 from torch_cases import (assert_maxwell_close, flat_cfg, make_sim3d_cfg,
-                         make_sim_cfg, rel_err)
+                         make_sim_cfg, rel_err, write_cfg)
 
 MARKER_FIELDS = ("eta", "elem", "mattype", "id", "time", "z", "distance",
                  "slope", "genesis")
@@ -179,18 +179,6 @@ def test_option100_3d_remesh():
     _assert_fields_within(js, ts, 1e-12)
 
 
-def _write_cfg(path, d):
-    def val(v):
-        if isinstance(v, bool):
-            return "yes" if v else "no"
-        if isinstance(v, (list, tuple)):
-            return "[ " + ", ".join(map(str, v)) + " ]"
-        return str(v)
-    path.write_text("".join(
-        f"[{sec}]\n" + "".join(f"{k} = {val(v)}\n" for k, v in kv.items())
-        for sec, kv in d.items()))
-
-
 def test_cli_goes_on_through_remeshes(tmp_path, monkeypatch, capsys):
     """min_quality 0.99 makes every quality check (every 5 steps) remesh
     with option 11 over 15 steps, frames written before and after each;
@@ -207,7 +195,7 @@ def test_cli_goes_on_through_remeshes(tmp_path, monkeypatch, capsys):
                       has_output_during_remeshing=True)
     for name in ("jax", "our"):
         cfg["sim"]["modelname"] = name
-        _write_cfg(tmp_path / f"{name}.cfg", cfg)
+        write_cfg(tmp_path / f"{name}.cfg", cfg)
     jrun(jdes.load_config("jax.cfg"))
     capsys.readouterr()
     assert cli_main(["--device", "cpu", "our.cfg"]) == 0
@@ -227,22 +215,26 @@ def test_cli_goes_on_through_remeshes(tmp_path, monkeypatch, capsys):
 
 # each case is a remeshing path (the 3D columns of generate_new_mesh_3d,
 # the metric-driven path of use_mesh_optimizer) with the hydrous markers
-# of phase changes, whose remap is not ported
+# of phase changes, whose remap (JAX remesh_impl.py:1246-1257) both
+# packages run
 @pytest.mark.parametrize("over", [
     {"sim": {"ndims": 3}, "mesh": {"remeshing_option": 13,
                                    "ylength": 4e3}},
     {"mesh": {"use_mesh_optimizer": True}}],
     ids=["over0-generate_new_mesh_3d", "over1-use_mesh_optimizer"])
 def test_cli_refuses_unported_remeshing(tmp_path, monkeypatch, over):
-    """The CLI refuses the phase changes before the first step; a
-    Simulation driven without it runs, and its remesh refuses the
-    hydrous-marker remap naming the JAX function."""
-    from dynearthsol_tpu_torch.__main__ import run
-    from dynearthsol_tpu_torch.remeshing import remesh
+    """The hydrous-marker remap is ported: from one state, markers and
+    hydrous markers (the JAX run's after 5 steps, a hydrous marker at each
+    of its first 40 markers and one above the surface), both
+    packages' remesh keep the same markers and hydrous markers bit for
+    bit, the one above the surface deleted; and the CLI takes phase
+    changes with the hydration processes."""
+    from dynearthsol_tpu.markers import MarkerSet as JMarkerSet
+    from dynearthsol_tpu_torch.__main__ import unported_driver_features
+    from torch_cases import assert_same_markers, carry
 
     monkeypatch.chdir(tmp_path)
     cfg = flat_cfg(mesh={"quality_check_step_interval": 5})
-    cfg["sim"].update(max_steps=10, modelname="refused")
     for sec, kv in over.items():
         cfg[sec].update(kv)
     cfg["mat"].update(nmat=2, rho0=[2800.0, 3300.0],
@@ -250,10 +242,24 @@ def test_cli_refuses_unported_remeshing(tmp_path, monkeypatch, over):
                       phase_change_option=1)
     cfg["control"]["has_hydration_processes"] = True
     param = tdes.param_from_dict(cfg)
-    with pytest.raises(NotImplementedError, match="phase changes"):
-        run(param, device="cpu")
-    assert not os.path.exists("refused.info")
-    sim = tdes.Simulation(param, device="cpu")
-    with pytest.raises(NotImplementedError,
-                       match="remesh_simulation's hydrous-marker remap"):
-        remesh(sim, 1)
+    assert unported_driver_features(param) == []
+    js = jdes.Simulation(jdes.param_from_dict(cfg))
+    js.run_steps(5, chunk=5)
+    ts = tdes.Simulation(param, device="cpu")
+    m, k = js.markers, 40
+    hyd = JMarkerSet.empty(m.ndims, cap=64, name="hydrous-markerset")
+    hyd.append(m.eta[:k], m.elem[:k], 0, genesis=3)
+    # one more in a surface element, its eta extrapolated past the
+    # element's highest node: above the surface, outside the new mesh
+    top = int(js.ctx.surf.top_elems[0])
+    z = np.asarray(js.state.coord)[js.topo.connectivity[top], -1]
+    eta = np.full((1, m.ndims + 1), -2.0 / m.ndims)
+    eta[0, np.argmax(z)] = 3.0
+    hyd.append(eta, np.array([top], dtype=np.int32), 0, genesis=3)
+    js.hydrous_markers = hyd
+    carry(js, ts)
+    jremesh(js, 1)
+    tremesh(ts, 1)
+    assert_same_markers(js.markers, ts.markers)
+    assert_same_markers(js.hydrous_markers, ts.hydrous_markers)
+    assert ts.hydrous_markers.n == k

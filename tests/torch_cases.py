@@ -287,6 +287,231 @@ def run_both(cfg, n, band=False, sims=None):
             state_to_numpy(out))
 
 
+def carry(src, dst):
+    """``dst``, a Simulation of the other package on the same mesh, takes
+    ``src``'s state (every State field through numpy, in dst's dtype), its
+    markers and its hydrous markers (MarkerSet.from_arrays of the other
+    package from their save and checkpoint arrays, both ways)."""
+    import dynearthsol_tpu_torch.state as tstate
+    to_port = type(dst).__module__.startswith("dynearthsol_tpu_torch")
+    if to_port:
+        from dynearthsol_tpu_torch.markers import MarkerSet
+        dst.state = tstate.state_from_numpy(
+            {f: np.asarray(getattr(src.state, f))
+             for f in tstate.FIELD_NAMES}, dtype=dst.dtype)
+    else:
+        import jax.numpy as jnp
+
+        from dynearthsol_tpu.markers import MarkerSet
+        from dynearthsol_tpu.state import State
+        dst.state = State(**{f: jnp.asarray(v) for f, v in
+                             tstate.state_to_numpy(src.state).items()})
+    for nm in ("markers", "hydrous_markers"):
+        ms = getattr(src, nm, None)
+        setattr(dst, nm, None if ms is None else MarkerSet.from_arrays(
+            ms.ndims, ms.save_arrays(), ms.chkpt_arrays(), name=ms.name))
+
+
+def assert_same_markers(a, b):
+    """Two marker sets (either package) equal bit for bit."""
+    assert (a is None) == (b is None)
+    if a is None:
+        return
+    assert (a.name, a.n, a.last_id) == (b.name, b.n, b.last_id)
+    for nm in ("eta", "elem", "mattype", "id", "time", "z", "distance",
+               "slope", "genesis"):
+        assert np.array_equal(a.live(nm), b.live(nm)), (a.name, nm)
+
+
+def subduction_cfg(dtype="float64", **over):
+    """tests/test_phasechanges.py subduction_param: a 40 km x 40 km box at
+    5 km (8 x 8 cells, 128 triangles), elastic, 8 materials,
+    phase_change_option 1 with the hydration processes, 4 markers per
+    element; here sediment (4), oceanic crust (2) and mantle (0) by depth,
+    and the half-space geotherm of a 30 Myr plate (273-881 K), so that
+    markers dehydrate and the mantle beside them serpentinizes."""
+    d = {
+        "sim": {"ndims": 2, "float_dtype": dtype,
+                "is_outputting_averaged_fields": False},
+        "mesh": {"meshing_option": 1, "meshing_elem_shape": 1,
+                 "xlength": 40e3, "ylength": 0.0, "zlength": 40e3,
+                 "resolution": 5e3, "quality_check_step_interval": 10**8},
+        "markers": {"markers_per_element": 4, "random_seed": 2},
+        "control": {"gravity": 10.0, "inertial_scaling": 1e5,
+                    "has_hydration_processes": True,
+                    "hydration_migration_speed": 3e-9},
+        "bc": {"vbc_x0": 1, "vbc_val_x0": 0.0, "vbc_x1": 1,
+               "vbc_val_x1": 0.0, "vbc_z0": 0, "vbc_z1": 0,
+               "has_winkler_foundation": False,
+               "has_water_loading": False,
+               "surface_temperature": 273.0,
+               "mantle_temperature": 1600.0},
+        "ic": {"num_mattype_layers": 3, "layer_mattypes": [4, 2, 0],
+               "mattype_layer_depths": [0.1, 0.3], "temperature_option": 1,
+               "oceanic_plate_age_in_yr": 3e7},
+        "mat": {"rheology_type": "elastic", "nmat": 8,
+                "phase_change_option": 1,
+                "rho0": [3210.0], "bulk_modulus": [128e9],
+                "shear_modulus": [80e9]},
+    }
+    return _merge(d, over)
+
+
+def rsf_monitor_cfg(nsteps=300, **over):
+    """tests/test_monitor.py monitor_param: the reference's simple-shear
+    rate-and-state benchmark (a 1 m x 1 m box, 2 triangles, float64,
+    use_global_velocity_scaling, the top dragged at 1e-5 m/s) with a
+    monitor of 2 points (stress, dynamic friction, state variable) every
+    10 steps, its CSVs ``mon_point_<i>.csv`` in the working directory."""
+    d = {
+        "sim": {"max_steps": nsteps, "output_step_interval": nsteps,
+                "ndims": 2, "float_dtype": "float64",
+                "is_outputting_averaged_fields": False},
+        "mesh": {"meshing_option": 1, "meshing_elem_shape": 1,
+                 "xlength": 1.0, "ylength": 0.0, "zlength": 1.0,
+                 "resolution": 1.0, "quality_check_step_interval": 100},
+        "markers": {"markers_per_element": 4},
+        "control": {"gravity": 0.0, "fixed_dt": 1.0,
+                    "inertial_scaling": 1e5,
+                    "use_global_velocity_scaling": True,
+                    "damping_option": 1, "has_thermal_diffusion": False},
+        "ic": {"weakzone_option": 0},
+        "bc": {"vbc_x0": 1, "vbc_val_x0": 0.0, "vbc_x1": 1,
+               "vbc_val_x1": 0.0, "vbc_z0": 1, "vbc_val_z0": 0.0,
+               "vbc_z1": 4, "vbc_val_z1": 1e-5,
+               "surface_temperature": 273.0, "mantle_temperature": 273.0},
+        "mat": {"rheology_type": "elasto-plastic-rate-state-friction",
+                "is_plane_strain": True, "rho0": [1.0], "alpha": [0.0],
+                "bulk_modulus": [2e8], "shear_modulus": [2e8],
+                "pls0": [0.0], "pls1": [0.1],
+                "cohesion0": [1e6], "cohesion1": [1e6],
+                "friction_angle0": [30.0], "friction_angle1": [30.0],
+                "dilation_angle0": [0.0], "dilation_angle1": [0.0],
+                "max_tension": 5.67e6, "direct_a": [0.2],
+                "evolution_b": [0.1], "characteristic_distance": [1e-3],
+                "characteristic_velocity": [1e-6], "state_var_model": 0},
+        "monitor": {"enabled": True, "output_prefix": "mon",
+                    "step_interval": 10, "num_points": 2,
+                    "points_x": [1 / 3, 2 / 3], "points_y": [-2 / 3, -1 / 3],
+                    "points_unit": "m", "remesh_rebind": "initial_coord",
+                    "write_header": True, "output_coord": False,
+                    "output_velocity": False, "output_stress": True,
+                    "output_dynamic_friction": True,
+                    "output_state_variable": True},
+    }
+    return _merge(d, over)
+
+
+def rsf_events_cfg(nsteps=60, **over):
+    """rsf_monitor_cfg with earthquake tracking and adaptive output: a
+    cohesion of 1e4 Pa, so that it yields within the first steps,
+    seismic_moment_calculate_output, earthquake_output_step_interval 5,
+    start and end factors 0.5 and 1.5, a frame (with its checkpoint) every
+    20 steps."""
+    d = rsf_monitor_cfg(nsteps)
+    d["sim"].update(output_step_interval=20, checkpoint_frame_interval=1,
+                    seismic_moment_calculate_output=True,
+                    earthquake_output_step_interval=5,
+                    earthquake_start_factor=0.5, earthquake_end_factor=1.5)
+    d["mat"].update(cohesion0=[1e4], cohesion1=[1e4])
+    return _merge(d, over)
+
+
+def tagged_arrays(path) -> dict:
+    """{name: raw bytes} of a tagged frame or checkpoint file, in file
+    order, each array's extent from the offsets."""
+    from dynearthsol_tpu_torch.io.tagged import TaggedReader
+    with TaggedReader(path) as r:
+        pos = sorted(r.offset.items(), key=lambda kv: kv[1])
+        r.f.seek(0, 2)
+        ends = [p for _, p in pos[1:]] + [r.f.tell()]
+        out = {}
+        for (name, p), e in zip(pos, ends):
+            r.f.seek(p)
+            out[name] = r.f.read(e - p)
+        return out
+
+
+# arrays of a frame that hold integers or marker placements: equal bit for
+# bit between the packages
+_EXACT = ("connectivity", "bcflag", "segment", "segflag", "material")
+_EXACT_MARKER = (" size", ".eta", ".elem", ".mattype", ".id", ".time", ".z",
+                 ".distance", ".slope", ".genesis")
+
+
+def assert_frames_close(path_a, path_b, tol=1e-10):
+    """Two frames (or checkpoints) of a float64 run: the same arrays in the
+    same order; integers and marker placements bit for bit, every other
+    array within ``tol`` of its max |value| (its infinities equal).
+    Returns the worst difference of those, each at its max |value|."""
+    a, b = tagged_arrays(path_a), tagged_arrays(path_b)
+    assert list(a) == list(b)
+    worst = 0.0
+    for name in a:
+        assert len(a[name]) == len(b[name]), name
+        if name in _EXACT or name.endswith(_EXACT_MARKER):
+            assert a[name] == b[name], name
+            continue
+        x, y = (np.frombuffer(v[name], np.float64) for v in (a, b))
+        fin = np.isfinite(x)
+        assert np.array_equal(x[~fin], y[~fin], equal_nan=True), name
+        x, y = x[fin], y[fin]
+        scale = max(np.abs(x).max(initial=0.0), 1e-300)
+        err = np.abs(x - y).max(initial=0.0) / scale
+        assert err <= tol, (name, err)
+        worst = max(worst, float(err))
+    return worst
+
+
+def write_cfg(path, d: dict) -> None:
+    """Write a cfg dict as a .cfg file that both packages' load_config
+    read."""
+    def val(v):
+        if isinstance(v, bool):
+            return "yes" if v else "no"
+        if isinstance(v, (list, tuple)):
+            return "[ " + ", ".join(map(str, v)) + " ]"
+        return str(v)
+    with open(path, "w") as f:
+        f.write("".join(f"[{sec}]\n" + "".join(f"{k} = {val(v)}\n"
+                                               for k, v in kv.items())
+                        for sec, kv in d.items()))
+
+
+def run_both_clis(tmp_path, cfg, over_jax=None, over_port=None,
+                  wake_log=None):
+    """Run ``cfg`` through the JAX CLI in ``tmp_path/jax`` (model "jax")
+    and the port's CLI on the CPU in ``tmp_path/our`` (model "our"), each
+    from a .cfg file, so that the files each writes in its working
+    directory (monitor CSVs, the seismic moment log) stay apart; returns
+    the port's Simulation.  ``over_*`` are context managers (or None)
+    entered around each run; ``wake_log`` goes to the port's run."""
+    import contextlib
+    import os
+
+    from dynearthsol_tpu import load_config as jload
+    from dynearthsol_tpu.__main__ import run as jrun
+    from dynearthsol_tpu_torch import load_config as tload
+    from dynearthsol_tpu_torch.__main__ import run as trun
+
+    cwd = os.getcwd()
+    try:
+        for name, over in (("jax", over_jax), ("our", over_port)):
+            d = tmp_path / name
+            d.mkdir(exist_ok=True)
+            os.chdir(d)
+            cfg["sim"]["modelname"] = name
+            write_cfg(f"{name}.cfg", cfg)
+            with over or contextlib.nullcontext():
+                if name == "jax":
+                    jrun(jload("jax.cfg"))
+                else:
+                    return trun(tload("our.cfg"), device="cpu",
+                                wake_log=wake_log)
+    finally:
+        os.chdir(cwd)
+
+
 def _merge(d, over):
     for sec, kv in over.items():
         d.setdefault(sec, {}).update(kv)
