@@ -253,7 +253,26 @@ Phases, each printed, the first failure exits non-zero:
                 and option 11 with a GoSPL stand-in over 5 steps, card
                 against CPU frame for frame at 1e-10, and DES_PROFILE_DIR's
                 trace of a run on the resident 2D kernel naming
-                step_chunk2d.
+                step_chunk2d;
+  16. the ways a run starts -- (a) the isostasy pre-relaxation (maxwell,
+                f32) on phase 9's 277,258 triangles (20 steps) and phase
+                12's 680,794 tets (10 steps), their meshes reused: the band
+                kernels against their plain versions from one state at the
+                maxwell trajectory rule, steps, s/step, band-kernel and
+                CUDA launches per step, the device's idle share; (b) the
+                body-force pre-relaxation on the 277,258 triangles:
+                iterations, host reads, s per iteration, kernels against
+                plain versions; (c) the 3D generic step (DES_NO_FLAT) on
+                the 680,794 tets: one step with the kernels equal to the
+                plain versions', two timed chunks of 10 steps,
+                elem*steps/s, launches per step; (d) at test size, float64,
+                card against CPU at 1e-10: both pre-relaxations in 2D and
+                3D, the 3D generic step with hydraulic diffusion, a 2D
+                .poly run with two regions and a 3D .poly run with inclined
+                BCs (types 13 and 3); (e) the ep-remesh-2d golden through
+                the CLI on the card, frames 0-2 (5,000 of its 40,000
+                steps) at the accumulated bounds of its pre-remesh frames,
+                with its seconds.
 The last lines are a JSON record of the kernels, the card's name and power
 limit, and {"ok": true, "device": {...}}.
 """
@@ -2755,6 +2774,395 @@ def _rsf_cycle(run_cli, compute_s_per_step, launches, frames_close):
     return rec
 
 
+def small_prerelax_cases(tmp: Path):
+    """Phase 16d's test-size cases (tests/test_torch_prerelax.py,
+    test_torch_generic3d.py, test_torch_poly.py), float64: (label, cfg,
+    what, DES_NO_FLAT), ``what`` a pre-relaxation or a number of steps.
+    The .poly files are written into ``tmp``."""
+    import torch_cases as tc
+
+    tc.write_poly2d(tmp / "box.poly")
+    tc.write_poly3d(tmp / "block.poly")
+    pt = {"has_PT": True, "PT_max_iter": 30}
+    return [
+        ("isostasy 2D", tc.flat_cfg(
+            ic={"isostasy_adjustment_time_in_yr": 0.3}),
+         "isostasy_adjustment", False),
+        ("isostasy 3D", tc.flat3d_cfg(
+            ic={"isostasy_adjustment_time_in_yr": 0.006}),
+         "isostasy_adjustment", False),
+        ("body force 2D", tc.flat_cfg(
+            ic={"has_body_force_adjustment": True},
+            control={**pt, "PT_relative_tolerance": 1e-3}),
+         "body_force_adjustment", False),
+        ("body force 3D, hydraulic", tc.flat3d_cfg(
+            "elasto-plastic", ic={"has_body_force_adjustment": True},
+            mat=dict(HYD_MAT),
+            control={**pt, "PT_relative_tolerance": 1e-12,
+                     "has_hydraulic_diffusion": True}),
+         "body_force_adjustment", False),
+        ("generic 3D, hydraulic", tc.flat3d_cfg(
+            mat=dict(HYD_MAT),
+            control={"has_hydraulic_diffusion": True,
+                     "use_global_velocity_scaling": True}), 3, True),
+        ("2D .poly, two regions", tc.poly2d_cfg(tmp / "box.poly", False),
+         5, False),
+        ("3D .poly, inclined BCs 13 and 3",
+         tc.poly3d_cfg(tmp / "block.poly"), 5, False),
+    ]
+
+
+def prerelax_on_card(des, wrappers, zero_counts, card, check, umesh,
+                     u3mesh):
+    """Phase 16: the ways a run starts on the card -- (a) the isostasy
+    pre-relaxation at full width (maxwell, f32) on phase 9's 277,258
+    triangles and on phase 12's 680,794 tets (their meshes reused, not
+    meshed again): the band kernels against their plain versions from one
+    state at the maxwell trajectory rule (2e-4 of each field's max, force
+    1e-3), steps, s/step, the band kernels' and all CUDA launches per step;
+    (b) the body-force pre-relaxation at full width in 2D: iterations,
+    host reads, s per iteration, kernels against plain versions; (c) the
+    3D generic step (DES_NO_FLAT) on the 680,794 tets: one step with the
+    kernels equal to one with the plain versions, two timed chunks,
+    elem*steps/s and launches per step; (d) at test size, float64, card
+    against CPU at 1e-10: both pre-relaxations in 2D and 3D, the 3D
+    generic step, a 2D .poly run with two regions and a 3D .poly run with
+    inclined BCs; (e) the ep-remesh-2d golden (the 2D generic step on the
+    reference's refined-zone mesh) through the CLI on the card, frames 0-2
+    (5,000 steps, cut from 40,000) at the accumulated bounds of
+    tests/test_golden_vs_reference.py:194-196.  Returns the numbers for
+    the JSON record."""
+    import contextlib
+    import io
+    import os
+    import tempfile
+
+    import numpy as np
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    from dynearthsol_tpu_torch import __main__ as cli
+    from dynearthsol_tpu_torch import simulation as sim_mod
+    from dynearthsol_tpu_torch.compare import (ACCUM_KINDS,
+                                               _frame_quantities, reldiff)
+    from dynearthsol_tpu_torch.constants import YEAR2SEC
+    from dynearthsol_tpu_torch.ops import band2d, flat3d
+    from dynearthsol_tpu_torch.postproc import OutputReader
+    from dynearthsol_tpu_torch.state import FIELD_NAMES
+
+    t_phase = time.perf_counter()
+    root = Path(__file__).resolve().parent
+    band = ("cgather", "asm_pack", "asm_gather")
+    rec = {"isostasy": {}, "small": {}}
+    print("phase 16 the pre-relaxations, the 3D generic step and the "
+          ".poly meshes on the card")
+
+    def launches():
+        return {n: wrappers[n].launches for n in band}
+
+    def no_plain(label):
+        if band2d.gather_corners.calls or band2d.scatter_corners.calls:
+            fail(f"{label}: the main path took a plain version")
+
+    def build(cfg, mesh):
+        mesher = sim_mod.create_new_mesh
+        sim_mod.create_new_mesh = lambda param: mesh
+        try:
+            t = time.perf_counter()
+            sim = des.Simulation(des.param_from_dict(cfg))
+            torch.cuda.synchronize()
+            return sim, time.perf_counter() - t
+        finally:
+            sim_mod.create_new_mesh = mesher
+
+    def held(label, ker, plain):
+        """Kernels against plain versions at the maxwell trajectory rule;
+        returns (worst error, equal bit for bit)."""
+        worst, equal = 0.0, True
+        for f in FIELD_NAMES:
+            x, y = getattr(plain, f), getattr(ker, f)
+            if torch.equal(x, y):
+                continue
+            equal = False
+            if not x.is_floating_point():
+                fail(f"{label}: {f} differs")
+            scale = plain.stress if f == "dpressure" else x
+            err = float((x.double() - y.double()).abs().max()
+                        / scale.double().abs().max().clamp(min=1e-300))
+            worst = max(worst, err)
+            check(f"{label}, kernels vs plain, {f}", err,
+                  1e-3 if f == "force" else 2e-4)
+        return worst, equal
+
+    def profiled(fn, steps):
+        """CUDA launches, device busy us and wall us per step of fn()."""
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            t0 = time.perf_counter()
+            fn()
+            torch.cuda.synchronize()
+            wall = (time.perf_counter() - t0) * 1e6 / steps
+        ev = [e for e in prof.events() if e.device_type == DeviceType.CUDA]
+        busy = sum(e.time_range.elapsed_us() for e in ev) / steps
+        return {"cuda_launches_per_step": len(ev) / steps,
+                "busy_us_per_step": busy, "wall_us_per_step": wall,
+                "device_idle": max(0.0, 1 - busy / wall)}
+
+    def set_iso_steps(sim, n):
+        """isostasy_adjustment_time_in_yr for n steps at the state's dt."""
+        sim.param.ic.isostasy_adjustment_time_in_yr = \
+            (n + 0.5) * float(sim.state.dt) / YEAR2SEC
+
+    # (a) isostasy at full width, 2D and 3D; (c) the 3D generic step
+    sims = {}
+    for label, cfg, mesh, nsteps in (
+            ("2D, 277k triangles", unstructured_cfg("maxwell"), umesh, 20),
+            ("3D, 680,794 tets",
+             flagship3d_unstructured_cfg("maxwell"), u3mesh, 10)):
+        sim, init_s = build(cfg, mesh)
+        s0 = sim.state
+        set_iso_steps(sim, nsteps)
+        n_plain = sim.isostasy_adjustment(plain=True)
+        plain = sim.state
+        sim.state = s0
+        zero_counts()
+        t = time.perf_counter()
+        n = sim.isostasy_adjustment()
+        torch.cuda.synchronize()
+        secs = time.perf_counter() - t
+        got = launches()
+        no_plain(f"isostasy {label}")
+        if n != n_plain or n != nsteps:
+            fail(f"isostasy {label}: {n} steps, the plain run {n_plain}, "
+                 f"asked {nsteps}")
+        want = {"cgather": 2 * n, "asm_gather": n, "asm_pack": 2 * n}
+        if got != want:
+            fail(f"isostasy {label}: band-kernel launches {got}, not {want}")
+        worst, equal = held(f"isostasy {label}, {n} steps", sim.state,
+                            plain)
+        st = sim.state
+        dz = float((st.coord - s0.coord)[:, -1].abs().max())
+        if not (dz > 0 and bool(torch.isfinite(st.coord).all())):
+            fail(f"isostasy {label}: the mesh did not move or is not finite")
+        sim.state = s0
+        set_iso_steps(sim, 3)
+        prof = profiled(lambda: sim.isostasy_adjustment(), 3)
+        r = {"nelem": sim.ctx.nelem, "init_s": init_s, "steps": n,
+             "s": secs, "s_per_step": secs / n,
+             "launches": got, "launches_per_step": {
+                 k: v / n for k, v in got.items()},
+             "max_err_kernels_vs_plain": worst, "equal_bit_for_bit": equal,
+             "max_dz_m": dz, **prof}
+        rec["isostasy"][label] = r
+        print(f"  (a) isostasy {label}: {sim.ctx.nelem} elements, setup "
+              f"{init_s:.1f} s; {n} steps in {secs:.3f} s ({secs / n:.4e} "
+              f"s/step) on {card}; band-kernel launches per step "
+              f"{r['launches_per_step']}, CUDA launches per step "
+              f"{prof['cuda_launches_per_step']:.1f}, device idle "
+              f"{prof['device_idle']:.1%}; kernels against plain versions "
+              f"{'equal bit for bit' if equal else f'{worst:.3e}'}; max "
+              f"vertical move {dz:.3e} m")
+        sims[label] = (sim, s0)
+
+    # (b) the body-force pre-relaxation, 2D at full width
+    sim, s0 = sims.pop("2D, 277k triangles")
+    sim.param.ic.has_body_force_adjustment = True
+    sim.param.control.has_PT = True
+    sim.param.control.PT_max_iter = 50
+    sim.param.control.PT_relative_tolerance = 1e-3
+    sim.state = s0
+    k_plain = sim.body_force_adjustment(plain=True)
+    plain = sim.state
+    sim.state = s0
+    zero_counts()
+    t = time.perf_counter()
+    k = sim.body_force_adjustment()
+    torch.cuda.synchronize()
+    secs = time.perf_counter() - t
+    got = launches()
+    no_plain("body force 2D")
+    reads = sim.prerelax_stats["host_syncs"]
+    if k != k_plain or not 1 < k <= 50 or reads not in (k - 1, k):
+        fail(f"body force 2D: {k} iterations ({k_plain} with the plain "
+             f"versions), {reads} host reads")
+    worst, equal = held(f"body force 2D, {k} iterations", sim.state, plain)
+    rec["body_force_2d"] = {
+        "nelem": sim.ctx.nelem, "iterations": k, "host_reads": reads,
+        "s": secs, "s_per_iteration": secs / k, "launches": got,
+        "launches_per_iteration": {n_: v / k for n_, v in got.items()},
+        "max_err_kernels_vs_plain": worst, "equal_bit_for_bit": equal}
+    print(f"  (b) body force 2D: {k} PT iterations in {secs:.3f} s "
+          f"({secs / k:.4e} s each), {reads} host reads; launches "
+          f"{got}; kernels against plain versions "
+          f"{'equal bit for bit' if equal else f'{worst:.3e}'}")
+    del sim, s0, plain
+
+    # (c) the 3D generic step on the 680,794 tets, from the initial state
+    sim, s0 = sims.pop("3D, 680,794 tets")
+    sim.state = s0
+    os.environ["DES_NO_FLAT"] = "1"
+    try:
+        run1 = sim._chunk_fn(1)
+        if sim.step_path != "generic":
+            fail(f"DES_NO_FLAT in 3D dispatched to {sim.step_path!r}")
+        plain1 = flat3d.make_chunk_runner(sim.param, sim.ctx,
+                                          sim.compensation_pressure, 1,
+                                          plain=True, generic=True)
+        a = run1(sim.ctx, s0)
+        b = plain1(sim.ctx, s0)
+        torch.cuda.synchronize()
+        _, equal = held("generic 3D, one step", a, b)
+        if not equal:
+            fail("generic 3D: one step with the kernels is not the step "
+                 "with the plain versions")
+        del a, b
+        chunk = 10
+        sim.run_steps(chunk, chunk=chunk)
+        torch.cuda.synchronize()
+        zero_counts()
+        chunk_s = []
+        for _ in range(2):
+            t = time.perf_counter()
+            sim.run_steps(chunk, chunk=chunk)
+            torch.cuda.synchronize()
+            chunk_s.append(time.perf_counter() - t)
+        got = launches()
+        no_plain("generic 3D")
+        n = 2 * chunk
+        want = {k_: v * n for k_, v in flat3d_launches(sim.param).items()}
+        if got != want:
+            fail(f"generic 3D: band-kernel launches {got}, not {want}")
+        if not all(bool(torch.isfinite(v).all()) for v in (
+                sim.state.coord, sim.state.stress, sim.state.vel)):
+            fail("generic 3D: non-finite values")
+        prof = profiled(lambda: sim.run_steps(3, chunk=3), 3)
+        rates = [sim.ctx.nelem * chunk / c for c in chunk_s]
+    finally:
+        del os.environ["DES_NO_FLAT"]
+    rec["generic3d"] = {
+        "nelem": sim.ctx.nelem, "chunk_s": chunk_s,
+        "elem_steps_per_s": rates, "launches": got,
+        "launches_per_step": {k_: v / n for k_, v in got.items()},
+        "kernels_equal_plain_one_step": True, **prof}
+    print(f"  (c) generic 3D: {sim.ctx.nelem} tets, one step with the "
+          f"kernels equals the plain versions'; two chunks of {chunk} "
+          f"steps in {chunk_s[0]:.3f} s and {chunk_s[1]:.3f} s, "
+          f"{rates[0]:.4e} and {rates[1]:.4e} elem*steps/s on {card}; "
+          f"band-kernel launches per step "
+          f"{rec['generic3d']['launches_per_step']}, "
+          f"CUDA launches per step {prof['cuda_launches_per_step']:.1f}, "
+          f"device idle {prof['device_idle']:.1%}")
+    del sim, s0, sims
+    torch.cuda.empty_cache()
+
+    # (d) test sizes, card against CPU
+    with tempfile.TemporaryDirectory() as tmp:
+        for label, cfg, what, no_flat in small_prerelax_cases(Path(tmp)):
+            if no_flat:
+                os.environ["DES_NO_FLAT"] = "1"
+            try:
+                out = {}
+                for dev in ("cuda", "cpu"):
+                    sim = des.Simulation(des.param_from_dict(cfg),
+                                         device=dev)
+                    if dev == "cuda":
+                        zero_counts()
+                    if isinstance(what, str):
+                        count = getattr(sim, what)()
+                    else:
+                        count = what
+                        sim.run_steps(what, chunk=what)
+                    if dev == "cuda":
+                        torch.cuda.synchronize()
+                        got = launches()
+                        path = sim.step_path
+                    out[dev] = (sim.state, count)
+            finally:
+                os.environ.pop("DES_NO_FLAT", None)
+            (sc, nc), (sp, np_) = out["cuda"], out["cpu"]
+            if nc != np_ or not all(got.values()):
+                fail(f"{label}: {nc} on the card, {np_} on the CPU, "
+                     f"launches {got}")
+            worst = 0.0
+            for f in FLAT_FIELDS + ("dpressure",):
+                x, y = getattr(sp, f), getattr(sc, f).cpu()
+                scale = sp.stress if f == "dpressure" else x
+                err = float((x.double() - y.double()).abs().max()
+                            / scale.double().abs().max().clamp(min=1e-300))
+                worst = max(worst, err)
+                check(f"{label}, card vs CPU, {f}", err, 1e-10)
+            rec["small"][label] = {"count": nc, "launches": got,
+                                   "step_path": path, "max_err": worst}
+            unit = ("PT iterations" if what == "body_force_adjustment"
+                    else f"steps on {path}" if path else "steps")
+            print(f"  (d) {label}: {nc} {unit}, card against CPU "
+                  f"{worst:.3e}, launches {got}")
+
+    # (e) the ep-remesh-2d golden's frames 0-2 on the card
+    rundir = root / "tests" / "golden" / "runs" / "ep-remesh-2d"
+    cwd = os.getcwd()
+    with tempfile.TemporaryDirectory() as tmp:
+        os.chdir(tmp)
+        try:
+            Path("er.cfg").write_text(golden_cfg(rundir, "er")
+                                      + "[sim]\nmax_steps = 5000\n")
+            zero_counts()
+            t = time.perf_counter()
+            with contextlib.redirect_stdout(io.StringIO()):
+                sim = cli.run(des.load_config("er.cfg"), device="cuda")
+            torch.cuda.synchronize()
+            secs = time.perf_counter() - t
+            got = launches()
+            no_plain("ep-remesh-2d")
+            nsteps = int(sim.state.steps)
+            if sim.step_path != "generic" or sim.dtype != torch.float64 \
+                    or nsteps != 5000:
+                fail(f"ep-remesh-2d ran {nsteps} steps on "
+                     f"{sim.step_path!r} in {sim.dtype}")
+            if not all(got.values()):
+                fail(f"ep-remesh-2d: band-kernel launches {got}")
+            ref = OutputReader(str(rundir / "ref"))
+            our = OutputReader("er")
+            if our.frames != [0, 1, 2] or our.steps != ref.steps[:3]:
+                fail(f"ep-remesh-2d: frames {our.frames} at steps "
+                     f"{our.steps}")
+            worst = []
+            for frame in our.frames:
+                old = _frame_quantities(ref, frame, include_markers=False)
+                new = _frame_quantities(our, frame, include_markers=False)
+                w = {}
+                for kind, thr in ACCUM_KINDS.items():
+                    if kind not in old:
+                        continue
+                    e = sum(reldiff(old[kind], new[kind]))
+                    w[kind] = e
+                    if not (np.isfinite(e) and e <= thr):
+                        fail(f"ep-remesh-2d frame {frame} {kind}: {e:.3e} "
+                             f"against the reference (limit {thr:g})")
+                worst.append(w)
+                print(f"  (e) ep-remesh-2d frame {frame} against the "
+                      f"reference: " + ", ".join(
+                          f"{k_} {e:.3e} (limit {ACCUM_KINDS[k_]:g})"
+                          for k_, e in w.items()))
+            rec["golden_ep_remesh_2d"] = {
+                "nelem": sim.ctx.nelem, "steps": nsteps, "card_s": secs,
+                "launches": got, "launches_per_step": {
+                    k_: v / nsteps for k_, v in got.items()},
+                "worst_by_frame": worst}
+            print(f"  (e) ep-remesh-2d: {nsteps} generic float64 steps on "
+                  f"{sim.ctx.nelem} triangles through the CLI in "
+                  f"{secs:.1f} s; band-kernel launches per step "
+                  f"{rec['golden_ep_remesh_2d']['launches_per_step']}")
+            del sim
+        finally:
+            os.chdir(cwd)
+    rec["phase_s"] = time.perf_counter() - t_phase
+    print(f"  phase 16: {rec['phase_s']:.1f} s")
+    return rec
+
+
 def flat2d_plain_step(sim):
     """One step of sim's flat2d runner with the plain versions."""
     from dynearthsol_tpu_torch.ops import flat2d
@@ -4658,11 +5066,13 @@ def main():
     # ---- 12. the 3D column step on the card
     phase12 = flat3d_on_card(des, wrappers, zero_counts, card, u3sim,
                              per_kernel, prof_last)
+    u3mesh = u3sim.mesh             # phase 16 reuses it
     del u3sim
 
     # ---- 13. remeshing on the card
     phase13 = remesh_on_card(des, wrappers, zero_counts, card, usim, check,
                              rel)
+    umesh = usim.mesh               # phase 16 reuses it
     del usim
     torch.cuda.empty_cache()
 
@@ -4673,6 +5083,10 @@ def main():
     # ---- 15. the CLI's host features on the card
     phase15 = driver_features_on_card(des, wrappers, zero_counts, card,
                                       check, rel)
+
+    # ---- 16. the pre-relaxations, the 3D generic step, the .poly meshes
+    phase16 = prerelax_on_card(des, wrappers, zero_counts, card, check,
+                               umesh, u3mesh)
 
     src2 = "dynearthsol_tpu_torch/csrc/fused2d.cu"
     src3 = "dynearthsol_tpu_torch/csrc/fused3d.cu"
@@ -4895,6 +5309,14 @@ def main():
             "launches_after_option_100_3d_fallback": phase14["remesh"][
                 FALLBACK_3D]["launches"][name],
             "launches_per_step_rsf_cycle_2d": rsf.get(name, 0),
+            "launches_isostasy": {
+                label: r["launches"][name]
+                for label, r in phase16["isostasy"].items()},
+            "launches_body_force_2d": phase16["body_force_2d"]["launches"][
+                name],
+            "launches_generic3d": phase16["generic3d"]["launches"][name],
+            "launches_golden_ep_remesh_2d": phase16["golden_ep_remesh_2d"][
+                "launches"][name],
             "max_abs_err": band_err[name],
             "err_metric": "max |kernel - plain| over random inputs at a "
                           "small Delaunay mesh, a tet mesh, the "
@@ -4953,6 +5375,7 @@ def main():
                       "remesh": phase13,
                       "grids_remesh3d": phase14,
                       "driver_features": phase15,
+                      "prerelax_generic3d_poly": phase16,
                       "init_s_flagship3d_unstructured": u3init_s,
                       "mesh_s_flagship3d_unstructured": mesh_s[1],
                       "script_s": time.perf_counter() - t_start}))

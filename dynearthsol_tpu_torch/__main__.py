@@ -15,10 +15,11 @@ ms per wake of the host features).  Steps run in chunks through
 ``DES_PROFILE_DIR`` writes a ``torch.profiler`` Chrome trace of the whole
 run (CUDA activity included on the card) into that directory.
 
-The run is on the card unless ``--device cpu`` is given; without a card
-it fails as ``Simulation`` does.  Not ported yet, and refused with
-``NotImplementedError`` before the first step: multi-device stepping
-(``DES_N_DEVICES``) and the isostasy and body-force pre-relaxations.
+The isostasy and body-force pre-relaxations run after the initialisation
+and before frame 0, as in the JAX package.  The run is on the card unless
+``--device cpu`` is given; without a card it fails as ``Simulation``
+does.  Not ported yet, and refused with ``NotImplementedError`` before the
+first step: multi-device stepping (``DES_N_DEVICES``).
 """
 
 from __future__ import annotations
@@ -44,9 +45,7 @@ from .simulation import Simulation
 
 INT_MAX = 2**31 - 1
 
-REFUSED = ("multi-device stepping (DES_N_DEVICES), the isostasy "
-           "pre-relaxation (isostasy_adjustment_time_in_yr) and the "
-           "body-force pre-relaxation (has_body_force_adjustment)")
+REFUSED = "multi-device stepping (DES_N_DEVICES)"
 
 
 def unported_driver_features(p) -> list:
@@ -56,13 +55,6 @@ def unported_driver_features(p) -> list:
     nd = os.environ.get("DES_N_DEVICES")
     if nd and (nd == "all" or int(nd) > 1):
         out.append("multi-device halo stepping (DES_N_DEVICES)")
-    if p.ic.isostasy_adjustment_time_in_yr > 0:
-        out.append("the isostasy pre-relaxation "
-                   "(isostasy_adjustment_time_in_yr)")
-    if p.ic.has_body_force_adjustment and p.control.has_PT \
-            and not p.sim.is_restarting:
-        out.append("the body-force pre-relaxation "
-                   "(has_body_force_adjustment)")
     return out
 
 
@@ -163,10 +155,20 @@ def run(param, device: str = "cuda", argv_echo: str = "",
         out = Output(p, start_frame=0, start_time_ns=t_start)
         starting_step = 0
         starting_time = 0.0
+        # optional isostasy pre-relaxation (dynearthsol.cxx:616-619)
+        if p.ic.isostasy_adjustment_time_in_yr > 0:
+            n = sim.isostasy_adjustment()
+            print(f"Adjusted isostasy for {n} steps.")
+        # optional PT gravity pre-relaxation (dynearthsol.cxx:731-739)
         if p.ic.has_body_force_adjustment:
-            print("Warning: ic.has_body_force_adjustment needs "
-                  "control.has_PT; skipping (dynearthsol.cxx:736 "
-                  "'Only works with PT loop').")
+            if not p.control.has_PT:
+                print("Warning: ic.has_body_force_adjustment needs "
+                      "control.has_PT; skipping (dynearthsol.cxx:736 "
+                      "'Only works with PT loop').")
+            else:
+                n = sim.body_force_adjustment()
+                print(f"Adjusted initial body force for {n} PT "
+                      "iterations.")
         if p.sim.has_initial_checkpoint:
             out.write_checkpoint(sim)
         out.write_exact(sim)

@@ -4,10 +4,10 @@
 Reference: bc.cxx.  ``apply_vbcs`` (bc.cxx:201-630) is a per-node switch
 over the vbc type of each boundary; the types are static config, so the
 switch unrolls into a few masked ``torch.where`` updates.  Order matters
-and is preserved: X faces first, Y faces in 3D, then Z last (bc.cxx:563
-"Z, must be dealt last") so corner nodes get the reference's precedence.
-The box boundaries of 2D and 3D are ported; inclined (BOUNDN) boundaries
-are not.
+and is preserved: X faces first, Y faces in 3D, the inclined (BOUNDN)
+boundaries, then Z last (bc.cxx:563 "Z, must be dealt last") so corner
+nodes get the reference's precedence.  Inclined boundaries come only from
+the .poly and Exodus meshers, whose segment flags carry the BOUNDN bits.
 
 vbc type meanings (bc.cxx:206-214):
   0: all components free
@@ -17,21 +17,150 @@ vbc type meanings (bc.cxx:206-214):
   4: tangential prescribed, normal 0
   6: normal prescribed + lateral shear prescribed
   100: v_axis = value * own coordinate along axis
+Inclined boundaries take types 1 and 3 (the normal velocity, and with 3
+the whole velocity along the normal) and 11 and 13 (the same on the
+horizontal components, bc.cxx:462-560).
 """
 
 from __future__ import annotations
 
 from dataclasses import dataclass, replace
-from typing import Tuple
+from typing import Optional, Tuple
 
 import numpy as np
 import torch
 
 from .constants import (BOUNDX0, BOUNDX1, BOUNDY0, BOUNDY1, BOUNDZ0,
                         BOUNDZ1, IBOUNDN0, IBOUNDN3, IBOUNDZ0, IBOUNDZ1,
-                        YEAR2SEC, dim)
+                        NBDRYTYPES, YEAR2SEC, dim)
 from .ops.assembly import OrderedAdd
 from .ops.surface import _div
+
+
+@dataclass(frozen=True)
+class InclinedVBC:
+    """Inclined (BOUNDN0-3) velocity BCs: planar boundaries with an
+    arbitrary unit normal (bc.cxx:462-560; the normals and the edge
+    vectors of boundary pairs from create_boundary_normals,
+    bc.cxx:94-198)."""
+
+    bcflag: torch.Tensor         # (nnode,) int64, on the run's device
+    normals: tuple               # 4 tuples of ndims floats (n0..n3)
+    values: tuple                # 4 floats
+    all_types: tuple             # vbc type of each of the 10 boundaries
+    edge_vecs: tuple             # ((i, j, (ndims floats)), ...)
+    present: tuple               # 4 bools
+
+
+def compute_boundary_normals(topo, coord: np.ndarray):
+    """Unit outward normal of each boundary (from its first facet; an
+    inclined boundary is planar by contract) and the edge vectors of the
+    boundary pairs (bc.cxx:94-198).  Returns (normals, have, edge_vecs)."""
+    ndims = coord.shape[1]
+    nof = np.asarray(dim(ndims).node_of_facet)
+    normals = np.zeros((NBDRYTYPES, ndims))
+    have = np.zeros(NBDRYTYPES, dtype=bool)
+    for i in range(NBDRYTYPES):
+        bf = topo.bfacets[i]
+        if len(bf) == 0:
+            continue
+        e, f = bf[0]
+        fc = coord[topo.connectivity[e][nof[f]]]
+        if ndims == 2:
+            v01 = fc[1] - fc[0]
+            n = np.array([v01[1], -v01[0]])
+        else:
+            n = 0.5 * np.cross(fc[1] - fc[0], fc[2] - fc[0])
+        normals[i] = n / max(np.linalg.norm(n), 1e-300)
+        have[i] = True
+    edge_vecs = []
+    eps = 1e-15
+    for i in range(NBDRYTYPES):
+        if not have[i]:
+            continue
+        for j in range(i + 1, NBDRYTYPES):
+            if not have[j]:
+                continue
+            if ndims == 2:
+                sv = np.array([0.0, 1.0])
+            elif abs(normals[i][-1]) < eps and abs(normals[j][-1]) < eps:
+                sv = np.array([0.0, 0.0, 1.0])
+            else:
+                sv = np.cross(normals[i], normals[j])
+            edge_vecs.append((i, j, tuple(float(x) for x in sv)))
+    return normals, have, edge_vecs
+
+
+def _apply_inclined(spec, vel):
+    """Inclined-boundary vbcs (bc.cxx:462-560): after the lateral faces
+    and before Z, n0 to n3 in turn as the reference applies them.  A node
+    on one inclined boundary alone gets its projection; a node shared with
+    a lower-numbered boundary of type 0 gets it too, and one shared with a
+    boundary of type 1 is projected onto the pair's edge vector."""
+    inc = spec.incl
+    flags = inc.bcflag
+    ndims = spec.ndims
+    for ib in range(IBOUNDN0, IBOUNDN3 + 1):
+        k = ib - IBOUNDN0
+        if not inc.present[k]:
+            continue
+        ti = inc.all_types[ib]
+        if ti not in (1, 3, 11, 13):
+            continue
+        n = np.asarray(inc.normals[k])
+        val = inc.values[k]
+        bit = 1 << ib
+        on = (flags & bit) != 0
+        exact = flags == bit
+        if ti == 3:
+            nvec = torch.tensor(n, dtype=vel.dtype, device=vel.device)
+            vel = torch.where(on[:, None], val * nvec[None, :], vel)
+            continue
+        if ti == 13:
+            fac = 1.0 / np.sqrt(max(1.0 - n[-1] * n[-1], 1e-30))
+            tgt = np.zeros(ndims)
+            tgt[:ndims - 1] = val * fac * n[:ndims - 1]
+            vel = torch.where(on[:, None],
+                              torch.tensor(tgt, dtype=vel.dtype,
+                                           device=vel.device)[None, :], vel)
+            continue
+        # types 1 / 11: set the (horizontal) normal velocity component
+        if ti == 1:
+            nd, fac = ndims, 1.0
+        else:
+            nd = ndims - 1
+            fac = 1.0 / np.sqrt(max(1.0 - n[-1] * n[-1], 1e-30))
+
+        def project(v, n=n, nd=nd, fac=fac, val=val):
+            vn = v[:, 0] * float(n[0])
+            for dd in range(1, nd):
+                vn = vn + v[:, dd] * float(n[dd])
+            upd = v.clone()
+            for dd in range(nd):
+                upd[:, dd] = upd[:, dd] + (val * fac - vn) * float(n[dd])
+            return upd
+
+        vel = torch.where((on & exact)[:, None], project(vel), vel)
+        # intersections with lower-numbered boundaries (bc.cxx:479-506)
+        for ic in range(0, ib):
+            tc = inc.all_types[ic]
+            m_ic = on & ~exact & ((flags & (1 << ic)) != 0)
+            if tc == 0:
+                vel = torch.where(m_ic[:, None], project(vel), vel)
+            elif tc == 1:
+                ev = None
+                for (ei, ej, e) in inc.edge_vecs:
+                    if ei == ic and ej == ib:
+                        ev = np.asarray(e)
+                if ev is None:
+                    continue
+                ve = vel[:, 0] * float(ev[0])
+                for dd in range(1, ndims):
+                    ve = ve + vel[:, dd] * float(ev[dd])
+                proj = torch.stack([ve * float(ev[dd])
+                                    for dd in range(ndims)], dim=1)
+                vel = torch.where(m_ic[:, None], proj, vel)
+    return vel
 
 
 @dataclass(frozen=True)
@@ -60,16 +189,33 @@ class VBCSpec:
     period_ratio_x1: torch.Tensor
     bottom_shear_zone_thickness: float
     vbc_val_z1_loading_period: float
+    incl: Optional[InclinedVBC] = None  # where BOUNDN boundaries exist
 
     @staticmethod
-    def from_param(param, bcflag: np.ndarray, device="cpu") -> "VBCSpec":
+    def from_param(param, bcflag: np.ndarray, device="cpu", topo=None,
+                   coord: np.ndarray = None) -> "VBCSpec":
+        """The spec of ``bcflag``; with BOUNDN bits in it, the inclined
+        boundaries' normals come from ``topo``'s facets on ``coord``."""
         bc = param.bc
         flags = np.asarray(bcflag)
         n_bits = sum(1 << ib for ib in range(IBOUNDN0, IBOUNDN3 + 1))
-        if (flags & np.uint32(n_bits)).any():
-            raise NotImplementedError(
-                "only box velocity BCs are ported (no inclined "
-                "boundaries)")
+        incl = None
+        if topo is not None and coord is not None \
+                and (flags & np.uint32(n_bits)).any():
+            normals, have, edge_vecs = compute_boundary_normals(topo, coord)
+            incl = InclinedVBC(
+                bcflag=torch.as_tensor(flags.astype(np.int64),
+                                       device=device),
+                normals=tuple(tuple(float(x)
+                                    for x in normals[IBOUNDN0 + k])
+                              for k in range(4)),
+                values=(bc.vbc_val_n0, bc.vbc_val_n1, bc.vbc_val_n2,
+                        bc.vbc_val_n3),
+                all_types=(bc.vbc_x0, bc.vbc_x1, bc.vbc_y0, bc.vbc_y1,
+                           bc.vbc_z0, bc.vbc_z1, bc.vbc_n0, bc.vbc_n1,
+                           bc.vbc_n2, bc.vbc_n3),
+                edge_vecs=tuple(edge_vecs),
+                present=tuple(bool(have[IBOUNDN0 + k]) for k in range(4)))
 
         def mask(bit):
             return torch.as_tensor((flags & bit) != 0, device=device)
@@ -103,6 +249,7 @@ class VBCSpec:
             period_ratio_x1=f64(bc.vbc_period_x1_ratio),
             bottom_shear_zone_thickness=bc.bottom_shear_zone_thickness,
             vbc_val_z1_loading_period=bc.vbc_val_z1_loading_period,
+            incl=incl,
         )
 
 
@@ -230,6 +377,10 @@ def apply_vbcs(spec: VBCSpec, vel, coord, time):
     elif tx1 == 100:
         vel = _set(vel, m, 0, vx1 * x)
 
+    # --- inclined N boundaries (bc.cxx:462-560) ---
+    if spec.incl is not None:
+        vel = _apply_inclined(spec, vel)
+
     # --- Z last (bc.cxx:563-629) ---
     m = spec.z0
     if tz0 == 1:
@@ -297,6 +448,10 @@ def _apply_vbcs_3d(spec: VBCSpec, vel, coord, time):
             vel = _set(vel, m, li, 0.0)
         elif typ == 100:
             vel = _set(vel, m, ni, val * coord[:, ni])
+
+    # inclined N boundaries before Z (bc.cxx:462-563 ordering)
+    if spec.incl is not None:
+        vel = _apply_inclined(spec, vel)
 
     z = coord[:, 2]
     m = spec.z0

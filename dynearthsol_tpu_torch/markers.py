@@ -172,7 +172,8 @@ def _mattype_from_depth(param, pts: np.ndarray) -> np.ndarray:
     return mt
 
 
-def create_markers(param, coord: np.ndarray, conn: np.ndarray) -> MarkerSet:
+def create_markers(param, coord: np.ndarray, conn: np.ndarray,
+                   regattr: np.ndarray = None) -> MarkerSet:
     """Initial marker population (markerset.cxx:510-649), placed exactly as
     the JAX package places it.
 
@@ -184,11 +185,14 @@ def create_markers(param, coord: np.ndarray, conn: np.ndarray) -> MarkerSet:
     spacing ``init_marker_spacing * resolution``, located into their
     enclosing elements (regularly_spaced_markers, markerset.cxx:542-649);
     grid points outside the mesh are skipped as the reference skips its
-    markers that are not found."""
+    markers that are not found.
+    A marker's mattype is its element's regional attribute ``regattr`` (a
+    .poly or Exodus mesh) under ``mattype_option`` 0 (initial_mattype,
+    markerset.cxx:652-659), else that of its depth layer."""
     ndims = coord.shape[1]
     nelem = conn.shape[0]
     if param.markers.init_marker_option == 2:
-        return _regular_markers(param, coord, conn)
+        return _regular_markers(param, coord, conn, regattr)
     mpe = param.markers.markers_per_element
     n = nelem * mpe
     ms = MarkerSet.empty(ndims, cap=n + 64)
@@ -201,16 +205,21 @@ def create_markers(param, coord: np.ndarray, conn: np.ndarray) -> MarkerSet:
         eta = random_barycentric(n, ndims + 1, rng)
     pts = bary_to_coord(coord, conn, elems, eta)
     ms.eta[:n], ms.elem[:n] = eta, elems
-    # box meshes carry no regional attribute: mattype by depth layer
-    ms.mattype[:n] = _mattype_from_depth(param, pts)
+    ms.mattype[:n] = _marker_mattype(param, pts, elems, regattr)
     ms.id[:n] = np.arange(n)
     ms.z[:n], ms.distance[:n] = pts[:, ndims - 1], pts[:, 0]
     ms.n = ms.last_id = n
     return ms
 
 
-def _regular_markers(param, coord: np.ndarray, conn: np.ndarray
-                     ) -> MarkerSet:
+def _marker_mattype(param, pts, elems, regattr) -> np.ndarray:
+    if param.ic.mattype_option == 0 and regattr is not None:
+        return regattr[elems].astype(np.int32)
+    return _mattype_from_depth(param, pts)
+
+
+def _regular_markers(param, coord: np.ndarray, conn: np.ndarray,
+                     regattr: np.ndarray = None) -> MarkerSet:
     """init_marker_option 2 (JAX markers.py:226-256)."""
     from .mesh.locate import ElementLocator
 
@@ -236,7 +245,8 @@ def _regular_markers(param, coord: np.ndarray, conn: np.ndarray
     eta /= eta.sum(axis=1, keepdims=True)
     pts = pts[found]
     ms = MarkerSet.empty(ndims, cap=len(elems) + 64)
-    ms.append(eta, elems, _mattype_from_depth(param, pts), time=0.0,
+    ms.append(eta, elems, _marker_mattype(param, pts, elems, regattr),
+              time=0.0,
               z=pts[:, ndims - 1], distance=pts[:, 0], slope=0.0)
     return ms
 

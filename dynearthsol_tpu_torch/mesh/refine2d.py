@@ -1,6 +1,7 @@
 """Ruppert-style Delaunay refinement: the 2D mesh-quality guarantee
-(counterpart of dynearthsol_tpu/mesh/refine2d.py, box domains only; the
-explicit-segment and size-field modes of the .poly mesher are not ported).
+(counterpart of dynearthsol_tpu/mesh/refine2d.py: the box boundary chains
+of the box meshers and remeshing, and the explicit segments and size field
+of the .poly mesher).
 
 The reference gets its constructive quality bound from Triangle's
 ``q<min_angle>`` switch (set_2d_quality_str, mesh.cxx:110-118; option
@@ -130,7 +131,9 @@ def refine_min_angle(coord: np.ndarray, bcflag: np.ndarray,
                      inside_fn, min_angle: float,
                      area_floor: float = 0.0,
                      max_rounds: int = 64,
-                     max_growth: float = 8.0):
+                     max_growth: float = 8.0,
+                     segments: np.ndarray | None = None,
+                     max_area_fn=None):
     """Refine a boundary-flagged point set until every kept triangle of
     its Delaunay triangulation has min angle >= ``min_angle`` degrees.
 
@@ -138,14 +141,29 @@ def refine_min_angle(coord: np.ndarray, bcflag: np.ndarray,
     inside the domain (used both to ignore outside-domain slivers, which
     the caller culls, and to reject escaped circumcenters).
     ``area_floor``: triangles at/below this area are never refined (the
-    tiny-element deletion path owns them).  The constraint segments are
-    the box boundary chains, derived from ``bcflag`` each round.
-    Returns (coord, bcflag, converged).
+    tiny-element deletion path owns them).
+    ``segments``: explicit (nseg, 2) PSLG constraint segments (the .poly
+    path); None derives the box boundary chains from ``bcflag`` each
+    round.  ``max_area_fn(points) -> max area``: local size field —
+    triangles larger than the bound at their centroid are split too
+    (Triangle's per-region `-a` area constraint, the mechanism that
+    preserves Triangle's fine/coarse grading contrast through the
+    quality pass; mesh.cxx:2577-2621 via triangle).  Returns (coord,
+    bcflag, segments, converged): in explicit mode segments is the
+    split-updated (nseg', 2) array and the (nseg',) index of the input
+    segment each row descends from, so that callers can carry per-segment
+    flags across splits; None in box mode.
     """
     coord = np.asarray(coord, dtype=np.float64)
     bcflag = np.asarray(bcflag)
+    explicit = segments is not None
+    seg_origin = None
+    if explicit:
+        segments = np.asarray(segments, dtype=np.int64).copy()
+        seg_origin = np.arange(segments.shape[0], dtype=np.int64)
     if min_angle <= 0.0:
-        return coord, bcflag, True
+        return coord, bcflag, \
+            ((segments, seg_origin) if explicit else None), True
     from scipy.spatial import cKDTree
 
     converged = False
@@ -155,7 +173,7 @@ def refine_min_angle(coord: np.ndarray, bcflag: np.ndarray,
         if n > max_growth * n_in:
             break  # safety valve: pathological input, stop refining
         conn = _delaunay(coord)
-        segs = _segments(coord, bcflag)
+        segs = segments if explicit else _segments(coord, bcflag)
         new_pts, new_flags, new_rads = [], [], []
         split_cand = {}  # seg row -> candidate index in new_pts
 
@@ -201,6 +219,10 @@ def refine_min_angle(coord: np.ndarray, bcflag: np.ndarray,
             - (v[:, 1, 1] - v[:, 0, 1]) * (v[:, 2, 0] - v[:, 0, 0]))
         angles = tri_min_angle(coord, conn)
         bad = (angles < min_angle) & interior & (area > area_floor)
+        if max_area_fn is not None:
+            # size-field violation: oversized triangles split at their
+            # circumcenter like Triangle's area constraint
+            bad = bad | (interior & (area > max_area_fn(cen)))
         if not bad.any() and not new_pts:
             converged = True
             break
@@ -238,9 +260,17 @@ def refine_min_angle(coord: np.ndarray, bcflag: np.ndarray,
             u = dvec / dlen[:, None]
             rt = half / max(np.sin(np.radians(min_angle)), 1e-9)
             y_off = rt + np.sqrt(np.maximum(rt**2 - half**2, 0.0))
-            # fewer insertions than the circumcenter rule; the grading is
-            # controlled by the caller's point set
-            y = np.minimum(dlen, y_off)
+            if max_area_fn is not None:
+                # the circumcenter, as Triangle's default Ruppert rule:
+                # new edges are >= the circumradius, so element size grows
+                # away from fine zones (the grading contrast); the
+                # off-center would carry the fine length scale across the
+                # coarse regions
+                y = np.maximum(dlen, 0.0)
+            else:
+                # off-center (Ungor 2004) for the box/remesh paths:
+                # fewer insertions, grading is externally controlled
+                y = np.minimum(dlen, y_off)
             pts3 = mid + y[:, None] * u
             # exclusion radius: no other insertion within the new
             # point's distance to its own triangle (keeps new edges
@@ -287,10 +317,24 @@ def refine_min_angle(coord: np.ndarray, bcflag: np.ndarray,
         if not keep.any():
             converged = True
             break
+        if explicit and split_cand:
+            new_id = n + np.cumsum(keep) - 1     # id of candidate j
+            extra_rows, extra_orig = [], []
+            for si, j in split_cand.items():
+                nid = int(new_id[j])
+                a, b = segments[si]
+                segments[si] = (a, nid)
+                extra_rows.append((nid, b))
+                extra_orig.append(seg_origin[si])
+            segments = np.concatenate(
+                [segments, np.asarray(extra_rows, dtype=np.int64)])
+            seg_origin = np.concatenate(
+                [seg_origin, np.asarray(extra_orig, dtype=np.int64)])
         coord = np.concatenate([coord, pts[keep]])
         bcflag = np.concatenate(
             [bcflag, np.asarray(new_flags, dtype=bcflag.dtype)[keep]])
-    return coord, bcflag, converged
+    return coord, bcflag, \
+        ((segments, seg_origin) if explicit else None), converged
 
 
 def box_inside_fn(xlength: float, surf, bot, pad_rel: float = 1e-9):

@@ -111,13 +111,21 @@ def build_topology(mesh: MeshData, xlength: float, ylength: float,
         bcflag[np.abs(y - ylength) < toly] |= BOUNDY1
     bcflag[np.abs(z + zlength) < tolz] |= BOUNDZ0
     bcflag[np.abs(z - 0.0) < tolz] |= BOUNDZ1
-    return finish_topology(mesh.ndims, conn, bcflag)
+    # internal segments kept by the mesher (is_discarding_internal_segments
+    # off, mesh.cxx:3442) follow the derived boundary segments, so that
+    # they persist through checkpoints as the reference's var.segment does
+    return finish_topology(mesh.ndims, conn, bcflag,
+                           extra_segment=mesh.segment,
+                           extra_segflag=mesh.segflag)
 
 
-def finish_topology(ndims: int, conn: np.ndarray,
-                    bcflag: np.ndarray) -> Topology:
+def finish_topology(ndims: int, conn: np.ndarray, bcflag: np.ndarray,
+                    extra_segment: np.ndarray = None,
+                    extra_segflag: np.ndarray = None) -> Topology:
     """Derive everything downstream of (conn, bcflag): boundary node lists,
-    boundary facets, segments, and the assembly gather tables."""
+    boundary facets, segments (the boundary's, then ``extra_segment``
+    with its flags, 0 where none are given), and the assembly gather
+    tables."""
     nnode = bcflag.shape[0]
     nelem = conn.shape[0]
     d = dim(ndims)
@@ -163,6 +171,13 @@ def finish_topology(ndims: int, conn: np.ndarray,
     segment = (np.asarray(segs, dtype=np.int32) if segs
                else np.zeros((0, ndims), dtype=np.int32))
     segflag = np.asarray(segflags, dtype=np.int32)
+    if extra_segment is not None and len(extra_segment):
+        segment = np.concatenate(
+            [segment, np.asarray(extra_segment, dtype=np.int32)])
+        segflag = np.concatenate(
+            [segflag, np.zeros(len(extra_segment), dtype=np.int32)
+             if extra_segflag is None
+             else np.asarray(extra_segflag, dtype=np.int32)])
 
     return Topology(ndims=ndims, nnode=nnode, nelem=nelem,
                     connectivity=conn.astype(np.int32), bcflag=bcflag,

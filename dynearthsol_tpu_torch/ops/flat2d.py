@@ -39,13 +39,16 @@ Every feature of the JAX package's flat step is computed: the facet and
 Neumann tractions and the elastic foundation (bc.apply_stress_bcs and
 apply_stress_bcs_neumann, fixed-order sums), surface processes 1 and 102
 (ops/surface.py), Biot hydraulic diffusion, rate-and-state friction and
-the pseudo-transient loop.
+the pseudo-transient loop.  The step's pieces (``step.pieces``) also make
+the isostasy and body-force pre-relaxations, so those launch the same
+three kernels.
 """
 
 from __future__ import annotations
 
 import math
 from dataclasses import replace
+from types import SimpleNamespace
 
 import torch
 
@@ -120,7 +123,11 @@ def make_flat_step(param: Param, ctx, compensation_pressure: float = 0.0,
     versions of the gathers and assemblies on the state's device instead
     of the wrappers (the reference the CUDA kernels are checked against on
     the card).  ``step.stats`` counts the pseudo-transient loop's
-    iterations and host reads."""
+    iterations and host reads; ``step.pieces`` holds the step's pieces
+    (the gathers and assemblies, the strain rate, the stress update, the
+    force and mass columns, the boundary forces, the pseudo-transient
+    loop) under the names and signatures ops/flat3d.py gives them, from
+    which the pre-relaxations (simulation.py) are built."""
     ctrl = param.control
     mat = param.mat
     if ctx.band is None:
@@ -410,28 +417,41 @@ def make_flat_step(param: Param, ctx, compensation_pressure: float = 0.0,
         return (stress, stressyy, plstrain, delta_plstrain, viscosity,
                 dpressure, dyn_fric_coeff, state_variable)
 
-    def boundary_forces(force, coord, coord0, rho_e, phi_e):
+    def boundary_forces(force, coord, coord0, rho_e, phi_e,
+                        fluid=generic and hydraulic, neumann=True):
         """Facet tractions and the elastic foundation (only with gravity),
         then the Neumann tractions (flat2d.py:526-530).  The generic step
         loads them with the fluid-filled rock's density under hydraulic
-        diffusion (simulation.py:323-326)."""
+        diffusion (simulation.py:323-326): ``fluid``.  The isostasy
+        pre-relaxation adds no Neumann tractions."""
         if ctrl.gravity != 0:
             rho_eff = rho_e
-            if generic and hydraulic:
+            if fluid:
                 rho_eff = rho_e * (1.0 - phi_e) + 1000.0 * phi_e
             force = bc_mod.apply_stress_bcs(param, sbc, coord, force,
                                             rho_eff, compensation_pressure,
                                             coord0)
-        return bc_mod.apply_stress_bcs_neumann(sbc, coord, force)
+        if neumann:
+            force = bc_mod.apply_stress_bcs_neumann(sbc, coord, force)
+        return force
+
+    def _anti_lock(sr, edv):
+        """The strain rate with the anti-mesh-locking volumetric part
+        (rheology.cxx:755-763)."""
+        adj = (edv - (sr[0] + sr[1])) / 2.0
+        return (sr[0] + adj, sr[1] + adj, sr[2])
 
     def pt_loop(ctx, s, sc, l2_res, time, bulkm, shearm, rho_e, phi_e,
-                buoy, temp_e_pt):
+                buoy, temp_e_pt, fluid=generic and hydraulic):
         """The pseudo-transient inner relaxation (dynearthsol.cxx:779-840)
         in columns: the step's kernel sequence with zeroed vbc values,
         surface processes skipped (dynearthsol.cxx:439-444), hydraulic
         diffusion suspended (:781-784) and no NMD smoothing (a main-loop
         kernel), until the residual's relative change drops below
-        PT_relative_tolerance or PT_max_iter iterations have run."""
+        PT_relative_tolerance or PT_max_iter iterations have run.  It is
+        also the body-force pre-relaxation's loop (dynearthsol.cxx:526-571),
+        which loads the facets with the rock's own density (``fluid``
+        False)."""
         tab = ctx.mat
         res_old = l2_res
         rel = None      # 1.0 before the first iteration, known here
@@ -472,8 +492,7 @@ def make_flat_step(param: Param, ctx, compensation_pressure: float = 0.0,
             _, gdvp = asm_gather([((lxxp + lzzp) * volp,)] * 3, kg=1)
             edvp = corner_sum([gdvp[0, c] / vnp[0, c] for c in range(3)]) \
                 / npe
-            adjp = (edvp - (lxxp + lzzp)) / 2.0
-            edotp = (lxxp + adjp, lzzp + adjp, lxzp)
+            edotp = _anti_lock(srp, edvp)
             dep = (edotp[0] * sc.dt, edotp[1] * sc.dt, edotp[2] * sc.dt)
             strainp = torch.stack([sc.strain[0] + dep[0],
                                    sc.strain[1] + dep[1],
@@ -487,7 +506,7 @@ def make_flat_step(param: Param, ctx, compensation_pressure: float = 0.0,
             forcep = -asm_pack(force_cols(stp, dndxp, dndzp, buoy, volp))
             resp = F.residual_l2(forcep)
             forcep = boundary_forces(forcep, sc.coord, sc.coord0, rho_e,
-                                     phi_e)
+                                     phi_e, fluid)
             forcep = F.apply_damping(forcep, velp, sc.mass, sc.ymass,
                                      ctrl.damping_option,
                                      ctrl.damping_factor)
@@ -563,8 +582,7 @@ def make_flat_step(param: Param, ctx, compensation_pressure: float = 0.0,
         # bit for bit
         edvoldt = corner_sum([gdv[0, c] / vns[c] for c in range(3)]) / npe
 
-        adj = (edvoldt - (lxx + lzz)) / 2.0
-        edot = (lxx + adj, lzz + adj, lxz)
+        edot = _anti_lock(sr, edvoldt)
         de = (edot[0] * dt, edot[1] * dt, edot[2] * dt)
         strain = torch.stack([s.strain[0] + de[0], s.strain[1] + de[1],
                               s.strain[2] + de[2]])
@@ -819,6 +837,21 @@ def make_flat_step(param: Param, ctx, compensation_pressure: float = 0.0,
             max_global_vel_mag=vmax, global_dt_min=gdtmin, **upd_avg)
 
     step.stats = stats
+    step.pieces = SimpleNamespace(
+        ndims=2, NPE=3, npe=npe, stats=stats,
+        gather=lambda cols: cgather(torch.cat(cols, dim=1)),
+        corners=lambda g, j0: [tuple(g[j0 + d, c] for c in range(3))
+                               for d in range(2)],
+        corner_sum=corner_sum, asm_pack=asm_pack, asm_gather=asm_gather,
+        shape_fn=lambda X, vol: shape_fn(X[0], X[1], vol),
+        volume_of=lambda X: volume_of(X[0], X[1]),
+        strain_rate=lambda V, dnd: strain_rate_cols(V[0], V[1], *dnd),
+        div=lambda sr: sr[0] + sr[1],
+        anti_lock=_anti_lock,
+        force_cols=lambda sc, dnd, buoy, vol: force_cols(sc, *dnd, buoy,
+                                                          vol),
+        mass_cols=mass_cols, update_stress=update_stress_cols,
+        boundary_forces=boundary_forces, pt_loop=pt_loop)
     return step
 
 

@@ -32,13 +32,16 @@ Python number as a product with its reciprocal).
 
 Scalars stay 0-d tensors on the device; a chunk runs with no host round
 trip but for the pseudo-transient loop, whose condition is read on the
-host once per iteration after the first (``step.stats``).
+host once per iteration after the first (``step.stats``).  In its generic
+mode the step is the JAX package's generic step in 3D; its pieces
+(``step.pieces``) make the isostasy and body-force pre-relaxations in 3D.
 """
 
 from __future__ import annotations
 
 import math
 from dataclasses import replace
+from types import SimpleNamespace
 
 import torch
 
@@ -67,6 +70,19 @@ def flat3d_step_applicable(param: Param, ctx) -> bool:
                                          RH_EP_RSF, RH_EVP_RSF))
 
 
+def generic_applicable(param: Param, ctx) -> bool:
+    """Whether this module computes the JAX package's generic step for the
+    config: in 3D, every rheology of the flat gate.  The JAX package
+    reaches its generic step in 3D only under ``DES_NO_FLAT``;
+    ``make_flat_step(..., generic=True)`` computes it as the column step
+    with the generic step's own choices where the two differ, as
+    ops/flat2d.py does in 2D (the pseudo-mass's velocity scale, the
+    fluid-filled density of the hydraulic mass and facet loads, and the
+    pore-pressure update after the force assembly).  The 3D generic step
+    has no principal-axes branch and no surface plastic-strain decay."""
+    return flat3d_step_applicable(param, ctx)
+
+
 def unported_features(param: Param, ctx) -> list:
     """What passes the gate above but this step does not compute: nothing
     (the simulation asks every step module)."""
@@ -74,13 +90,16 @@ def unported_features(param: Param, ctx) -> list:
 
 
 def make_flat_step(param: Param, ctx, compensation_pressure: float = 0.0,
-                   plain: bool = False):
+                   plain: bool = False, generic: bool = False):
     """Build step(ctx, fstate) -> fstate on flat column state (3D, any
-    tetrahedral mesh), mirroring flat3d.make_flat_step.  ``plain`` runs
-    the plain versions of the gathers and assemblies on the state's device
-    instead of the wrappers (the reference the CUDA kernels are checked
-    against on the card).  ``step.stats`` counts the pseudo-transient
-    loop's iterations and host reads."""
+    tetrahedral mesh), mirroring flat3d.make_flat_step, or with
+    ``generic`` the JAX package's generic step (simulation.make_step_fn)
+    in 3D where the two differ (see ``generic_applicable``).  ``plain``
+    runs the plain versions of the gathers and assemblies on the state's
+    device instead of the wrappers (the reference the CUDA kernels are
+    checked against on the card).  ``step.stats`` counts the
+    pseudo-transient loop's iterations and host reads; ``step.pieces``
+    holds the step's pieces, as in ops/flat2d.py."""
     ctrl = param.control
     mat = param.mat
     if ctx.band is None:
@@ -96,6 +115,9 @@ def make_flat_step(param: Param, ctx, compensation_pressure: float = 0.0,
     rheol_ep = rheol in (RH_EP, RH_EP_RSF)
     rheol_evp = rheol in (RH_EVP, RH_EVP_RSF)
     hydraulic = ctrl.has_hydraulic_diffusion
+    # the pore-pressure rate rides the force assembly (flat3d); the
+    # generic step and the pseudo-transient loop recompute it after
+    pp_in_force = hydraulic and not (generic or ctrl.has_PT)
     surface = ctrl.surface_process_option != 0 and ctx.surf.etop > 0
     pseudo_speed = max_vbc_val * ctrl.inertial_scaling
 
@@ -226,10 +248,12 @@ def make_flat_step(param: Param, ctx, compensation_pressure: float = 0.0,
                   + buoy) * vol) for c in range(NPE)]
 
     def mass_cols(volume, bulkm, shearm, rho_e, phi_e, tab, emw,
-                  max_global_vel_mag):
+                  max_global_vel_mag, fluid_density=False):
         """Each element's (volume, mass, tmass, hmass, ymass) shares
         (geometry.cxx:1020-1154; bulk_comp = 1 / K in 3D,
-        geometry.cxx:1098)."""
+        geometry.cxx:1098); ``fluid_density``: a dynamic run's mass is
+        that of the fluid-filled rock (the generic step's, with hydraulic
+        diffusion)."""
         if ctrl.use_global_velocity_scaling:
             apparent = torch.minimum(max_global_vel_mag
                                      * ctrl.inertial_scaling,
@@ -238,6 +262,8 @@ def make_flat_step(param: Param, ctx, compensation_pressure: float = 0.0,
         else:
             rho_q = bulkm / c_pseudo2
         rho_m = rho_q if ctrl.is_quasi_static else rho_e
+        if fluid_density and not ctrl.is_quasi_static:
+            rho_m = rho_e * (1.0 - phi_e) + 1000.0 * phi_e
         bulk_comp = 1.0 / bulkm
         ab_e = M.alpha_biot(tab, emw)
         bf_e = M.beta_fluid(tab, emw)
@@ -367,13 +393,29 @@ def make_flat_step(param: Param, ctx, compensation_pressure: float = 0.0,
         return (stress, plstrain, delta_plstrain, viscosity, dpressure,
                 dyn_fric_coeff, state_variable)
 
-    def boundary_forces(force, coord, coord0, rho_e):
+    def boundary_forces(force, coord, coord0, rho_e, phi_e,
+                        fluid=generic and hydraulic, neumann=True):
         """Facet tractions and the elastic foundation (only with gravity),
-        then the Neumann tractions (flat3d.py:469-473)."""
+        then the Neumann tractions (flat3d.py:469-473).  The generic step
+        loads them with the fluid-filled rock's density under hydraulic
+        diffusion (simulation.py:323-326): ``fluid``.  The isostasy
+        pre-relaxation adds no Neumann tractions."""
         if ctrl.gravity != 0:
-            force = bc_mod.apply_stress_bcs(param, sbc, coord, force, rho_e,
-                                            compensation_pressure, coord0)
-        return bc_mod.apply_stress_bcs_neumann(sbc, coord, force)
+            rho_eff = rho_e
+            if fluid:
+                rho_eff = rho_e * (1.0 - phi_e) + 1000.0 * phi_e
+            force = bc_mod.apply_stress_bcs(param, sbc, coord, force,
+                                            rho_eff, compensation_pressure,
+                                            coord0)
+        if neumann:
+            force = bc_mod.apply_stress_bcs_neumann(sbc, coord, force)
+        return force
+
+    def _anti_lock(sr, edv):
+        """The strain rate with the anti-mesh-locking volumetric part
+        (rheology.cxx:755-763)."""
+        adj = (edv - (sr[0] + sr[1] + sr[2])) / three
+        return (sr[0] + adj, sr[1] + adj, sr[2] + adj) + tuple(sr[3:])
 
     def corners(g, j0):
         """The three coordinate-like fields from field j0 of a gathered
@@ -381,14 +423,16 @@ def make_flat_step(param: Param, ctx, compensation_pressure: float = 0.0,
         return [tuple(g[j0 + d, c] for c in range(NPE)) for d in range(3)]
 
     def pt_loop(ctx, s, sc, l2_res, time, bulkm, shearm, rho_e, phi_e,
-                buoy, temp_e_pt):
+                buoy, temp_e_pt, fluid=generic and hydraulic):
         """The pseudo-transient inner relaxation (dynearthsol.cxx:779-840)
         in columns: the step's kernel sequence with zeroed vbc values,
         surface processes skipped, hydraulic diffusion suspended and no
         NMD smoothing (the reference iteration is update_stress ->
         update_force only, :787-800), until the residual's relative change
         drops below PT_relative_tolerance or PT_max_iter iterations have
-        run."""
+        run.  It is also the body-force pre-relaxation's loop
+        (dynearthsol.cxx:526-571), which loads the facets with the rock's
+        own density (``fluid`` False)."""
         tab = ctx.mat
         res_old = l2_res
         rel = None      # 1.0 before the first iteration, known here
@@ -427,8 +471,7 @@ def make_flat_step(param: Param, ctx, compensation_pressure: float = 0.0,
             _, gdvp = asm_gather([(divp * volp,)] * NPE, kg=1)
             edvp = corner_sum([gdvp[0, c] / vnp[0, c]
                                for c in range(NPE)]) / npe
-            adjp = (edvp - divp) / three
-            edotp = (srp[0] + adjp, srp[1] + adjp, srp[2] + adjp) + srp[3:]
+            edotp = _anti_lock(srp, edvp)
             dep = tuple(edotp[i] * sc.dt for i in range(6))
             strainp = torch.stack([sc.strain[i] + dep[i]
                                    for i in range(6)])
@@ -441,7 +484,8 @@ def make_flat_step(param: Param, ctx, compensation_pressure: float = 0.0,
             forcep = -asm_pack(force_cols(stp, dndxp, dndyp, dndzp, buoy,
                                           volp))
             resp = F.residual_l2(forcep)
-            forcep = boundary_forces(forcep, sc.coord, sc.coord0, rho_e)
+            forcep = boundary_forces(forcep, sc.coord, sc.coord0, rho_e,
+                                     phi_e, fluid)
             forcep = F.apply_damping(forcep, velp, sc.mass, sc.ymass,
                                      ctrl.damping_option,
                                      ctrl.damping_factor)
@@ -510,8 +554,7 @@ def make_flat_step(param: Param, ctx, compensation_pressure: float = 0.0,
         # dv_sum / volume_n bit for bit
         edvoldt = corner_sum([gdv[0, c] / vns[c] for c in range(NPE)]) / npe
 
-        adj = (edvoldt - div) / three
-        edot = (sr[0] + adj, sr[1] + adj, sr[2] + adj) + sr[3:]
+        edot = _anti_lock(sr, edvoldt)
         de = tuple(edot[i] * dt for i in range(6))
         strain = torch.stack([s.strain[i] + de[i] for i in range(6)])
         strain_rate = torch.stack(edot)
@@ -550,7 +593,7 @@ def make_flat_step(param: Param, ctx, compensation_pressure: float = 0.0,
         else:
             buoy = torch.zeros_like(vol)
         fcols = force_cols(stress_c, dndx, dndy, dndz, buoy, vol)
-        if hydraulic:
+        if pp_in_force:
             # the pore-pressure contributions ride the force assembly
             # (k = 4); fields.cxx:297-406, bulk_comp = 1 / K in 3D
             mean_change = (stress_c[0] + stress_c[1] + stress_c[2]) \
@@ -581,7 +624,7 @@ def make_flat_step(param: Param, ctx, compensation_pressure: float = 0.0,
             force = -asm_pack(fcols)
         l2_res = F.residual_l2(force)
 
-        force = boundary_forces(force, s.coord, s.coord0, rho_e)
+        force = boundary_forces(force, s.coord, s.coord0, rho_e, phi_e)
         force = F.apply_damping(force, s.vel, s.mass, s.ymass,
                                 ctrl.damping_option, ctrl.damping_factor)
         vel = F.update_velocity(s.vel, force, s.mass, s.dt)
@@ -615,8 +658,8 @@ def make_flat_step(param: Param, ctx, compensation_pressure: float = 0.0,
         # pore-pressure update after the velocity, before the vbcs
         ppressure, dppressure = s.ppressure, s.dppressure
         if hydraulic:
-            if ctrl.has_PT:
-                # from the relaxed stress, with the step's first
+            if not pp_in_force:
+                # from the updated (relaxed) stress, with the step's first
                 # shape-function gradients (as the JAX package)
                 dnd = torch.stack([torch.stack([dndx[c], dndy[c], dndz[c]],
                                                dim=-1)
@@ -689,9 +732,13 @@ def make_flat_step(param: Param, ctx, compensation_pressure: float = 0.0,
             dt_out = torch.where(steps % 10 == 0, dt_new, s.dt)
 
         if ctrl.has_moving_mesh:
-            # (pseudo-)mass matrices (geometry.cxx:1020-1154)
-            mpack = asm_pack(mass_cols(volume, bulkm, shearm, rho_e, phi_e,
-                                       tab, s.emw, s.max_global_vel_mag))
+            # (pseudo-)mass matrices (geometry.cxx:1020-1154); the generic
+            # step scales the pseudo-mass with this step's velocity
+            # maximum, the flat step with the previous one
+            mpack = asm_pack(mass_cols(
+                volume, bulkm, shearm, rho_e, phi_e, tab, s.emw,
+                vmax if generic else s.max_global_vel_mag,
+                fluid_density=generic and hydraulic))
             volume_n = mpack[:, 0]
             mass = mpack[:, 1]
             tmass = mpack[:, 2]
@@ -750,17 +797,35 @@ def make_flat_step(param: Param, ctx, compensation_pressure: float = 0.0,
             dt=dt_out, time=time, steps=steps,
             max_global_vel_mag=vmax, global_dt_min=gdtmin, **upd_avg)
 
+    def update_stress(*a):
+        """update_stress_cols with the 2D module's result layout (the
+        stressyy slot kept as is)."""
+        st, pls, dpls, visc, dpr, dfc, sv = update_stress_cols(*a)
+        return st, a[1].stressyy, pls, dpls, visc, dpr, dfc, sv
+
     step.stats = stats
+    step.pieces = SimpleNamespace(
+        ndims=3, NPE=NPE, npe=npe, stats=stats, gather=cgather,
+        corners=corners, corner_sum=corner_sum, asm_pack=asm_pack,
+        asm_gather=asm_gather,
+        shape_fn=lambda X, vol: shape_fn(X[0], X[1], X[2], vol),
+        volume_of=lambda X: volume_of(X[0], X[1], X[2]),
+        strain_rate=lambda V, dnd: strain_rate_cols(V[0], V[1], V[2], *dnd),
+        div=lambda sr: sr[0] + sr[1] + sr[2], anti_lock=_anti_lock,
+        force_cols=lambda sc, dnd, buoy, vol: force_cols(sc, *dnd, buoy,
+                                                          vol),
+        mass_cols=mass_cols, update_stress=update_stress,
+        boundary_forces=boundary_forces, pt_loop=pt_loop)
     return step
 
 
 def make_chunk_runner(param: Param, ctx, compensation_pressure: float,
-                      n: int, plain: bool = False):
-    """run(ctx, state) -> state after n flat 3D steps: transpose the
-    element tensors, step n times, transpose back (the counterpart of
-    flat3d.make_chunk_runner).  ``run.stats`` is the step's count of
-    pseudo-transient iterations and host reads."""
-    step = make_flat_step(param, ctx, compensation_pressure, plain)
+                      n: int, plain: bool = False, generic: bool = False):
+    """run(ctx, state) -> state after n flat 3D steps (or generic steps):
+    transpose the element tensors, step n times, transpose back (the
+    counterpart of flat3d.make_chunk_runner).  ``run.stats`` is the step's
+    count of pseudo-transient iterations and host reads."""
+    step = make_flat_step(param, ctx, compensation_pressure, plain, generic)
 
     def run_chunk(sctx, state):
         g = state_to_flat(state)

@@ -135,6 +135,10 @@ def pallas_step_applicable(param: Param, ctx) -> bool:
         return False
     if ctx.sbc.n_grav > 0 and not _grav_facets_canonical(ctx):
         return False
+    if ctx.vbc.incl is not None:
+        # an inclined boundary's projection depends on the current
+        # velocity, which the kernel's mask/target vbcs cannot represent
+        return False
     nx, nz = ctx.sgrid
     nxc, nzc = nx - 1, nz - 1
     if nzc % 128 != 0:

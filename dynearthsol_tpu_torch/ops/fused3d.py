@@ -306,6 +306,8 @@ def pallas3d_step_applicable(param: Param, ctx) -> bool:
         return False
     if not _decodes(grav_facets, ctx):
         return False
+    if ctx.vbc.incl is not None:
+        return False
     nx, ny, nz = ctx.sgrid
     nxc, nyc, nzc = nx - 1, ny - 1, nz - 1
     if nxc % 128 != 0 or nzc % 8 != 0:

@@ -412,7 +412,7 @@ def _finish_unstructured_2d(param, coord, bcflag, surf, bot,
     if ma > 0:
         from .mesh.refine2d import box_inside_fn, refine_min_angle
 
-        coord, bcflag, _ = refine_min_angle(
+        coord, bcflag, _, _ = refine_min_angle(
             coord, bcflag, box_inside_fn(m.xlength, surf, bot),
             min_angle=ma, area_floor=smallest_vol)
 

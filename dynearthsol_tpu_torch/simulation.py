@@ -12,9 +12,11 @@ picks ``grid2d`` or ``grid3d`` (a raster mesh off the fused gates: float64,
 or a feature or layout they refuse); the column step of ops/flat2d.py
 (any 2D triangle mesh) where it picks ``flat2d``, and in its generic mode
 where it picks ``generic`` in 2D; and the column step of ops/flat3d.py
-(any tetrahedral mesh) where it picks ``flat3d``.  The JAX package's 3D
-generic step is not ported yet; a configuration that needs it raises
-``NotImplementedError`` naming it.  The JAX package's switches
+(any tetrahedral mesh) where it picks ``flat3d``, and in its generic mode
+where it picks ``generic`` in 3D.  The isostasy and body-force
+pre-relaxations (``isostasy_adjustment``, ``body_force_adjustment``) run
+before the first step on the column steps' pieces, on any mesh.  The JAX
+package's switches
 ``DES_NO_PALLAS`` (no fused step: the raster meshes go to the plane
 steps) and ``DES_NO_FLAT`` (no column step) are read where it reads them,
 when a chunk runner is built.  A remesh
@@ -44,9 +46,11 @@ from . import ic as ic_mod
 from . import markers as mk
 from .config import (RH_ELASTIC, RH_EP, RH_EP_RSF, RH_EVP, RH_EVP_RSF,
                      RH_MAXWELL, RH_VISCOUS, Param)
-from .constants import BOUNDZ1, IBOUNDZ0
-from .mesh import MeshData, build_topology, create_new_mesh
+from .constants import BOUNDZ0, BOUNDZ1, IBOUNDZ0, YEAR2SEC
+from .mesh import (MeshData, build_topology, build_topology_from_arrays,
+                   create_new_mesh)
 from .ops import band2d, flat2d, flat3d, fused2d, fused3d, grid2d, grid3d
+from .ops import fields as F
 from .ops import geometry as G
 from .ops import matprops as M
 from .ops import surface as SP
@@ -178,10 +182,11 @@ def _detect_sgrid(topo):
 
 
 def make_step_ctx(param: Param, topo, device, mat: M.MatTables,
-                  max_vbc_val: float, sgrid) -> StepCtx:
+                  max_vbc_val: float, sgrid, coord: np.ndarray) -> StepCtx:
     """The step context of ``topo`` on ``device``: at initialisation and
     after every remesh (with no band tables: ``_chunk_fn`` builds them for
-    the mesh it steps)."""
+    the mesh it steps).  ``coord`` gives the inclined boundaries'
+    normals."""
     return StepCtx(
         ndims=param.sim.ndims, nnode=topo.nnode, nelem=topo.nelem,
         conn=torch.as_tensor(topo.connectivity, device=device).long(),
@@ -191,7 +196,8 @@ def make_step_ctx(param: Param, topo, device, mat: M.MatTables,
                                  device=device),
         pp_bc_mask=torch.as_tensor(bc_mod.pp_bc_mask(param.bc, topo.bcflag),
                                    device=device),
-        vbc=bc_mod.VBCSpec.from_param(param, topo.bcflag, device=device),
+        vbc=bc_mod.VBCSpec.from_param(param, topo.bcflag, device=device,
+                                      topo=topo, coord=coord),
         sbc=bc_mod.StressBCSpec.from_topo(param, topo), mat=mat,
         surf=SP.make_surf_info(topo), max_vbc_val=max_vbc_val, sgrid=sgrid)
 
@@ -227,8 +233,22 @@ class Simulation:
                                             param.mesh.mesh_from_run_frame)
         else:
             mesh = create_new_mesh(param)
-            topo = build_topology(mesh, param.mesh.xlength,
-                                  param.mesh.ylength, param.mesh.zlength)
+            if mesh.segment is not None and mesh.segment.size:
+                # the mesher's own segments (Exodus side sets, the 3D
+                # .poly facets, a 2D .poly's kept internal segments) flag
+                # the nodes in place of the box coordinate tests
+                # (create_boundary_flags from segment flags, mesh.cxx:2811;
+                # JAX simulation.py:684-697)
+                bcflag = np.zeros(mesh.nnode, dtype=np.uint32)
+                for seg, fl in zip(mesh.segment, mesh.segflag):
+                    bcflag[seg] |= np.uint32(fl)
+                topo = build_topology_from_arrays(
+                    param.sim.ndims, mesh.connectivity, bcflag,
+                    mesh.segment, mesh.segflag)
+            else:
+                topo = build_topology(mesh, param.mesh.xlength,
+                                      param.mesh.ylength,
+                                      param.mesh.zlength)
         self.mesh = mesh
         self.topo = topo
         dev = self.device
@@ -238,7 +258,7 @@ class Simulation:
         self.ctx = make_step_ctx(
             param, topo, dev,
             M.MatTables.from_param(param.mat, dtype=self.dtype, device=dev),
-            max_vbc_val, _detect_sgrid(topo))
+            max_vbc_val, _detect_sgrid(topo), mesh.coord)
         # driver scalars (parameters.hpp Variables), checkpointed with the
         # state; the Winkler reference pressure is set by the initial
         # stress state
@@ -256,13 +276,15 @@ class Simulation:
         self._chunk_fns = {}
         # name of the dispatched step implementation, set by _chunk_fn:
         # "pallas2d_res", "pallas2d", "pallas3d", "grid2d", "grid3d",
-        # "flat2d", "generic" (2D) or "flat3d", the JAX package's names
+        # "flat2d", "flat3d" or "generic", the JAX package's names
         self.step_path = None
         # remeshing_option 100's frozen structured dims, set by the first
         # structured regeneration (remesh_impl.remesh_simulation)
         self._struct_regen_dims = None
         # host seconds of the last remesh, by part (remesh_simulation)
         self.remesh_seconds = None
+        # the last body-force pre-relaxation's PT iterations and host reads
+        self.prerelax_stats = None
         # the metric-driven remeshing's frozen initial nodal element size,
         # set at the first remesh and carried to the new nodes at each
         # (remesh_impl.compute_init_elem_size_n)
@@ -276,7 +298,7 @@ class Simulation:
         ctx = self.ctx
         self.topo, self.mesh = topo, mesh
         self.ctx = make_step_ctx(self.param, topo, self.device, ctx.mat,
-                                 ctx.max_vbc_val, sgrid)
+                                 ctx.max_vbc_val, sgrid, mesh.coord)
         self._chunk_fns = {}
 
     def _dev(self, x) -> torch.Tensor:
@@ -300,10 +322,13 @@ class Simulation:
 
         # markers BEFORE the temperature/stress ICs (dynearthsol.cxx:172
         # vs :202-203): the half-space diffusivity and lithostatic bulk
-        # modulus are element 0's marker mixtures (ic.cxx:845, :333)
+        # modulus are element 0's marker mixtures (ic.cxx:845, :333); a
+        # .poly or Exodus mesh's regional attributes give the materials
+        regattr = self.mesh.regattr
         if param.markers.markers_per_element > 0:
             self.markers = mk.create_markers(param, self.mesh.coord,
-                                             topo.connectivity)
+                                             topo.connectivity,
+                                             regattr=regattr)
             if param.ic.temperature_option == 3:
                 # markers inside the adiabatic region become asthenosphere
                 # (ic.cxx:820-830: the eta-weighted nodal in_asth >= 0.5
@@ -322,7 +347,7 @@ class Simulation:
         else:
             self.markers = None
             emw_h = ic_mod.initial_material_weights(
-                param, self.mesh.coord, topo.connectivity)
+                param, self.mesh.coord, topo.connectivity, regattr=regattr)
 
         temperature_h = ic_mod.initial_temperature(param, self.mesh.coord,
                                                    emw0=emw_h[0])
@@ -425,6 +450,85 @@ class Simulation:
             return make_finalize_fn(param, with_dt=False,
                                     with_mass=False)(ctx, s)
         return make_finalize_fn(param, with_dt=False)(ctx, s)
+
+    # ---- pre-run relaxations (dynearthsol.cxx:476-571) ----
+    def _column_pieces(self, plain: bool = False):
+        """The column step's pieces (ops/flat2d.py, ops/flat3d.py
+        ``step.pieces``) on this mesh, in the generic step's form (its
+        stress update is the JAX package's ``_update_stress``): the
+        pre-relaxations are built from them on any mesh, so they launch
+        the band kernels on the card.  The band tables are built once per
+        mesh, as for a column-step chunk.  ``plain`` takes the kernels'
+        plain versions on the state's device."""
+        if self.ctx.band is None:
+            self.ctx = replace(self.ctx, band=band2d.build_tables(
+                self.topo.connectivity, self.topo.nnode, self.device))
+        mod = flat3d if self.ctx.ndims == 3 else flat2d
+        return mod.make_flat_step(self.param, self.ctx,
+                                  self.compensation_pressure, plain=plain,
+                                  generic=True).pieces
+
+    def isostasy_adjustment(self, plain: bool = False) -> int:
+        """Vertical-only relaxation toward isostatic equilibrium before the
+        run starts (isostasy_adjustment, dynearthsol.cxx:476-524; JAX
+        simulation.py:933-1023): step the momentum balance with free
+        boundaries, zeroing the horizontal velocity (and the bottom's
+        vertical velocity without a Winkler foundation), for
+        isostasy_adjustment_time_in_yr at the initial dt.  dt, time and
+        steps do not advance; the mass is recomputed every step.  Returns
+        the number of steps."""
+        param = self.param
+        yr = param.ic.isostasy_adjustment_time_in_yr
+        if yr <= 0:
+            return 0
+        dt0 = float(self.state.dt)
+        iso_steps = max(int(yr * YEAR2SEC / dt0), 1)
+        P = self._column_pieces(plain)
+        bottom = None
+        if not param.bc.has_winkler_foundation:
+            bottom = torch.as_tensor((self.topo.bcflag & BOUNDZ0) != 0,
+                                     device=self.device)
+        g = flat2d.state_to_flat(self.state)
+        for _ in range(iso_steps):
+            g = _isostasy_step(P, param, self.ctx, g, bottom)
+        self.state = flat2d.flat_to_state(g)
+        return iso_steps
+
+    def body_force_adjustment(self, plain: bool = False) -> int:
+        """Pre-run gravity relaxation by pseudo-transient iteration
+        (initial_body_force_adjustment, dynearthsol.cxx:526-571, invoked
+        at :731-739; JAX simulation.py:1025-1135): the pseudo-transient
+        loop of the column steps from the initial state, with zeroed
+        boundary-velocity values and hydraulic diffusion suspended, the
+        facets loaded with the rock's own density, from the state's L2
+        residual until its relative change drops below
+        PT_relative_tolerance or PT_max_iter is reached; the loop's
+        condition is read on the host once per iteration after the first.
+        Only with the PT loop, as the reference.  Returns the iteration
+        count."""
+        param = self.param
+        ctrl = param.control
+        if not (param.ic.has_body_force_adjustment and ctrl.has_PT):
+            return 0
+        P = self._column_pieces(plain)
+        tab = self.ctx.mat
+        g = flat2d.state_to_flat(self.state)
+        t = P.gather([g.temperature[:, None]])
+        temp_e = P.corner_sum([t[0, c] for c in range(P.NPE)]) / P.npe
+        bulkm = M.bulkm(tab, g.emw)
+        shearm = M.shearm(tab, g.emw)
+        rho_e = M.rho_from_T(tab, g.emw, temp_e)
+        phi_e = M.phi_porosity(tab, g.emw)
+        if ctrl.gravity != 0:
+            buoy = (rho_e * (1.0 - phi_e) + 1000.0 * phi_e) \
+                * ctrl.gravity / P.npe
+        else:
+            buoy = torch.zeros_like(g.volume)
+        g = P.pt_loop(self.ctx, g, g, g.l2_residual, g.time, bulkm, shearm,
+                      rho_e, phi_e, buoy, temp_e, fluid=False)
+        self.state = flat2d.flat_to_state(g)
+        self.prerelax_stats = dict(P.stats)
+        return P.stats["pt_iterations"]
 
     # ---- host-applied surface increments (options 11 and 101) ----
     def apply_host_surface_dh(self, dh_top):
@@ -606,6 +710,10 @@ class Simulation:
             elif jax_path == "flat3d":
                 path, mod = "flat3d", flat3d
                 make = flat3d.make_chunk_runner
+            elif jax_path == "generic" and flat3d.generic_applicable(param,
+                                                                     ctx):
+                path, mod = "generic", flat3d
+                make = partial(flat3d.make_chunk_runner, generic=True)
             else:
                 raise NotImplementedError(
                     "this config is off the fused steps' gates; the JAX "
@@ -637,3 +745,71 @@ class Simulation:
             self.state = self._chunk_fn(c)(self.ctx, self.state)
             done += c
         return self.state
+
+
+def _isostasy_step(P, param: Param, ctx: StepCtx, s: State, bottom):
+    """One step of the isostasy pre-relaxation on flat column state, from
+    the column pieces ``P`` (JAX simulation.py:958-1015): strain rate,
+    dvoldt, the stress update, the force with its facet tractions (the
+    fluid-filled rock's density under hydraulic diffusion, no Neumann
+    tractions) and damping, the velocity with its horizontal components
+    zeroed (and the vertical one at the ``bottom`` nodes when given), the
+    moved coordinates, volume and masses."""
+    ctrl = param.control
+    tab = ctx.mat
+    nd, npe = P.ndims, P.npe
+    hydraulic = ctrl.has_hydraulic_diffusion
+    cols = [s.coord, s.vel, s.temperature[:, None]]
+    if hydraulic:
+        cols.append(s.dppressure[:, None])
+    cols.append(s.volume_n[:, None])
+    g = P.gather(cols)
+
+    def csum(j):
+        return P.corner_sum([g[j, c] for c in range(P.NPE)])
+
+    X, V = P.corners(g, 0), P.corners(g, nd)
+    temp_e = csum(2 * nd) / npe
+    vol = s.volume
+    dnd = P.shape_fn(X, vol)
+    bulkm = M.bulkm(tab, s.emw)
+    shearm = M.shearm(tab, s.emw)
+    rho_e = M.rho_from_T(tab, s.emw, temp_e)
+    phi_e = M.phi_porosity(tab, s.emw)
+    sr = P.strain_rate(V, dnd)
+    _, gdv = P.asm_gather([(P.div(sr) * vol,)] * P.NPE, kg=1)
+    edv = P.corner_sum([gdv[0, c] / g[-1, c] for c in range(P.NPE)]) / npe
+    edot = P.anti_lock(sr, edv)
+    de = tuple(e * s.dt for e in edot)
+    dpp = (M.alpha_biot(tab, s.emw) * csum(2 * nd + 1) / npe
+           if hydraulic else None)
+    vmean = (tuple(P.corner_sum(v) / npe for v in V)
+             if param.mat.rheol_type in (RH_EP_RSF, RH_EVP_RSF) else None)
+    (stress_c, stressyy, plstrain, delta_plstrain, viscosity, dpressure,
+     _, _) = P.update_stress(tab, s.replace(edvoldt=edv), de, edot, sr,
+                             bulkm, shearm, temp_e, s.dt, dpp, vmean)
+    buoy = (rho_e * (1.0 - phi_e) + 1000.0 * phi_e) * ctrl.gravity / npe
+    force = -P.asm_pack(P.force_cols(stress_c, dnd, buoy, vol))
+    force = P.boundary_forces(force, s.coord, s.coord0, rho_e, phi_e,
+                              fluid=hydraulic, neumann=False)
+    force = F.apply_damping(force, s.vel, s.mass, s.ymass,
+                            ctrl.damping_option, ctrl.damping_factor)
+    vel = F.update_velocity(s.vel, force, s.mass, s.dt)
+    # vertical-only displacement (dynearthsol.cxx:503-516)
+    vel[:, :nd - 1] = 0.0
+    if bottom is not None:
+        vel[:, nd - 1] = vel[:, nd - 1] * torch.where(
+            bottom, torch.zeros_like(vel[:, 0]), torch.ones_like(vel[:, 0]))
+    coord = F.update_coordinate(s.coord, vel, s.dt)
+    volume = P.volume_of(P.corners(P.gather([coord]), 0))
+    mp = P.asm_pack(P.mass_cols(volume, bulkm, shearm, rho_e, phi_e, tab,
+                                s.emw, s.max_global_vel_mag,
+                                fluid_density=hydraulic))
+    return s.replace(
+        vel=vel, coord=coord, volume=volume, volume_old=vol,
+        volume_n=mp[:, 0], mass=mp[:, 1], tmass=mp[:, 2], hmass=mp[:, 3],
+        ymass=mp[:, 4], stress=torch.stack(stress_c), stressyy=stressyy,
+        strain=torch.stack([s.strain[i] + de[i] for i in range(len(de))]),
+        strain_rate=torch.stack(edot), plstrain=plstrain,
+        delta_plstrain=delta_plstrain, viscosity=viscosity,
+        dpressure=dpressure, force=force, edvoldt=edv)

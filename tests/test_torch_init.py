@@ -62,14 +62,16 @@ def test_tiled_dispatch_matches_jax():
 
 
 def test_unported_config_raises(monkeypatch):
-    """A config the JAX package runs on its 3D generic step (a tet mesh
-    under DES_NO_FLAT) has no step here; the float64 box, refused before
-    the plane steps were ported, runs on grid2d."""
+    """Configs once refused here run on the JAX package's path: the
+    float64 box on grid2d (since the plane steps were ported) and a tet
+    mesh under DES_NO_FLAT on the 3D generic step (ops/flat3d.py in its
+    generic mode; tests/test_torch_generic3d.py holds it to the JAX
+    package)."""
     cfg = make_sim_cfg(sim={"float_dtype": "float64"})
     ts = tdes.Simulation(tdes.param_from_dict(cfg), device="cpu")
     ts.run_steps(1)
     assert ts.step_path == "grid2d"
     monkeypatch.setenv("DES_NO_FLAT", "1")
     ts = tdes.Simulation(tdes.param_from_dict(flat3d_cfg()), device="cpu")
-    with pytest.raises(NotImplementedError, match="'generic'"):
-        ts.run_steps(1)
+    ts.run_steps(1)
+    assert ts.step_path == "generic"

@@ -47,8 +47,9 @@ def test_refine_min_angle_equals_jax():
     bot = lambda x: np.full_like(np.asarray(x, dtype=float), -lz)
     jc, jf, _, jconv = jrefine.refine_min_angle(
         coord, flag, jrefine.box_inside_fn(lx, surf, bot), min_angle=30.0)
-    tc, tf, tconv = trefine.refine_min_angle(
+    tc, tf, tseg, tconv = trefine.refine_min_angle(
         coord, flag, trefine.box_inside_fn(lx, surf, bot), min_angle=30.0)
+    assert tseg is None           # box mode: no explicit segments
     assert len(tc) > len(coord)
     assert np.array_equal(jc, tc) and np.array_equal(jf, tf)
     assert jconv == tconv

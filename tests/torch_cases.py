@@ -512,6 +512,139 @@ def run_both_clis(tmp_path, cfg, over_jax=None, over_port=None,
         os.chdir(cwd)
 
 
+def write_poly2d(path):
+    """A 16 km x 8 km box split at z = -4 km; the lower right segment is
+    marked 64."""
+    pts = [(0, -8e3), (16e3, -8e3), (16e3, -4e3), (16e3, 0), (0, 0),
+           (0, -4e3)]
+    segs = [(0, 1, 16), (1, 2, 64), (2, 3, 2), (3, 4, 32), (4, 5, 1),
+            (5, 0, 1), (5, 2, 0)]
+    regions = [(8e3, -6e3, 1, 1.0), (8e3, -2e3, 0, 2.0)]
+    lines = [f"{len(pts)} 2 0 0"]
+    lines += [f"{i} {x} {z}" for i, (x, z) in enumerate(pts)]
+    lines += [f"{len(segs)} 1"]
+    lines += [f"{i} {a} {b} {f}" for i, (a, b, f) in enumerate(segs)]
+    lines += ["0", f"{len(regions)}"]
+    lines += [f"{i} {x} {z} {m} {s}" for i, (x, z, m, s) in
+              enumerate(regions)]
+    path.write_text("\n".join(lines) + "\n")
+
+
+def write_poly3d(path):
+    """An 8 x 4 x 4 km block whose x walls lean inwards by 1 km over its
+    height (x0 flagged 128, x1 64), split at z = -2 km by an
+    internal facet; the side walls are facets above and below it."""
+    pts = [(0, 0, -4e3), (8e3, 0, -4e3), (8e3, 4e3, -4e3), (0, 4e3, -4e3),
+           (500, 0, -2e3), (7.5e3, 0, -2e3), (7.5e3, 4e3, -2e3),
+           (500, 4e3, -2e3),
+           (1e3, 0, 0), (7e3, 0, 0), (7e3, 4e3, 0), (1e3, 4e3, 0)]
+    facets = [([0, 1, 2, 3], 16), ([8, 9, 10, 11], 32), ([4, 5, 6, 7], 0),
+              ([0, 1, 5, 4], 4), ([4, 5, 9, 8], 4),
+              ([3, 2, 6, 7], 8), ([7, 6, 10, 11], 8),
+              ([0, 3, 7, 4], 128), ([4, 7, 11, 8], 128),
+              ([1, 2, 6, 5], 64), ([5, 6, 10, 9], 64)]
+    regions = [(4e3, 2e3, -3e3, 1, 1.0), (4e3, 2e3, -1e3, 0, 1.0)]
+    lines = [f"{len(pts)} 3 0 0"]
+    lines += [f"{i} {x} {y} {z}" for i, (x, y, z) in enumerate(pts)]
+    lines += [f"{len(facets)} 1"]
+    for poly, flag in facets:
+        lines += [f"1 0 {flag}", f"{len(poly)} " + " ".join(map(str, poly))]
+    lines += ["0", f"{len(regions)}"]
+    lines += [f"{i} {x} {y} {z} {m} {s}" for i, (x, y, z, m, s) in
+              enumerate(regions)]
+    path.write_text("\n".join(lines) + "\n")
+
+
+# Exodus side s of a tet, 1-based local corners (Exodus Table 4.2)
+_SIDES = np.array([[1, 2, 4], [2, 3, 4], [1, 4, 3], [1, 3, 2]]) - 1
+
+
+def write_exodus(path):
+    """The 5-tet grid of an 8 x 4 x 4 km box at 2 km, sheared so that its
+    x walls lean by 500 m, in two element blocks (below and above z = -2
+    km), with one side set per wall: x0 64, x1 128, y0, y1, z0,
+    z1 their box bits."""
+    from scipy.io import netcdf_file
+
+    from dynearthsol_tpu_torch.mesh.generate import regular_grid_3d
+
+    g = regular_grid_3d(8e3, 4e3, 4e3, 2e3)
+    box, conn = g.coord, g.connectivity
+    lower = box[conn, 2].mean(axis=1) < -2e3
+    order = np.concatenate([np.flatnonzero(lower), np.flatnonzero(~lower)])
+    conn = conn[order]
+    nlow = int(lower.sum())
+    coord = box.copy()
+    coord[:, 0] += 0.125 * (box[:, 2] + 4e3)
+    faces = conn[:, _SIDES]                         # (nelem, 4, 3)
+    key = np.sort(faces, axis=2).reshape(-1, 3)
+    _, inv, cnt = np.unique(key, axis=0, return_inverse=True,
+                            return_counts=True)
+    onb = (cnt[inv.ravel()] == 1).reshape(len(conn), 4)
+    walls = [(0, 0.0, 64), (0, 8e3, 128), (1, 0.0, 4),
+             (1, 4e3, 8), (2, -4e3, 16), (2, 0.0, 32)]
+    f = netcdf_file(str(path), "w")
+    f.createDimension("num_dim", 3)
+    f.createDimension("num_nodes", len(coord))
+    f.createDimension("num_elem", len(conn))
+    f.createDimension("num_el_blk", 2)
+    f.createDimension("num_side_sets", len(walls))
+    for d, name in enumerate(("coordx", "coordy", "coordz")):
+        f.createVariable(name, "d", ("num_nodes",))[:] = coord[:, d]
+    f.createVariable("eb_prop1", "i", ("num_el_blk",))[:] = [2, 1]
+    for b, part in enumerate((conn[:nlow], conn[nlow:])):
+        f.createDimension(f"num_el_in_blk{b + 1}", len(part))
+        f.createDimension(f"num_nod_per_el{b + 1}", 4)
+        f.createVariable(f"connect{b + 1}", "i", (
+            f"num_el_in_blk{b + 1}", f"num_nod_per_el{b + 1}"))[:] = part + 1
+    f.createVariable("ss_prop1", "i", ("num_side_sets",))[:] = [
+        w[2] for w in walls]
+    for i, (ax, at, _) in enumerate(walls):
+        on = onb & (np.abs(box[faces, ax] - at) < 1.0).all(axis=2)
+        e, s = np.nonzero(on)
+        f.createDimension(f"num_side_ss{i + 1}", len(e))
+        f.createVariable(f"elem_ss{i + 1}", "i",
+                         (f"num_side_ss{i + 1}",))[:] = e + 1
+        f.createVariable(f"side_ss{i + 1}", "i",
+                         (f"num_side_ss{i + 1}",))[:] = s + 1
+    f.close()
+
+
+# two materials of the .poly and Exodus configs (regions 0 and 1)
+MAT2 = {"nmat": 2, "rho0": [2800.0, 3000.0], "bulk_modulus": [50e9, 60e9],
+        "shear_modulus": [30e9, 35e9]}
+
+
+def poly2d_cfg(path, keep):
+    """flat_cfg on write_poly2d's mesh (option 91 at 2 km), its internal
+    segment kept or discarded; markers only where it is discarded."""
+    return flat_cfg(
+        mesh={"meshing_option": 91, "poly_filename": str(path),
+              "resolution": 2e3, "is_discarding_internal_segments": not keep},
+        markers={"markers_per_element": 0 if keep else 3},
+        mat=dict(MAT2))
+
+
+def poly3d_cfg(path):
+    """flat3d_cfg on write_poly3d's mesh (option 91 at 1 km), inclined
+    BCs of types 13 (BOUNDN0) and 3 (BOUNDN1)."""
+    return flat3d_cfg(
+        mesh={"meshing_option": 91, "poly_filename": str(path)},
+        markers={"markers_per_element": 2}, mat=dict(MAT2),
+        bc={"vbc_n0": 13, "vbc_val_n0": 1e-9, "vbc_n1": 3,
+            "vbc_val_n1": -1e-9})
+
+
+def exodus_cfg(path):
+    """flat3d_cfg on write_exodus's mesh, inclined BCs of types 1
+    (BOUNDN0) and 11 (BOUNDN1)."""
+    return flat3d_cfg(
+        mesh={"meshing_option": 95, "exo_filename": str(path)},
+        markers={"markers_per_element": 2}, mat=dict(MAT2),
+        bc={"vbc_n0": 1, "vbc_val_n0": -1e-9, "vbc_n1": 11,
+            "vbc_val_n1": 1e-9})
+
+
 def _merge(d, over):
     for sec, kv in over.items():
         d.setdefault(sec, {}).update(kv)
