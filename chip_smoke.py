@@ -272,7 +272,22 @@ Phases, each printed, the first failure exits non-zero:
                 BCs (types 13 and 3); (e) the ep-remesh-2d golden through
                 the CLI on the card, frames 0-2 (5,000 of its 40,000
                 steps) at the accumulated bounds of its pre-remesh frames,
-                with its seconds.
+                with its seconds;
+  17. the registry's models and their output -- (a) rifting-2d,
+                production-rifting-2d (262,144 triangles), oblique-rift-3d
+                and production-rifting-3d (983,040 tets) at their default
+                widths through the CLI's run() with averaged frames (60 /
+                12 steps, a frame every 30 / 6): the step path (grid2d /
+                grid3d, the JAX package's: the fused gates refuse averaged
+                output), no hand-written kernel launched, elem*steps/s,
+                CUDA launches per step, host set-up seconds and seconds
+                per frame, and one step on the card against the CPU at
+                phase 15's EVP rule; (b) each last frame through to_vtk
+                (principal stress, melting, heat flux) and to_vtp, timed,
+                the derived fields card against CPU at 1e-12; (c) freeair
+                and bouguer at 512 points over rifting-2d's last frame,
+                card against CPU; (d) VTKHDF written and read back where
+                h5py imports, else its refusal naming h5py.
 The last lines are a JSON record of the kernels, the card's name and power
 limit, and {"ok": true, "device": {...}}.
 """
@@ -3163,6 +3178,364 @@ def prerelax_on_card(des, wrappers, zero_counts, card, check, umesh,
     return rec
 
 
+# phase 17: the registry's in-repo models (dynearthsol_tpu_torch/models)
+# with the steps each runs for and the output interval (also the averaging
+# window, quality_check_step_interval: an averaged frame is written only
+# at its multiples); the path the JAX package takes for each
+REGISTRY_RUNS = (("rifting-2d", 60, 30, "grid2d"),
+                 ("production-rifting-2d", 60, 30, "grid2d"),
+                 ("oblique-rift-3d", 12, 6, "grid3d"),
+                 ("production-rifting-3d", 12, 6, "grid3d"))
+
+
+def models_on_card(des, wrappers, zero_counts, card, check, rel):
+    """Phase 17: the registry's models and their output on the card.  (a)
+    Each of the four in-repo models at its default, full width, through
+    the CLI's run() with averaged frames (only max_steps and the output
+    interval set): its step path, elem*steps/s (the CLI's Compute, and a
+    timed chunk after), CUDA launches per step, host set-up seconds and
+    seconds per frame; one step on the card against one on the CPU from
+    the run's last state, at phase 15's EVP rule (coord, temperature,
+    strain and plstrain within 2e-6 of each field's max; an element whose
+    stress differs by more than 2e-6 of the max must be at visc_max on
+    both sides: the min-select's ties).  (b) The last frame of each:
+    to_vtk with principal stress, melting and heat flux, and to_vtp,
+    timed; the derived fields on the card against the CPU within 1e-12 of
+    each result's max (3D s1/s3 by length, and up to sign where the
+    eigenvalue is apart from its neighbour by more than 1e-2 of the
+    largest, within 1e-12 of the frame's largest |principal stress|: they
+    are differences of eigenvalues of that size; and the same error
+    within 5e-12 of the largest s1/s3 length), with their card ms.  (c)
+    freeair and bouguer at 512 points
+    over rifting-2d's last frame, card against CPU within 1e-12.  (d)
+    VTKHDF: with h5py, a frame written and read back through OutputReader;
+    without, the Output refusal and the CLI's, before the set-up, naming
+    h5py.  Returns the numbers for the JSON record."""
+    import contextlib
+    import io
+    import os
+    import re
+    import tempfile
+    from types import SimpleNamespace
+
+    import numpy as np
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    from dynearthsol_tpu_torch import __main__ as cli
+    from dynearthsol_tpu_torch import models, postproc
+    from dynearthsol_tpu_torch import simulation as sim_mod
+    from dynearthsol_tpu_torch.io.output import Output
+    from dynearthsol_tpu_torch.ops import matprops as M
+    from dynearthsol_tpu_torch.state import FIELD_NAMES, State
+    from dynearthsol_tpu_torch.utils import gravity
+
+    t_phase = time.perf_counter()
+    rec = {"models": {}}
+    print("phase 17 the registry's models at full width, their frames and "
+          "their post-processing on the card")
+
+    def sync():
+        torch.cuda.synchronize()
+
+    def timed(fn, *a, **k):
+        """(fn(*a, **k), seconds), synchronised."""
+        sync()
+        t = time.perf_counter()
+        out = fn(*a, **k)
+        sync()
+        return out, time.perf_counter() - t
+
+    def cpu_step(sim, state):
+        """One step of sim's config on the CPU from ``state``: a step
+        context of the same mesh on the CPU and the dispatch's runner."""
+        cpu = SimpleNamespace(
+            param=sim.param, topo=sim.topo, device=torch.device("cpu"),
+            compensation_pressure=sim.compensation_pressure, _chunk_fns={},
+            step_path=None, ctx=sim_mod.make_step_ctx(
+                sim.param, sim.topo, "cpu", M.MatTables.from_param(
+                    sim.param.mat, dtype=sim.dtype, device="cpu"),
+                sim.ctx.max_vbc_val, sim.ctx.sgrid, sim.mesh.coord))
+        run1 = sim_mod.Simulation._chunk_fn(cpu, 1)
+        out = run1(cpu.ctx, State(**{f: getattr(state, f).cpu()
+                                     for f in FIELD_NAMES}))
+        return out, cpu.step_path
+
+    def evp_rule(label, ker, ref, vmax):
+        """phase 15's EVP rule, card ``ker`` against CPU ``ref``."""
+        errs = {}
+        for f in ("coord", "temperature", "strain", "plstrain"):
+            errs[f] = rel(getattr(ref, f), getattr(ker, f).cpu())
+            check(f"{label}, card vs CPU, {f}", errs[f], 2e-6)
+        d = ((ker.stress.cpu().double() - ref.stress.double()).abs()
+             .max(1).values / ref.stress.double().abs().max())
+        over = d > 2e-6
+        cold = (ker.viscosity.cpu() == vmax) & (ref.viscosity == vmax)
+        for f in ("vel", "force", "stress"):
+            errs[f] = rel(getattr(ref, f), getattr(ker, f).cpu())
+        errs["stress_elements_over_2e-6"] = int(over.sum())
+        errs["of_them_at_visc_max"] = int((over & cold).sum())
+        print(f"  {label}, card vs CPU: stress {errs['stress']:.3e} of its "
+              f"max, {int(over.sum())} of {d.numel()} elements over 2e-6, "
+              f"{int((over & cold).sum())} of them at visc_max on both "
+              f"sides; not gated: velocity {errs['vel']:.3e}, force "
+              f"{errs['force']:.3e}")
+        if bool((over & ~cold).any()):
+            fail(f"{label}: {int((over & ~cold).sum())} elements below "
+                 f"visc_max differ by more than 2e-6 in stress")
+        return errs
+
+    def profiled(fn, steps):
+        """CUDA launches, device busy us and wall us per step of fn()
+        under the profiler, and the device's idle share."""
+        sync()
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as pr:
+            t0 = time.perf_counter()
+            fn()
+            sync()
+            wall = (time.perf_counter() - t0) * 1e6 / steps
+        ev = [e for e in pr.events() if e.device_type == DeviceType.CUDA]
+        busy = sum(e.time_range.elapsed_us() for e in ev) / steps
+        return {"cuda_launches_per_step": len(ev) / steps,
+                "busy_us_per_step": busy, "wall_us_per_step": wall,
+                "device_idle": max(0.0, 1 - busy / wall)}
+
+    def derived(label, r, frame):
+        """The derived fields of ``frame``, card against CPU, with their
+        card ms (the second of two calls)."""
+        get = {n: r.read_field(frame, n) for n in (
+            "coordinate", "connectivity", "temperature", "material",
+            "bcflag", "stress")}
+        coord, conn = get["coordinate"], get["connectivity"]
+        out, ms = {}, {}
+        fns = {
+            "principal stress": lambda d: postproc.compute_principal_stress(
+                get["stress"], device=d),
+            "heat flux": lambda d: postproc.compute_heat_flux(
+                coord, conn, get["temperature"], device=d),
+            "melting": lambda d: (postproc.compute_melting(
+                coord, conn, get["temperature"], get["material"],
+                get["bcflag"], device=d),)}
+        for nm, fn in fns.items():
+            fn("cuda")
+            card_v, s = timed(fn, "cuda")
+            ms[nm] = s * 1e3
+            cpu_v = fn("cpu")
+            card_v = [v.cpu() for v in card_v]
+            if nm == "principal stress" and r.ndims == 3:
+                st = torch.as_tensor(get["stress"])
+                m = torch.zeros((len(st), 3, 3), dtype=torch.float64)
+                i, j = [0, 1, 2, 0, 1, 0, 2, 1, 2], [0, 1, 2, 1, 0, 2, 0, 2, 1]
+                m[:, i, j] = st[:, [0, 1, 2, 3, 3, 4, 4, 5, 5]]
+                w = torch.linalg.eigvalsh(m)
+                scale = w.abs().max(1).values
+                # the deviatoric parts are differences of eigenvalues as
+                # large as the pressure: their rounding is at its scale
+                top = float(scale.max())
+                worst, of_len, nclear = 0.0, 0.0, []
+                for k, (x, y) in enumerate(zip(cpu_v, card_v)):
+                    lx, ly = x.norm(dim=1), y.norm(dim=1)
+                    gap = w[:, 2] - w[:, 1] if k else w[:, 1] - w[:, 0]
+                    clear = gap > 1e-2 * scale
+                    d = torch.minimum((x - y).abs().max(1).values,
+                                      (x + y).abs().max(1).values)
+                    e = max(float((lx - ly).abs().max()),
+                            float((d * clear).max()))
+                    worst = max(worst, e / top)
+                    of_len = max(of_len, e / float(lx.max()))
+                    nclear.append(int(clear.sum()))
+                out[nm] = worst
+                out["principal stress, of the largest s1/s3 length"] = of_len
+                out["principal stress, elements held up to sign (s1, s3)"] \
+                    = nclear
+            elif nm == "heat flux":
+                out[nm] = max(rel(cpu_v[0], card_v[0]),
+                              rel(cpu_v[1], card_v[1]))
+            else:
+                out[nm] = max(rel(x, y) for x, y in zip(cpu_v, card_v))
+            check(f"{label} {nm}", out[nm], 1e-12)
+            if nm == "principal stress" and r.ndims == 3:
+                # by length too, so that a wrong eigenvector of a small
+                # deviator cannot hide behind the pressure's scale: the
+                # H100 read 8.0e-13 and 2.1e-13 here
+                check(f"{label} {nm}, of the largest s1/s3 length",
+                      of_len, 5e-12)
+        return out, ms
+
+    cwd = os.getcwd()
+    tmpdir = tempfile.TemporaryDirectory()
+    os.chdir(tmpdir.name)
+    try:
+        for name, nsteps, every, want_path in REGISTRY_RUNS:
+            p = models.REGISTRY[name]()
+            p.sim.modelname = name
+            p.sim.max_steps = nsteps
+            p.sim.output_step_interval = every
+            p.mesh.quality_check_step_interval = every
+            setup = []
+
+            def timed_sim(*a, **k):
+                sim, s = timed(sim_mod.Simulation, *a, **k)
+                setup.append(s)
+                return sim
+
+            zero_counts()
+            buf = io.StringIO()
+            cli.Simulation = timed_sim
+            try:
+                with contextlib.redirect_stdout(buf):
+                    sim, wall = timed(cli.run, p, device="cuda")
+            finally:
+                cli.Simulation = sim_mod.Simulation
+            got = {n: w.launches for n, w in wrappers.items()}
+            text = buf.getvalue()
+            comp = re.search(r"Compute:\s+([\d.]+) s / (\d+) steps", text)
+            outl = re.search(r"Output:\s+([\d.]+) s / (\d+) frames", text)
+            nelem = sim.topo.nelem
+            r = postproc.OutputReader(name)
+            if (sim.step_path != want_path or any(got.values())
+                    or int(comp[2]) != nsteps or r.frames != [0, 1, 2]
+                    or not r.has_field(2, "stress averaged")
+                    or not r.has_field(2, "velocity averaged")):
+                fail(f"{name}: path {sim.step_path!r} (the JAX package "
+                     f"takes {want_path}), launches {got}, "
+                     f"{comp and comp[2]} steps, frames {r.frames}")
+            for f in FIELD_NAMES:
+                v = getattr(sim.state, f)
+                if v.is_floating_point() and not bool(torch.isfinite(v)
+                                                      .all()):
+                    fail(f"{name}: non-finite values in {f}")
+            compute_s, out_s = float(comp[1]), float(outl[1])
+            m = {"nelem": nelem, "nnode": sim.topo.nnode,
+                 "markers": sim.markers.n if sim.markers else 0,
+                 "step_path": sim.step_path, "steps": nsteps,
+                 "frames": r.frames, "setup_s": setup[0], "run_s": wall,
+                 "compute_s": compute_s,
+                 "elem_steps_per_s_cli": nelem * nsteps / compute_s,
+                 "output_s": out_s, "frames_timed": int(outl[2]),
+                 "s_per_frame": out_s / int(outl[2]),
+                 "launches": got}
+
+            # one step card against CPU from the run's last state
+            s = sim.state
+            ker = sim._chunk_fn(1)(sim.ctx, s)
+            sync()
+            ref, cpu_path = cpu_step(sim, s)
+            if cpu_path != want_path:
+                fail(f"{name}: the CPU took {cpu_path!r}")
+            m["card_vs_cpu_one_step"] = evp_rule(
+                f"{name}, one step", ker, ref, sim.param.mat.visc_max)
+            del ker, ref
+
+            # launches per step and a timed chunk after the run
+            k = 20 if sim.topo.ndims == 2 else 5
+            m.update(profiled(lambda: sim.run_steps(2, chunk=2), 2))
+            _, chunk_s = timed(sim.run_steps, k, chunk=k)
+            m["elem_steps_per_s"] = nelem * k / chunk_s
+            print(f"  (a) {name}: {nelem} elements, {m['markers']} "
+                  f"markers, on {sim.step_path} (the JAX package's path); "
+                  f"set-up {setup[0]:.1f} s, {nsteps} steps through the "
+                  f"CLI, Compute {compute_s:.2f} s = "
+                  f"{m['elem_steps_per_s_cli']:.4e} elem*steps/s, a "
+                  f"{k}-step chunk after: {m['elem_steps_per_s']:.4e} "
+                  f"elem*steps/s on {card}; "
+                  f"{m['cuda_launches_per_step']:.1f} CUDA launches per "
+                  f"step, none of a hand-written kernel, device idle "
+                  f"{m['device_idle']:.1%}; frames "
+                  f"{r.frames}, {m['s_per_frame']:.2f} s per averaged "
+                  f"frame")
+            del sim, s
+            torch.cuda.empty_cache()
+
+            # (b) post-processing of the last frame
+            frame = r.frames[-1]
+            vtk, m["to_vtk_s"] = timed(postproc.to_vtk, name, frame,
+                                       principal=True, melting=True,
+                                       heatflux=True, device="cuda")
+            vtp, m["to_vtp_s"] = timed(postproc.to_vtp, name, frame)
+            m["vtk_bytes"] = os.path.getsize(vtk)
+            m["vtp_bytes"] = os.path.getsize(vtp)
+            m["derived_card_vs_cpu"], m["derived_ms"] = derived(
+                f"(b) {name} frame {frame}", r, frame)
+            print(f"  (b) {name} frame {frame}: to_vtk {m['to_vtk_s']:.1f} "
+                  f"s ({m['vtk_bytes'] / 1e6:.0f} MB), to_vtp "
+                  f"{m['to_vtp_s']:.1f} s ({m['vtp_bytes'] / 1e6:.0f} MB); "
+                  f"derived fields on {card}: " + ", ".join(
+                      f"{k_} {v:.2f} ms" for k_, v in m["derived_ms"].items()))
+            if name == "rifting-2d":
+                # (c) gravity over this frame
+                coord = r.read_field(frame, "coordinate")
+                conn = r.read_field(frame, "connectivity")
+                rho = r.read_field(frame, "density")
+                pts = np.column_stack([
+                    np.linspace(coord[:, 0].min(), coord[:, 0].max(), 512),
+                    np.full(512, coord[:, 1].max() + 1e3)])
+                g = {}
+                for fn in (gravity.freeair, gravity.bouguer):
+                    fn(pts, coord, conn, rho, device="cuda")
+                    a, s_ = timed(fn, pts, coord, conn, rho, device="cuda")
+                    b = fn(pts, coord, conn, rho, device="cpu")
+                    g[fn.__name__] = {"card_ms": s_ * 1e3,
+                                      "card_vs_cpu": rel(b, a.cpu())}
+                    check(f"(c) {fn.__name__} at 512 points over "
+                          f"{len(conn)} triangles, card vs CPU",
+                          g[fn.__name__]["card_vs_cpu"], 1e-12)
+                rec["gravity"] = g
+                print(f"  (c) freeair {g['freeair']['card_ms']:.1f} ms, "
+                      f"bouguer {g['bouguer']['card_ms']:.1f} ms on {card}")
+            for fn in os.listdir("."):
+                os.remove(fn)
+            rec["models"][name] = m
+
+        # (d) VTKHDF, a 32 x 16-cell rifting-2d
+        p = models.rifting_2d(32, 16)
+        p.sim.modelname = "h5"
+        p.sim.output_format = "vtkhdf"
+        try:
+            import h5py  # noqa: F401
+            have = True
+        except ImportError:
+            have = False
+        if have:
+            sim = des.Simulation(p, device="cuda")
+            sim.run_steps(2)
+            Output(p).write_exact(sim)
+            r = postproc.OutputReader("h5")
+            errs = {nm: rel(getattr(sim.state, f).cpu(),
+                            torch.as_tensor(r.read_field(0, nm)))
+                    for nm, f in (("coordinate", "coord"),
+                                  ("stress", "stress"))}
+            if r.format != "hdf5" or any(errs.values()):
+                fail(f"(d) VTKHDF read back as {r.format}: {errs}")
+            rec["vtkhdf"] = "written and read back"
+        else:
+            msgs = []
+            for call in (lambda: Output(p),
+                         lambda: cli.run(p, device="cuda")):
+                cli.Simulation = None  # the refusal comes before set-up
+                try:
+                    call()
+                    fail("(d) output_format = vtkhdf without h5py was "
+                         "not refused")
+                except ImportError as e:
+                    msgs.append(str(e))
+                finally:
+                    cli.Simulation = sim_mod.Simulation
+            if not all("h5py" in s_ for s_ in msgs) or os.listdir("."):
+                fail(f"(d) the refusals {msgs} do not name h5py, or files "
+                     f"{os.listdir('.')} were written")
+            rec["vtkhdf"] = "refused: " + msgs[0]
+        print(f"  (d) VTKHDF: {rec['vtkhdf']}")
+    finally:
+        os.chdir(cwd)
+        tmpdir.cleanup()
+    rec["phase_s"] = time.perf_counter() - t_phase
+    print(f"  phase 17: {rec['phase_s']:.1f} s")
+    return rec
+
+
 def flat2d_plain_step(sim):
     """One step of sim's flat2d runner with the plain versions."""
     from dynearthsol_tpu_torch.ops import flat2d
@@ -5087,6 +5460,11 @@ def main():
     # ---- 16. the pre-relaxations, the 3D generic step, the .poly meshes
     phase16 = prerelax_on_card(des, wrappers, zero_counts, card, check,
                                umesh, u3mesh)
+    del umesh, u3mesh
+    torch.cuda.empty_cache()
+
+    # ---- 17. the registry's models, their frames and post-processing
+    phase17 = models_on_card(des, wrappers, zero_counts, card, check, rel)
 
     src2 = "dynearthsol_tpu_torch/csrc/fused2d.cu"
     src3 = "dynearthsol_tpu_torch/csrc/fused3d.cu"
@@ -5354,6 +5732,16 @@ def main():
                        "bound_by": v["bound"][1],
                        "bound_bytes": v["bound"][2]}
                 for site, v in band_t3.items() if site.startswith(name)}})
+    # phase 17's models run on grid2d / grid3d: no hand-written kernel
+    # (each instance counted by its wrapper's count)
+    wrapper_of = {"fused2d_step": "fused2d_chunk",
+                  "fused2d_chunk_production": "fused2d_chunk",
+                  "fused3d_step_multimat": "fused3d_step",
+                  "fused3d_step_production": "fused3d_step"}
+    for k in kernels:
+        w = wrapper_of.get(k["name"], k["name"])
+        k["launches_registry_models"] = {
+            name: m["launches"][w] for name, m in phase17["models"].items()}
     print(json.dumps({"kernels": kernels,
                       "elem_steps_per_s": rate,
                       "plain_elem_steps_per_s": plain_rate,
@@ -5376,6 +5764,7 @@ def main():
                       "grids_remesh3d": phase14,
                       "driver_features": phase15,
                       "prerelax_generic3d_poly": phase16,
+                      "models_and_output": phase17,
                       "init_s_flagship3d_unstructured": u3init_s,
                       "mesh_s_flagship3d_unstructured": mesh_s[1],
                       "script_s": time.perf_counter() - t_start}))

@@ -19,7 +19,9 @@ The isostasy and body-force pre-relaxations run after the initialisation
 and before frame 0, as in the JAX package.  The run is on the card unless
 ``--device cpu`` is given; without a card it fails as ``Simulation``
 does.  Not ported yet, and refused with ``NotImplementedError`` before the
-first step: multi-device stepping (``DES_N_DEVICES``).
+first step: multi-device stepping (``DES_N_DEVICES``).  VTKHDF frames
+(``output_format = vtkhdf``) need h5py: without it the run stops with an
+ImportError that names it, before the set-up and before any file.
 """
 
 from __future__ import annotations
@@ -151,8 +153,10 @@ def run(param, device: str = "cuda", argv_echo: str = "",
         print(f"Restarted from frame {start_frame} "
               f"(step {starting_step}).")
     else:
-        sim = Simulation(p, device=sim_device)
+        # the writer first: it refuses a format it cannot write (VTKHDF
+        # without h5py) before the set-up
         out = Output(p, start_frame=0, start_time_ns=t_start)
+        sim = Simulation(p, device=sim_device)
         starting_step = 0
         starting_time = 0.0
         # optional isostasy pre-relaxation (dynearthsol.cxx:616-619)

@@ -746,6 +746,11 @@ class Simulation:
             done += c
         return self.state
 
+    def step_once(self) -> State:
+        """Advance one step through the one-step chunk runner."""
+        self.state = self._chunk_fn(1)(self.ctx, self.state)
+        return self.state
+
 
 def _isostasy_step(P, param: Param, ctx: StepCtx, s: State, bottom):
     """One step of the isostasy pre-relaxation on flat column state, from

@@ -1,4 +1,5 @@
-"""The PyTorch port imports without JAX and never names the JAX package."""
+"""The PyTorch port imports without JAX (and without h5py, which only its
+VTKHDF frames need) and never names the JAX package."""
 
 import subprocess
 import sys
@@ -11,14 +12,19 @@ PKG = ROOT / "dynearthsol_tpu_torch"
 def test_imports_with_jax_blocked():
     code = ("import sys; sys.modules['jax'] = None; "
             "sys.modules['dynearthsol_tpu'] = None; "
+            "sys.modules['h5py'] = None; "
             "import dynearthsol_tpu_torch as d; "
             "from dynearthsol_tpu_torch.ops import "
             "fused2d, fused3d, eig3, _build, band2d, flat2d, fields; "
             "from dynearthsol_tpu_torch.mesh import refine2d; "
             "from dynearthsol_tpu_torch import (compare, postproc, "
             "remeshing, runtime_info, __main__); "
-            "from dynearthsol_tpu_torch.io import output, restart, tagged; "
-            "from dynearthsol_tpu_torch.utils import glibc_rand; "
+            "from dynearthsol_tpu_torch.io import (output, restart, tagged, "
+            "vtkhdf); "
+            "from dynearthsol_tpu_torch.utils import (glibc_rand, geotherm, "
+            "gravity, terrigenous); "
+            "from dynearthsol_tpu_torch.models import REGISTRY; "
+            "assert d.Simulation.step_once; "
             "print(d.Simulation.__name__)")
     r = subprocess.run([sys.executable, "-c", code], cwd=ROOT,
                        capture_output=True, text=True, timeout=120)
