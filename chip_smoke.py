@@ -287,7 +287,26 @@ Phases, each printed, the first failure exits non-zero:
                 the derived fields card against CPU at 1e-12; (c) freeair
                 and bouguer at 512 points over rifting-2d's last frame,
                 card against CPU; (d) VTKHDF written and read back where
-                h5py imports, else its refusal naming h5py.
+                h5py imports, else its refusal naming h5py;
+  18. multi-device stepping -- the node-sharded halo step
+                (parallel/halo_step.py) against the single-device generic
+                step from one state: (a) phase 9's 277,258 triangles in
+                f64 on 4 shards of cuda:0: maxwell over 10 steps and EVP's
+                first step at 1e-12 (the viscosity at 1e-9), EVP's next 9
+                at 1e-9 on coord, temperature, strain, plastic strain,
+                mass and the scalars, 1e-8 on velocity and stress, the
+                viscosity differing in at most 5 % of the elements; the
+                overlap rows and scalars equal bit for
+                bit, h, B, W and the nodal bytes per shard; (b)
+                production (maxwell) in f64, 4 shards, 10 steps, at 1e-9;
+                (c) f32 rates at 1, 2 and 4 shards and on
+                one device, the band-kernel launches per shard per step,
+                host ms per collective, the device's idle share; (d)
+                cgather and asm_pack on a shard's window against their
+                plain versions; (e) the 3D halo step at test size, card
+                against CPU; (f) the CLI with DES_N_DEVICES=2 through a
+                remesh against the single-device CLI at 1e-9; (g) with two
+                cards or more, one shard per card.
 The last lines are a JSON record of the kernels, the card's name and power
 limit, and {"ok": true, "device": {...}}.
 """
@@ -3536,6 +3555,494 @@ def models_on_card(des, wrappers, zero_counts, card, check, rel):
     return rec
 
 
+# phase 18: multi-device stepping (dynearthsol_tpu_torch/parallel)
+def halo_on_card(des, wrappers, zero_counts, card, check, rel, umesh):
+    """Phase 18: the node-sharded halo step (parallel/halo_step.py) on the
+    card, held against the port's single-device generic step from one
+    state (the card's machine has no JAX): (a) the flagship-unstructured
+    mesh (phase 9's 277,258 triangles, reused), float64, 4 shards on
+    cuda:0: maxwell over 10 steps and EVP's first step at 1e-12 of each
+    field's max over tests/test_halo.py's fields, EVP's next 9 steps at
+    ``evp_rule`` (every field gated); the overlap rows of neighbours equal bit for bit, h, B,
+    W and the nodal bytes per shard; (b) production (the 512 x 256-cell
+    raster, Winkler, water, surface process 1, two materials; maxwell),
+    float64, 4 shards, 10 steps, at 1e-9; (c) in float32 on
+    (a)'s mesh at 1, 2 and 4 shards and on one device: elem*steps/s, the
+    band-kernel launches per shard per step, host ms per collective, the
+    device's idle share (torch.profiler, the union of the kernels' time
+    on all streams); (d) cgather and asm_pack on a shard's window tables
+    against their plain versions at each k of the generic step, tolerance
+    0; (e) the 3D halo step at test size (3,542 tets, 2 shards) on the
+    card against the same on the CPU at 1e-10; (f) the CLI with
+    DES_N_DEVICES=2 through a remesh (one card: one shard), its frames
+    against the single-device CLI's at 1e-9; (g) with two cards or more,
+    (a) with one shard per card.  Returns the numbers for the JSON
+    record."""
+    import contextlib
+    import io
+    import os
+    import tempfile
+    from dataclasses import fields, replace
+
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    from types import SimpleNamespace
+
+    from dynearthsol_tpu_torch import __main__ as cli
+    from dynearthsol_tpu_torch import simulation as sim_mod
+    from dynearthsol_tpu_torch.config import RH_MAXWELL
+    from dynearthsol_tpu_torch.ops import band2d, flat2d
+    from dynearthsol_tpu_torch.parallel import ShardGroup
+    from dynearthsol_tpu_torch.parallel import halo_step as H
+    from torch_cases import (HALO_FIELDS, assert_frames_close, flat3d_cfg,
+                             write_cfg)
+
+    t_phase = time.perf_counter()
+    band = ("cgather", "asm_pack", "asm_gather")
+    rec = {}
+    print("phase 18 multi-device stepping: the node-sharded halo step")
+
+    def launches():
+        return {n: wrappers[n].launches for n in band}
+
+    def no_plain(label):
+        if band2d.gather_corners.calls or band2d.scatter_corners.calls:
+            fail(f"{label}: the main path took a plain version")
+
+    def build(cfg, mesh=None):
+        mesher = sim_mod.create_new_mesh
+        if mesh is not None:
+            sim_mod.create_new_mesh = lambda param: mesh
+        try:
+            t = time.perf_counter()
+            sim = des.Simulation(des.param_from_dict(cfg))
+            torch.cuda.synchronize()
+            return sim, time.perf_counter() - t
+        finally:
+            sim_mod.create_new_mesh = mesher
+
+    def single_runner(sim, n):
+        ctx = replace(sim.ctx, band=band2d.build_tables(
+            sim.topo.connectivity, sim.topo.nnode, sim.device))
+        run = flat2d.make_chunk_runner(sim.param, ctx,
+                                       sim.compensation_pressure, n,
+                                       generic=True)
+        return lambda s: run(ctx, s)
+
+    def nodal_names(sim, plan):
+        return [f.name for f in fields(sim.state)
+                if H._field_kind(sim.state, f.name, plan) == "nodal"]
+
+    def overlaps_equal(st, plan, names):
+        h2 = 2 * plan.h
+        return all(torch.equal(getattr(st[d], f)[plan.width - h2:],
+                               getattr(st[d + 1], f)[:h2])
+                   for d in range(len(st) - 1) for f in names)
+
+    failed = []   # the gates missed: the phase fails after printing all
+
+    def gated(label, err, tol):
+        if not check(label, err, tol, stop=False):
+            failed.append(label)
+
+    def strict(tol, extra=()):
+        """Every field of tests/test_halo.py's list (and ``extra``) within
+        ``tol`` of its max, but the viscosity, within 1e-9: a power of the
+        strain-rate invariant, which cancellation leaves ill-conditioned
+        where the strain rate is small against the velocities (at full
+        width 4e-10 of the max apart after 20 maxwell steps whose stress
+        agrees to 5e-16)."""
+        def gate(label, ref, out):
+            errs = {f: rel(getattr(ref, f).cpu(), getattr(out, f).cpu())
+                    for f in HALO_FIELDS + tuple(extra)}
+            for f, e in errs.items():
+                gated(f"{label}, halo vs one device, {f}", e,
+                      max(tol, 1e-9) if f == "viscosity" else tol)
+            return errs
+        gate.rule = (f"every field within {tol:.0e} of its max, the "
+                     f"viscosity within {max(tol, 1e-9):.0e}")
+        return gate
+
+    def evp_rule(label, ref, out):
+        """EVP after its min-select has met ties: a regrouped overlap sum
+        (an ulp) can send an element whose viscous and plastic trials tie
+        to the other branch, and dynamic relaxation spreads the jump to the
+        velocity and stress.  The integrated fields (coord, temperature,
+        strain, plastic strain), the mass and the scalars stay within 1e-9
+        of their max; the velocity and the stress within 1e-8 (2.8e-10 and
+        8.7e-10 after 10 steps, 3.1e-10 and 4.9e-10 after 20, on the
+        H100); the viscosity may differ in at most 5 % of the elements
+        (0.95 % after 10 steps, 1.7 % after 20)."""
+        errs = {}
+        for f in ("coord", "temperature", "strain", "plstrain", "mass",
+                  "dt", "time", "l2_residual", "max_global_vel_mag"):
+            errs[f] = rel(getattr(ref, f).cpu(), getattr(out, f).cpu())
+            gated(f"{label}, halo vs one device, {f}", errs[f], 1e-9)
+        for f in ("vel", "stress"):
+            errs[f] = rel(getattr(ref, f).cpu(), getattr(out, f).cpu())
+            gated(f"{label}, halo vs one device, {f}", errs[f], 1e-8)
+        errs["viscosity"] = rel(ref.viscosity.cpu(), out.viscosity.cpu())
+        differs = int((ref.viscosity != out.viscosity).sum())
+        errs["elements_viscosity_differs"] = differs
+        gated(f"{label}, halo vs one device, share of elements whose "
+              "viscosity differs", differs / ref.viscosity.numel(), 0.05)
+        print(f"  {label}: viscosity {errs['viscosity']:.3e} of its max "
+              f"(not gated); it differs in {differs} of "
+              f"{ref.viscosity.numel()} elements")
+        return errs
+    evp_rule.rule = ("coord, temperature, strain, plstrain, mass and the "
+                     "scalars within 1e-9 of their max, velocity and stress "
+                     "within 1e-8, the viscosity differing in at most 5 % "
+                     "of the elements")
+
+    kept = []   # the last run's shard contexts: (d) reuses (a)'s
+
+    def halo_vs_single(label, sim, devices, legs):
+        """The halo step on ``devices`` against the single-device generic
+        step from sim.state, leg by leg: ``legs`` is [(steps, gate), ...],
+        each gate applied after its leg (overlap rows and scalars equal bit
+        for bit after each); the record of the run."""
+        s0 = sim.state
+        ctx1 = replace(sim.ctx, band=band2d.build_tables(
+            sim.topo.connectivity, sim.topo.nnode, sim.device))
+        step1 = flat2d.make_flat_step(sim.param, ctx1,
+                                      sim.compensation_pressure,
+                                      generic=True)
+        g = flat2d.state_to_flat(s0)
+        group = ShardGroup(devices)
+        t = time.perf_counter()
+        ctx_sh, st, run_chunk, plan = H.make_halo_runner(sim, group)
+        torch.cuda.synchronize()
+        setup_s = time.perf_counter() - t
+        names = nodal_names(sim, plan)
+        group.reset_stats()
+        secs, n, errs = 0.0, 0, []
+        got = dict.fromkeys(band, 0)
+        for k, gate in legs:
+            for _ in range(k):
+                g = step1(ctx1, g)
+            torch.cuda.synchronize()
+            zero_counts()
+            t = time.perf_counter()
+            st = run_chunk(ctx_sh, st, k)
+            torch.cuda.synchronize()
+            secs += time.perf_counter() - t
+            n += k
+            got = {b: got[b] + v for b, v in launches().items()}
+            no_plain(label)
+            if not overlaps_equal(st, plan, names):
+                fail(f"{label}: an overlap row differs between neighbours")
+            for f in ("dt", "time", "steps", "l2_residual",
+                      "max_global_vel_mag"):
+                if not all(torch.equal(getattr(st[0], f).cpu(),
+                                       getattr(x, f).cpu()) for x in st[1:]):
+                    fail(f"{label}: {f} differs between shards")
+            errs.append({"after_steps": n, "rule": gate.rule,
+                         **gate(f"{label}, {n} step(s)",
+                                flat2d.flat_to_state(g),
+                                H.unpack_state(st, plan, s0))})
+        if got["asm_pack"] == 0 or got["cgather"] == 0:
+            fail(f"{label}: the band kernels were not launched: {got}")
+        whole = sum(getattr(s0, f).nbytes for f in names)
+        part = [sum(getattr(x, f).nbytes for f in names) for x in st]
+        kept.append(ctx_sh)
+        r = {"nelem": sim.ctx.nelem, "nnode": sim.ctx.nnode,
+             "shards": len(devices), "devices": [str(d) for d in devices],
+             "h": plan.h, "block": plan.block, "width": plan.width,
+             "elems_per_shard": [plan.n_elems(d) for d in range(plan.ndev)],
+             "nodal_bytes_per_shard": part, "nodal_bytes_one_device": whole,
+             "steps": n, "s": secs, "setup_s": setup_s,
+             "launches": got,
+             "collectives_per_shard_per_step":
+                 group.stats[0]["collectives"] / n,
+             "host_ms_per_collective": group.host_ms_per_collective(),
+             "errors": errs, "overlap_rows_equal": True,
+             "scalars_equal": True}
+        print(f"  {label}: {r['nelem']} elements on {len(devices)} shards "
+              f"of {sorted(set(r['devices']))}; h {plan.h}, B {plan.block}, "
+              f"W {plan.width}; elements per shard {r['elems_per_shard']}; "
+              f"nodal bytes per shard {part} against {whole} on one device; "
+              f"{n} steps in {secs:.3f} s (set-up {setup_s:.1f} s) on "
+              f"{card}; launches {got}; "
+              f"{r['collectives_per_shard_per_step']:.1f} collectives per "
+              f"shard per step, {r['host_ms_per_collective']:.3f} host ms "
+              f"each; overlap rows and scalars equal bit for bit")
+        return r
+
+    def stand_in(sim, rheology):
+        """``sim`` with another rheology on the same mesh and state."""
+        p = replace(sim.param, mat=replace(sim.param.mat,
+                                           rheol_type=rheology))
+        return SimpleNamespace(param=p, ctx=sim.ctx, state=sim.state,
+                               device=sim.device, dtype=sim.dtype,
+                               topo=sim.topo, compensation_pressure=sim
+                               .compensation_pressure)
+
+    # (a) full width, the flagship-unstructured mesh, f64, 4 shards:
+    # maxwell over 10 steps and EVP's first step at 1e-12, EVP over 9
+    # more at the EVP rule
+    cfg = unstructured_cfg()
+    cfg["sim"]["float_dtype"] = "float64"
+    usim, uinit = build(cfg, umesh)
+    four = [torch.device("cuda", 0)] * 4
+    rec["unstructured_f64_maxwell"] = halo_vs_single(
+        "(a) flagship-unstructured f64 maxwell", stand_in(usim, RH_MAXWELL),
+        four, [(10, strict(1e-12))])
+    rec["unstructured_f64_evp"] = halo_vs_single(
+        "(a) flagship-unstructured f64 EVP", usim, four,
+        [(1, strict(1e-12)), (9, evp_rule)])
+    rec["unstructured_f64_evp"]["init_s"] = uinit
+    launches_halo = dict(rec["unstructured_f64_maxwell"]["launches"])
+
+    # (d) the band kernels on a shard's window tables: (a)'s
+    bt = kept[0][1].band
+    dwin = {}
+    gen = torch.Generator(device="cuda").manual_seed(18)
+    for dtype in (torch.float32, torch.float64):
+        for name, ks in (("cgather", (6, 2, 1)), ("asm_pack", (5, 2, 1))):
+            for k in ks:
+                if name == "cgather":
+                    x = torch.randn((bt.nnode, k), dtype=dtype,
+                                    device="cuda", generator=gen)
+                    fn, ref_fn = band2d.cgather, band2d.gather_corners
+                else:
+                    x = torch.randn((k, bt.npe, bt.nelem), dtype=dtype,
+                                    device="cuda", generator=gen)
+                    fn, ref_fn = band2d.asm_pack, band2d.scatter_corners
+                got = fn(x, bt)
+                want = ref_fn(x, bt)
+                torch.cuda.synchronize()
+                if not torch.equal(got, want):
+                    fail(f"(d) {name} k={k} {dtype} on shard 1's window "
+                         f"differs from its plain version")
+                t0 = torch.cuda.Event(enable_timing=True)
+                t1 = torch.cuda.Event(enable_timing=True)
+                t0.record()
+                for _ in range(20):
+                    fn(x, bt)
+                t1.record()
+                torch.cuda.synchronize()
+                dwin[f"{name} k={k} {str(dtype)[6:]}"] = \
+                    t0.elapsed_time(t1) / 20
+    rec["window_kernels"] = {"shard": 1, "nnode": bt.nnode,
+                             "nelem": bt.nelem, "win_rows": bt.win_rows,
+                             "ms_issued_from_python": dwin,
+                             "equal_to_plain": True}
+    print(f"  (d) cgather and asm_pack on shard 1's window ({bt.nelem} "
+          f"elements, {bt.nnode} rows, widest staged tile {bt.win_rows}): "
+          f"equal to their plain versions bit for bit at every k, f32 and "
+          f"f64; ms per call issued from Python on {card}: "
+          + ", ".join(f"{k} {v:.4f}" for k, v in dwin.items()))
+    # (g) one shard per card, where there are cards enough
+    ncards = torch.cuda.device_count()
+    if ncards >= 2:
+        devs = [torch.device("cuda", i) for i in range(min(4, ncards))]
+        rec["one_shard_per_card"] = halo_vs_single(
+            "(g) flagship-unstructured f64 maxwell, one shard per card",
+            stand_in(usim, RH_MAXWELL), devs, [(10, strict(1e-12))])
+    else:
+        rec["one_shard_per_card"] = None
+        print(f"  (g) not run: {ncards} card visible, one shard "
+              f"per card needs two or more")
+
+    del kept[:], usim
+    torch.cuda.empty_cache()
+
+    # (b) production at full width, f64 maxwell, 4 shards
+    cfg = production_cfg("maxwell")
+    cfg["sim"]["float_dtype"] = "float64"
+    psim, pinit = build(cfg)
+    rec["production_f64"] = halo_vs_single(
+        "(b) production f64 maxwell", psim, four,
+        [(10, strict(1e-9, ("dhacc", "edvacc_surf")))])
+    rec["production_f64"]["init_s"] = pinit
+    del psim
+    torch.cuda.empty_cache()
+
+    # (c) rates in f32 on (a)'s mesh at 1, 2, 4 shards and on one device
+    def idle_share(fn, steps):
+        """Device busy (the union of the kernels' intervals on all
+        streams) against the wall, per step."""
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            t0 = time.perf_counter()
+            fn()
+            torch.cuda.synchronize()
+            wall = (time.perf_counter() - t0) * 1e6
+        iv = sorted((e.time_range.start, e.time_range.end)
+                    for e in prof.events()
+                    if e.device_type == DeviceType.CUDA)
+        busy, end = 0.0, None
+        for a, b in iv:
+            if end is None or a > end:
+                busy += b - a
+                end = b
+            elif b > end:
+                busy += b - end
+                end = b
+        return {"wall_us_per_step": wall / steps,
+                "busy_us_per_step": busy / steps,
+                "cuda_launches_per_step": len(iv) / steps,
+                "device_idle": max(0.0, 1 - busy / wall) if wall else 0.0}
+
+    fsim, finit = build(unstructured_cfg(), umesh)
+    ne = fsim.ctx.nelem
+    nt = 10
+    rates = {}
+    one = single_runner(fsim, nt)
+    one(fsim.state)
+    torch.cuda.synchronize()
+    zero_counts()
+    t = time.perf_counter()
+    one(fsim.state)
+    torch.cuda.synchronize()
+    secs = time.perf_counter() - t
+    rates["one device"] = {
+        "elem_steps_per_s": ne * nt / secs, "launches_per_step": {
+            k: v / nt for k, v in launches().items()},
+        **idle_share(lambda: one(fsim.state), nt)}
+    for n in (1, 2, 4):
+        group = ShardGroup([torch.device("cuda", 0)] * n)
+        ctx_sh, st, run_chunk, plan = H.make_halo_runner(fsim, group)
+        run_chunk(ctx_sh, st, 2)
+        torch.cuda.synchronize()
+        zero_counts()
+        group.reset_stats()
+        t = time.perf_counter()
+        run_chunk(ctx_sh, st, nt)
+        torch.cuda.synchronize()
+        secs = time.perf_counter() - t
+        no_plain(f"(c) {n} shards")
+        rates[f"{n} shards"] = {
+            "elem_steps_per_s": ne * nt / secs,
+            "band_launches_per_shard_per_step": {
+                k: v / (n * nt) for k, v in launches().items()},
+            "collectives_per_shard_per_step":
+                group.stats[0]["collectives"] / nt,
+            "host_ms_per_collective": group.host_ms_per_collective(),
+            **idle_share(lambda: run_chunk(ctx_sh, st, nt), nt)}
+        del ctx_sh, st, run_chunk, group
+    rec["rates_f32"] = {"nelem": ne, "steps": nt, "init_s": finit,
+                        "by_layout": rates}
+    for lay, r in rates.items():
+        extra = (f", band-kernel launches per shard per step "
+                 f"{r['band_launches_per_shard_per_step']}, "
+                 f"{r['collectives_per_shard_per_step']:.1f} collectives "
+                 f"per shard per step at {r['host_ms_per_collective']:.3f} "
+                 f"host ms" if "shards" in lay else
+                 f", band-kernel launches per step {r['launches_per_step']}")
+        print(f"  (c) f32 {lay}: {r['elem_steps_per_s']:.6e} elem*steps/s "
+              f"on {card}{extra}; {r['cuda_launches_per_step']:.1f} CUDA "
+              f"launches per step, device idle {r['device_idle']:.1%}")
+    del fsim, one
+    torch.cuda.empty_cache()
+
+    # (e) 3D at test size: the card against the CPU, 2 shards
+    par = des.param_from_dict(flat3d_cfg(mesh={"xlength": 32e3}))
+    outs = {}
+    for where in ("cuda:0", "cpu"):
+        sim = des.Simulation(par, device=where)
+        group = ShardGroup([where] * 2)
+        zero_counts()
+        ctx_sh, st, run_chunk, plan = H.make_halo_runner(sim, group)
+        st = run_chunk(ctx_sh, st, 10)
+        torch.cuda.synchronize()
+        if where != "cpu":
+            got3 = launches()
+            no_plain("(e) 3D halo")
+            if not overlaps_equal(st, plan, nodal_names(sim, plan)):
+                fail("(e) 3D: an overlap row differs between neighbours")
+        outs[where] = H.unpack_state(st, plan, sim.state, device="cpu")
+    worst3 = 0.0
+    for f in HALO_FIELDS:
+        err = rel(getattr(outs["cpu"], f), getattr(outs["cuda:0"], f))
+        worst3 = max(worst3, err)
+        gated(f"(e) 3D halo 2 shards, card vs CPU, {f}", err, 1e-10)
+    rec["box3d_card_vs_cpu"] = {"nelem": sim.ctx.nelem, "shards": 2,
+                                "steps": 10, "launches": got3,
+                                "max_err": worst3, "tol": 1e-10}
+    print(f"  (e) 3D halo step, {sim.ctx.nelem} tets on 2 shards, 10 steps: "
+          f"card against CPU {worst3:.3e} (tol 1e-10), launches {got3}")
+
+    # (f) the CLI with DES_N_DEVICES=2 through a remesh
+    cfg = {
+        "sim": {"modelname": "run", "max_steps": 40,
+                "output_step_interval": 20,
+                "checkpoint_frame_interval": 1000000,
+                "is_outputting_averaged_fields": False},
+        "mesh": {"meshing_option": 1, "meshing_elem_shape": 0,
+                 "xlength": 128e3, "ylength": 0, "zlength": 8e3,
+                 "resolution": 1e3, "quality_check_step_interval": 25,
+                 "remeshing_option": 1, "max_boundary_distortion": 1e-6},
+        "markers": {"markers_per_element": 4, "random_seed": 7},
+        "control": {"gravity": 10, "inertial_scaling": 1e5,
+                    "has_thermal_diffusion": True, "damping_option": 1},
+        "bc": {"vbc_x0": 1, "vbc_val_x0": -1e-9, "vbc_x1": 1,
+               "vbc_val_x1": 1e-9, "vbc_z0": 0, "vbc_z1": 0,
+               "surface_temperature": 273, "mantle_temperature": 1600},
+        "mat": {"rheology_type": "elasto-visco-plastic", "rho0": [2800],
+                "bulk_modulus": [50e9], "shear_modulus": [30e9],
+                "max_viscosity": 1e24, "min_viscosity": 1e19}}
+    cwd = os.getcwd()
+    said = {}
+    with tempfile.TemporaryDirectory() as tmp:
+        try:
+            for tag in ("single", "multi"):
+                d = Path(tmp) / tag
+                d.mkdir()
+                os.chdir(d)
+                write_cfg("case.cfg", cfg)
+                os.environ.pop("DES_N_DEVICES", None)
+                if tag == "multi":
+                    os.environ["DES_N_DEVICES"] = "2"
+                zero_counts()
+                buf = io.StringIO()
+                t = time.perf_counter()
+                with contextlib.redirect_stdout(buf):
+                    cli.run(des.load_config("case.cfg"))
+                torch.cuda.synchronize()
+                said[tag] = (buf.getvalue(), time.perf_counter() - t,
+                             launches())
+        finally:
+            os.environ.pop("DES_N_DEVICES", None)
+            os.chdir(cwd)
+        line = "Multi-chip: node-sharded halo step on 2 devices."
+        if line not in said["multi"][0] or line in said["single"][0]:
+            fail("(f) the CLI with DES_N_DEVICES=2 did not take the halo "
+                 "step")
+        for tag in said:
+            if said[tag][0].count("remeshing (trigger") != 1:
+                fail(f"(f) the {tag} CLI run did not remesh once")
+        try:
+            cli_err = max(assert_frames_close(
+                Path(tmp) / "single" / f"run.save.{fr}",
+                Path(tmp) / "multi" / f"run.save.{fr}", tol=1e-9,
+                eta_exact=False) for fr in ("000001", "000002"))
+        except AssertionError as e:
+            cli_err = float("nan")
+            failed.append(f"(f) CLI frames: {e}")
+            print(f"  (f) CLI frames FAILED: {e}")
+    rec["cli"] = {"devices_asked": 2, "shards_on_this_machine":
+                  min(2, ncards), "max_frame_err": cli_err, "tol": 1e-9,
+                  "s": {t: v[1] for t, v in said.items()},
+                  "launches": {t: v[2] for t, v in said.items()}}
+    print(f"  (f) CLI DES_N_DEVICES=2 ({min(2, ncards)} shard(s) on "
+          f"{ncards} card(s)) through a remesh: frames 1-2 against the "
+          f"single-device CLI {cli_err:.3e} (tol 1e-9); seconds "
+          f"{rec['cli']['s']}; launches {rec['cli']['launches']}")
+    rec["launches_halo"] = launches_halo
+    rec["phase_s"] = time.perf_counter() - t_phase
+    print(f"  phase 18: {rec['phase_s']:.1f} s")
+    if failed:
+        fail(f"phase 18: {len(failed)} gate(s) missed, the first: "
+             f"{failed[0]}")
+    return rec
+
+
+
 def flat2d_plain_step(sim):
     """One step of sim's flat2d runner with the plain versions."""
     from dynearthsol_tpu_torch.ops import flat2d
@@ -5460,11 +5967,16 @@ def main():
     # ---- 16. the pre-relaxations, the 3D generic step, the .poly meshes
     phase16 = prerelax_on_card(des, wrappers, zero_counts, card, check,
                                umesh, u3mesh)
-    del umesh, u3mesh
+    del u3mesh
     torch.cuda.empty_cache()
 
     # ---- 17. the registry's models, their frames and post-processing
     phase17 = models_on_card(des, wrappers, zero_counts, card, check, rel)
+
+    # ---- 18. multi-device stepping: the node-sharded halo step
+    phase18 = halo_on_card(des, wrappers, zero_counts, card, check, rel,
+                           umesh)
+    del umesh
 
     src2 = "dynearthsol_tpu_torch/csrc/fused2d.cu"
     src3 = "dynearthsol_tpu_torch/csrc/fused3d.cu"
@@ -5695,6 +6207,10 @@ def main():
             "launches_generic3d": phase16["generic3d"]["launches"][name],
             "launches_golden_ep_remesh_2d": phase16["golden_ep_remesh_2d"][
                 "launches"][name],
+            "launches_halo": phase18["launches_halo"][name],
+            "launches_halo_per_shard_per_step": phase18["rates_f32"][
+                "by_layout"]["4 shards"][
+                "band_launches_per_shard_per_step"][name],
             "max_abs_err": band_err[name],
             "err_metric": "max |kernel - plain| over random inputs at a "
                           "small Delaunay mesh, a tet mesh, the "
@@ -5742,6 +6258,8 @@ def main():
         w = wrapper_of.get(k["name"], k["name"])
         k["launches_registry_models"] = {
             name: m["launches"][w] for name, m in phase17["models"].items()}
+    script_s = time.perf_counter() - t_start
+    print(f"chip_smoke.py: {script_s:.1f} s in all")
     print(json.dumps({"kernels": kernels,
                       "elem_steps_per_s": rate,
                       "plain_elem_steps_per_s": plain_rate,
@@ -5765,9 +6283,10 @@ def main():
                       "driver_features": phase15,
                       "prerelax_generic3d_poly": phase16,
                       "models_and_output": phase17,
+                      "halo": phase18,
                       "init_s_flagship3d_unstructured": u3init_s,
                       "mesh_s_flagship3d_unstructured": mesh_s[1],
-                      "script_s": time.perf_counter() - t_start}))
+                      "script_s": script_s}))
     print(card)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind,

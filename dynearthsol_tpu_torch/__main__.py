@@ -14,14 +14,17 @@ ms per wake of the host features).  Steps run in chunks through
 ``Simulation.run_steps``; the host wakes only at scheduling boundaries.
 ``DES_PROFILE_DIR`` writes a ``torch.profiler`` Chrome trace of the whole
 run (CUDA activity included on the card) into that directory.
+``DES_N_DEVICES=N`` (or ``all``) steps through the node-sharded halo step
+(parallel/halo_step.py) on the first N cards, or on N shards of the CPU
+with ``--device cpu``; the host events see the flat state, gathered
+after each chunk, and a remesh re-plans the shards.
 
 The isostasy and body-force pre-relaxations run after the initialisation
 and before frame 0, as in the JAX package.  The run is on the card unless
 ``--device cpu`` is given; without a card it fails as ``Simulation``
-does.  Not ported yet, and refused with ``NotImplementedError`` before the
-first step: multi-device stepping (``DES_N_DEVICES``).  VTKHDF frames
-(``output_format = vtkhdf``) need h5py: without it the run stops with an
-ImportError that names it, before the set-up and before any file.
+does.  VTKHDF frames (``output_format = vtkhdf``) need h5py: without it
+the run stops with an ImportError that names it, before the set-up and
+before any file.
 """
 
 from __future__ import annotations
@@ -47,17 +50,94 @@ from .simulation import Simulation
 
 INT_MAX = 2**31 - 1
 
-REFUSED = "multi-device stepping (DES_N_DEVICES)"
-
 
 def unported_driver_features(p) -> list:
-    """What this config or environment needs of the JAX package's driver
-    that this one lacks."""
-    out = []
+    """What this config or environment needs of the JAX package's CLI
+    that this one lacks: nothing since multi-device stepping is ported
+    (``run`` still checks the list before the set-up)."""
+    return []
+
+
+class HaloStepper:
+    """Multi-device stepping for the CLI driver (JAX __main__.HaloStepper).
+
+    Wraps parallel.halo_step: nodal state lives sharded ~1/N (+ halo
+    windows) over a group of devices (parallel/group.py), one thread per
+    shard.  The CLI's host events (output, checkpoints, quality checks,
+    remeshing, marker bookkeeping) need the flat state, so ``run_steps``
+    gathers it into ``sim.state`` after each call; where a host event has
+    replaced ``sim.state`` since, the next call shards it anew.  After a
+    remesh the shapes change: ``rebuild()`` re-plans the partition and
+    re-shards the fresh state."""
+
+    def __init__(self, sim, group):
+        self.sim = sim
+        self.group = group
+        self._build()
+
+    def _build(self):
+        from .parallel.halo_step import make_halo_runner
+
+        (self._ctx_sh, self._state_sh, self._run_chunk,
+         self._plan) = make_halo_runner(self.sim, self.group)
+        self._synced = self.sim.state
+        self.sim.step_path = "halo"
+
+    def run_steps(self, n: int, chunk: int | None = None):
+        from .parallel.halo_step import build_halo_state, shard_state
+
+        if self.sim.state is not self._synced:
+            s2 = build_halo_state(self.sim, self._plan)
+            self._state_sh = self.group.run(lambda d: shard_state(
+                s2, self._plan, d, self.group.devices[d], self.sim.state))
+        chunk = chunk or min(n, self.sim.param.sim.scan_chunk_steps
+                             or 100)
+        done = 0
+        while done < n:
+            c = min(chunk, n - done)
+            self._state_sh = self._run_chunk(self._ctx_sh, self._state_sh,
+                                             c)
+            done += c
+        self.sync()
+
+    def sync(self):
+        """Gather the sharded state into sim.state."""
+        from .parallel.halo_step import unpack_state
+
+        self.sim.state = unpack_state(self._state_sh, self._plan,
+                                      self.sim.state)
+        self._synced = self.sim.state
+
+    def rebuild(self):
+        """Re-plan and re-shard after a topology change (remesh)."""
+        self._build()
+
+
+def _make_stepper(sim):
+    """The CLI's multi-device opt-in (JAX __main__._make_stepper):
+    DES_N_DEVICES=N (or 'all') selects the node-sharded halo step on the
+    first N cards, as the JAX package takes its first N devices (so one
+    card gives one shard), or with the run on the CPU on N shards of it.
+    A config the halo step refuses runs on one device, with a warning."""
+    from .parallel import make_device_mesh
+
     nd = os.environ.get("DES_N_DEVICES")
-    if nd and (nd == "all" or int(nd) > 1):
-        out.append("multi-device halo stepping (DES_N_DEVICES)")
-    return out
+    if not nd:
+        return None
+    if nd == "all":
+        n = torch.cuda.device_count() if sim.device.type == "cuda" else 1
+    else:
+        n = int(nd)
+    if n <= 1:
+        return None
+    try:
+        stepper = HaloStepper(sim, make_device_mesh(n, sim.device.type))
+    except (NotImplementedError, ValueError) as e:
+        print(f"Warning: multi-chip halo step unavailable ({e}); "
+              "running single-device.")
+        return None
+    print(f"Multi-chip: node-sharded halo step on {n} devices.")
+    return stepper
 
 
 def _next_event_step(sim, next_regular_frame, starting_step, mon=None):
@@ -187,6 +267,7 @@ def run(param, device: str = "cuda", argv_echo: str = "",
     print(report_mesh_info(sim))
 
     mon = Monitor(p, sim)
+    stepper = _make_stepper(sim)
     mon.write_if_due(sim)  # row at the starting step (monitor_initialize)
     eq = EarthquakeState.init(p)
     if p.control.surface_process_option == 11 \
@@ -215,7 +296,10 @@ def run(param, device: str = "cuda", argv_echo: str = "",
                                   mon)
         n = target - int(sim.state.steps)
         t0 = _time.monotonic_ns()
-        sim.run_steps(n)
+        if stepper is not None:
+            stepper.run_steps(n)
+        else:
+            sim.run_steps(n)
         if on_card:
             torch.cuda.synchronize()
         chunk_ns = _time.monotonic_ns() - t0
@@ -344,6 +428,10 @@ def run(param, device: str = "cuda", argv_echo: str = "",
                     out.write_exact(sim)
                 mon.before_remesh(sim)
                 remesh(sim, bad)
+                if stepper is not None:
+                    # the partition plan and the shard windows follow the
+                    # new topology (gather -> remesh -> re-shard)
+                    stepper.rebuild()
                 mon.rebind(sim)
                 if getattr(sim, "gospl", None) is not None:
                     sim.gospl.on_remesh()  # dynearthsol.cxx:632-709
@@ -424,8 +512,8 @@ def main(argv=None):
     ap = argparse.ArgumentParser(
         prog="python -m dynearthsol_tpu_torch",
         description="Run a DynEarthSol model (.cfg) with the PyTorch port.",
-        epilog=f"Not ported yet, and refused before the first step: "
-               f"{REFUSED}.")
+        epilog="DES_N_DEVICES=N runs the node-sharded halo step on the "
+               "first N cards (N shards of the CPU with --device cpu).")
     ap.add_argument("--device", choices=("cuda", "cpu"), default="cuda",
                     help="the card (default) or the CPU's plain versions")
     ap.add_argument("config", help="model configuration file")

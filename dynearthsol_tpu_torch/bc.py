@@ -190,6 +190,10 @@ class VBCSpec:
     bottom_shear_zone_thickness: float
     vbc_val_z1_loading_period: float
     incl: Optional[InclinedVBC] = None  # where BOUNDN boundaries exist
+    # the shard's parallel.group.ShardAxis when the node masks are windows
+    # of the node-sharded step (parallel/halo_step.py): the boundary
+    # extents are then taken over the group
+    axis: object = None
 
     @staticmethod
     def from_param(param, bcflag: np.ndarray, device="cpu", topo=None,
@@ -283,10 +287,12 @@ def _interp1(xp, fp, q):
     return fp[0] + (slope * seg).sum(dim=-1)
 
 
-def _masked_minmax(values, mask):
+def _masked_minmax(values, mask, axis=None):
     big = torch.finfo(values.dtype).max
     vmax = torch.where(mask, values, torch.full_like(values, -big)).max()
     vmin = torch.where(mask, values, torch.full_like(values, big)).min()
+    if axis is not None:
+        vmin, vmax = axis.pminmax(vmin, vmax)
     return vmin, vmax
 
 
@@ -320,7 +326,7 @@ def apply_vbcs(spec: VBCSpec, vel, coord, time):
     z = coord[:, 1]
     x = coord[:, 0]
     # vertical profile divisions from current boundary extent (bc.cxx:229-278)
-    bx0min, bx0max = _masked_minmax(z, spec.x0)
+    bx0min, bx0max = _masked_minmax(z, spec.x0, spec.axis)
     w0 = (bx0max - bx0min).double()
     # NOTE: the reference computes BOTH faces' divisions from the X0 extent
     # (bc.cxx:275-277); replicated faithfully.
@@ -344,6 +350,8 @@ def apply_vbcs(spec: VBCSpec, vel, coord, time):
         v0 = exact_x0
         if spec.bottom_shear_zone_thickness > 0:
             zmin = torch.clamp(z.min(), max=0.0)
+            if spec.axis is not None:
+                zmin = spec.axis.pmin(zmin)
             dz = z - zmin
             scale = torch.clamp(dz / spec.bottom_shear_zone_thickness,
                                 0.0, 1.0)
@@ -532,6 +540,10 @@ class StressBCSpec:
     z0_mask: np.ndarray       # (nnode,) bool, elastic-foundation nodes
     grav_add: OrderedAdd      # over facet_nodes.reshape(-1)
     neu_add: OrderedAdd       # over neu_facet_nodes.reshape(-1)
+    # 1/0 real-row indicators of a shard's padded facet tables (the
+    # node-sharded step, parallel/halo_step.py); None on one device
+    grav_mask: Optional[np.ndarray] = None   # (n_grav,)
+    neu_mask: Optional[np.ndarray] = None    # (n_neu,)
 
     @staticmethod
     def from_topo(param, topo) -> "StressBCSpec":
@@ -605,8 +617,12 @@ class StressBCSpec:
         def t(a):
             return torch.as_tensor(a, device=device)
 
+        def m(a):
+            return None if a is None else t(a)
+
         return replace(
-            self, facet_nodes=t(self.facet_nodes).long(),
+            self, grav_mask=m(self.grav_mask), neu_mask=m(self.neu_mask),
+            facet_nodes=t(self.facet_nodes).long(),
             facet_elem=t(self.facet_elem).long(), kind=t(self.kind),
             neu_facet_nodes=t(self.neu_facet_nodes).long(),
             neu_dir=t(self.neu_dir).long(), neu_val=t(self.neu_val),
@@ -633,13 +649,21 @@ def _facet_normal(fc):
 
 
 def apply_stress_bcs(param, spec: StressBCSpec, coord, force, rho_eff,
-                     compensation_pressure: float, coord0):
+                     compensation_pressure: float, coord0,
+                     halo_exchange=None):
     """Gravity-induced boundary tractions of a 2D or 3D mesh: Winkler
     foundation, water loading, lithostatic sidewalls, elastic foundation
     (bc.cxx:632-790).  ``spec`` is the tensor form (``spec.on(device)``);
     each facet's corner contributions, its traction over its ndims nodes,
     are added onto the force in the JAX package's order, with no atomics
-    (``OrderedAdd``)."""
+    (``OrderedAdd``).
+
+    Under the node-sharded step (``halo_exchange`` set) the facet table is
+    the shard's, its padded rows zeroed by ``spec.grav_mask``: the
+    contributions are summed into a zero buffer whose overlap rows are
+    exchanged before it is added, so that an overlap row gets both
+    shards' facets and keeps the same bits on both.  The elastic
+    foundation is nodal and adds directly."""
     ctrl = param.control
     if ctrl.gravity == 0:
         return force
@@ -667,8 +691,15 @@ def apply_stress_bcs(param, spec: StressBCSpec, coord, force, rho_eff,
                         torch.where(spec.kind == 1, p_water, p_side))
         contrib = _div(-(p[:, None, None] * normal[:, None, :]),
                        float(ndims))
-        force = spec.grav_add.apply(
-            force, contrib.expand(-1, ndims, -1).reshape(-1, ndims))
+        if spec.grav_mask is not None:
+            contrib = contrib * spec.grav_mask.to(contrib.dtype)[:, None,
+                                                                 None]
+        vals = contrib.expand(-1, ndims, -1).reshape(-1, ndims)
+        if halo_exchange is None:
+            force = spec.grav_add.apply(force, vals)
+        else:
+            force = force + halo_exchange(
+                spec.grav_add.apply(torch.zeros_like(force), vals))
 
     if param.bc.has_elastic_foundation:
         dz = coord[:, -1] - coord0[:, -1]
@@ -680,12 +711,14 @@ def apply_stress_bcs(param, spec: StressBCSpec, coord, force, rho_eff,
     return force
 
 
-def apply_stress_bcs_neumann(spec: StressBCSpec, coord, force):
+def apply_stress_bcs_neumann(spec: StressBCSpec, coord, force,
+                             halo_exchange=None):
     """General traction (Neumann) BCs of a 2D or 3D mesh (bc.cxx:792-875):
     each facet adds value * normal[dir] / ndims to component ``dir`` of
     its ndims nodes, in the JAX package's order.  The traction is formed
     in float64 (the table's type) and rounded once to the force's type, as
-    the JAX package's scatter rounds it."""
+    the JAX package's scatter rounds it.  ``halo_exchange``: as in
+    apply_stress_bcs, with ``spec.neu_mask``."""
     if spec.n_neu == 0:
         return force
     ndims = coord.shape[1]
@@ -695,4 +728,10 @@ def apply_stress_bcs_neumann(spec: StressBCSpec, coord, force):
     onehot = (spec.neu_dir[:, None]
               == torch.arange(ndims, device=nd.device)).to(force.dtype)
     contrib = (add[:, None] * onehot)[:, None, :].expand(-1, ndims, -1)
-    return spec.neu_add.apply(force, contrib.reshape(-1, ndims))
+    if spec.neu_mask is not None:
+        contrib = contrib * spec.neu_mask.to(force.dtype)[:, None, None]
+    vals = contrib.reshape(-1, ndims)
+    if halo_exchange is None:
+        return spec.neu_add.apply(force, vals)
+    return force + halo_exchange(
+        spec.neu_add.apply(torch.zeros_like(force), vals))

@@ -19,6 +19,7 @@ import re
 import shutil
 import subprocess
 import tempfile
+import threading
 from pathlib import Path
 
 CSRC = Path(__file__).resolve().parent.parent / "csrc"
@@ -32,6 +33,7 @@ NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-fmad=false", "-Xcompiler", "-fPIC"]
 
 _LIB = None
+_LOAD = threading.Lock()   # shards (parallel/group.py) load from threads
 _P = ctypes.c_void_p
 _I = ctypes.c_int
 
@@ -141,6 +143,13 @@ def ptxas_report() -> dict:
 
 def load():
     """Build if needed, load once, and declare the C entry points."""
+    if _LIB is None:
+        with _LOAD:
+            _load()
+    return _LIB
+
+
+def _load():
     global _LIB
     if _LIB is None:
         lib = ctypes.CDLL(str(build()))
@@ -174,7 +183,6 @@ def load():
         lib.des_error_string.argtypes = [_I]
         lib.des_error_string.restype = ctypes.c_char_p
         _LIB = lib
-    return _LIB
 
 
 def err(code: int) -> str:

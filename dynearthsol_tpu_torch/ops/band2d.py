@@ -42,6 +42,7 @@ far end) reads the nodal pack directly.
 from __future__ import annotations
 
 import ctypes
+import threading
 from dataclasses import dataclass
 
 import numpy as np
@@ -209,6 +210,14 @@ def scatter_gather_corners(cols, bt: GatherTables, kg: int):
 # ------------------------------------------------------ kernel wrappers
 
 _CTYPE = {torch.float32: 0, torch.float64: 1}
+# the shards of parallel/group.py launch from threads of their own: a
+# count is added under this lock, so that none is lost
+_COUNT = threading.Lock()
+
+
+def _count(wrapper):
+    with _COUNT:
+        wrapper.launches += 1
 
 
 def _stream():
@@ -261,7 +270,7 @@ def cgather(pack, bt: GatherTables):
         if rc != 0:
             raise RuntimeError(f"gather_corners launch failed: "
                                f"{_build.err(rc)}")
-        cgather.launches += 1
+        _count(cgather)
         return out
     if pack.device.type != "cpu":
         raise TypeError(f"no corner gather for device {pack.device}")
@@ -290,7 +299,7 @@ def asm_pack(cols, bt: GatherTables):
         if rc != 0:
             raise RuntimeError(f"scatter_corners launch failed: "
                                f"{_build.err(rc)}")
-        asm_pack.launches += 1
+        _count(asm_pack)
         return out
     if cols.device.type != "cpu":
         raise TypeError(f"no assembly for device {cols.device}")
@@ -324,7 +333,7 @@ def asm_gather(cols, bt: GatherTables, kg: int):
         if rc != 0:
             raise RuntimeError(f"scatter_gather_corners launch failed: "
                                f"{_build.err(rc)}")
-        asm_gather.launches += 1
+        _count(asm_gather)
         return sums, gath
     if cols.device.type != "cpu":
         raise TypeError(f"no assembly for device {cols.device}")

@@ -52,23 +52,35 @@ def update_coordinate(coord, vel, dt):
     return coord + vel * dt
 
 
-def residual_l2(force_residual):
+def residual_l2(force_residual, own_mask=None, axis=None):
     """RMS of the nodal residual force (fields.cxx:705-727), a 0-d tensor
-    on the force's device."""
-    ss = torch.sum(force_residual * force_residual)
-    num = torch.full_like(ss, float(force_residual.numel()))
+    on the force's device.  A shard of the node-sharded step sums its
+    owned rows only (``own_mask``; the overlap rows are on both
+    neighbours), and the sum and the count are added over the group
+    (``axis``) in one psum, as the JAX package's residual_l2."""
+    if own_mask is None:
+        ss = torch.sum(force_residual * force_residual)
+        num = torch.full_like(ss, float(force_residual.numel()))
+    else:
+        m = own_mask.reshape((-1,) + (1,) * (force_residual.dim() - 1))
+        ss = torch.sum(force_residual * force_residual * m)
+        num = torch.sum(own_mask) * float(force_residual.numel()
+                                          // force_residual.shape[0])
+    if axis is not None:
+        ss, num = axis.psum(torch.stack([ss, num.to(ss.dtype)]))
     return torch.sqrt(ss / num)
 
 
 def update_pore_pressure(ppressure, dppressure, coord, conn, dnd, volume,
                          stress, old_mean_stress, hmass, dt, gravity,
                          perm_e, mu_e, alpha_b, phi_e, beta_f, bulkm,
-                         shearm, pp_bc_mask, asm):
+                         shearm, pp_bc_mask, asm, axis=None):
     """Explicit Darcy pore-pressure diffusion with the poroelastic source
     (fields.cxx:297-406).  Hydraulic head = p / gamma_w + z; the Biot
     source comes from the mean-stress change over the step.  ``dnd`` is
     (nelem, npe, ndims), ``stress`` (nelem, nstr), ``asm`` maps
-    (nelem, npe) corner contributions to (nnode,) sums.
+    (nelem, npe) corner contributions to (nnode,) sums.  Under a group of
+    shards (``axis``) the diffusivity maximum is taken over the group.
 
     Returns (ppressure, dppressure, hydro_diff_max)."""
     ndims = coord.shape[1]
@@ -95,6 +107,8 @@ def update_pore_pressure(ppressure, dppressure, coord, conn, dnd, volume,
     diff_e = hydraulic_conductivity / (phi_e * beta_f
                                        + alpha_b * matrix_comp) / gamma_w
     hydro_diff_max = torch.clamp(diff_e.max(), min=1e-38)
+    if axis is not None:
+        hydro_diff_max = axis.pmax(hydro_diff_max)
 
     # poroelastic volume source (fields.cxx:342)
     pe = alpha_b * mean_change * bulk_comp * volume / c(npe) / dt

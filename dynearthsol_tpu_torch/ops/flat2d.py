@@ -35,6 +35,11 @@ the host once per iteration after the first, as ``jax.lax.while_loop``
 reads it on the device.  ``step.stats`` counts those reads and the loop's
 iterations.
 
+A shard of a group of devices (parallel/) runs this step on its own
+elements: its context's ``axis`` and ``halo`` complete each assembly with
+the other shards' partial sums and take the CFL limits and the residual
+over the group (``GroupHooks``); with neither the step is unchanged.
+
 Every feature of the JAX package's flat step is computed: the facet and
 Neumann tractions and the elastic foundation (bc.apply_stress_bcs and
 apply_stress_bcs_neumann, fixed-order sums), surface processes 1 and 102
@@ -60,7 +65,8 @@ from . import fields as F
 from . import matprops as M
 from . import rheology as R
 from . import surface as SP
-from .assembly import node_sum
+from .assembly import (halo_overlap_add, node_sum, node_sum_halo,
+                       node_sum_scatter)
 from .matprops import MIN_STRAIN_RATE
 
 # element tensor fields stored k-major (NSTR, nelem) in the flat layout
@@ -80,12 +86,11 @@ def flat_to_state(g):
 
 
 def flat_step_applicable(param: Param, ctx) -> bool:
-    """Static gate (flat2d.flat_step_applicable; this package has no
-    sharded step, so its ``ctx.axis is None`` always holds).  The flat
-    path applies to structured meshes too: the dispatcher checks the fused
-    paths first."""
+    """Static gate (flat2d.flat_step_applicable): one device (a shard of
+    parallel/ runs the generic step).  The flat path applies to
+    structured meshes too: the dispatcher checks the fused paths first."""
     rheol = param.mat.rheol_type
-    return (ctx.ndims == 2
+    return (ctx.axis is None and ctx.ndims == 2
             and rheol in (RH_ELASTIC, RH_VISCOUS, RH_MAXWELL, RH_EP,
                           RH_EVP, RH_EP_RSF, RH_EVP_RSF)
             and (rheol == RH_MAXWELL or rheol == RH_VISCOUS
@@ -112,6 +117,65 @@ def unported_features(param: Param, ctx) -> list:
     """What passes the gate above but this step does not compute: nothing
     (the simulation asks every step module)."""
     return []
+
+
+class GroupHooks:
+    """Where the column step meets the other shards of a group
+    (parallel/group.py), from a shard's context: ``ctx.axis`` and, for the
+    node-sharded halo step, ``ctx.halo``; with neither (one device) every
+    hook is the identity and the step is unchanged.  Shared by
+    ops/flat3d.py.
+
+    ``complete`` makes a shard's nodal partial sums whole: the neighbours'
+    overlap rows (halo step) or the group's sum in shard order
+    (replicated-nodal shard step).  ``hx``, the second overlap exchange of
+    the facet sums (halo step only).  ``residual``: the owned rows'
+    squares summed over the group (halo step) or the whole replicated
+    force (shard step).  ``dt_limits`` takes the CFL limits over the
+    group in one meeting; ``pmax`` the velocity maximum of a fixed dt.
+    ``node_asm``: (nelem, npe) -> (nnode,) sums for the pore pressure."""
+
+    def __init__(self, ctx):
+        self.ctx = ctx
+        self.axis, self.halo = ctx.axis, ctx.halo
+        self.hx = (None if self.halo is None else
+                   (lambda buf: halo_overlap_add(buf, self.axis,
+                                                 self.halo)))
+
+    def complete(self, sums):
+        if self.halo is not None:
+            return halo_overlap_add(sums, self.axis, self.halo)
+        if self.axis is not None:
+            return self.axis.psum(sums)
+        return sums
+
+    def residual(self, force):
+        if self.halo is None:
+            return F.residual_l2(force)
+        return F.residual_l2(force, self.halo.own_mask, self.axis)
+
+    def pmax(self, x):
+        return x if self.axis is None else self.axis.pmax(x)
+
+    def dt_limits(self, minl, dt_maxwell, dt_diffusion, hydro_h, vmax,
+                  swave, five):
+        """The shards' CFL limits combined in one meeting: the minima of
+        the element heights and of the limits, the maxima of the velocity
+        and of the S-wave speed.  The global dt floor min_e(minl /
+        swave_e / 5) is minl / max_e(swave_e) / 5 bit for bit: IEEE
+        division rounds monotonically."""
+        lo, hi = self.axis.pminmax(
+            torch.stack([minl, dt_maxwell, dt_diffusion, hydro_h]),
+            torch.stack([vmax, swave.max()]))
+        return (lo[0], lo[1], lo[2], lo[3], hi[0], lo[0] / hi[1] / five)
+
+    def node_asm(self, c):
+        ctx = self.ctx
+        if self.halo is not None:
+            return node_sum_halo(c, ctx.band, self.axis, self.halo)
+        if self.axis is not None:
+            return node_sum_scatter(c, ctx.band, self.axis)
+        return node_sum(c, ctx.gather_idx, ctx.gather_mask)
 
 
 def make_flat_step(param: Param, ctx, compensation_pressure: float = 0.0,
@@ -181,6 +245,7 @@ def make_flat_step(param: Param, ctx, compensation_pressure: float = 0.0,
     vbc0 = replace(ctx.vbc, values=(0.0,) * 6, values_lateral=(0.0,) * 4)
     pt_tol = float(torch.tensor(ctrl.PT_relative_tolerance, dtype=dtype))
     stats = {"pt_iterations": 0, "host_syncs": 0}
+    G = GroupHooks(ctx)
 
     eng_gather, eng_scatter, eng_scatter_gather = (
         (band2d.gather_corners, band2d.scatter_corners,
@@ -199,14 +264,19 @@ def make_flat_step(param: Param, ctx, compensation_pressure: float = 0.0,
 
     def asm_pack(slot_cols):
         """[corner][field] columns -> (nnode, k) sums, node_sum order."""
-        return eng_scatter(_pack(slot_cols), bt)
+        return G.complete(eng_scatter(_pack(slot_cols), bt))
 
     def asm_gather(slot_cols, kg):
         """Assembly + corner re-gather of the first ``kg`` nodal sums:
         ((nnode, k) sums, (kg, 3, nelem) columns).  The step's transfer
         hops (dvoldt, NMD pressure smoothing) assemble and at once
-        re-gather the same nodal field."""
-        return eng_scatter_gather(_pack(slot_cols), bt, kg)
+        re-gather the same nodal field.  Under a group the gather needs
+        the whole sums: assembly, the group's completion, then the
+        gather."""
+        if G.axis is None:
+            return eng_scatter_gather(_pack(slot_cols), bt, kg)
+        sums = asm_pack(slot_cols)
+        return sums, eng_gather(sums[:, :kg].contiguous(), bt)
 
     def corner_sum(cols):
         return cols[0] + cols[1] + cols[2]
@@ -283,14 +353,20 @@ def make_flat_step(param: Param, ctx, compensation_pressure: float = 0.0,
         vmax = torch.maximum(vmag.max(), c_max_vbc)
         if ctrl.fixed_dt != 0.0:
             fdt = const(ctrl.fixed_dt)
-            return fdt, vmax, fdt
+            return fdt, G.pmax(vmax), fdt
         minh = min_height(xs, zs, vol)
         minl = minh.min()
         dt_maxwell = (c_half_visc_min / (1e-40 + shearm)).min()
         dt_diffusion = (0.5 * minh * minh / c_therm_diff_max).min() \
             if ctrl.has_thermal_diffusion else big
         swave = torch.sqrt(shearm / rho_e)
-        gdtmin = (minl / swave / five).min()
+        hydro_h = (0.5 * minh * minh).min() if hydraulic else big
+        if G.axis is None:
+            gdtmin = (minl / swave / five).min()
+        else:
+            (minl, dt_maxwell, dt_diffusion, hydro_h, vmax,
+             gdtmin) = G.dt_limits(minl, dt_maxwell, dt_diffusion, hydro_h,
+                                   vmax, swave, five)
         if ctrl.use_global_velocity_scaling:
             dt_advection = 0.5 * minl / vmax
             if ctrl.is_quasi_static:
@@ -308,8 +384,7 @@ def make_flat_step(param: Param, ctx, compensation_pressure: float = 0.0,
                            torch.minimum(dt_advection, dt_diffusion))
         if hydraulic:
             dt_hydro = torch.where(hydro_diff_max > 0,
-                                   (0.5 * minh * minh).min()
-                                   / hydro_diff_max, big)
+                                   hydro_h / hydro_diff_max, big)
             dt = torch.minimum(dt, dt_hydro)
         return dt * ctrl.dt_fraction, vmax, gdtmin
 
@@ -430,9 +505,10 @@ def make_flat_step(param: Param, ctx, compensation_pressure: float = 0.0,
                 rho_eff = rho_e * (1.0 - phi_e) + 1000.0 * phi_e
             force = bc_mod.apply_stress_bcs(param, sbc, coord, force,
                                             rho_eff, compensation_pressure,
-                                            coord0)
+                                            coord0, G.hx)
         if neumann:
-            force = bc_mod.apply_stress_bcs_neumann(sbc, coord, force)
+            force = bc_mod.apply_stress_bcs_neumann(sbc, coord, force,
+                                                    G.hx)
         return force
 
     def _anti_lock(sr, edv):
@@ -504,7 +580,7 @@ def make_flat_step(param: Param, ctx, compensation_pressure: float = 0.0,
                 update_stress_cols(tab, sc1, dep, edotp, srp, bulkm, shearm,
                                    temp_e_pt, sc.dt, None, vmeanp)
             forcep = -asm_pack(force_cols(stp, dndxp, dndzp, buoy, volp))
-            resp = F.residual_l2(forcep)
+            resp = G.residual(forcep)
             forcep = boundary_forces(forcep, sc.coord, sc.coord0, rho_e,
                                      phi_e, fluid)
             forcep = F.apply_damping(forcep, velp, sc.mass, sc.ymass,
@@ -654,7 +730,7 @@ def make_flat_step(param: Param, ctx, compensation_pressure: float = 0.0,
         else:
             hydro_diff_max = s.hydro_diff_max
             force = -asm_pack(fcols)
-        l2_res = F.residual_l2(force)
+        l2_res = G.residual(force)
 
         force = boundary_forces(force, s.coord, s.coord0, rho_e, phi_e)
         force = F.apply_damping(force, s.vel, s.mass, s.ymass,
@@ -703,9 +779,7 @@ def make_flat_step(param: Param, ctx, compensation_pressure: float = 0.0,
                         s.dt, ctrl.gravity, M.perm(tab, s.emw),
                         M.mu_fluid(tab, s.emw), M.alpha_biot(tab, s.emw),
                         phi_e, M.beta_fluid(tab, s.emw), bulkm, shearm,
-                        ctx.pp_bc_mask,
-                        lambda c: node_sum(c, ctx.gather_idx,
-                                           ctx.gather_mask))
+                        ctx.pp_bc_mask, G.node_asm, G.axis)
             else:
                 positive = s.hmass > 0.0
                 upd = torch.where(
@@ -727,7 +801,7 @@ def make_flat_step(param: Param, ctx, compensation_pressure: float = 0.0,
                 # nodal surface processes (bc.cxx:1667-1831); the moved
                 # velocity and coordinates ride ONE packed gather
                 coord, dhacc, edvacc_surf, _ = SP.apply_surface_processes(
-                    param, st, coord, s.dt, dhacc, edvacc_surf)
+                    param, st, coord, s.dt, dhacc, edvacc_surf, G.hx)
                 g2 = cgather(torch.cat([vel, coord], dim=1))
                 vxs2 = tuple(g2[0, c] for c in range(3))
                 vzs2 = tuple(g2[1, c] for c in range(3))

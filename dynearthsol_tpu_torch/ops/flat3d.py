@@ -53,8 +53,7 @@ from . import fields as F
 from . import matprops as M
 from . import rheology as R
 from . import surface as SP
-from .assembly import node_sum
-from .flat2d import flat_to_state, state_to_flat
+from .flat2d import GroupHooks, flat_to_state, state_to_flat
 from .matprops import MIN_STRAIN_RATE
 
 NPE = 4
@@ -148,6 +147,7 @@ def make_flat_step(param: Param, ctx, compensation_pressure: float = 0.0,
     vbc0 = replace(ctx.vbc, values=(0.0,) * 6, values_lateral=(0.0,) * 4)
     pt_tol = float(torch.tensor(ctrl.PT_relative_tolerance, dtype=dtype))
     stats = {"pt_iterations": 0, "host_syncs": 0}
+    G = GroupHooks(ctx)
 
     eng_gather, eng_scatter, eng_scatter_gather = (
         (band2d.gather_corners, band2d.scatter_corners,
@@ -173,13 +173,17 @@ def make_flat_step(param: Param, ctx, compensation_pressure: float = 0.0,
 
     def asm_pack(slot_cols):
         """[corner][field] columns -> (nnode, k) sums, node_sum order."""
-        return eng_scatter(_pack(slot_cols), bt)
+        return G.complete(eng_scatter(_pack(slot_cols), bt))
 
     def asm_gather(slot_cols, kg):
         """Assembly + corner re-gather of the first ``kg`` nodal sums:
         ((nnode, k) sums, (kg, 4, nelem) columns): the transfer hops
-        (dvoldt, NMD pressure smoothing)."""
-        return eng_scatter_gather(_pack(slot_cols), bt, kg)
+        (dvoldt, NMD pressure smoothing).  Under a group: assembly, the
+        group's completion, then the gather (ops/flat2d.py)."""
+        if G.axis is None:
+            return eng_scatter_gather(_pack(slot_cols), bt, kg)
+        sums = asm_pack(slot_cols)
+        return sums, eng_gather(sums[:, :kg].contiguous(), bt)
 
     def corner_sum(cols):
         return cols[0] + cols[1] + cols[2] + cols[3]
@@ -286,20 +290,25 @@ def make_flat_step(param: Param, ctx, compensation_pressure: float = 0.0,
         vmax = torch.maximum(vmag.max(), c_max_vbc)
         if ctrl.fixed_dt != 0.0:
             fdt = const(ctrl.fixed_dt)
-            return fdt, vmax, fdt
+            return fdt, G.pmax(vmax), fdt
         minh = min_height(xs, ys, zs, vol)
         minl = minh.min()
         dt_maxwell = (c_half_visc_min / (1e-40 + shearm)).min()
         dt_diffusion = (0.5 * minh * minh / c_therm_diff_max).min() \
             if ctrl.has_thermal_diffusion else big
+        hydro_h = (0.5 * minh * minh).min() if hydraulic else big
+        swave = torch.sqrt(shearm / rho_e)
+        if G.axis is None:
+            gdtmin = (minl / swave / five).min()
+        else:
+            (minl, dt_maxwell, dt_diffusion, hydro_h, vmax,
+             gdtmin) = G.dt_limits(minl, dt_maxwell, dt_diffusion, hydro_h,
+                                   vmax, swave, five)
         if hydraulic:
             dt_hydro = torch.where(hydro_diff_max > 0,
-                                   (0.5 * minh * minh).min()
-                                   / hydro_diff_max, big)
+                                   hydro_h / hydro_diff_max, big)
         else:
             dt_hydro = big
-        swave = torch.sqrt(shearm / rho_e)
-        gdtmin = (minl / swave / five).min()
         if ctrl.use_global_velocity_scaling:
             dt_advection = 0.5 * minl / vmax
             if ctrl.is_quasi_static:
@@ -406,9 +415,10 @@ def make_flat_step(param: Param, ctx, compensation_pressure: float = 0.0,
                 rho_eff = rho_e * (1.0 - phi_e) + 1000.0 * phi_e
             force = bc_mod.apply_stress_bcs(param, sbc, coord, force,
                                             rho_eff, compensation_pressure,
-                                            coord0)
+                                            coord0, G.hx)
         if neumann:
-            force = bc_mod.apply_stress_bcs_neumann(sbc, coord, force)
+            force = bc_mod.apply_stress_bcs_neumann(sbc, coord, force,
+                                                    G.hx)
         return force
 
     def _anti_lock(sr, edv):
@@ -483,7 +493,7 @@ def make_flat_step(param: Param, ctx, compensation_pressure: float = 0.0,
                 None, vmeanp)
             forcep = -asm_pack(force_cols(stp, dndxp, dndyp, dndzp, buoy,
                                           volp))
-            resp = F.residual_l2(forcep)
+            resp = G.residual(forcep)
             forcep = boundary_forces(forcep, sc.coord, sc.coord0, rho_e,
                                      phi_e, fluid)
             forcep = F.apply_damping(forcep, velp, sc.mass, sc.ymass,
@@ -622,7 +632,7 @@ def make_flat_step(param: Param, ctx, compensation_pressure: float = 0.0,
         else:
             hydro_diff_max = s.hydro_diff_max
             force = -asm_pack(fcols)
-        l2_res = F.residual_l2(force)
+        l2_res = G.residual(force)
 
         force = boundary_forces(force, s.coord, s.coord0, rho_e, phi_e)
         force = F.apply_damping(force, s.vel, s.mass, s.ymass,
@@ -671,9 +681,7 @@ def make_flat_step(param: Param, ctx, compensation_pressure: float = 0.0,
                         s.dt, ctrl.gravity, M.perm(tab, s.emw),
                         M.mu_fluid(tab, s.emw), M.alpha_biot(tab, s.emw),
                         phi_e, M.beta_fluid(tab, s.emw), bulkm, shearm,
-                        ctx.pp_bc_mask,
-                        lambda c: node_sum(c, ctx.gather_idx,
-                                           ctx.gather_mask))
+                        ctx.pp_bc_mask, G.node_asm, G.axis)
             else:
                 positive = s.hmass > 0.0
                 upd = torch.where(
@@ -695,7 +703,7 @@ def make_flat_step(param: Param, ctx, compensation_pressure: float = 0.0,
                 # the facet diffusion of the top (bc.cxx:1667-1831); the
                 # moved velocity and coordinates ride ONE packed gather
                 coord, dhacc, edvacc_surf, _ = SP.apply_surface_processes(
-                    param, st, coord, s.dt, dhacc, edvacc_surf)
+                    param, st, coord, s.dt, dhacc, edvacc_surf, G.hx)
                 g2 = cgather([vel, coord])
                 (vxs2, vys2, vzs2), (xs2, ys2, zs2) = corners(g2, 0), \
                     corners(g2, 3)

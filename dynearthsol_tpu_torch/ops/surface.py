@@ -45,6 +45,11 @@ class SurfInfo:
     # mesh.cxx:2879-2891)
     all_top_elems: np.ndarray  # (ntop_elems,) unique, sorted
     top_elem_mask: np.ndarray  # (nelem,) bool, the same set as a mask
+    # a shard's tables under the node-sharded step (parallel/halo_step.py):
+    # the window's top-node indicator and the 1/0 real-row indicator of
+    # its padded facet table; None on one device
+    top_mask_f: Optional[np.ndarray] = None  # (nnode,) 1.0 / 0.0
+    facet_mask: Optional[np.ndarray] = None  # (etop,) 1 / 0
 
 
 def make_surf_info(topo) -> SurfInfo:
@@ -89,11 +94,15 @@ class SurfTables:
     n1: torch.Tensor           # (etop,) and its second
     n2: Optional[torch.Tensor]  # (etop,) and its third (3D), else None
     edge_add: OrderedAdd       # over concat(n0, n1[, n2]), in that order
+    facet_mask: Optional[torch.Tensor] = None  # (etop,) SurfInfo's
 
 
 def surf_tables(surf: SurfInfo, nnode: int, dtype, device) -> SurfTables:
-    mask = np.zeros(nnode)
-    mask[surf.top_nodes] = 1.0
+    if surf.top_mask_f is not None:
+        mask = surf.top_mask_f
+    else:
+        mask = np.zeros(nnode)
+        mask[surf.top_nodes] = 1.0
     fn = surf.facet_nodes.astype(np.int64)
 
     def t(a):
@@ -103,7 +112,9 @@ def surf_tables(surf: SurfInfo, nnode: int, dtype, device) -> SurfTables:
         top_nodes=t(surf.top_nodes.astype(np.int64)),
         top_mask_f=t(mask).to(dtype), n0=t(fn[:, 0]), n1=t(fn[:, 1]),
         n2=t(fn[:, 2]) if fn.shape[1] == 3 else None,
-        edge_add=OrderedAdd.build(fn.T.reshape(-1)).to(device))
+        edge_add=OrderedAdd.build(fn.T.reshape(-1)).to(device),
+        facet_mask=(None if surf.facet_mask is None
+                    else t(surf.facet_mask).to(dtype)))
 
 
 def _div(x, v):
@@ -113,20 +124,36 @@ def _div(x, v):
     return torch.div(x, torch.full_like(x, v))
 
 
+def _edge_sums(st: SurfTables, coord, vals, halo_exchange):
+    """The facets' (slope, length) terms summed onto their nodes in the
+    JAX package's order; under the node-sharded step the window's overlap
+    rows are then exchanged (a second exchange, as for the facet
+    tractions), so that every row holds the sums of both shards'
+    facets."""
+    tot = st.edge_add.apply(
+        torch.zeros((coord.shape[0], 2), dtype=coord.dtype,
+                    device=coord.device), vals)
+    if halo_exchange is not None:
+        tot = halo_exchange(tot)
+    return tot
+
+
 def surface_dh_2d(coord, st: SurfTables, surf_diff, dt, base_level,
-                  ratio_terrig, ratio_marine):
+                  ratio_terrig, ratio_marine, halo_exchange=None):
     """1D finite-difference topography diffusion (bc.cxx:990-1073, 2D).
-    Returns dh as a full (nnode,) tensor, zero off the surface."""
+    Returns dh as a full (nnode,) tensor, zero off the surface.  A shard's
+    padded facets are zeroed by ``st.facet_mask``."""
     n0, n1 = st.n0, st.n1
     dx = torch.abs(coord[n1, 0] - coord[n0, 0])
     safe_edge = torch.where(dx > 0, dx, torch.ones_like(dx))
     slope = (coord[n1, 1] - coord[n0, 1]) / safe_edge
+    if st.facet_mask is not None:
+        dx = dx * st.facet_mask
+        slope = slope * st.facet_mask
     # per-edge contributions: node 0 gets -slope, node 1 +slope
-    tot = st.edge_add.apply(
-        torch.zeros((coord.shape[0], 2), dtype=coord.dtype,
-                    device=coord.device),
-        torch.stack([torch.cat([-slope, slope]), torch.cat([dx, dx])],
-                    dim=1))
+    tot = _edge_sums(st, coord, torch.stack(
+        [torch.cat([-slope, slope]), torch.cat([dx, dx])], dim=1),
+        halo_exchange)
     total_slope, total_dx = tot[:, 0], tot[:, 1]
     safe_dx = torch.where(total_dx > 0, total_dx, torch.ones_like(total_dx))
     conv = surf_diff * dt * total_slope / safe_dx
@@ -138,7 +165,7 @@ def surface_dh_2d(coord, st: SurfTables, surf_diff, dt, base_level,
     return dh * st.top_mask_f
 
 
-def surface_dh_3d(coord, st: SurfTables, surf_diff, dt):
+def surface_dh_3d(coord, st: SurfTables, surf_diff, dt, halo_exchange=None):
     """Facet-FEM topography diffusion (bc.cxx:920-1050, 3D): each top
     facet's linear-triangle slope terms on its horizontal projection,
     summed onto its three nodes.  Returns dh as a full (nnode,) tensor,
@@ -158,10 +185,11 @@ def surface_dh_3d(coord, st: SurfTables, surf_diff, dt):
     gy = sy[0] * zf[0] + sy[1] * zf[1] + sy[2] * zf[2]
     # slope_j = sum_k (dx_j dx_k + dy_j dy_k) z_k * parea
     slope = [(sx[j] * gx + sy[j] * gy) * parea for j in range(3)]
-    tot = st.edge_add.apply(
-        torch.zeros((coord.shape[0], 2), dtype=coord.dtype,
-                    device=coord.device),
-        torch.stack([torch.cat(slope), parea.repeat(3)], dim=1))
+    if st.facet_mask is not None:
+        slope = [sl * st.facet_mask for sl in slope]
+        parea = parea * st.facet_mask
+    tot = _edge_sums(st, coord, torch.stack(
+        [torch.cat(slope), parea.repeat(3)], dim=1), halo_exchange)
     total_slope, total_dx = tot[:, 0], tot[:, 1]
     safe_dx = torch.where(total_dx > 0, total_dx, torch.ones_like(total_dx))
     conv = surf_diff * dt * total_slope / safe_dx
@@ -273,21 +301,24 @@ def hemipelagic_dh(param, z_top, dt):
 
 
 def apply_surface_processes(param, st: SurfTables, coord, dt, dhacc,
-                            edvacc_surf):
+                            edvacc_surf, halo_exchange=None):
     """One step of surface processes (surface_processes,
     bc.cxx:1667-1831) on post-advection coordinates: options 1 and 102 in
     2D, the diffusion of options 1 and 102 in 3D (other options move
-    nothing here, as in the JAX package).  Returns
+    nothing here, as in the JAX package).  ``halo_exchange``: the
+    node-sharded step's second exchange of the diffusion's edge sums
+    (option 1 only; the halo step refuses option 102).  Returns
     (coord, dhacc, edvacc_surf, dh)."""
     ctrl = param.control
     opt = ctrl.surface_process_option
     ndims = coord.shape[1]
     if opt in (1, 102) and ndims == 3:
-        dh = surface_dh_3d(coord, st, ctrl.surface_diffusivity, dt)
+        dh = surface_dh_3d(coord, st, ctrl.surface_diffusivity, dt,
+                           halo_exchange)
     elif opt in (1, 102):
         dh = surface_dh_2d(coord, st, ctrl.surface_diffusivity, dt,
                            ctrl.surf_base_level, ctrl.surf_diff_ratio_terrig,
-                           ctrl.surf_diff_ratio_marine)
+                           ctrl.surf_diff_ratio_marine, halo_exchange)
     else:
         dh = torch.zeros_like(coord[:, 0])
     if opt == 102 and ndims == 2:

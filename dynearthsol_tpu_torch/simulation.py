@@ -82,6 +82,13 @@ class StepCtx:
     sgrid: Optional[tuple] = None
     # gather/assembly tables of the flat step, attached at its dispatch
     band: Optional[band2d.GatherTables] = None
+    # a shard's context under a group of devices (parallel/): its handle
+    # on the group (parallel.group.ShardAxis), for the node-sharded halo
+    # step its node window (ops/assembly.HaloSpec), and 1/0 on its real
+    # elements; None on one device
+    axis: Optional[object] = None
+    halo: Optional[object] = None
+    elem_mask: Optional[torch.Tensor] = None
 
 
 def make_finalize_fn(param: Param, *, with_dt: bool = True,

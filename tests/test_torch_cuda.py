@@ -637,3 +637,39 @@ def test_golden_maxwell_2d_on_the_card(cuda, tmp_path, monkeypatch):
             err = sum(reldiff(old[kind], new[kind]))
             assert err <= (1e-7 if kind in loose else 1e-8), \
                 (frame, kind, err)
+
+
+def test_halo_step_card_vs_cpu(cuda):
+    """The node-sharded halo step (parallel/halo_step.py) on 2 shards of
+    cuda:0 against the same 2-shard run on the CPU (chip_smoke.py phase
+    18 at test size): 10 float64 maxwell steps with the facet tractions
+    and surface process 1 on tests/test_halo.py's raster, 1e-10 of each
+    field's max, the band kernels launched on every shard's window and no
+    plain version; the overlap rows of the two shards equal bit for
+    bit."""
+    from dynearthsol_tpu_torch.parallel import ShardGroup
+    from dynearthsol_tpu_torch.parallel import halo_step as H
+    from torch_cases import HALO_FACETS, HALO_FIELDS, halo_cfg
+
+    par = des.param_from_dict(halo_cfg("maxwell", **HALO_FACETS))
+    n = 10
+    out = {}
+    for where in ("cuda:0", "cpu"):
+        sim = des.Simulation(par, device=where)
+        group = ShardGroup([where] * 2)
+        ctx_sh, st, run_chunk, plan = H.make_halo_runner(sim, group)
+        before = (band2d.cgather.launches, band2d.asm_pack.launches,
+                  band2d.gather_corners.calls, band2d.scatter_corners.calls)
+        st = run_chunk(ctx_sh, st, n)
+        torch.cuda.synchronize()
+        after = (band2d.cgather.launches, band2d.asm_pack.launches,
+                 band2d.gather_corners.calls, band2d.scatter_corners.calls)
+        if where != "cpu":
+            assert after[0] > before[0] and after[1] > before[1]
+            assert after[2:] == before[2:]
+            h2 = 2 * plan.h
+            assert torch.equal(st[0].vel[plan.width - h2:], st[1].vel[:h2])
+        out[where] = H.unpack_state(st, plan, sim.state, device="cpu")
+    for f in HALO_FIELDS + ("dhacc", "edvacc_surf"):
+        err = rel_err(get(out["cpu"], f), get(out["cuda:0"], f))
+        assert err < 1e-10, (f, err)

@@ -24,6 +24,8 @@ def test_imports_with_jax_blocked():
             "from dynearthsol_tpu_torch.utils import (glibc_rand, geotherm, "
             "gravity, terrigenous); "
             "from dynearthsol_tpu_torch.models import REGISTRY; "
+            "from dynearthsol_tpu_torch.parallel import (group, halo_step, "
+            "shard_step, sharding); "
             "assert d.Simulation.step_once; "
             "print(d.Simulation.__name__)")
     r = subprocess.run([sys.executable, "-c", code], cwd=ROOT,

@@ -1,8 +1,8 @@
 """The CLI's driver features before the first step: the isostasy and
 body-force pre-relaxations run as the JAX CLI runs them (its "Adjusted
 ..." line, and frame 0 equal to the JAX CLI's at 1e-10 of each array's
-max in float64), and multi-device stepping, which the port does not have,
-is refused before anything is written.
+max in float64), and multi-device stepping (``DES_N_DEVICES``), which the
+CLI now takes through the node-sharded halo step.
 
 The helpers are in tests/test_torch_io.py and tests/torch_cases.py. The
 suite keeps at most 7 items in a file: pytest-xdist's file scheduler
@@ -40,9 +40,13 @@ def test_cli_refuses_unported_driver_features(tmp_path, monkeypatch, capsys,
         else:
             cfg.setdefault(sec, {}).update(kv)
     if "env" in over:
-        with pytest.raises(NotImplementedError, match=what):
-            run(tdes.param_from_dict(cfg), device="cpu")
-        assert not os.path.exists(cfg["sim"]["modelname"] + ".info")
+        # no longer refused: two shards of the CPU step the run through
+        # the node-sharded halo step and it writes its files
+        run(tdes.param_from_dict(cfg), device="cpu")
+        out = capsys.readouterr().out
+        assert "Multi-chip: node-sharded halo step on 2 devices." in out
+        assert "Path:     halo" in out
+        assert os.path.exists(cfg["sim"]["modelname"] + ".info")
         return
     # both CLIs from one .cfg: the pre-relaxation's line, then frame 0
     run_both_clis(tmp_path, cfg)
