@@ -307,6 +307,20 @@ Phases, each printed, the first failure exits non-zero:
                 against CPU; (f) the CLI with DES_N_DEVICES=2 through a
                 remesh against the single-device CLI at 1e-9; (g) with two
                 cards or more, one shard per card.
+  19. more materials than MAXMAT (8) -- the many-material instances of
+                the 2D chunk kernel and kernel 3 (their constants a device
+                table, each weight read where a mixture uses it) with 16
+                materials of their own at full width: (a) production
+                (262,144 triangles, pallas2d_res): one maxwell step and its
+                dt refresh plane by plane against the plain version at
+                phase 3's rules, a 10-step maxwell chunk at the maxwell
+                gate, 25 EVP chunk steps equal to 25 one-step launches; (b)
+                flagship3d (983,040 tets, pallas3d): one maxwell step
+                every plane against the plain version on the card, the
+                chunk form equal to 3 complete EVP steps; for each the
+                chunk form's device time, the plain version's, the bound,
+                registers and spills, and the rate through run_steps with
+                its launches.
 The last lines are a JSON record of the kernels, the card's name and power
 limit, and {"ok": true, "device": {...}}.
 """
@@ -390,13 +404,15 @@ def unstructured_cfg(rheology="elasto-visco-plastic", small=False):
     return cfg
 
 
-def production_cfg(rheology="elasto-visco-plastic", small=False):
+def production_cfg(rheology="elasto-visco-plastic", small=False, nmat=2):
     """bench.py production_param, the examples/rifting-2d.cfg feature set:
     Winkler foundation, water loading, surface process 1 (hillslope
     diffusion), the surface-element correction and two materials by
     markers (4 per element), EVP, 512 x 256 cells, 262,144 triangles.
     ``small``: tests/test_pallas.py _production_sim, the same features on
-    make_sim's 16 x 128 cells with damping 2 (factor 0.4)."""
+    make_sim's 16 x 128 cells with damping 2 (factor 0.4).  ``nmat`` more
+    than 2: that many layers of materials of their own
+    (tests/torch_cases.manymat_over)."""
     cfg = make_sim_cfg(rheology) if small else flagship_cfg(rheology)
     cfg["markers"] = {"markers_per_element": 4, "init_marker_option": 1}
     cfg["control"].update(surface_process_option=1, surface_diffusivity=1e-6,
@@ -409,6 +425,17 @@ def production_cfg(rheology="elasto-visco-plastic", small=False):
                                     layer_mattypes=[0, 1])
     cfg["mat"].update(nmat=2, rho0=[2800.0, 3300.0],
                       bulk_modulus=[50e9, 80e9], shear_modulus=[30e9, 48e9])
+    return with_materials(cfg, nmat)
+
+
+def with_materials(cfg, nmat):
+    """cfg with ``nmat`` layers of materials of their own
+    (tests/torch_cases.manymat_over) where nmat is more than 2."""
+    if nmat > 2:
+        from torch_cases import manymat_over
+
+        for sec, kv in manymat_over(nmat).items():
+            cfg.setdefault(sec, {}).update(kv)
     return cfg
 
 
@@ -483,7 +510,7 @@ def flagship3d_cfg(rheology="elasto-visco-plastic", nmat=1):
     """bench.py flagship3d_param: 256 x 48 x 16 cells x 5 tets = 983,040
     tetrahedra, 214,081 nodes; EVP, one material, f32.  ``nmat=2``:
     flagship3d_param(nmat=2), crust (the top 40 %) over mantle by 4
-    markers per element."""
+    markers per element; more: with_materials."""
     cfg = {
         "sim": {"max_steps": 10**9, "ndims": 3, "float_dtype": "float32",
                 "is_outputting_averaged_fields": False},
@@ -508,7 +535,7 @@ def flagship3d_cfg(rheology="elasto-visco-plastic", nmat=1):
         cfg["mat"].update(nmat=2, rho0=[2800.0, 3300.0],
                           bulk_modulus=[50e9, 80e9],
                           shear_modulus=[30e9, 48e9])
-    return cfg
+    return with_materials(cfg, nmat)
 
 
 # bench.py production3d_param's boundary processes: surface process 1
@@ -4343,8 +4370,9 @@ def main():
                 # two materials: the mixtures where each phase reads them
                 # (A 25 with thermal diffusion, C 8 and the second
                 # material's creep and weakening terms 30, E 26 with
-                # gravity, G 50)
-                per_e += 25 * th + 38 + 26 * sw["gravity_on"] + 50
+                # gravity, G 50); each further material adds half as much
+                per_e += ((25 * th + 38 + 26 * sw["gravity_on"] + 50)
+                          * max(P.nmat, 2) // 2)
             per_n = 9 + 11 * th + 9 * nmd + 57 + 32
             # per (x, y) column, with the boundary processes: each
             # boundary row's two facets (about 56 operations each in E)
@@ -4359,6 +4387,10 @@ def main():
             per_e = (38 + 35 * th + 3 + 3 * th + 54 + rh + 3 * nmd
                      + 6 * nmd + 47 + 6 * nmd + 6 + 22 + 45 * jau
                      + 12 * surf + 12)
+            if P.nmat > 2:
+                # each material past the second: its creep (11) and
+                # weakening (15) terms in C
+                per_e += 26 * (P.nmat - 2)
             per_n = 1 + 3 * th + nmd + 22
             # per boundary node: two facets of 13 operations and 4 adds
             # (each tractions lane); per top node the diffusion's ~40
@@ -5364,10 +5396,10 @@ def main():
     # (dhacc and edvacc_surf 5e-3)
     cfgw = production3d_cfg("maxwell", small=True, nmat=1)
     ker, ref = run3(cfgw, 10, False)[0], run3(cfgw, 10, True)[0]
-    prod_err = 0.0
+    prod3_err = 0.0
     for f in FIELDS3 + ("dhacc", "edvacc_surf"):
         err = rel(getattr(ref, f), getattr(ker, f).cpu())
-        prod_err = max(prod_err, err)
+        prod3_err = max(prod3_err, err)
         check(f"3D facets + surface process 1 maxwell 10-step chunk {f}",
               err, 5e-3 if f in ("force", "dhacc", "edvacc_surf") else 1e-3)
     for f in ("dt", "time", "max_global_vel_mag", "l2_residual"):
@@ -5382,7 +5414,7 @@ def main():
     cfgp = production3d_cfg(small=True)
     ker = run3(cfgp, 1, False)[0]
     ref, ties, reach = run3(cfgp, 1, True, reach=True)
-    prod_err = max(prod_err, evp3_check("3D production3d EVP 1 step", ker,
+    prod3_err = max(prod3_err, evp3_check("3D production3d EVP 1 step", ker,
                                         ref, ties, reach))
     for f in ("dhacc", "edvacc_surf"):
         a, b = getattr(ref, f), getattr(ker, f).cpu()
@@ -5416,7 +5448,7 @@ def main():
     fused3d.fused3d_step(XP3, kb)
     fused3d.fused3d_step_plain(XP3, pb)
     sync()
-    prod_err = max(prod_err, planes_check("production3d maxwell 1 step",
+    prod3_err = max(prod3_err, planes_check("production3d maxwell 1 step",
                                           pb.eout, pb.nout, kb.eout, kb.nout))
     del kb, pb
     # its own config (EVP): a 20-step chunk against 20 complete steps
@@ -5978,6 +6010,243 @@ def main():
                            umesh)
     del umesh
 
+    # ---- 19. more materials than the kernels' MAXMAT (8): the
+    # many-material instances of kernels 1-3 (the constants a device table,
+    # the weights read where each mixture uses them) at full width
+    t_p19 = time.perf_counter()
+    NMM = 16
+    print(f"phase 19 {NMM} materials: the many-material instances of the 2D "
+          "chunk kernel and kernel 3 at full width")
+    ptx = _build.ptxas_report()
+    phase19 = {}
+
+    # (a) production with 16 materials (262,144 triangles), pallas2d_res:
+    # one maxwell step and its dt refresh plane by plane against the plain
+    # version at phase 3's rules, a tensor component against the largest
+    # of its tensor's components (the xz shear of the layered extension is
+    # near zero, and libdevice's exp and log move it by 3.8e-6 of its own
+    # scale through the viscosity and the Jaumann rotation, as phase 4's
+    # planes_check holds a 3D run's components), a 10-step maxwell chunk
+    # at the production
+    # maxwell gate of tests/test_torch_production2d.py (the Winkler
+    # column's near-balance amplifies rounding in the velocity, its
+    # gradients and the surface accumulators), 25 EVP chunk steps against
+    # 25 one-step launches bit for bit
+    zs = des.Simulation(des.param_from_dict(production_cfg(nmat=NMM)))
+    sync()
+    ZP = fused2d.make_plan(zs.param, zs.ctx, zs.device,
+                           zs.compensation_pressure)
+    XP = fused2d.make_plan(des.param_from_dict(production_cfg(
+        "maxwell", nmat=NMM)), zs.ctx, zs.device, zs.compensation_pressure)
+    if ZP.mtab is None or ZP.nmat != NMM or XP.mtab is None:
+        fail(f"production with {NMM} materials did not take the "
+             "many-material plan")
+    kb = fused2d.make_buffers(XP, zs.ctx, zs.state, 1, tiled=False)
+    pb = fused2d.make_buffers(XP, zs.ctx, zs.state, 1, tiled=False)
+    kb.flags[0, 0] = pb.flags[0, 0] = 1.0
+    fused2d.fused_chunk(XP, kb, 1, tiled=False)
+    fused2d.chunk_plain(XP, pb, 1, tiled=False)
+    sync()
+    inc = float(zs.state.dt * (torch.stack([
+        pb.nin[fused2d._nslot("force_x")], pb.nin[fused2d._nslot("force_z")]])
+        .abs() / pb.nin[fused2d._nslot("mass")]).max())
+    z_err, bad = 0.0, []
+    for k, nm in enumerate(names):
+        a, b = (pb.ein[k], kb.ein[k]) if nm[0] == "e" else \
+            (pb.nin[k - fused2d.NE], kb.nin[k - fused2d.NE])
+        if nm == "e.viscosity":
+            err, tol = float((a.double().log() - b.double().log()).abs()
+                             .max()), 1e-5
+        else:
+            err, tol = rel(a, b), 2e-6
+            if nm.startswith("n.vel_"):
+                err = float((a.double() - b.double()).abs().max()) / inc
+                nm += " (of dt |f / m|)"
+            elif "[" in nm:
+                t0 = k - int(nm[-2])  # the tensor's first plane
+                scale = float(pb.ein[t0:t0 + 3].double().abs().max())
+                nm += f" (of its tensor; of its own {err:.3e})"
+                err = float((a.double() - b.double()).abs().max()) / scale
+            z_err = max(z_err, err)
+        if not check(f"production {NMM} materials 1 step {nm}", err, tol,
+                     stop=False):
+            bad.append(nm)
+    for i, nm in enumerate(("dt", "vmax", "gdtmin", "time", "L2 sum")):
+        err = rel(pb.scal[i:i + 1], kb.scal[i:i + 1])
+        z_err = max(z_err, err)
+        if not check(f"production {NMM} materials 1 step refresh {nm}", err,
+                     1e-5 if i == 4 else 1e-6, stop=False):
+            bad.append(nm)
+    if bad:
+        fail(f"production with {NMM} materials: kernel and plain version "
+             f"disagree in {bad}")
+    del kb, pb
+    ker = fused2d.run_chunk(XP, zs.ctx, zs.state, 10, True, False)
+    ref = fused2d.run_chunk(XP, zs.ctx, zs.state, 10, True, True)
+    sync()
+    lab = f"production {NMM} materials maxwell 10 steps, one chunk launch,"
+    amplified = {"vel": 5e-3, "dhacc": 5e-3, "edvacc_surf": 5e-3,
+                 "strain_rate": 2e-3, "edvoldt": 2e-3, "force": 1e-3}
+    for f in ("coord", "vel", "temperature", "stress", "strain", "volume",
+              "volume_n", "mass", "tmass", "hmass", "force", "strain_rate",
+              "edvoldt", "dhacc", "edvacc_surf"):
+        check(f"{lab} {f}", rel(getattr(ref, f), getattr(ker, f)),
+              amplified.get(f, 2e-4))
+    for f in ("dt", "time", "max_global_vel_mag"):
+        check(f"{lab} {f}", rel(getattr(ref, f), getattr(ker, f)), 1e-5)
+    del ker, ref
+    cb = fused2d.make_buffers(ZP, zs.ctx, zs.state, NV, tiled=False)
+    fused2d.fused_chunk(ZP, cb, NV, tiled=False)
+    ob = fused2d.make_buffers(ZP, zs.ctx, zs.state, NV, tiled=False)
+    for k in range(NV):
+        fused2d.fused_chunk(ZP, ob, 1, tiled=False, k=k)
+    sync()
+    if not (torch.equal(cb.ein, ob.ein) and torch.equal(cb.nin, ob.nin)
+            and torch.equal(cb.scal, ob.scal)
+            and torch.equal(cb.dthist, ob.dthist)):
+        fail(f"production with {NMM} materials: a {NV}-step chunk and {NV} "
+             "one-step launches differ")
+    print(f"  production {NMM} materials EVP: a {NV}-step chunk equals {NV} "
+          "one-step launches bit for bit (every plane, scal, dt history): ok")
+    del cb, ob
+    zocc = fused2d.chunk_occupancy(ZP)
+    zb = fused2d.make_buffers(ZP, zs.ctx, zs.state, NCH2, tiled=False)
+    zpb = fused2d.make_buffers(ZP, zs.ctx, zs.state, 1, tiled=False)
+    zchunk_ms = issue_ms(lambda: fused2d.fused_chunk(ZP, zb, NCH2,
+                                                     tiled=False), 1) / NCH2
+    zplain_ms = device_ms(lambda: fused2d.chunk_plain(ZP, zpb, 1,
+                                                      tiled=False), 2)
+    zbound = bound(*step_bytes(fused2d, ZP, zpb, 3, zpb.flags[0],
+                               zpb.cep[1:], ZP.mtab),
+                   step_ops(ZP, 2, zs.ctx.nelem, zs.ctx.nnode))
+    del zb, zpb
+    zs.run_steps(100, chunk=100)
+    sync()
+    zero_counts()
+    t = time.perf_counter()
+    zs.run_steps(500, chunk=250)
+    sync()
+    zrun_s = time.perf_counter() - t
+    zlaunch = {"fused2d_chunk": fused2d.fused_chunk.launches,
+               "dt_refresh": fused2d.dt_refresh.launches}
+    if zs.step_path != "pallas2d_res" or zlaunch != {"fused2d_chunk": 2,
+                                                      "dt_refresh": 0}:
+        fail(f"production with {NMM} materials: step path {zs.step_path}, "
+             f"launches {zlaunch} (want pallas2d_res, 2 chunk launches)")
+    if fused2d.fused_step_plain.calls or fused2d.dt_refresh_plain.calls:
+        fail(f"production with {NMM} materials took a plain version")
+    for f in FIELD_NAMES:
+        v = getattr(zs.state, f)
+        if v.is_floating_point() and not bool(torch.isfinite(v).all()):
+            fail(f"production with {NMM} materials: non-finite {f}")
+    zname = "fused2d_many:step_chunk2d<many,facets+sp1>"
+    phase19["production"] = {
+        "nmat": NMM, "triangles": zs.ctx.nelem, "step_path": zs.step_path,
+        "launches": zlaunch, "max_abs_err": z_err, "ms": zchunk_ms,
+        "plain_ms": zplain_ms, "bound": zbound,
+        "elem_steps_per_s": zs.ctx.nelem * 500 / zrun_s,
+        "registers": zocc["registers"], "local_bytes": zocc["local_bytes"],
+        "blocks_per_sm": zocc["blocks_per_sm"], "grid": zocc["grid"],
+        "ptxas": ptx.get(zname)}
+    print(f"  production {NMM} materials on {card}: chunk form "
+          f"{zchunk_ms:.4f} ms per step (events around a chunk of {NCH2}); "
+          f"plain {zplain_ms:.4f} ms; bound {zbound[0]:.4f} ms by "
+          f"{zbound[1]} ({zbound[2] / 1e6:.1f} MB); {zocc['registers']} "
+          f"registers, {zocc['local_bytes']} B local, ptxas {zname} "
+          f"{ptx.get(zname)} (registers, stack, spill, smem), "
+          f"{zocc['blocks_per_sm']} blocks per SM; run_steps "
+          f"{phase19['production']['elem_steps_per_s']:.6e} elem*steps/s, "
+          f"launches {zlaunch}")
+    del zs
+
+    # (b) flagship3d with 16 materials (983,040 tets), pallas3d: one
+    # maxwell step every plane against the plain version on the card, the
+    # chunk form against 3 complete EVP steps bit for bit (as phase 4 holds
+    # flagship3d_multimat)
+    z3 = des.Simulation(des.param_from_dict(flagship3d_cfg(nmat=NMM)))
+    sync()
+    Z3 = fused3d.make_plan(z3.param, z3.ctx, z3.device)
+    X3 = fused3d.make_plan(des.param_from_dict(
+        flagship3d_cfg("maxwell", nmat=NMM)), z3.ctx, z3.device)
+    if Z3.mtab is None or Z3.nmat != NMM or X3.mtab is None:
+        fail(f"flagship3d with {NMM} materials did not take the "
+             "many-material plan")
+    kb = fused3d.make_buffers(X3, z3.ctx, z3.state, 1)
+    pb = fused3d.make_buffers(X3, z3.ctx, z3.state, 1)
+    kb.tgt = pb.tgt = fused3d.vbc_targets(z3.ctx, kb.nin,
+                                          kb.scal[3] + kb.scal[0])
+    fused3d.fused3d_step(X3, kb)
+    fused3d.fused3d_step_plain(X3, pb)
+    sync()
+    z3_err = planes_check(f"flagship3d {NMM} materials maxwell 1 step",
+                          pb.eout, pb.nout, kb.eout, kb.nout)
+    del kb, pb
+    chunk_vs_steps(f"flagship3d {NMM} materials EVP 3 steps", Z3, z3.ctx,
+                   z3.state, 3)
+    zcb = fused3d.make_buffers(Z3, z3.ctx, z3.state, NCH)
+    zkb = fused3d.make_buffers(Z3, z3.ctx, z3.state, 1)
+    zpb = fused3d.make_buffers(Z3, z3.ctx, z3.state, 1)
+
+    def zchunk3():
+        for k in range(NCH):
+            fused3d.fused3d_chunk_step(Z3, zcb, k, NCH)
+            fused2d.dt_refresh(Z3, zcb, k, tiled=True, every=True)
+            zcb.swap()
+        fused3d.fused3d_finalize(Z3, zcb, zcb.ein, zcb.nin, zcb.dthist[-1])
+
+    z3_ms = device_ms(zchunk3, 1) / NCH
+    z3_one_ms = device_ms(lambda: fused3d.fused3d_step(Z3, zkb), 5)
+    z3_plain_ms = device_ms(lambda: fused3d.fused3d_step_plain(Z3, zpb), 1)
+    zread, zwritten = step_bytes(fused3d, Z3, zkb, 6, zkb.cep, Z3.mtab)
+    zops = step_ops(Z3, 3, z3.ctx.nelem, z3.ctx.nnode)
+    e_lo, n_lo = fused3d.last_only_slots(Z3)
+    z_last_only = (len(e_lo) * nbytes(zkb.eout[0])
+                   + len(n_lo) * nbytes(zkb.nout[0]))
+    z3bound = bound(zread, zwritten - z_last_only * (NCH - 1) / NCH, zops)
+    z3bound_one = bound(zread, zwritten, zops)
+    del zcb, zkb, zpb
+    z3.run_steps(20, chunk=20)
+    sync()
+    zero_counts()
+    t = time.perf_counter()
+    z3.run_steps(100, chunk=50)
+    sync()
+    z3run_s = time.perf_counter() - t
+    z3launch = {"fused3d_step": fused3d.fused3d_step.launches,
+                "dt_refresh": fused2d.dt_refresh.launches,
+                "fused3d_finalize": fused3d.fused3d_finalize.launches}
+    if z3.step_path != "pallas3d" or z3launch != {
+            "fused3d_step": 100, "dt_refresh": 100, "fused3d_finalize": 2}:
+        fail(f"flagship3d with {NMM} materials: step path {z3.step_path}, "
+             f"launches {z3launch} (want pallas3d, one step launch per step "
+             "and a finalize per chunk)")
+    if fused3d.chunk_step_plain.calls or fused3d.finalize_plain.calls:
+        fail(f"flagship3d with {NMM} materials took a plain version")
+    for f in FIELD_NAMES:
+        v = getattr(z3.state, f)
+        if v.is_floating_point() and not bool(torch.isfinite(v).all()):
+            fail(f"flagship3d with {NMM} materials: non-finite {f}")
+    z3ptx = {ph: ptx.get(f"fused3d_many:phase_{ph}<many>")
+             for ph in "aceg"}
+    phase19["flagship3d"] = {
+        "nmat": NMM, "tets": z3.ctx.nelem, "step_path": z3.step_path,
+        "launches": z3launch, "max_abs_err": z3_err, "ms": z3_ms,
+        "ms_one_step_form": z3_one_ms, "plain_ms": z3_plain_ms,
+        "bound": z3bound, "bound_one_step_form": z3bound_one,
+        "elem_steps_per_s": z3.ctx.nelem * 100 / z3run_s, "ptxas": z3ptx}
+    print(f"  flagship3d {NMM} materials on {card}: chunk form {z3_ms:.4f} "
+          f"ms per step (a graph of {NCH} steps, their dt_refresh calls and "
+          f"one finalize, over {NCH}); one-step form {z3_one_ms:.4f} ms; "
+          f"plain {z3_plain_ms:.4f} ms; bound {z3bound[0]:.4f} ms by "
+          f"{z3bound[1]} ({z3bound[2] / 1e6:.1f} MB); ptxas A, C, E, G "
+          f"{z3ptx}; run_steps "
+          f"{phase19['flagship3d']['elem_steps_per_s']:.6e} "
+          f"elem*steps/s, launches {z3launch}")
+    del z3
+    torch.cuda.empty_cache()
+    phase19["phase_s"] = time.perf_counter() - t_p19
+    print(f"  phase 19: {phase19['phase_s']:.1f} s")
+
     src2 = "dynearthsol_tpu_torch/csrc/fused2d.cu"
     src3 = "dynearthsol_tpu_torch/csrc/fused3d.cu"
     err_metric = ("max |kernel - plain| / max |plain| over the output "
@@ -6131,7 +6400,7 @@ def main():
                  "(the Winkler and water facet tractions, surface process "
                  "1) and the top-lane pass S, with the two-material "
                  "mixtures: the production3d path (pallas3d)",
-         "launches": launches3p["fused3d_step"], "max_abs_err": prod_err,
+         "launches": launches3p["fused3d_step"], "max_abs_err": prod3_err,
          "err_metric": "max |kernel - plain| / max |plain| over the State "
                        "fields, dhacc and edvacc_surf of a 10-step maxwell "
                        "chunk with the tractions and surface process 1 and "
@@ -6151,6 +6420,59 @@ def main():
          "bound_bytes": pbound[2], "bound_ops": pbound[3],
          "bound_ms_one_step_form": pbound_one[0],
          "bytes_by_phase": phases3p, "library_ms": None},
+        {"name": "fused2d_chunk_manymat", "route": "cuda", "source": src2,
+         "replaces": "dynearthsol_tpu/ops/pallas2d.py:1330",
+         "form": f"the chunk kernel's many-material instance with the "
+                 f"Winkler and water tractions and surface process 1 "
+                 f"({NMM} materials: their constants a device table, each "
+                 f"weight read where a mixture uses it), one cooperative "
+                 f"launch per chunk of 250 steps: production with {NMM} "
+                 f"materials (pallas2d_res, phase 19)",
+         "launches": phase19["production"]["launches"]["fused2d_chunk"],
+         "launches_by_path": {f"pallas2d_res (production, {NMM} "
+                              f"materials)": phase19["production"][
+                                  "launches"]["fused2d_chunk"]},
+         "max_abs_err": z_err,
+         "err_metric": "max |kernel - plain| / max |plain| over every plane "
+                       "(viscosity aside, the velocity of dt |f / m|, a "
+                       "tensor component of its tensor's largest) and "
+                       "the refresh scalars of one full-size maxwell step "
+                       f"with {NMM} materials, the plain version on the "
+                       "card; a 10-step maxwell chunk at the maxwell gate "
+                       "and 25 EVP chunk steps equal to 25 one-step launches "
+                       "bit for bit",
+         "ms": zchunk_ms, "plain_ms": zplain_ms,
+         "timed_as": f"per step: CUDA events around a chunk of {NCH2} "
+                     f"steps, over {NCH2}",
+         "bound_ms": zbound[0], "bound_by": zbound[1],
+         "bound_bytes": zbound[2], "bound_ops": zbound[3],
+         "library_ms": None, "ms_issued_from_python": zchunk_ms,
+         "blocks_per_sm": zocc["blocks_per_sm"], "grid": zocc["grid"],
+         "registers": zocc["registers"], "local_bytes": zocc["local_bytes"],
+         "elem_steps_per_s": phase19["production"]["elem_steps_per_s"]},
+        {"name": "fused3d_step_manymat", "route": "cuda", "source": src3,
+         "replaces": "dynearthsol_tpu/ops/pallas3d.py:1583",
+         "form": f"the many-material instances of phases A, C, E and G "
+                 f"({NMM} materials: their constants a device table, each "
+                 f"weight read where a mixture uses it): flagship3d with "
+                 f"{NMM} materials (pallas3d, phase 19)",
+         "launches": z3launch["fused3d_step"],
+         "finalize_launches": z3launch["fused3d_finalize"],
+         "max_abs_err": z3_err,
+         "err_metric": "max |kernel - plain| / max |plain| over every plane "
+                       f"(viscosity aside) of one flagship3d maxwell step "
+                       f"with {NMM} materials, the plain version on the "
+                       "card; the chunk form equals 3 complete EVP steps "
+                       "bit for bit",
+         "ms": z3_ms, "plain_ms": z3_plain_ms,
+         "timed_as": f"chunk form: a CUDA graph of {NCH} steps, their "
+                     f"dt_refresh calls and one finalize, over {NCH}",
+         "ms_one_step_form": z3_one_ms,
+         "bound_ms": z3bound[0], "bound_by": z3bound[1],
+         "bound_bytes": z3bound[2], "bound_ops": z3bound[3],
+         "bound_ms_one_step_form": z3bound_one[0], "library_ms": None,
+         "ptxas_many": z3ptx,
+         "elem_steps_per_s": phase19["flagship3d"]["elem_steps_per_s"]},
     ]
     # phase 15a's subduction-2d runs on the resident runner, or on the
     # tiled one where the 8-material instance misses the resident gate
@@ -6252,8 +6574,10 @@ def main():
     # (each instance counted by its wrapper's count)
     wrapper_of = {"fused2d_step": "fused2d_chunk",
                   "fused2d_chunk_production": "fused2d_chunk",
+                  "fused2d_chunk_manymat": "fused2d_chunk",
                   "fused3d_step_multimat": "fused3d_step",
-                  "fused3d_step_production": "fused3d_step"}
+                  "fused3d_step_production": "fused3d_step",
+                  "fused3d_step_manymat": "fused3d_step"}
     for k in kernels:
         w = wrapper_of.get(k["name"], k["name"])
         k["launches_registry_models"] = {
@@ -6284,6 +6608,7 @@ def main():
                       "prerelax_generic3d_poly": phase16,
                       "models_and_output": phase17,
                       "halo": phase18,
+                      "manymat": phase19,
                       "init_s_flagship3d_unstructured": u3init_s,
                       "mesh_s_flagship3d_unstructured": mesh_s[1],
                       "script_s": script_s}))

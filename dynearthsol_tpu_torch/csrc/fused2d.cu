@@ -45,6 +45,15 @@
 // node reads its neighbours' moved heights, so it runs in a pass of its
 // own (S) behind one more grid sync, on the top lane only.
 //
+// Materials: one (the template switch U) takes its properties as plan
+// scalars; up to MAXMAT keep their constants in the kernel argument and an
+// element's weights in registers.  Plans of more materials run the
+// many-material instances, compiled from this file by fused2d_many.cu
+// (DES_MANY): their constants a device table in the run dtype, uploaded
+// once per plan, each weight read from the const pack where a mixture uses
+// it (manymat.cuh).  Compiled apart, they leave this file's instances as
+// they were, register for register.  No material count is refused.
+//
 // Node sums reproduce the stencil assembly of pallas2d.py asm_local /
 // asm_equal_local / _pad4: each node adds its up-to-four cells' corner
 // contributions in the fixed order 00, 10, 11, 01, with the triangle
@@ -72,6 +81,13 @@
 #include <cfloat>
 
 #include "rheology2d.cuh"
+
+#ifndef DES_MANY
+#define DES_MANY 0
+#endif
+#if DES_MANY
+#include "manymat.cuh"
+#endif
 
 using namespace des;
 namespace cg = cooperative_groups;
@@ -113,8 +129,10 @@ template <typename T> struct StepParams {
 
 // ip/fp are ops/fused2d.py StepPlan.ip (IP_FIELDS) and .fp (FP_FIELDS,
 // then CE_SLOTS, then MAT_FIELDS per material); each float64 is rounded to
-// T here, once, as JAX rounds a Python float constant.  The caller has
-// refused nmat > MAXMAT.
+// T here, once, as JAX rounds a Python float constant.  The kernel argument
+// holds the first MAXMAT materials' constants; the many-material instances
+// read every material's from the device table mtab instead (the same
+// values, rounded once on the host).
 template <typename T>
 StepParams<T> from_host(const int* ip, const double* fp) {
   StepParams<T> p;
@@ -192,6 +210,9 @@ template <typename T> struct Bufs {
   T* nwork;        // (2, nx, nz) scratch
   T* part;         // (4, nb) partials, one column per virtual block
   int nb;
+#if DES_MANY
+  const T* mtab;   // (nmat, NMATFIELD) per-material constants
+#endif
 };
 
 // U: a single material (StepParams::uniform), whose per-element constants
@@ -213,6 +234,14 @@ template <typename T, bool U> struct Ctx {
     return U ? p.ce[slot] : b.cep[slot * 2 * ES + e];
   }
   __device__ int nmat() const { return U ? 1 : p.nmat; }
+#if DES_MANY
+  // the per-material constants and element e's weights as the
+  // many-material mixers read them
+  __device__ MatTable<T> mats() const { return {b.mtab, NMATFIELD}; }
+  __device__ Planes<T> weights(int e) const {
+    return {b.cep + NCE0 * 2 * ES + e, 2 * ES};
+  }
+#else
   __device__ void weights(int e, T* w) const {
     if constexpr (U) {
       w[0] = T(1);
@@ -222,6 +251,7 @@ template <typename T, bool U> struct Ctx {
         w[m] = m < p.nmat ? b.cep[(NCE0 + m) * 2 * ES + e] : T(0);
     }
   }
+#endif
   __device__ Moduli<T> moduli(int e) const {
     Moduli<T> k;
     k.bulkm = ce(CE_BULK, e);
@@ -498,8 +528,12 @@ __device__ __forceinline__ void phase_c(const Ctx<T, U>& C, int c) {
     T syy = C.ein(E_SYY, e), pls = C.ein(E_PLS, e);
     T dpls = rh == RH_EP ? T(0) : C.ein(E_DPLS, e);
     Moduli<T> k = C.moduli(e);
+#if DES_MANY
+    const Planes<T> w = C.weights(e);
+#else
     T w[U ? 1 : MAXMAT];
     C.weights(e, w);
+#endif
     const int nmat = C.nmat();
     T visc;
     if (rh == RH_VISCOUS || rh == RH_MAXWELL || rh == RH_EVP) {
@@ -507,8 +541,13 @@ __device__ __forceinline__ void phase_c(const Ctx<T, U>& C, int c) {
       T d = sr[0] - sr[1];
       T rII2 = T(0.25) * (d * d) + sr[2] * sr[2];
       T ed = dmax(dsqrt(rII2), T(1e-30));
+#if DES_MANY
+      visc = visc_core_many(C.mats(), nmat, w, temp_e, s0m, ed, p.log_q,
+                            p.log_1e6, p.visc_min, p.visc_max);
+#else
       visc = visc_core(p.mat, nmat, w, temp_e, s0m, ed, p.log_q, p.log_1e6,
                        p.visc_min, p.visc_max);
+#endif
     } else {
       visc = C.ein(E_VISC, e);
     }
@@ -522,8 +561,13 @@ __device__ __forceinline__ void phase_c(const Ctx<T, U>& C, int c) {
       maxwell2(k, visc, dt, dv, de, so, sc);
     } else {  // RH_EP or RH_EVP
       T amc, anphi, anpsi, hardn, ten_max, sp[3], spyy, depls;
+#if DES_MANY
+      plastic_props_many(C.mats(), nmat, w, pls, p.tension_max, p.deg2rad,
+                         amc, anphi, anpsi, hardn, ten_max);
+#else
       plastic_props(p.mat, nmat, w, pls, p.tension_max, p.deg2rad, amc,
                     anphi, anpsi, hardn, ten_max);
+#endif
       elasto_plastic2d(k, amc, anphi, anpsi, hardn, ten_max, de, so, syy, sp,
                        spyy, depls);
       bool use_v = false;
@@ -861,6 +905,17 @@ __device__ __forceinline__ Cfl<T> phase_g(const Ctx<T, U>& C, int c,
       if constexpr (U) {
         applies = p.decay_uniform != 0;
       } else {
+        // the dominant material: the first of the largest weights
+#if DES_MANY
+        const Planes<T> w = C.weights(e);
+        T dom = w[0];
+        int dom_m = 0;
+        for_mats(1, p.nmat, [&](int m) {
+          const T wm = w[m];
+          if (wm > dom) dom_m = m;
+          dom = dmax(dom, wm);
+        });
+#else
         T w[MAXMAT];
         C.weights(e, w);
         T dom = w[0];
@@ -871,6 +926,7 @@ __device__ __forceinline__ Cfl<T> phase_g(const Ctx<T, U>& C, int c,
           if (w[m] > dom) dom_m = m;
           dom = dmax(dom, w[m]);
         }
+#endif
         applies = dom_m != p.oceanic;
       }
       T lam_dt = p.lam_hl * dt;
@@ -1122,12 +1178,14 @@ __global__ void __launch_bounds__(BLOCK, 4)
   if (stamps) sync();  // a kernel argument: uniform across the grid
 }
 
+#if !DES_MANY
 // Grid syncs alone, on a grid of the chunk kernel's size: what the
 // barriers of a chunk cost without the work between them.
 __global__ void __launch_bounds__(BLOCK) grid_barriers(int nsync) {
   cg::grid_group grid = cg::this_grid();
   for (int i = 0; i < nsync; ++i) grid.sync();
 }
+#endif
 
 // The chunk kernel's grid: as many blocks as the card holds at once, at
 // most one per virtual block.  info (or null): blocks per SM, SMs, grid,
@@ -1176,23 +1234,74 @@ int launch_chunk(StepParams<T> p, Bufs<T> b, int n, int tiled,
 
 }  // namespace
 
+#if DES_MANY
+// The many-material instances (U false: more than MAXMAT materials), which
+// des_fused2d_chunk_f32 and des_fused2d_chunk_occupancy of fused2d.cu
+// call for such plans; arguments as theirs.
 extern "C" {
+
+int des_fused2d_chunk_many_f32(const int* ip, const double* fp, float* ein,
+                               float* nin, float* eout, float* nout,
+                               const float* cep, const float* mtab,
+                               const float* cnp, const float* tgt,
+                               float* scal, const float* flag, float* dthist,
+                               float* ework, float* nwork, float* part,
+                               int nb, int n, int tiled,
+                               unsigned long long* stamps, void* stream) {
+  StepParams<float> p = from_host<float>(ip, fp);
+  if (p.uniform || p.nmat <= MAXMAT || cep == nullptr || mtab == nullptr)
+    return int(cudaErrorInvalidValue);
+  Bufs<float> b{ein, nin, eout, nout, cep, cnp, tgt, scal, flag, dthist,
+                ework, nwork, part, nb, mtab};
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  return p.winkler || p.water || p.surf_on
+             ? launch_chunk<float, false, true>(p, b, n, tiled, stamps, s)
+             : launch_chunk<float, false, false>(p, b, n, tiled, stamps, s);
+}
+
+int des_fused2d_chunk_many_occupancy(int extras, int nvb, int* out) {
+  int grid;
+  return int(extras ? chunk_grid<float, false, true>(nvb, &grid, out)
+                    : chunk_grid<float, false, false>(nvb, &grid, out));
+}
+
+}  // extern "C"
+#else
+extern "C" {
+
+// fused2d_many.cu
+int des_fused2d_chunk_many_f32(const int* ip, const double* fp, float* ein,
+                               float* nin, float* eout, float* nout,
+                               const float* cep, const float* mtab,
+                               const float* cnp, const float* tgt,
+                               float* scal, const float* flag, float* dthist,
+                               float* ework, float* nwork, float* part,
+                               int nb, int n, int tiled,
+                               unsigned long long* stamps, void* stream);
+int des_fused2d_chunk_many_occupancy(int extras, int nvb, int* out);
 
 // Steps 0..n-1 of a chunk in one cooperative launch, each followed by the
 // dt refresh (flag and dthist point at the chunk's first step).  After the
 // launch the state is in eout/nout if n is odd, in ein/nin if n is even.
+// A mixed plan needs its const pack cep; one of more than MAXMAT materials
+// runs the many-material instance with its table mtab (else null).
 // Returns 0 or the cudaError_t of the launch (a refused launch never runs;
 // faults during the run surface at the caller's next synchronisation).
 int des_fused2d_chunk_f32(const int* ip, const double* fp, float* ein,
                           float* nin, float* eout, float* nout,
-                          const float* cep, const float* cnp,
-                          const float* tgt, float* scal, const float* flag,
-                          float* dthist, float* ework, float* nwork,
-                          float* part, int nb, int n, int tiled,
-                          unsigned long long* stamps, void* stream) {
-  if (!ip[4] && ip[2] > MAXMAT) return int(cudaErrorInvalidValue);
+                          const float* cep, const float* mtab,
+                          const float* cnp, const float* tgt, float* scal,
+                          const float* flag, float* dthist, float* ework,
+                          float* nwork, float* part, int nb, int n,
+                          int tiled, unsigned long long* stamps,
+                          void* stream) {
   StepParams<float> p = from_host<float>(ip, fp);
   if (!p.uniform && cep == nullptr) return int(cudaErrorInvalidValue);
+  if (!p.uniform && p.nmat > MAXMAT)
+    return des_fused2d_chunk_many_f32(ip, fp, ein, nin, eout, nout, cep,
+                                      mtab, cnp, tgt, scal, flag, dthist,
+                                      ework, nwork, part, nb, n, tiled,
+                                      stamps, stream);
   Bufs<float> b{ein, nin, eout, nout, cep, cnp, tgt, scal, flag, dthist,
                 ework, nwork, part, nb};
   cudaStream_t s = static_cast<cudaStream_t>(stream);
@@ -1205,14 +1314,17 @@ int des_fused2d_chunk_f32(const int* ip, const double* fp, float* ein,
            : launch_chunk<float, false, false>(p, b, n, tiled, stamps, s);
 }
 
-// The grid of the chunk kernel's instance (uniform, extras: the facet
-// tractions and surface process 1) for nvb virtual blocks; out: blocks per
-// SM, SMs, grid, registers per thread, local bytes per thread.
-int des_fused2d_chunk_occupancy(int uniform, int extras, int nvb, int* out) {
+// The grid of the chunk kernel's instance (uniform; many: more than MAXMAT
+// materials; extras: the facet tractions and surface process 1) for nvb
+// virtual blocks; out: blocks per SM, SMs, grid, registers per thread,
+// local bytes per thread.
+int des_fused2d_chunk_occupancy(int uniform, int many, int extras, int nvb,
+                                int* out) {
   int grid;
   if (uniform)
     return int(extras ? chunk_grid<float, true, true>(nvb, &grid, out)
                       : chunk_grid<float, true, false>(nvb, &grid, out));
+  if (many) return des_fused2d_chunk_many_occupancy(extras, nvb, out);
   return int(extras ? chunk_grid<float, false, true>(nvb, &grid, out)
                     : chunk_grid<float, false, false>(nvb, &grid, out));
 }
@@ -1242,3 +1354,4 @@ const char* des_error_string(int code) {
 }
 
 }  // extern "C"
+#endif

@@ -82,7 +82,15 @@
 // as the TPU kernel recomputes them:
 // A (conductivity, density, radiogenic source), C (moduli, the viscosity's
 // and the plastic weakening's material loops), E (buoyancy), G (density,
-// moduli, heat capacity, the hmass coefficient).
+// moduli, heat capacity, the hmass coefficient).  Up to MAXMAT materials
+// keep their constants in the kernel argument and a tet's weights in
+// registers.  Plans of more materials run the many-material instances of
+// A, C, E and G, compiled from this file by fused3d_many.cu (DES_MANY):
+// their constants a device table in the run dtype (MAT_FIELDS then
+// MIX_FIELDS per material, uploaded once per plan), each weight read from
+// the const pack where a mixture uses it (manymat.cuh).  Compiled apart,
+// they leave this file's instances as they were, register for register.
+// No material count is refused.
 //
 // Boundary processes (the template switch BND, as X of fused2d.cu's
 // step_chunk2d, chosen per plan; the BND = false instances are the flagship
@@ -118,6 +126,13 @@
 #include <cfloat>
 
 #include "rheology3d.cuh"
+
+#ifndef DES_MANY
+#define DES_MANY 0
+#endif
+#if DES_MANY
+#include "manymat.cuh"
+#endif
 
 using namespace des;
 
@@ -192,7 +207,10 @@ template <typename T> struct Params3 {
 
 // ip/fp are ops/fused3d.py StepPlan3.ip (IP_FIELDS) and .fp (FP_FIELDS,
 // then per material its MAT_FIELDS and MIX_FIELDS); each float64 is
-// rounded to T once.  The caller has refused nmat > MAXMAT.
+// rounded to T once.  The kernel argument holds the first MAXMAT
+// materials' constants; the many-material instances read every material's
+// from the device table mtab instead (the same values, rounded once on the
+// host).
 template <typename T>
 Params3<T> from_host(const int* ip, const double* fp) {
   Params3<T> p;
@@ -242,6 +260,9 @@ template <typename T> struct Bufs3 {
   int pending;    // ein carries the previous step's epilogue
   int last;       // store the planes no later step of the chunk reads
   T* fwork;       // (24, nxc, nyc) facet partials (BND, facets), or null
+#if DES_MANY
+  const T* mtab;  // (nmat, NMATFIELD + NMIX) per-material constants
+#endif
 };
 
 // element value of (slot, tet t, cell c)
@@ -277,8 +298,49 @@ __device__ __forceinline__ CellPos<T> cell_pos(const Params3<T>& p, int c) {
 // the const pack, each mixture computed where it is read, as
 // ops/fused3d.py mixtures orders it: amean = (w0 v0 + w1 v1 + ...) / ws,
 // hmean = ws / (w0 / v0 + w1 / v1 + ...), ws the weights' sum (1 where 0).
+#if DES_MANY
+// The mixtures' table values of a many-material plan: material m's
+// MixConst after its MatConst in the device table
+template <typename T> struct MixTable {
+  const T* t;
+  __device__ __forceinline__ MixConst<T> operator[](int m) const {
+    const T* s = t + m * (NMATFIELD + NMIX) + NMATFIELD;
+    return {__ldg(s), __ldg(s + 1), __ldg(s + 2), __ldg(s + 3),
+            __ldg(s + 4), __ldg(s + 5), __ldg(s + 6), __ldg(s + 7),
+            __ldg(s + 8)};
+  }
+};
+#endif
+
 template <typename T, bool U> struct Props {
   const Params3<T>& p;
+#if DES_MANY
+  // more than MAXMAT materials (U false): the tet's weights, planes 5 NC
+  // apart in the const pack, and the device table, read by each mixture
+  Planes<T> w;
+  const T* tab;
+  T ws;
+  __device__ Props(const Params3<T>& p_, const Bufs3<T>& b, int t, int c)
+      : p(p_), w{b.cep + eidx(p_, 1, t, c), 5 * p_.NC}, tab(b.mtab) {
+    static_assert(!U, "the many-material instances mix their materials");
+    ws = w[0];
+    for_mats(1, p.nmat, [&](int m) { ws = ws + w[m]; });
+    ws = ws > T(0) ? ws : T(1);
+  }
+  __device__ MatTable<T> mats() const { return {tab, NMATFIELD + NMIX}; }
+  template <class F> __device__ T amean(F f) const {
+    const MixTable<T> mix{tab};
+    T acc = w[0] * f(mix[0]);
+    for_mats(1, p.nmat, [&](int m) { acc = acc + w[m] * f(mix[m]); });
+    return acc / ws;
+  }
+  template <class F> __device__ T hmean(F f) const {
+    const MixTable<T> mix{tab};
+    T acc = w[0] / f(mix[0]);
+    for_mats(1, p.nmat, [&](int m) { acc = acc + w[m] / f(mix[m]); });
+    return ws / acc;
+  }
+#else
   T w[U ? 1 : MAXMAT], ws;
   __device__ Props(const Params3<T>& p_, const Bufs3<T>& b, int t, int c)
       : p(p_) {
@@ -310,6 +372,7 @@ template <typename T, bool U> struct Props {
       if (m < p.nmat) acc = acc + w[m] / f(p.mix[m]);
     return ws / acc;
   }
+#endif
   __device__ T bulkm() const {
     if constexpr (U) return p.bulkm;
     else return hmean([](const MixConst<T>& q) { return q.K; });
@@ -769,8 +832,13 @@ __global__ void __launch_bounds__(BLOCK) phase_c(Params3<T> p, Bufs3<T> b) {
   if (creep) {
     T s0m = (so[0] + so[1] + so[2]) / T(3);
     T ed = dmax(dsqrt(inv2_6(sr)), T(1e-30));
+#if DES_MANY
+    visc = visc_core_many(pr.mats(), nmat, pr.w, temp_e, s0m, ed, p.log_q,
+                          p.log_1e6, p.visc_min, p.visc_max);
+#else
     visc = visc_core(p.mat, nmat, pr.w, temp_e, s0m, ed, p.log_q, p.log_1e6,
                      p.visc_min, p.visc_max);
+#endif
   } else {
     visc = b.ein[eidx(p, E_VISC, t, c)];
   }
@@ -784,8 +852,13 @@ __global__ void __launch_bounds__(BLOCK) phase_c(Params3<T> p, Bufs3<T> b) {
     maxwell3(K, G, visc, dt, dv, de, so, sc);
   } else {  // RH_EP or RH_EVP
     T amc, anphi, anpsi, hardn, ten_max, sp[6], depls;
+#if DES_MANY
+    plastic_props_many(pr.mats(), nmat, pr.w, pls, p.tension_max,
+                       p.deg2rad, amc, anphi, anpsi, hardn, ten_max);
+#else
     plastic_props(p.mat, nmat, pr.w, pls, p.tension_max, p.deg2rad, amc,
                   anphi, anpsi, hardn, ten_max);
+#endif
     elasto_plastic3(K, G, amc, anphi, anpsi, hardn, ten_max, de, so, sp,
                     depls);
     bool use_v = false;
@@ -1401,15 +1474,52 @@ int step(const Params3<T>& p, Bufs3<T> b, cudaStream_t s) {
   return 0;
 }
 
+#if DES_MANY
+// The many-material instances (more than MAXMAT materials), with the
+// shared phases B, D, F, S and H; refused as step_any of fused3d.cu
+// refuses, and a plan of MAXMAT materials or fewer, or without its table.
+template <typename T>
+int step_many(const int* ip, const double* fp, Bufs3<T> b, cudaStream_t s) {
+  Params3<T> p = from_host<T>(ip, fp);
+  if (p.uniform || p.nmat <= MAXMAT || b.cep == nullptr ||
+      b.mtab == nullptr || p.nzc % 2)
+    return int(cudaErrorInvalidValue);
+  if ((p.winkler || p.water) && b.fwork == nullptr)
+    return int(cudaErrorInvalidValue);
+  return p.winkler || p.water || p.surf_on ? step<T, false, true>(p, b, s)
+                                           : step<T, false, false>(p, b, s);
+}
+
+}  // namespace
+
+extern "C" {
+
+// des_fused3d_step_f32's plans of more than MAXMAT materials, with their
+// table mtab; arguments as its
+int des_fused3d_step_many_f32(const int* ip, const double* fp,
+                              const float* ein, const float* nin, float* eout,
+                              float* nout, const float* cep,
+                              const float* mtab, const float* cnp,
+                              const float* tgt, const float* scal,
+                              float* ework, float* nwork, float* sfac,
+                              const float* dtp, float* part, float* fwork,
+                              int nb, int pending, int last, void* stream) {
+  Bufs3<float> b{ein,   nin,  eout, nout, cep, cnp,     tgt,  scal,  ework,
+                 nwork, sfac, dtp,  part, nb,  pending, last, fwork, mtab};
+  return step_many<float>(ip, fp, b, static_cast<cudaStream_t>(stream));
+}
+
+}  // extern "C"
+#else
 // U: a single material with uniform ICs (ops/fused3d.py _uniform_mat),
-// whose properties are plan constants; else the const pack's mixtures.
-// BND: the facet tractions or surface process 1.  Refused: an odd nzc (the
-// cell phases take cell pairs along z), more than MAXMAT materials, a mixed
-// plan without its pack, facets without their scratch.
+// whose properties are plan constants; else the const pack's mixtures (of
+// more than MAXMAT materials in fused3d_many.cu, which the extern entry
+// below calls).  BND: the facet tractions or surface process 1.  Refused:
+// an odd nzc (the cell phases take cell pairs along z), a mixed plan
+// without its pack, facets without their scratch.
 template <typename T>
 int step_any(const int* ip, const double* fp, Bufs3<T> b, cudaStream_t s) {
-  if (!ip[12] && (ip[13] > MAXMAT || b.cep == nullptr))
-    return int(cudaErrorInvalidValue);
+  if (!ip[12] && b.cep == nullptr) return int(cudaErrorInvalidValue);
   Params3<T> p = from_host<T>(ip, fp);
   if (p.nzc % 2) return int(cudaErrorInvalidValue);
   if ((p.winkler || p.water) && b.fwork == nullptr)
@@ -1435,20 +1545,36 @@ int finalize_step(const int* ip, const double* fp, T* e, const T* n,
 
 extern "C" {
 
+// fused3d_many.cu
+int des_fused3d_step_many_f32(const int* ip, const double* fp,
+                              const float* ein, const float* nin, float* eout,
+                              float* nout, const float* cep,
+                              const float* mtab, const float* cnp,
+                              const float* tgt, const float* scal,
+                              float* ework, float* nwork, float* sfac,
+                              const float* dtp, float* part, float* fwork,
+                              int nb, int pending, int last, void* stream);
+
 // One fused 3D step in the chunk form: ein carries the pending epilogue of
 // the previous step when `pending` (its dt at dtp), eout is left with this
 // step's (nwork slot 1 and sfac hold its inputs); `last` stores the planes
 // no later step of the chunk reads; fwork is the facet scratch of a plan
-// with facet tractions (else null).  Returns 0 or the cudaError_t of the
-// first launch that failed (faults during the run surface at the caller's
-// next synchronisation).
+// with facet tractions (else null); mtab the table of a plan of more than
+// MAXMAT materials, which the many-material instances run (else null).
+// Returns 0 or the cudaError_t of the first launch that failed (faults
+// during the run surface at the caller's next synchronisation).
 int des_fused3d_step_f32(const int* ip, const double* fp, const float* ein,
                          const float* nin, float* eout, float* nout,
-                         const float* cep, const float* cnp, const float* tgt,
+                         const float* cep, const float* mtab,
+                         const float* cnp, const float* tgt,
                          const float* scal, float* ework, float* nwork,
                          float* sfac, const float* dtp, float* part,
                          float* fwork, int nb, int pending, int last,
                          void* stream) {
+  if (!ip[12] && ip[13] > MAXMAT)
+    return des_fused3d_step_many_f32(ip, fp, ein, nin, eout, nout, cep, mtab,
+                                     cnp, tgt, scal, ework, nwork, sfac, dtp,
+                                     part, fwork, nb, pending, last, stream);
   Bufs3<float> b{ein,   nin,  eout, nout, cep, cnp,     tgt,  scal,  ework,
                  nwork, sfac, dtp,  part, nb,  pending, last, fwork};
   return step_any<float>(ip, fp, b, static_cast<cudaStream_t>(stream));
@@ -1465,3 +1591,4 @@ int des_fused3d_finalize_f32(const int* ip, const double* fp, float* e,
 }
 
 }  // extern "C"
+#endif

@@ -11,7 +11,7 @@
 // file is compiled without FMA contraction (ops/_build.py), so that +, -,
 // * and / round exactly as PyTorch rounds them.  Only the transcendental
 // functions (exp, log, sin, tan) differ, by the ulps of CUDA's libdevice.
-// Shared with the 3D kernel still to come.
+// Shared with the 3D kernel.
 #pragma once
 
 namespace des {
@@ -70,7 +70,9 @@ template <typename T> struct Moduli {
 // The material loops below run to MAXMAT, unrolled, and stop at nmat:
 // every index is then a constant, so that neither the weights nor the
 // plan's per-material constants (a kernel argument) are copied to local
-// memory to be indexed.
+// memory to be indexed.  Plans of more materials run the many-material
+// instances, whose mixers (manymat.cuh) walk the materials in groups of
+// MAXMAT.
 
 // Dislocation-creep viscosity, harmonic mixture over the materials
 // (visc_core_local).

@@ -105,6 +105,10 @@ def ptxas_report() -> dict:
                           r"asm_pack_kernelI[fd]Li\d)", raw)
             src = re.search(r"_(fused\w+?|band2d)_cu_", raw)
             kn = k.group(1) if k else raw
+            # a mixed instance of fused2d_many.cu or fused3d_many.cu: more
+            # than MAXMAT materials
+            mixed = "many" if src and src.group(1).endswith("_many") \
+                else "mixed"
             if kn.startswith("phase_"):
                 # the 3D phases' bools: a single material (A, C, E, G),
                 # then the facet tractions and surface process 1 (E, F,
@@ -112,15 +116,14 @@ def ptxas_report() -> dict:
                 bools = re.findall(r"Lb([01])E", raw)
                 tags = []
                 if kn[-1] in "aceg":
-                    tags.append("uniform" if bools.pop(0) == "1"
-                                else "mixed")
+                    tags.append("uniform" if bools.pop(0) == "1" else mixed)
                 if bools and bools[0] == "1":
                     tags.append("facets+sp1")
                 kn += f"<{','.join(tags)}>" if tags else ""
             if kn.startswith("step_chunk2d"):
                 # the bools: single material, facets and surface process 1
                 kn = ("step_chunk2d<"
-                      + ("uniform" if kn[-5] == "1" else "mixed")
+                      + ("uniform" if kn[-5] == "1" else mixed)
                       + (",facets+sp1" if kn.endswith("1") else "") + ">")
             if kn.startswith(("asm_", "gather_")):
                 # the value type (the gather copies 4- or 8-byte words) and
@@ -153,17 +156,17 @@ def _load():
     global _LIB
     if _LIB is None:
         lib = ctypes.CDLL(str(build()))
-        lib.des_fused2d_chunk_f32.argtypes = [_P] * 15 + [_I, _I, _I, _P,
+        lib.des_fused2d_chunk_f32.argtypes = [_P] * 16 + [_I, _I, _I, _P,
                                                           _P]
         lib.des_fused2d_chunk_f32.restype = _I
-        lib.des_fused2d_chunk_occupancy.argtypes = [_I, _I, _I, _P]
+        lib.des_fused2d_chunk_occupancy.argtypes = [_I, _I, _I, _I, _P]
         lib.des_fused2d_chunk_occupancy.restype = _I
         lib.des_grid_barriers.argtypes = [_I, _I, _P]
         lib.des_grid_barriers.restype = _I
         lib.des_dt_refresh_f32.argtypes = [_P] * 3 + [_I, _P, _P, _P, _I,
                                                       _I, _I, _P]
         lib.des_dt_refresh_f32.restype = _I
-        lib.des_fused3d_step_f32.argtypes = [_P] * 16 + [_I, _I, _I, _P]
+        lib.des_fused3d_step_f32.argtypes = [_P] * 17 + [_I, _I, _I, _P]
         lib.des_fused3d_step_f32.restype = _I
         lib.des_fused3d_finalize_f32.argtypes = [_P] * 8
         lib.des_fused3d_finalize_f32.restype = _I

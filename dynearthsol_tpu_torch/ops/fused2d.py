@@ -36,9 +36,13 @@ option 1 (hillslope diffusion of the top lane with its ``dhacc`` and
 per-facet ``edv`` accumulators; pallas2d.py:952-991) run inside the step,
 in the plain version and in the kernel's instance compiled for them.
 
+Materials.  A plan of up to MAXMAT materials passes its per-material
+constants to the kernel as arguments; one of more keeps them in a device
+table (``StepPlan.mtab``), which the kernel's many-material instance reads.
+
 Gating is pallas2d.py's, ported as it is (alignment rules included) so
-that the two packages dispatch alike; ``unported_features`` names what
-passes the gates and is still refused (more than MAXMAT materials).
+that the two packages dispatch alike; ``unported_features`` finds nothing
+that passes the gates and is refused.
 """
 
 from __future__ import annotations
@@ -91,7 +95,8 @@ NCN = len(CN_SLOTS)
 # sum of |force|^2 -- one column per virtual block of 256 cells or nodes
 NPART = 4
 BLOCK = 256     # threads per block of csrc/fused2d.cu
-MAXMAT = 8      # csrc/rheology2d.cuh MAXMAT
+MAXMAT = 8      # csrc/rheology2d.cuh MAXMAT: materials whose constants
+#                 the kernel takes as arguments; more take the table
 NEWORK = 7      # element scratch planes of csrc/fused2d.cu
 
 
@@ -277,9 +282,7 @@ def resident_applicable(param: Param, ctx) -> bool:
 
 def unported_features(param: Param, ctx) -> list:
     """Features that pass the gates above but that this package's fused
-    step does not compute."""
-    if param.mat.nmat > MAXMAT:
-        return [f"more than {MAXMAT} materials"]
+    step does not compute: none."""
     return []
 
 
@@ -291,7 +294,9 @@ class StepPlan:
     switches and constants as Python values (float64, rounded to the run
     dtype where they enter the arithmetic, exactly as pallas2d.py rounds
     them), the cell parity, and the same values packed for the CUDA
-    kernel (``ip`` int32, ``fp`` float64 host arrays)."""
+    kernel (``ip`` int32, ``fp`` float64 host arrays); with more than
+    MAXMAT materials ``mtab``, the per-material constants on the plan's
+    device (mat_table)."""
 
     nx: int
     nz: int
@@ -308,6 +313,7 @@ class StepPlan:
     par: torch.Tensor  # (nxc, nzc) bool cell parity
     ip: np.ndarray
     fp: np.ndarray
+    mtab: torch.Tensor | None = None
 
     @property
     def nxc(self) -> int:
@@ -441,7 +447,21 @@ def make_plan(param: Param, ctx, device,
     return StepPlan(nx=nx, nz=nz, dtype=dtype,
                     rheol=mat.rheol_type, nmat=nmat, uniform=uniform,
                     ce_const=ce_const, mc=mc, sw=sw, k=k, grav=grav,
-                    surf_cols=surf_facet_cols(ctx), par=par, ip=ip, fp=fp)
+                    surf_cols=surf_facet_cols(ctx), par=par, ip=ip, fp=fp,
+                    mtab=mat_table(fp, len(FP_FIELDS) + len(CE_SLOTS), nmat,
+                                   device, dtype))
+
+
+def mat_table(fp, start: int, nmat: int, device, dtype):
+    """The per-material constants of a plan of more than MAXMAT materials
+    (csrc/manymat.cuh MatTable): the float64 values of ``fp`` from
+    ``start`` on, one row per material, rounded once to the run dtype, on
+    the plan's device (uploaded once per plan); None for fewer, whose
+    constants the kernel takes as arguments."""
+    if nmat <= MAXMAT:
+        return None
+    return torch.as_tensor(fp[start:].reshape(nmat, -1)).to(
+        device=device, dtype=dtype).contiguous()
 
 
 # ------------------------------------------- packing (chunk boundaries)
@@ -1111,8 +1131,12 @@ def _cuda_args_ok(P: StepPlan, b: ChunkBuffers, n: int, k: int, stamps):
               "ework": (NEWORK, *ep), "nwork": (2, *npl)}
     if not P.uniform:
         shapes["cep"] = (len(CE_SLOTS) + P.nmat, *ep)
+    tensors = {name: getattr(b, name) for name in shapes}
+    if P.mtab is not None:
+        shapes["mtab"] = (P.nmat, len(FC.MAT_FIELDS))
+        tensors["mtab"] = P.mtab
     for name, shape in shapes.items():
-        t = getattr(b, name)
+        t = tensors[name]
         if t is None or not (t.device == dev and t.dtype == torch.float32
                              and t.is_contiguous()):
             raise TypeError(f"{name}: need a contiguous float32 tensor on "
@@ -1158,7 +1182,8 @@ def fused_chunk(P: StepPlan, b: ChunkBuffers, n: int, tiled: bool,
         rc = lib.des_fused2d_chunk_f32(
             P.ip.ctypes.data, P.fp.ctypes.data,
             _ptr(b.ein), _ptr(b.nin), _ptr(b.eout), _ptr(b.nout),
-            _ptr(b.cep), _ptr(b.cnp), _ptr(b.tgt), _ptr(b.scal),
+            _ptr(b.cep), _ptr(P.mtab), _ptr(b.cnp), _ptr(b.tgt),
+            _ptr(b.scal),
             _ptr(b.flags[k]), _ptr(b.dthist[k:]), _ptr(b.ework),
             _ptr(b.nwork), _ptr(b.part), b.part.shape[1], n, int(tiled),
             _ptr(stamps), _stream())
@@ -1217,7 +1242,8 @@ def chunk_occupancy(P: StepPlan) -> dict:
 
     out = (ctypes.c_int * 5)()
     rc = _build.load().des_fused2d_chunk_occupancy(
-        int(P.uniform), int(has_extras(P)), P.nblocks(), out)
+        int(P.uniform), int(P.mtab is not None), int(has_extras(P)),
+        P.nblocks(), out)
     if rc != 0:
         raise RuntimeError(f"fused2d occupancy query failed: "
                            f"{_build.err(rc)}")

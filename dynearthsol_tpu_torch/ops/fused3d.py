@@ -54,8 +54,9 @@ and per-facet ``edv`` accumulators ride three more nodal planes, placed by
 ``surf_maps``.
 
 Gating is pallas3d.py's on top of ops/grid3d.py's ``grid_step_applicable``,
-ported as it is so that both packages dispatch alike.  ``unported_features``
-refuses only more materials than the kernel's MAXMAT.
+ported as it is so that both packages dispatch alike; any material count
+that passes it runs (more than MAXMAT on the kernel's many-material
+instances, their constants in the device table ``StepPlan3.mtab``).
 """
 
 from __future__ import annotations
@@ -107,7 +108,6 @@ NEWORK = 24        # element scratch planes of one cell each (csrc)
 NNWORK = 2         # node scratch planes
 NFWORK = 24        # facet scratch planes of one (x, y) column each (csrc):
 #                    side (bottom, top), force component, top/bottom corner
-MAXMAT = fused2d.MAXMAT  # csrc/rheology2d.cuh MAXMAT
 
 # per-material table values the mixtures take (csrc/fused3d.cu MixConst),
 # after the material's MAT_FIELDS: moduli, conductivity, rho0, rho0 * alpha,
@@ -320,9 +320,7 @@ def pallas3d_step_applicable(param: Param, ctx) -> bool:
 
 def unported_features(param: Param, ctx) -> list:
     """Features that pass the gate above but that this package's fused 3D
-    step does not compute."""
-    if len(param.mat.rho0) > MAXMAT:
-        return [f"more than {MAXMAT} materials"]
+    step does not compute: none."""
     return []
 
 
@@ -366,7 +364,9 @@ class StepPlan3:
     values for the mixtures (MIX_FIELDS) and ``mc`` its MAT_FIELDS.
     ``grav``: the facet groups (grav_facets) where the tractions run;
     ``smaps``: the edvacc_surf placement (surf_maps, as tensors on the
-    plan's device) where surface process 1 runs."""
+    plan's device) where surface process 1 runs; ``mtab``: with more than
+    MAXMAT materials their MAT_FIELDS and MIX_FIELDS on the plan's device
+    (fused2d.mat_table)."""
 
     nx: int
     ny: int
@@ -386,6 +386,7 @@ class StepPlan3:
     fp: np.ndarray
     rip: np.ndarray
     rfp: np.ndarray
+    mtab: torch.Tensor | None = None
 
     @property
     def ncell(self) -> int:
@@ -513,7 +514,9 @@ def make_plan(param: Param, ctx, device,
     return StepPlan3(nx=nx, ny=ny, nz=nz, dtype=dtype, rheol=mat.rheol_type,
                      uniform=uniform, nmat=nmat, sw=sw, k=k, mc=mc, mix=mix,
                      par=par, grav=grav, smaps=smaps, ip=ip, fp=fp,
-                     rip=rip, rfp=rfp)
+                     rip=rip, rfp=rfp,
+                     mtab=fused2d.mat_table(fp, len(FP_FIELDS), nmat,
+                                            device, dtype))
 
 
 # ------------------------------------------- packing (chunk boundaries)
@@ -1335,6 +1338,11 @@ def _cuda_args_ok(P: StepPlan3, b: ChunkBuffers3):
             or tuple(b.cep.shape) != (1 + P.nmat, 5, *P.cells)):
         raise TypeError("cep: need the plan's contiguous float32 const "
                         "pack on the card (const_epack)")
+    if P.mtab is not None and not (P.mtab.device == b.ein.device
+                                   and P.mtab.dtype == torch.float32
+                                   and P.mtab.is_contiguous()):
+        raise TypeError("mtab: need the plan's material table as a "
+                        "contiguous float32 tensor on the buffers' card")
     if P.facets and not (b.fwork.is_cuda and b.fwork.dtype == torch.float32
                          and b.fwork.is_contiguous()
                          and tuple(b.fwork.shape) == (NFWORK, *P.cells[:2])):
@@ -1360,7 +1368,8 @@ def _launch_step(P: StepPlan3, b: ChunkBuffers3, pending: bool, last: bool,
     p = fused2d._ptr
     rc = _build.load().des_fused3d_step_f32(
         P.ip.ctypes.data, P.fp.ctypes.data, p(b.ein), p(b.nin), p(b.eout),
-        p(b.nout), p(b.cep), p(b.cnp), p(b.tgt), p(b.scal), p(b.ework),
+        p(b.nout), p(b.cep), p(P.mtab), p(b.cnp), p(b.tgt), p(b.scal),
+        p(b.ework),
         p(b.nwork),
         p(b.sfac), p(dt_prev), p(b.part), p(b.fwork if P.facets else None),
         b.part.shape[1], int(pending), int(last), fused2d._stream())

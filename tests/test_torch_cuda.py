@@ -22,12 +22,13 @@ from dynearthsol_tpu_torch.mesh.generate import (regular_grid_3d,
                                                  unstructured_box_2d)
 from dynearthsol_tpu_torch.ops import band2d, flat3d, fused2d, fused3d
 from dynearthsol_tpu_torch.state import FIELD_NAMES
-from torch_cases import (BOUNDARY3, FLAT_FIELDS, STEP3_CASES,
-                         assert_evp3_one_step_close,
+from torch_cases import (BOUNDARY3, FLAT_FIELDS, MAXWELL_FIELDS,
+                         STEP3_CASES, assert_evp3_one_step_close,
                          assert_evp_one_step_close, assert_maxwell3_close,
                          assert_maxwell_close, assert_resident_matches_tiled,
                          flat3d_cfg, flat_cfg, make_sim3d_cfg, make_sim_cfg,
-                         multimat3d_cfg, production_cfg, rel_err)
+                         manymat_over, multimat3d_cfg, production_cfg,
+                         rel_err)
 
 pytestmark = pytest.mark.cuda
 
@@ -127,14 +128,15 @@ def test_2d_path_launches_once_per_chunk(cuda):
 
 
 def test_refused_launch_raises(cuda):
-    """An error code of the C entry raises in the wrapper: it refuses a plan
-    with more materials than the kernel holds (MAXMAT) before launching."""
+    """An error code of the C entry raises in the wrapper: it refuses a
+    mixed plan without its const pack (here a single material's buffers,
+    which hold none) before launching."""
     sim = des.Simulation(des.param_from_dict(make_sim_cfg()), device="cuda")
     P = fused2d.make_plan(sim.param, sim.ctx, sim.device,
                           sim.compensation_pressure)
     b = fused2d.make_buffers(P, sim.ctx, sim.state, 1, tiled=False)
+    assert b.cep is None
     ip = P.ip.copy()
-    ip[fused2d.IP_FIELDS.index("nmat")] = fused2d.MAXMAT + 1
     ip[fused2d.IP_FIELDS.index("uniform")] = 0
     before = _counts()
     with pytest.raises(RuntimeError, match="launch failed"):
@@ -164,6 +166,82 @@ def test_production_kernel_vs_plain(cuda):
     assert_maxwell_close(ref, out, get)
     for f in ("dhacc", "edvacc_surf"):
         assert rel_err(get(ref, f), get(out, f)) < 2e-4, f
+
+
+@pytest.mark.parametrize("nmat", [9, 17])
+def test_manymat_2d_vs_plain(cuda, nmat):
+    """The many-material instances of the chunk kernel (more than MAXMAT
+    materials: the device table of their constants, the weights read where
+    each mixture uses them) on the production feature set at 16 x 128
+    cells, against the plain version on the card: one EVP step as the
+    tiled runner's one-step launch at the one-step gate (the velocity at
+    the scale dt |f / m|, as test_production_kernel_vs_plain), 10 maxwell
+    steps in one chunk launch at the production maxwell gate of
+    tests/test_torch_production2d.py (many thin layers over the Winkler
+    column amplify libdevice's rounding of exp and log: the strain rate
+    2.4e-4 apart at 17 materials), and a 10-step chunk against 10
+    one-step launches bit for bit."""
+    cfg = production_cfg(**manymat_over(nmat))
+    sim = des.Simulation(des.param_from_dict(cfg), device="cuda")
+    P = fused2d.make_plan(sim.param, sim.ctx, sim.device,
+                          sim.compensation_pressure)
+    assert tuple(P.mtab.shape) == (nmat, 15)
+    assert fused2d.chunk_occupancy(P)["grid"] > 0
+    before = _counts()
+    out = _run(cfg, 1, False, False)
+    assert _counts() == (before[0] + 1, *before[1:])
+    ref = _run(cfg, 1, False, True)
+    assert_evp_one_step_close(ref, out, get, fields=(
+        "coord", "stress", "strain", "plstrain", "force", "dhacc",
+        "edvacc_surf"))
+    inc = sim.state.dt * (ref.force / sim.state.mass[:, None]).abs().max()
+    assert float((ref.vel - out.vel).abs().max()) < 2e-6 * float(inc)
+    mcfg = production_cfg("maxwell", **manymat_over(nmat))
+    ref, out = _run(mcfg, 10, True, True), _run(mcfg, 10, True, False)
+    amplified = {"vel": 5e-3, "dhacc": 5e-3, "edvacc_surf": 5e-3,
+                 "strain_rate": 2e-3, "edvoldt": 2e-3, "force": 1e-3}
+    for f in MAXWELL_FIELDS + ("dhacc", "edvacc_surf"):
+        err = rel_err(get(ref, f), get(out, f))
+        assert err < amplified.get(f, 2e-4), (f, err)
+    n = 10
+    cb = fused2d.make_buffers(P, sim.ctx, sim.state, n, tiled=False)
+    fused2d.fused_chunk(P, cb, n, tiled=False)
+    sb = fused2d.make_buffers(P, sim.ctx, sim.state, n, tiled=False)
+    for k in range(n):
+        fused2d.fused_chunk(P, sb, 1, tiled=False, k=k)
+    torch.cuda.synchronize()
+    assert torch.equal(cb.ein, sb.ein) and torch.equal(cb.nin, sb.nin)
+    assert torch.equal(cb.scal, sb.scal)
+
+
+@pytest.mark.parametrize("nmat", [9, 17])
+def test_manymat_3d_vs_plain(cuda, nmat):
+    """The many-material instances of the 3D kernel's phases A, C, E and
+    G at 128 x 16 x 8 cells against the plain version on the CPU: 3
+    maxwell steps in the chunk form at the maxwell gate and one maxwell
+    step at the one-step gate; the chunk form against 10 complete steps,
+    every plane bit for bit (as chip_smoke.py phase 4)."""
+    cfg = _cfg3(**manymat_over(nmat))
+    cfg["mat"]["rheology_type"] = "maxwell"
+    assert_maxwell3_close(_run3(cfg, 3, True), _run3(cfg, 3, False), get)
+    assert_evp3_one_step_close(_run3(cfg, 1, True), _run3(cfg, 1, False),
+                               get)
+    sim = des.Simulation(des.param_from_dict(cfg), device="cuda")
+    P = fused3d.make_plan(sim.param, sim.ctx, sim.device)
+    assert tuple(P.mtab.shape) == (nmat, 24)
+    out = fused3d.run_chunk(P, sim.ctx, sim.state, 10)
+    e, nd = fused3d.state_to_planes(out, P.nx, P.ny, P.nz)
+    b = fused3d.make_buffers(P, sim.ctx, sim.state, 10)
+    for k in range(10):
+        b.tgt = fused3d.vbc_targets(sim.ctx, b.nin, b.scal[3] + b.scal[0])
+        fused3d.fused3d_step(P, b)
+        fused2d.dt_refresh(P, b, k, tiled=True, every=True)
+        b.swap()
+    torch.cuda.synchronize()
+    for i in range(fused3d.NE):
+        assert torch.equal(e[i], b.ein[i]), i
+    for i in range(fused3d.NN):
+        assert torch.equal(nd[i], b.nin[i]), fused3d.N_SLOTS[i]
 
 
 def test_initial_volume_is_the_kernels(cuda):
@@ -311,15 +389,15 @@ def test_fused3d_production_chunk_equals_complete_steps(cuda):
 
 
 def test_fused3d_refused_launch_raises(cuda):
-    """The 3D entry refuses a mixed plan with more materials than the
-    kernel holds (MAXMAT), and the wrapper raises without counting a
-    launch."""
-    sim = des.Simulation(des.param_from_dict(multimat3d_cfg(
-        mesh={"ylength": 16e3})), device="cuda")
+    """The 3D entry refuses a mixed plan without its const pack (here a
+    single material's buffers, which hold none), and the wrapper raises
+    without counting a launch."""
+    sim = des.Simulation(des.param_from_dict(_cfg3()), device="cuda")
     P = fused3d.make_plan(sim.param, sim.ctx, sim.device)
     b = fused3d.make_buffers(P, sim.ctx, sim.state, 1)
+    assert b.cep is None
     ip = P.ip.copy()
-    ip[fused3d.IP_FIELDS.index("nmat")] = fused3d.MAXMAT + 1
+    ip[fused3d.IP_FIELDS.index("uniform")] = 0
     before = fused3d.fused3d_step.launches
     with pytest.raises(RuntimeError, match="launch failed"):
         fused3d.fused3d_chunk_step(dataclasses.replace(P, ip=ip), b, 0, 1)

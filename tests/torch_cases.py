@@ -146,6 +146,33 @@ BOUNDARY3 = {
            "winkler_delta_rho": 100.0}}
 
 
+def manymat_over(nmat):
+    """Config sections for ``nmat`` materials in layers of equal depth by
+    markers (4 per element), each material with properties of its own:
+    density, moduli, heat capacity, conductivity, expansivity, creep law
+    and weakening change from layer to layer, so that every mixture of the
+    step weighs distinct values (more than the fused kernels' MAXMAT of 8
+    run on their many-material instances)."""
+    f = [m / (nmat - 1) for m in range(nmat)]
+    return {
+        "mat": {"nmat": nmat,
+                "rho0": [2700.0 + 600.0 * x for x in f],
+                "bulk_modulus": [40e9 + 80e9 * x for x in f],
+                "shear_modulus": [24e9 + 46e9 * x for x in f],
+                "heat_capacity": [1000.0 + 200.0 * x for x in f],
+                "therm_cond": [2.5 + 0.8 * x for x in f],
+                "alpha": [3e-5 - 1e-5 * x for x in f],
+                "visc_coefficient": [1e2 * 10.0 ** x for x in f],
+                "visc_activation_energy": [3.0e5 + 1.0e5 * x for x in f],
+                "cohesion0": [4e7 + 2e7 * x for x in f],
+                "friction_angle0": [30.0 - 5.0 * x for x in f]},
+        "ic": {"num_mattype_layers": nmat,
+               "layer_mattypes": list(range(nmat)),
+               "mattype_layer_depths": [(m + 1) / nmat
+                                        for m in range(nmat - 1)]},
+        "markers": {"markers_per_element": 4, "init_marker_option": 1}}
+
+
 def flagship3d_multimat_cfg():
     """bench.py flagship3d_param(nmat=2): 256 x 48 x 16 cells of 1 km,
     983,040 tets, EVP, crust (0-40 %) over mantle by 4 markers per
